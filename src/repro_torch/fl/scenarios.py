@@ -1,0 +1,114 @@
+"""Client scenarios: participation sampling and outage windows
+(counterpart of ``repro.fl.scenarios``, numpy path).
+
+Sampling draws from a numpy Generator owned by the engine, exactly as the
+reference's host loop does, so a port run and a reference run with the
+same seed draw the same participation masks bit for bit.  Per-client
+schedule heterogeneity and the jax-key twins are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import numpy as np
+
+__all__ = ["Participation", "Outage", "Scenario", "full_participation",
+           "fixed_fraction", "bernoulli_participation"]
+
+
+@dataclass(frozen=True)
+class Participation:
+    """Per-round client-sampling policy.
+
+    kind:
+      ``full``       every client, every round (no RNG consumed).
+      ``fraction``   exactly ``max(round(rate*K), 1)`` clients, sampled
+                     uniformly without replacement (paper Alg. 1).
+      ``bernoulli``  each client independently with probability ``rate``.
+    """
+
+    kind: str = "full"
+    rate: float = 1.0
+
+    def sample(self, n_clients: int, rng: np.random.Generator) -> np.ndarray:
+        if self.kind == "full":
+            return np.ones(n_clients, bool)
+        if self.kind == "fraction":
+            n = min(max(int(round(self.rate * n_clients)), 1), n_clients)
+            mask = np.zeros(n_clients, bool)
+            mask[rng.choice(n_clients, n, replace=False)] = True
+            return mask
+        if self.kind == "bernoulli":
+            return rng.random(n_clients) < self.rate
+        raise ValueError(f"unknown participation kind: {self.kind!r}")
+
+
+def full_participation() -> Participation:
+    return Participation("full")
+
+
+def fixed_fraction(rate: float) -> Participation:
+    return Participation("fraction", rate)
+
+
+def bernoulli_participation(rate: float) -> Participation:
+    return Participation("bernoulli", rate)
+
+
+@dataclass(frozen=True)
+class Outage:
+    """Client ``client`` is offline for rounds ``start..end`` (1-based,
+    inclusive).  Overrides any participation draw for those rounds."""
+
+    client: int
+    start: int
+    end: int
+
+    def covers(self, t: int) -> bool:
+        return self.start <= t <= self.end
+
+
+@dataclass(frozen=True)
+class Scenario:
+    """Participation sampling composed with outage windows.
+
+    ``min_participants`` guards aggregation: if a round's draw comes up
+    empty while some client is available, the lowest-indexed available
+    clients are conscripted.  If every client is offline the round
+    proceeds with zero participants.
+    """
+
+    participation: Participation = field(default_factory=Participation)
+    outages: Tuple[Outage, ...] = ()
+    min_participants: int = 1
+
+    @classmethod
+    def from_participation_rate(cls, rate: float) -> "Scenario":
+        """``FLConfig.participation`` semantics (Alg. 1)."""
+        if rate >= 1.0:
+            return cls(participation=full_participation())
+        return cls(participation=fixed_fraction(rate))
+
+    def offline_mask(self, t: int, n_clients: int) -> np.ndarray:
+        off = np.zeros(n_clients, bool)
+        for o in self.outages:
+            if o.covers(t):
+                off[o.client] = True
+        return off
+
+    def participation_mask(self, t: int, n_clients: int,
+                           rng: np.random.Generator) -> np.ndarray:
+        mask = self.participation.sample(n_clients, rng)
+        off = self.offline_mask(t, n_clients)
+        mask &= ~off
+        if mask.sum() < self.min_participants:
+            avail = np.nonzero(~off)[0]
+            need = self.min_participants - int(mask.sum())
+            for k in avail:
+                if need <= 0:
+                    break
+                if not mask[k]:
+                    mask[k] = True
+                    need -= 1
+        return mask

@@ -1,0 +1,19 @@
+"""DS-FL (Itahara et al. 2020): ERA temperature-softmax sharpening."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import era as era_lib
+from repro_torch.fl.strategies.base import Strategy
+
+__all__ = ["ERAStrategy"]
+
+
+class ERAStrategy(Strategy):
+    """DS-FL: temperature-softmax sharpening of the average (no cache,
+    no kernel)."""
+
+    name = "dsfl"
+
+    def aggregate(self, z, t):
+        return era_lib.era(torch.mean(z, dim=0), self.opts.get("T", 0.1)), None

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas
+kernel of ``repro.kernels`` that the port's path runs:
+
+- era_kernel:   fused client mean + Enhanced-ERA sharpening
+- quant_kernel: per-row min-max quantize-dequantize round trip
+
+Each module holds the wrapper, its launch count and its plain PyTorch
+version; ``csrc/`` holds the CUDA sources and ``runtime`` builds them
+with ``nvcc`` at first use.
+"""

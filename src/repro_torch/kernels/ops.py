@@ -1,0 +1,20 @@
+"""Kernel entry points that the higher layers call (the counterpart of
+``repro.kernels.ops``): ``core/era`` and the SCARLET strategy reach the
+fused ERA kernel here, the quant codecs the quantize-dequantize kernel.
+Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
+kernel for CUDA tensors."""
+from repro_torch.kernels.era_kernel import enhanced_era_fused  # noqa: F401
+from repro_torch.kernels.quant_kernel import quantize_dequantize  # noqa: F401
+
+KERNELS = (enhanced_era_fused, quantize_dequantize)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """``{wrapper name: launches since the last reset}``."""
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,335 @@
+"""The port's modules against the JAX package's, one module at a time.
+
+Inputs come from numpy with fixed seeds and go through both.  Integer
+results (data draws, masks, timestamps, signals) and the byte ledger must
+be equal; float32 soft-label results agree to atol 1e-6 (the same
+operations in float32, reduction order aside).
+"""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.compress as jcodecs
+import repro.core.cache as jcache
+import repro.core.comm as jcomm
+import repro.core.era as jera
+import repro.data.synthetic as jdata
+import repro.fl.scenarios as jscen
+from repro.models import resnet as jresnet
+import repro_torch.compress as pcodecs
+import repro_torch.core.cache as pcache
+import repro_torch.core.comm as pcomm
+import repro_torch.core.era as pera
+import repro_torch.data.synthetic as pdata
+import repro_torch.fl as pfl
+import repro_torch.fl.scenarios as pscen
+from repro_torch.models import resnet as presnet
+
+ATOL = 1e-6
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _probs(rng, shape):
+    z = rng.dirichlet(np.ones(shape[-1]), size=int(np.prod(shape[:-1])))
+    return z.astype(np.float32).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# data/synthetic: a copy, equal arrays
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_data_equals_reference(seed):
+    a = jdata.make_public_private(300, 120, 5, 8, seed=seed)
+    b = pdata.make_public_private(300, 120, 5, 8, seed=seed)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    pa = jdata.dirichlet_partition(a["y_private"], 6, 0.3, seed=seed)
+    pb = pdata.dirichlet_partition(b["y_private"], 6, 0.3, seed=seed)
+    for x, y in zip(pa, pb):
+        np.testing.assert_array_equal(x, y)
+    for fa, fb in [(jdata.pad_client_shards(a["x_private"], a["y_private"], pa),
+                    pdata.pad_client_shards(b["x_private"], b["y_private"], pb)),
+                   (jdata.uniform_client_shards(a["x_test"], a["y_test"], 7),
+                    pdata.uniform_client_shards(b["x_test"], b["y_test"], 7))]:
+        for x, y in zip(fa, fb):
+            np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# fl/scenarios: the same participation draws
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,rate", [("full", 1.0), ("fraction", 0.5),
+                                       ("fraction", 0.01), ("bernoulli", 0.3)])
+def test_participation_mask_sequence_equals_reference(kind, rate):
+    outages = ((0, 2, 4), (3, 1, 8), (5, 6, 6))
+    ja = jscen.Scenario(jscen.Participation(kind, rate),
+                        tuple(jscen.Outage(*o) for o in outages))
+    pa = pscen.Scenario(pscen.Participation(kind, rate),
+                        tuple(pscen.Outage(*o) for o in outages))
+    rj, rp = np.random.default_rng([4, 29]), np.random.default_rng([4, 29])
+    for t in range(1, 13):
+        np.testing.assert_array_equal(ja.participation_mask(t, 9, rj),
+                                      pa.participation_mask(t, 9, rp))
+        np.testing.assert_array_equal(ja.offline_mask(t, 9), pa.offline_mask(t, 9))
+    for r in (1.0, 0.4):
+        assert (jscen.Scenario.from_participation_rate(r).participation.kind
+                == pscen.Scenario.from_participation_rate(r).participation.kind)
+
+
+# ---------------------------------------------------------------------------
+# core/cache
+# ---------------------------------------------------------------------------
+
+def _cache_pair(rng, P=40, N=6, t=9):
+    values = _probs(rng, (P, N))
+    ts = rng.integers(0, t, P).astype(np.int32)
+    present = rng.random(P) < 0.6
+    ts[~present] = -(2 ** 30)
+    j = jcache.CacheState(jnp.asarray(values), jnp.asarray(ts), jnp.asarray(present))
+    p = pcache.CacheState(torch.from_numpy(values), torch.from_numpy(ts),
+                          torch.from_numpy(present))
+    return j, p
+
+
+@pytest.mark.parametrize("D", [0, 1, 3, 25])
+def test_cache_round_equals_reference(D):
+    rng = np.random.default_rng(D)
+    jc, pc = _cache_pair(rng)
+    t = 9
+    idx = np.sort(rng.choice(40, 15, replace=False))
+    ji, pi = jnp.asarray(idx), torch.from_numpy(idx)
+    jm = jcache.miss_mask(jc, ji, t, D)
+    pm = pcache.miss_mask(pc, pi, t, D)
+    np.testing.assert_array_equal(np.asarray(jm), pm.numpy())
+    for a, b in zip(jcache.cached_at(jc, ji), pcache.cached_at(pc, pi)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    fresh = _probs(rng, (15, 6))
+    jt = jcache.assemble_teacher(jc, ji, jnp.asarray(fresh), jm)
+    pt = pcache.assemble_teacher(pc, pi, torch.from_numpy(fresh), pm)
+    np.testing.assert_array_equal(np.asarray(jt), pt.numpy())
+    jn, jsig = jcache.update_global_cache(jc, ji, jt, jm, t)
+    pn, psig = pcache.update_global_cache(pc, pi, pt, pm, t)
+    np.testing.assert_array_equal(np.asarray(jsig), psig.numpy())
+    for a, b in zip(jn, pn):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    # the update is functional: the pre-round cache is untouched
+    for a, b in zip(jc, pc):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for last_sync in (-(2 ** 30), 0, 4, 8, 9):
+        jp = jcache.make_catch_up(jn, last_sync)
+        pp = pcache.make_catch_up(pn, last_sync)
+        for a, b in zip(jp, pp):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert jcache.catch_up_bytes(jp) == pcache.catch_up_bytes(pp)
+
+
+def test_cache_duration_validation_matches_reference():
+    for D in (0, 3, np.int64(2), 4.0):
+        assert jcache.normalize_cache_duration(D) == pcache.normalize_cache_duration(D)
+    for bad, err in ((True, TypeError), (1.5, TypeError), ("3", TypeError),
+                     (-1, ValueError)):
+        with pytest.raises(err):
+            pcache.normalize_cache_duration(bad)
+    jc, pc = _cache_pair(np.random.default_rng(0))
+    with pytest.raises(NotImplementedError):
+        pcache.miss_mask(pc, torch.arange(3), 2, 3, probabilistic=True)
+
+
+def test_init_cache_equals_reference():
+    j, p = jcache.init_cache(12, 4), pcache.init_cache(12, 4)
+    for a, b in zip(j, p):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert np.asarray(a).dtype == b.numpy().dtype
+
+
+# ---------------------------------------------------------------------------
+# core/comm: byte-identical ledger
+# ---------------------------------------------------------------------------
+
+def test_ledger_summary_byte_identical():
+    rng = np.random.default_rng(1)
+    jl, pl = jcomm.CommLedger(), pcomm.CommLedger()
+    assert jl.summary() == pl.summary()  # empty: honest zeros
+    for _ in range(7):
+        up, down = float(rng.integers(0, 10 ** 6)), float(rng.random() * 1e6)
+        jl.record(jcomm.RoundCost(up, down))
+        pl.record(pcomm.RoundCost(up, down))
+    assert jl.summary() == pl.summary()
+    assert jl.cumulative_total == pl.cumulative_total
+
+
+@pytest.mark.parametrize("spec", ["identity", "quant8", "quant4", "quant1",
+                                  "quant6", "cache_delta", "cache_delta+quant8",
+                                  "cache_delta+quant4"])
+def test_round_cost_and_payload_bytes_equal(spec):
+    jc, pc = jcodecs.get_codec(spec), pcodecs.get_codec(spec)
+    assert jc.name == pc.name and jc.is_identity == pc.is_identity
+    for n, N in [(1000, 10), (37, 5), (0, 3), (12.5, 10)]:
+        assert jc.payload_bytes(n, N) == pc.payload_bytes(n, N)
+    for kw in [dict(n_clients=100, n_selected=1000, n_requested=640,
+                    n_classes=10, with_cache_signals=True, catch_up_down=1234.0),
+               dict(n_clients=3, n_selected=24, n_up_samples=7.5,
+                    n_down_samples=9, n_classes=5, bytes_index=2.0),
+               dict(n_clients=6, n_selected=24, n_requested=24, n_classes=5,
+                    with_request_list=False, uplink_bits=8.0)]:
+        a = jcomm.distillation_round_cost(**kw, uplink_codec=jc, downlink_codec=jc)
+        b = pcomm.distillation_round_cost(**kw, uplink_codec=pc, downlink_codec=pc)
+        assert (a.uplink, a.downlink) == (b.uplink, b.downlink)
+    for n in (10, 256, 257, 65536, 65537):
+        assert jcomm.index_bytes_for(n) == pcomm.index_bytes_for(n)
+
+
+# ---------------------------------------------------------------------------
+# compress/codecs: round trips
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ["identity", "quant8", "quant4", "quant1",
+                                  "cache_delta", "cache_delta+quant8",
+                                  "cache_delta+quant1"])
+def test_codec_roundtrip_matches_reference(spec):
+    rng = np.random.default_rng(11)
+    z = _probs(rng, (5, 16, 7))
+    base = _probs(rng, (16, 7))
+    present = rng.random(16) < 0.5
+    jc, pc = jcodecs.get_codec(spec), pcodecs.get_codec(spec)
+    for b, pr in [(None, None), (base, present)]:
+        want = np.asarray(jc.roundtrip(
+            jnp.asarray(z), None if b is None else jnp.asarray(b),
+            None if pr is None else jnp.asarray(pr)))
+        got = pc.roundtrip(
+            torch.from_numpy(z), None if b is None else torch.from_numpy(b),
+            None if pr is None else torch.from_numpy(pr)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_codec_registry():
+    assert isinstance(pcodecs.get_codec(None), pcodecs.IdentityCodec)
+    c = pcodecs.QuantCodec(3)
+    assert pcodecs.get_codec(c) is c
+    with pytest.raises(NotImplementedError):
+        pcodecs.get_codec("topk4")
+    with pytest.raises(NotImplementedError):
+        pcodecs.get_codec("cache_delta+topk2")
+    for bad in ("nope", "cache_deltaX"):
+        with pytest.raises(ValueError):
+            pcodecs.get_codec(bad)
+
+
+# ---------------------------------------------------------------------------
+# core/era, models/resnet (MLP)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("beta", [0.5, 1.0, 2.5])
+def test_era_functions_match_reference(beta):
+    z = _probs(np.random.default_rng(2), (20, 10))
+    zt, zj = torch.from_numpy(z), jnp.asarray(z)
+    np.testing.assert_allclose(pera.enhanced_era(zt, beta).numpy(),
+                               np.asarray(jera.enhanced_era(zj, beta)),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(pera.era(zt, 0.1).numpy(),
+                               np.asarray(jera.era(zj, 0.1)), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(pera.entropy(zt).numpy(),
+                               np.asarray(jera.entropy(zj)), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_mlp_forward_matches_reference(depth):
+    import jax
+
+    rng = np.random.default_rng(depth)
+    keys = jax.random.split(jax.random.PRNGKey(depth), 4)
+    stacked = jax.vmap(lambda k: jresnet.init_mlp(k, 8, 5, 16, depth))(keys)
+    sp = {k: np.array(v) for k, v in stacked.items()}  # writable copies
+    x = rng.normal(size=(4, 11, 8)).astype(np.float32)
+    want = np.asarray(jax.vmap(jresnet.apply_mlp)(stacked, jnp.asarray(x)))
+    got = presnet.apply_mlp({k: torch.from_numpy(v) for k, v in sp.items()},
+                            torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # one model, and a shared input broadcast over the stack
+    one = {k: torch.from_numpy(v[0]) for k, v in sp.items()}
+    np.testing.assert_allclose(presnet.apply_mlp(one, torch.from_numpy(x[0])).numpy(),
+                               want[0], rtol=1e-5, atol=1e-5)
+    shared = presnet.apply_mlp({k: torch.from_numpy(v) for k, v in sp.items()},
+                               torch.from_numpy(x[0]))
+    np.testing.assert_allclose(shared.numpy()[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_init_mlp_is_he_normal():
+    p = presnet.init_mlp(torch.Generator().manual_seed(0), 64, 10, 128, 2,
+                         stack=50)
+    assert p["w0"].shape == (50, 64, 128) and p["b2"].shape == (50, 10)
+    for i, fan_in in enumerate([64, 128, 128]):
+        std = float(p[f"w{i}"].std())
+        assert abs(std - np.sqrt(2.0 / fan_in)) < 0.02 * np.sqrt(2.0 / fan_in)
+        assert float(p[f"b{i}"].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Device and carry-over contracts
+# ---------------------------------------------------------------------------
+
+_TINY = dict(n_clients=4, n_classes=4, dim=8, rounds=2, local_steps=1,
+             distill_steps=1, public_size=40, public_per_round=8,
+             private_size=60, hidden=8, eval_every=1)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = pfl.FLConfig(**_TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfl.run_method("scarlet", cfg, cache_duration=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfl.FederatedDistillation(cfg, pfl.STRATEGIES["scarlet"]())
+    h = pfl.run_method("scarlet", cfg, cache_duration=2, device="cpu")
+    assert h.ledger.summary()["rounds"] == 2.0
+
+
+def test_unported_options_raise():
+    cfg = pfl.FLConfig(**_TINY)
+    for kw in [dict(engine="scan"), dict(rng_backend="jax"),
+               dict(track_local_caches=True), dict(telemetry=True),
+               dict(probabilistic_expiry=True, cache_duration=2)]:
+        with pytest.raises(NotImplementedError):
+            pfl.run_method("scarlet", cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        pfl.run_method("cfd", cfg, device="cpu")
+    with pytest.raises(ValueError):
+        pfl.run_method("scarlet", cfg, engine="bogus", device="cpu")
+
+
+def test_load_params_checks_types_and_shapes():
+    cfg = pfl.FLConfig(**_TINY)
+    eng = pfl.FederatedDistillation(cfg, pfl.STRATEGIES["dsfl"](), device="cpu")
+    cp = [{k: v.numpy() for k, v in p.items()} for p in eng.client_params]
+    sp = {k: v.numpy() for k, v in eng.server_params.items()}
+    eng.load_params(cp, sp)
+    with pytest.raises(TypeError):
+        eng.load_params([{k: v.astype(np.float64) for k, v in cp[0].items()}], sp)
+    with pytest.raises(ValueError):
+        eng.load_params([{k: v[:2] for k, v in cp[0].items()}], sp)
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py"]
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f} imports {mod}"
