@@ -5,16 +5,21 @@ Run from the root of a checkout, with no arguments and no PYTHONPATH:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels (``sm_90a``) from
+It builds the three CUDA kernels (``sm_90a``) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version on the card, runs the SCARLET host round loop at the paper's
+version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
-``cache_delta+quant8`` uplink) with launch counts that show both kernels
-on the path, checks a small configuration on the card against the same
-configuration on the CPU, and prints one JSON line per the kernels and,
-last, ``{"ok": true, "device": {...}}``.  Any failure raises: the script
-then exits non-zero without the last line.  Without a CUDA device it
-exits 1 at once.  It imports neither ``jax`` nor ``repro``.
+``cache_delta+quant8`` uplink): the SCARLET host round loop, then the
+device-resident engine (``engine="scan"``) with and without its fused
+round kernel, each with launch counts that show its kernels on the path.
+The device engine runs its rounds under
+``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
+mode itself), so a host sync inside a round fails the run.  A small
+configuration runs on the card and on the CPU through both engines, and
+the script prints one JSON line for the kernels and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises: the script then
+exits non-zero without the last line.  Without a CUDA device it exits 1
+at once.  It imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,18 @@ CODEC = "cache_delta+quant8"
 # without FMA contraction, so agreement is to 1e-6 with zero level flips.
 ERA_ATOL = 1e-6
 QDQ_ATOL = 1e-6
+# fused_round: probabilities (sharpen=True) to atol 1e-6, as ERA: the
+# kernel adds the clients lane-strided then by a shuffle tree, the plain
+# version in PyTorch's reduction order.  The linear moment
+# (sharpen=False) is a sum of up to K weighted values in [0, 1]; both
+# sides' rounding grows with its magnitude, so it is held to 2e-6 * sum|w|
+# (each order is within about log2(K) * 2^-23 of the exact sum).
+ROUND_ATOL = 1e-6
+ROUND_LINEAR_RTOL = 2e-6
+# fused vs per-op device runs: the same codec arithmetic in other orders,
+# so a cached value may move by one 8-bit level of its residual's range
+# (the band the reference's own conformance suite uses)
+QUANT_STEP_ATOL = 5e-3
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -187,6 +204,88 @@ def check_qdq(device) -> float:
     return worst
 
 
+ROUND_MODES = (("identity", None), ("quant", 8), ("quant", 1), ("quant", 4),
+               ("delta", None), ("delta", 8))
+# (K, m, N): one client; odd row counts; N=2 and N=130 beside the slice's
+# 10 (130 spans more than one 16-class register chunk and 32 lanes);
+# N=1 only where no class is implied (identity, quant)
+ROUND_SHAPES = ((1, 1, 2), (7, 1000, 10), (100, 1001, 130), (1, 1001, 10),
+                (7, 1, 130), (100, 1000, 10))
+ROUND_BETAS = (0.5, 1.0, 1.5, 4.0)
+
+
+def participant_weights(rng, K, device, outage=False):
+    """``part * K / n_part`` with about 40 % zero-weight clients (at least
+    one participant), as the SCARLET strategy passes them; all zero for a
+    total outage."""
+    part = (rng.random(K) < 0.6).astype(np.float32)
+    part[rng.integers(K)] = 1.0
+    if outage:
+        part[:] = 0.0
+    w = part * np.float32(K / max(part.sum(), 1.0))
+    return torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def slice_round_inputs(rng, device):
+    """The slice shape's fused-round operands: (K, m, N) soft-labels,
+    participant weights, a cache base."""
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    return (_probs(rng, (K, m, N), device), participant_weights(rng, K, device),
+            _probs(rng, (m, N), device))
+
+
+def check_fused_round(device) -> float:
+    from repro_torch.kernels import round_kernel
+
+    rng = np.random.default_rng(4)
+    cases = []
+    for mode, bits in ROUND_MODES:
+        shapes = ROUND_SHAPES + (((7, 33, 1),) if mode != "delta" else ())
+        for K, m, N in shapes:
+            cases.append((mode, bits, K, m, N, False))
+    cases.append(("delta", 8, 7, 1000, 10, True))  # total outage: all weights 0
+    worst = 0.0
+    per_mode = {}  # (mode, bits) -> [worst probability error, worst linear error / sum|w|]
+    for mode, bits, K, m, N, outage in cases:
+        z = _probs(rng, (K, m, N), device)
+        w = participant_weights(rng, K, device, outage)
+        wsum = float(w.abs().sum())
+        base = _probs(rng, (m, N), device) if mode == "delta" else None
+        acc = per_mode.setdefault((mode, bits), [0.0, 0.0])
+        for sharpen, beta in [(False, None)] + [(True, b) for b in ROUND_BETAS]:
+            kw = dict(mode=mode, bits=bits, sharpen=sharpen)
+            got = round_kernel.fused_round(z, w, beta, base, **kw)
+            want = round_kernel.fused_round_plain(z, w, beta, base, **kw)
+            _sync(device)
+            err = float((got - want).abs().max())
+            atol = ROUND_ATOL if sharpen else ROUND_LINEAR_RTOL * wsum
+            if not (bool(torch.isfinite(got).all()) and err <= atol):
+                raise AssertionError(f"fused_round {mode} bits={bits} ({K},{m},{N}) "
+                                     f"outage={outage} sharpen={sharpen} "
+                                     f"beta={beta}: max_abs_err {err} > {atol}")
+            if sharpen:
+                acc[0] = max(acc[0], err)
+            elif wsum > 0:
+                acc[1] = max(acc[1], err / wsum)
+        worst = max(worst, acc[0])
+    for (mode, bits), (e_p, e_l) in per_mode.items():
+        log(f"fused_round {mode} bits={bits} over (K,m,N) in {ROUND_SHAPES}"
+            f"{' + (7,33,1)' if mode != 'delta' else ''}, beta in {ROUND_BETAS}, "
+            f"zero-weight clients: max_abs_err={e_p!r} (atol {ROUND_ATOL}); "
+            f"linear max_abs_err/sum|w|={e_l!r} (rtol {ROUND_LINEAR_RTOL}) ok")
+    # the slice shape exactly as the fused device engine calls it
+    z, w, base = slice_round_inputs(rng, device)
+    got = round_kernel.fused_round(z, w, BETA, base, mode="delta", bits=8)
+    want = round_kernel.fused_round_plain(z, w, BETA, base, mode="delta", bits=8)
+    _sync(device)
+    err = float((got - want).abs().max())
+    log(f"fused_round slice {tuple(z.shape)} delta+quant8 beta={BETA}: "
+        f"max_abs_err={err!r} (atol {ROUND_ATOL})")
+    if err > ROUND_ATOL:
+        raise AssertionError(f"fused_round slice: {err} > {ROUND_ATOL}")
+    return max(worst, err)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
@@ -223,11 +322,23 @@ def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
     log(f"slice: final server_acc={sa!r} client_acc={ca!r}")
     log(f"slice: launches {launches}")
 
-    # the path went through both kernels, once per round each (no round
-    # here is an outage: participation is full)
-    for name, n in launches.items():
-        if n != rounds:
-            raise AssertionError(f"{name} launched {n} times in {rounds} rounds")
+    # the path went through the ERA and qdq kernels, once per round each
+    # (no round here is an outage: participation is full)
+    check_launches(launches, {"enhanced_era_fused": rounds,
+                              "quantize_dequantize": rounds, "fused_round": 0})
+    check_slice_result(eng, ledger, sa, ca)
+    return dict(eng=eng, ledger=ledger, launches=launches,
+                per_round_ms=per_round * 1e3, summary=summary)
+
+
+def check_launches(got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"kernel launches {got}, expected {want}")
+
+
+def check_slice_result(eng, ledger, sa, ca) -> None:
+    """Round 1's analytic bytes, accuracies above chance, and a cache of
+    finite probability rows."""
     # round 1: every sample misses; the uplink carries the 8-bit residual
     # of N-1 classes, the downlink fp32 labels + request list + signals
     K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
@@ -243,40 +354,135 @@ def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
     if not (torch.isfinite(vals).all()
             and torch.allclose(vals.sum(-1), torch.ones_like(vals[:, 0]), atol=1e-5)):
         raise AssertionError("cached teachers are not finite probability rows")
-    return dict(launches=launches, per_round_ms=per_round * 1e3, summary=summary)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the device-resident engine at the same width
+# ---------------------------------------------------------------------------
+
+def run_device_slice(device, fused: bool, rounds: int = SLICE_ROUNDS) -> dict:
+    """The slice through ``engine="scan"``: round 1, then the other rounds
+    in one leg whose only host sync is the read-back at its end."""
+    from repro_torch.core.comm import CommLedger
+    from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
+    from repro_torch.kernels import ops
+
+    label = "device engine " + ("fused" if fused else "per-op")
+    cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=CODEC,
+                   fused_round=fused)
+    eng = ScannedFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA),
+                                       cache_duration=CACHE_DURATION, device=device)
+    _sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = eng.run(1)  # ends in the leg's read-back, a sync
+    t1 = time.perf_counter()
+    rest = eng.run(rounds - 1)
+    t2 = time.perf_counter()
+    launches = ops.launches()
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the engine left the sync debug mode set")
+
+    per_round = (t2 - t1) / (rounds - 1)
+    ledger = first.ledger.rounds + rest.ledger.rounds
+    summary = CommLedger(ledger).summary()
+    sa, ca = rest.final_server_acc, rest.final_client_acc
+    log(f"{label}: first round {t1 - t0:.4f} s, then {per_round * 1e3:.3f} ms/round "
+        f"over {rounds - 1} rounds (host clock; rounds under sync debug mode "
+        f"'error', one read-back at the end; one eval included)")
+    log(f"{label}: ledger {json.dumps(summary)}")
+    log(f"{label}: final server_acc={sa!r} client_acc={ca!r}")
+    log(f"{label}: launches {launches}")
+    # fused: one fused_round a round and neither per-op kernel; per-op: the
+    # qdq and ERA kernels once a round each
+    want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": rounds}
+            if fused else
+            {"enhanced_era_fused": rounds, "quantize_dequantize": rounds, "fused_round": 0})
+    check_launches(launches, want)
+    check_slice_result(eng, ledger, sa, ca)
+    return dict(eng=eng, ledger=ledger, launches=launches,
+                per_round_ms=per_round * 1e3, summary=summary)
+
+
+def compare_runs(label: str, a: dict, b: dict, ledger_rtol: float,
+                 values_atol: float) -> None:
+    """Per-round ledgers (equal when ``ledger_rtol`` is 0), cache
+    timestamps and presence equal, cache values to ``values_atol``."""
+    la = np.array([(r.uplink, r.downlink) for r in a["ledger"]])
+    lb = np.array([(r.uplink, r.downlink) for r in b["ledger"]])
+    ledger_ok = (la.shape == lb.shape and
+                 (np.array_equal(la, lb) if ledger_rtol == 0
+                  else np.allclose(la, lb, rtol=ledger_rtol, atol=0)))
+    ca, cb = a["eng"].cache_g, b["eng"].cache_g
+    same = torch.equal(ca.ts, cb.ts) and torch.equal(ca.present, cb.present)
+    err = float((ca.values - cb.values).abs().max())
+    log(f"{label}: per-round ledger {'equal' if ledger_rtol == 0 else 'allclose'}="
+        f"{ledger_ok} (rtol {ledger_rtol}); cache ts/present equal={same}; "
+        f"cache values max_abs_err={err!r} (atol {values_atol})")
+    if not (ledger_ok and same and err <= values_atol):
+        raise AssertionError(f"{label}: runs differ")
+
+
+def check_sync_guard() -> None:
+    """A host read inside a device round must fail the run: the guard the
+    slice runs above rely on is live."""
+    from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
+
+    class Syncing(ScannedFederatedDistillation):
+        def _round_device(self, st, t, part, idx, do_eval):
+            float(part.sum())  # reads the card from the host
+            return super()._round_device(st, t, part, idx, do_eval)
+
+    eng = Syncing(FLConfig(**SMALL), STRATEGIES["scarlet"](beta=BETA),
+                  cache_duration=2, device="cuda")
+    try:
+        eng.run(1)
+    except RuntimeError as e:
+        log(f"sync guard: a host read inside a round raised: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("a host sync inside a device round did not raise")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the engine left the sync debug mode set")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the same small run on the card and on the CPU
 # ---------------------------------------------------------------------------
 
-def run_small(device):
-    from repro_torch.fl import FederatedDistillation, FLConfig, STRATEGIES
+def run_small(device, engine: str):
+    from repro_torch.fl import (FederatedDistillation, FLConfig, STRATEGIES,
+                                ScannedFederatedDistillation)
 
-    eng = FederatedDistillation(FLConfig(**SMALL), STRATEGIES["scarlet"](beta=BETA),
-                                cache_duration=2, device=device)
+    if engine == "host":
+        eng = FederatedDistillation(FLConfig(**SMALL), STRATEGIES["scarlet"](beta=BETA),
+                                    cache_duration=2, device=device)
+    else:  # the device engine on its fused path
+        eng = ScannedFederatedDistillation(
+            FLConfig(**SMALL, fused_round=True), STRATEGIES["scarlet"](beta=BETA),
+            cache_duration=2, device=device)
     return eng, eng.run()
 
 
-def check_small_cuda_vs_cpu() -> None:
+def check_small_cuda_vs_cpu(engine: str) -> None:
     from repro_torch.fl import FLConfig, run_method
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("small run: torch.backends.cuda.matmul.allow_tf32=False, "
+    log(f"small run ({engine}): torch.backends.cuda.matmul.allow_tf32=False, "
         "torch.backends.cudnn.allow_tf32=False")
-    g_eng, g_hist = run_small(torch.device("cuda"))
-    c_eng, c_hist = run_small(torch.device("cpu"))
+    g_eng, g_hist = run_small(torch.device("cuda"), engine)
+    c_eng, c_hist = run_small(torch.device("cpu"), engine)
     g_sum, c_sum = g_hist.ledger.summary(), c_hist.ledger.summary()
     teach_err = float((g_eng.cache_g.values.cpu() - c_eng.cache_g.values).abs().max())
     n_test = len(c_eng.y_test)
     acc_err = max(abs(a - b) for a, b in
                   zip(g_hist.server_acc + g_hist.client_acc,
                       c_hist.server_acc + c_hist.client_acc))
-    log(f"small run cuda vs cpu: ledger equal={g_sum == c_sum} "
+    log(f"small run ({engine}) cuda vs cpu: ledger equal={g_sum == c_sum} "
         f"teacher max_abs_err={teach_err!r} (atol {SMALL_TEACHER_ATOL}) "
         f"accuracy max diff={acc_err!r} (one test sample = {1.0 / n_test!r})")
-    log(f"small run: server_acc cuda {g_hist.server_acc} cpu {c_hist.server_acc}")
+    log(f"small run ({engine}): server_acc cuda {g_hist.server_acc} "
+        f"cpu {c_hist.server_acc}")
     if g_sum != c_sum:
         raise AssertionError(f"ledgers differ: {g_sum} vs {c_sum}")
     same_cache = (torch.equal(g_eng.cache_g.ts.cpu(), c_eng.cache_g.ts)
@@ -287,7 +493,8 @@ def check_small_cuda_vs_cpu() -> None:
     if acc_err > 1.0 / n_test + 1e-6:
         raise AssertionError(f"accuracies differ by {acc_err}")
     # the user's front door gives the same run
-    h = run_method("scarlet", FLConfig(**SMALL), cache_duration=2, beta=BETA,
+    cfg = FLConfig(**SMALL, fused_round=engine == "scan")
+    h = run_method("scarlet", cfg, engine=engine, cache_duration=2, beta=BETA,
                    device="cuda")
     if h.ledger.summary() != g_sum:
         raise AssertionError("run_method's ledger differs from the engine's")
@@ -326,7 +533,7 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def kernel_report(launches: dict, errs: dict) -> list:
-    from repro_torch.kernels import era_kernel, quant_kernel
+    from repro_torch.kernels import era_kernel, quant_kernel, round_kernel
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -359,6 +566,23 @@ def kernel_report(launches: dict, errs: dict) -> list:
         ms=cuda_ms(lambda: quant_kernel.quantize_dequantize(r, 8)),
         plain_ms=cuda_ms(lambda: quant_kernel.quantize_dequantize_plain(r, 8)),
         bound_ms=b, bound_by=why, library_ms=None))
+    z, w, base = slice_round_inputs(rng, dev)
+    n_in = K * m * N
+    # bytes: the stack, the weights and the base read once, the teacher
+    # written once; operations, per client value: residual, min, max, 9 of
+    # the 8-bit round trip, the implied class's sum, base add, clamp,
+    # simplex sum and divide, weight multiply and add (20); then the
+    # sharpening's 9 per output value
+    b, why = bound_ms(4.0 * (n_in + K + 2 * m * N), 20.0 * n_in + 9.0 * m * N)
+    rkw = dict(mode="delta", bits=8)
+    out.append(dict(
+        name="fused_round", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_round.cu",
+        replaces="src/repro/kernels/round_kernel.py:150",
+        launches=launches["fused_round"], max_abs_err=errs["round"],
+        ms=cuda_ms(lambda: round_kernel.fused_round(z, w, BETA, base, **rkw)),
+        plain_ms=cuda_ms(lambda: round_kernel.fused_round_plain(z, w, BETA, base, **rkw)),
+        bound_ms=b, bound_by=why, library_ms=None))
     for k in out:
         log(f"time {k['name']}: {k['ms'] * 1e3:.2f} us (plain {k['plain_ms'] * 1e3:.2f} us, "
             f"bound {k['bound_ms'] * 1e3:.3f} us by {k['bound_by']})")
@@ -379,14 +603,28 @@ def main() -> int:
     # 2. build
     build_kernels()
     # 3. kernels against their plain versions
-    errs = {"era": check_era(dev), "qdq": check_qdq(dev)}
-    # 4. the full-width slice
+    errs = {"era": check_era(dev), "qdq": check_qdq(dev),
+            "round": check_fused_round(dev)}
+    # 4. the full-width slice through the host loop
     sl = run_slice(dev)
-    # 5. card vs CPU on a small configuration
-    check_small_cuda_vs_cpu()
-    # 6. kernel times and the kernel line
-    kernels = kernel_report(sl["launches"], errs)
-    log(f"card: {card}; slice {sl['per_round_ms']:.3f} ms/round")
+    # 4b. ... and through the device engine, fused and per-op
+    check_sync_guard()
+    fused = run_device_slice(dev, fused=True)
+    perop = run_device_slice(dev, fused=False)
+    compare_runs("fused vs per-op device engine", fused, perop, 0.0, QUANT_STEP_ATOL)
+    compare_runs("fused device engine vs host loop", fused, sl, 1e-7, QUANT_STEP_ATOL)
+    compare_runs("per-op device engine vs host loop", perop, sl, 1e-7, QUANT_STEP_ATOL)
+    # 5. card vs CPU on a small configuration, both engines
+    check_small_cuda_vs_cpu("host")
+    check_small_cuda_vs_cpu("scan")
+    # 6. kernel times and the kernel line: each kernel's launches from the
+    # run of the path it serves (ERA and qdq: the host loop; fused_round:
+    # the fused device engine)
+    launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"])
+    kernels = kernel_report(launches, errs)
+    log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
+        f"device engine fused {fused['per_round_ms']:.3f}, "
+        f"per-op {perop['per_round_ms']:.3f} ms/round")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,14 @@ lossy soft-label payload format through two obligations:
 - ``payload_bytes(n_samples, n_classes)``: the analytic per-client
   payload size, plain Python arithmetic so the ledger stays bit-true.
 
-The host round loop needs nothing else, so the separate ``encode`` /
+The round engines need nothing else, so the separate ``encode`` /
 ``decode`` wire forms of the reference are not ported yet, nor is the
-top-k codec.  Accounting follows the reference: min-max quantizers charge
-the value bits only, and cache-delta drops one class on the wire (the
-residual sums to zero).
+top-k codec.  ``scan_safe`` declares, as in the reference, that a codec
+runs in fixed shapes without host syncs, so the device engine
+(:mod:`repro_torch.fl.scan_engine`) may call it inside its rounds.
+Accounting follows the reference: min-max quantizers charge the value
+bits only, and cache-delta drops one class on the wire (the residual
+sums to zero).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ class Codec:
     them."""
 
     name = "base"
+    scan_safe = True  # fixed shapes, no host sync: usable by the device engine
 
     @property
     def is_identity(self) -> bool:
@@ -109,6 +113,7 @@ class CacheDeltaCodec(Codec):
         self.inner = inner if inner is not None else IdentityCodec()
         self.name = ("cache_delta" if self.inner.is_identity
                      else f"cache_delta+{self.inner.name}")
+        self.scan_safe = self.inner.scan_safe
 
     def _base(self, z, base, present):
         n = z.shape[-1]

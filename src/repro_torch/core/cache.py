@@ -1,12 +1,15 @@
 """Synchronized soft-label caching (SCARLET Alg. 1 + Alg. 2, Alg.-3 expiry).
 
-Counterpart of ``repro.core.cache`` for the host round loop: the server's
+Counterpart of ``repro.core.cache`` for the round engines: the server's
 global cache over the public dataset as dense tensors indexed by public
 sample id, the request list (miss mask), teacher assembly, the cache
 update with its per-sample signals, and the catch-up packages sent to
-clients that skipped rounds.  Expiry is checked at request time (an
-index misses when absent or older than ``D``), as in the reference; see
-its module docstring for why.
+clients that skipped rounds (as packages for the host loop, as a byte
+count on the device for the device engine).  Nothing here that the
+device engine calls waits for the card: no boolean-mask indexing, no
+``nonzero``, no reads back to the host.  Expiry is checked at request
+time (an index misses when absent or older than ``D``), as in the
+reference; see its module docstring for why.
 
 The functions are functional like the reference's: an update returns new
 tensors and leaves its input untouched, so the round loop can still read
@@ -22,7 +25,8 @@ import torch
 __all__ = ["NEWLY_CACHED", "CACHED", "EXPIRED", "CacheState", "init_cache",
            "normalize_cache_duration", "miss_mask", "cached_at",
            "signals_for_round", "assemble_teacher", "update_global_cache",
-           "CatchUpPackage", "make_catch_up", "catch_up_bytes"]
+           "CatchUpPackage", "make_catch_up", "catch_up_bytes",
+           "catch_up_bytes_device"]
 
 NEWLY_CACHED = 0
 CACHED = 1
@@ -103,10 +107,8 @@ def signals_for_round(cache: CacheState, idx: torch.Tensor,
                       miss: torch.Tensor) -> torch.Tensor:
     """Per-sample signal gamma^t (int32) for the selected indices."""
     present = cache.present[idx]
-    sig = torch.full(idx.shape, CACHED, dtype=torch.int32, device=idx.device)
-    sig[miss & present] = EXPIRED
-    sig[miss & ~present] = NEWLY_CACHED
-    return sig
+    sig = torch.where(present, EXPIRED, NEWLY_CACHED).to(torch.int32)
+    return torch.where(miss, sig, torch.full_like(sig, CACHED))
 
 
 def assemble_teacher(cache: CacheState, idx: torch.Tensor, fresh: torch.Tensor,
@@ -156,3 +158,23 @@ def catch_up_bytes(pkg: CatchUpPackage, bytes_per_value: float = 4.0) -> float:
     """Downlink cost of a catch-up package (values + indices + ts)."""
     m, n = pkg.values.shape
     return m * n * bytes_per_value + m * 4 + m * 4
+
+
+def catch_up_bytes_device(cache_g: CacheState, last_sync: torch.Tensor,
+                          part: torch.Tensor, t: int,
+                          bytes_per_value: float = 4.0) -> torch.Tensor:
+    """Total catch-up downlink bytes of round ``t``, as a 0-dim float32
+    tensor on the cache's device: :func:`make_catch_up` +
+    :func:`catch_up_bytes` summed over the returning stragglers (clients
+    in ``part`` whose ``last_sync`` predates round ``t - 1``), without a
+    host sync.  ``last_sync`` (int32) and ``part`` (bool) are ``(K,)``.
+
+    It compares every client's sync point with every entry, a ``(K, |P|)``
+    mask: the reference's ``"dense"`` method, the one its scan engine
+    uses.  The ``"sorted"`` method, for the active engine's K, is not
+    ported yet."""
+    returning = part & (last_sync < t - 1)                              # (K,)
+    newer = cache_g.present[None, :] & (cache_g.ts[None, :] > last_sync[:, None])
+    counts = newer.sum(1).to(torch.float32)
+    per_client = counts * (cache_g.num_classes * bytes_per_value + 8.0)
+    return torch.where(returning, per_client, 0.0).sum()

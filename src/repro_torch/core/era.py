@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.runtime import divide
+
 __all__ = ["era", "enhanced_era", "entropy"]
 
 _EPS = 1e-12
@@ -21,7 +23,7 @@ _EPS = 1e-12
 def era(z_mean: torch.Tensor, T: float, dim: int = -1) -> torch.Tensor:
     """Conventional Entropy Reduction Aggregation (DS-FL, Eq. 2): a
     temperature softmax of the already-normalized averaged labels."""
-    return torch.softmax(z_mean / T, dim=dim)
+    return torch.softmax(divide(z_mean, T), dim=dim)
 
 
 def enhanced_era(z_mean: torch.Tensor, beta, dim: int = -1,

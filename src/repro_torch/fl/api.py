@@ -1,5 +1,5 @@
 """Front door: run one FL method end-to-end (counterpart of
-``repro.fl.api``; the host engine only so far)."""
+``repro.fl.api``; the host and device (``"scan"``) engines so far)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,13 +8,15 @@ from typing import Optional, Sequence
 from repro_torch.fl.cohorts import CohortSpec
 from repro_torch.fl.config import FLConfig
 from repro_torch.fl.rounds import FederatedDistillation, History
+from repro_torch.fl.scan_engine import ScannedFederatedDistillation
 from repro_torch.fl.scenarios import Scenario
 from repro_torch.fl.strategies import STRATEGIES
 
 __all__ = ["run_method"]
 
-_ENGINES = {"host": FederatedDistillation}
-_NOT_PORTED_ENGINES = ("scan", "shard", "active", "async")
+_ENGINES = {"host": FederatedDistillation,
+            "scan": ScannedFederatedDistillation}
+_NOT_PORTED_ENGINES = ("shard", "active", "async")
 _NOT_PORTED_METHODS = ("cfd", "comet", "selective_fd", "mean", "fedavg",
                        "individual")
 
@@ -43,7 +45,9 @@ def run_method(
     """Run one FL method end-to-end and return its History.
 
     ``method`` in {scarlet, dsfl}; ``engine="host"`` (the round loop of
-    :mod:`repro_torch.fl.rounds`).  The keywords mean what they mean in
+    :mod:`repro_torch.fl.rounds`) or ``"scan"`` (the device-resident
+    engine of :mod:`repro_torch.fl.scan_engine`, which takes
+    ``fused_round``).  The keywords mean what they mean in
     ``repro.fl.run_method``.  ``device`` is ``"cuda"`` by default and the
     run raises when there is no CUDA device; pass ``device="cpu"`` to run
     on the CPU.  Methods, engines and options of the reference that are

@@ -1,8 +1,9 @@
-"""Run configuration for the federated-distillation engine: the fields and
+"""Run configuration for the federated-distillation engines: the fields and
 defaults of ``repro.fl.config.FLConfig``, so a reference config carries
-over field for field.  ``mesh_spec`` and ``fused_round`` belong to
-engines not ported yet; the host engine ignores them, as the
-reference's host engine does.  ``telemetry=True`` raises there."""
+over field for field.  ``fused_round`` selects the device engine's
+(``engine="scan"``) one-kernel round; the host loop ignores it, as the
+reference's host loop does.  ``mesh_spec`` belongs to the sharded
+engine, not ported yet.  ``telemetry=True`` raises on every engine."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -127,6 +127,12 @@ def _select(new: Params, old: Params, keep: torch.Tensor) -> Params:
             for k, v in new.items()}
 
 
+def _select_cohorts(new: List[Params], old: List[Params],
+                    masks: List[torch.Tensor]) -> List[Params]:
+    """``_select`` over per-cohort param lists (masks pre-split)."""
+    return [_select(n, o, m) for n, o, m in zip(new, old, masks)]
+
+
 # ---------------------------------------------------------------------------
 # History
 # ---------------------------------------------------------------------------
@@ -312,6 +318,58 @@ class FederatedDistillation:
         return hist
 
     # ------------------------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """All cross-round simulation state, in a fixed structure: absent
+        optionals are zero placeholders with ``have_*`` flags, as in the
+        reference.  The device engine runs its rounds on this dict.  The
+        stateful numpy Generators are not part of it."""
+        c = self.cfg
+        if self.prev_teacher is not None:
+            prev_idx, prev_teacher = self.prev_teacher
+            have_prev = True
+        else:
+            prev_idx = torch.zeros(c.public_per_round, dtype=torch.int64,
+                                   device=self.device)
+            prev_teacher = torch.zeros((c.public_per_round, c.n_classes),
+                                       device=self.device)
+            have_prev = False
+        if self.last_teacher_val is not None:
+            teacher_val, have_tv = self.last_teacher_val, True
+        else:
+            teacher_val = torch.zeros((len(self.pub_val_idx), c.n_classes),
+                                      device=self.device)
+            have_tv = False
+        flag = lambda b: torch.full((), b, device=self.device)  # noqa: E731
+        return dict(
+            t_done=torch.tensor(self.t_done, dtype=torch.int32),
+            client_params=self.client_params,
+            server_params=self.server_params,
+            cache=self.cache_g,
+            prev_idx=prev_idx,
+            prev_teacher=prev_teacher,
+            have_prev=flag(have_prev),
+            teacher_val=teacher_val,
+            have_tv=flag(have_tv),
+            last_sync=self._tensor(self.last_sync, torch.int32),
+        )
+
+    # ------------------------------------------------------------------
+    # Per-cohort client steps, shared by the host loop and the device
+    # engine.
+    def _distill_all(self, params: List[Params], x_prev,
+                     pteach) -> List[Params]:
+        """Every cohort distilled on the shared ``(m, N)`` teacher."""
+        c = self.cfg
+        return [distill(p, x_prev, pteach, c.lr_dist, c.distill_steps)
+                for p in params]
+
+    def _local_train_all(self, params: List[Params]) -> List[Params]:
+        """Every cohort's local training on its private shards."""
+        c = self.cfg
+        return [local_train(p, self.xs_c[i], self.ys_c[i],
+                            self.train_mask_c[i], c.lr, c.local_steps)
+                for i, p in enumerate(params)]
+
     def _predict_all(self, params: List[Params], x) -> torch.Tensor:
         """``(K, |x|, N)`` soft predictions in global client order."""
         return self.models.concat([predict_soft(p, x) for p in params])
@@ -343,15 +401,11 @@ class FederatedDistillation:
         params = self.client_params
         if self.prev_teacher is not None:
             pidx, pteach = self.prev_teacher
-            x_prev = self.x_pub[pidx]
-            params = [_select(distill(p, x_prev, pteach, c.lr_dist,
-                                      c.distill_steps), p, part_c[i])
-                      for i, p in enumerate(params)]
-        self.client_params = [
-            _select(local_train(p, self.xs_c[i], self.ys_c[i],
-                                self.train_mask_c[i], c.lr, c.local_steps),
-                    p, part_c[i])
-            for i, p in enumerate(params)]
+            params = _select_cohorts(
+                self._distill_all(params, self.x_pub[pidx], pteach),
+                params, part_c)
+        self.client_params = _select_cohorts(
+            self._local_train_all(params), params, part_c)
 
         # --- request list (cache) ----------------------------------------
         if self.use_cache:
@@ -423,22 +477,36 @@ class FederatedDistillation:
         self.last_sync[part] = t
 
     # ------------------------------------------------------------------
-    def _eval(self, t: int, hist: History) -> None:
-        sa = float(accuracy(self.server_params, self.x_test, self.y_test,
-                            torch.ones(len(self.y_test), device=self.device)))
+    def _eval_metrics(self, client_params: List[Params], server_params: Params,
+                      teacher_val: Optional[torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Eval metrics as 0-dim device tensors (``cohort_acc``: one per
+        cohort): accuracies on the test shards and the Appendix-D proxies,
+        computable in deployment without test labels (``server_val`` is
+        None without a proxy teacher)."""
+        sa = accuracy(server_params, self.x_test, self.y_test,
+                      torch.ones(len(self.y_test), device=self.device))
         accs = [accuracy(p, self.xts_c[i], self.yts_c[i], self.tmask_c[i])
-                for i, p in enumerate(self.client_params)]
-        ca = float(torch.mean(self.models.concat(accs)))
-        hist.rounds.append(t)
-        hist.server_acc.append(sa)
-        hist.client_acc.append(ca)
-        hist.cohort_client_acc.append([float(torch.mean(a)) for a in accs])
-        hist.cumulative_mb.append(hist.ledger.cumulative_total / 1e6)
-        # Appendix-D proxies (computable in deployment without test labels)
-        if self.last_teacher_val is not None:
-            hist.server_val_loss.append(float(val_loss_soft(
-                self.server_params, self.x_pub[self.pub_val_idx],
-                self.last_teacher_val)))
-        hist.client_val_loss.append(float(torch.mean(self.models.concat(
+                for i, p in enumerate(client_params)]
+        sv = (None if teacher_val is None else
+              val_loss_soft(server_params, self.x_pub[self.pub_val_idx],
+                            teacher_val))
+        cv = torch.mean(self.models.concat(
             [val_loss_hard(p, self.xs_c[i], self.ys_c[i], self.val_mask_c[i])
-             for i, p in enumerate(self.client_params)]))))
+             for i, p in enumerate(client_params)]))
+        return dict(server_acc=sa,
+                    client_acc=torch.mean(self.models.concat(accs)),
+                    cohort_acc=torch.stack([torch.mean(a) for a in accs]),
+                    server_val=sv, client_val=cv)
+
+    def _eval(self, t: int, hist: History) -> None:
+        e = self._eval_metrics(self.client_params, self.server_params,
+                               self.last_teacher_val)
+        hist.rounds.append(t)
+        hist.server_acc.append(float(e["server_acc"]))
+        hist.client_acc.append(float(e["client_acc"]))
+        hist.cohort_client_acc.append([float(a) for a in e["cohort_acc"]])
+        hist.cumulative_mb.append(hist.ledger.cumulative_total / 1e6)
+        if e["server_val"] is not None:
+            hist.server_val_loss.append(float(e["server_val"]))
+        hist.client_val_loss.append(float(e["client_val"]))

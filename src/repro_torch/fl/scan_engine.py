@@ -1,0 +1,327 @@
+"""Device-resident round engine (counterpart of ``repro.fl.scan_engine``,
+``engine="scan"``).
+
+The reference compiles the whole run into one ``lax.scan``.  PyTorch has
+no scan, so here the run is a Python loop over rounds whose body has
+fixed shapes and never waits for the card: every client trains, predicts
+and is aggregated every round under a float participation vector, every
+update is gated with ``torch.where`` instead of a Python branch on a
+device value, the byte ledger is float32 arithmetic on the device
+(:func:`repro_torch.core.comm.distillation_round_cost_device`), and the
+per-round results stay on the device until :meth:`_finish_run` reads them
+back once at the end of the leg.  On a CUDA device the rounds run under
+``torch.cuda.set_sync_debug_mode("error")``, so an operation that would
+make the host wait for the card raises instead.
+
+Draws.  The round's participation mask and public subset P^t are not
+drawn on the device: before the loop, :meth:`run` draws the whole leg on
+the host with the engine's numpy Generators (``_draw_round``, round by
+round, exactly as the host loop draws them) and uploads the ``(T, K)``
+and ``(T, m)`` stacks once.  So the device engine and the host loop of
+the same configuration see the same draws.  ``run(draws=(part, idx))``
+takes the stacks from the caller instead, e.g. the reference's jax-stream
+draws, to hold a run against the reference's scan engine.
+
+``FLConfig.fused_round`` replaces the uplink codec round trip and the
+SCARLET aggregation with one :func:`repro_torch.kernels.ops.fused_round`
+kernel a round.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import comm as comm_lib
+from repro_torch.fl.rounds import FederatedDistillation, History, _select_cohorts, distill
+from repro_torch.kernels import round_kernel
+
+__all__ = ["ScannedFederatedDistillation"]
+
+
+@dataclass
+class _Leg:
+    """One ``run()``: its rounds, the draws on the device, the engine
+    state the rounds thread through, and their results (device tensors)."""
+
+    t0: int
+    ts: List[int]
+    part: torch.Tensor          # (T, K) bool
+    idx: torch.Tensor           # (T, m) int64
+    do_eval: List[bool]
+    state: Dict[str, Any]
+    outputs: List[Dict[str, torch.Tensor]] = field(default_factory=list)
+
+
+class ScannedFederatedDistillation(FederatedDistillation):
+    """Device-resident twin of :class:`FederatedDistillation`: the same
+    constructor, and ``run()`` returns the same :class:`History`, with one
+    ledger entry per round (total outages included, at zero) and eval rows
+    on the ``eval_every`` schedule."""
+
+    def __init__(self, cfg, strategy, cache_duration: int = 0,
+                 use_cache: Optional[bool] = None,
+                 probabilistic_expiry: bool = False, scenario=None,
+                 track_local_caches: bool = False,
+                 rng_backend: str = "numpy", device="cuda"):
+        if track_local_caches:
+            raise ValueError(
+                "track_local_caches builds dynamically-sized catch-up "
+                "packages; use the host-loop engine for that mode")
+        super().__init__(cfg, strategy, cache_duration=cache_duration,
+                         use_cache=use_cache,
+                         probabilistic_expiry=probabilistic_expiry,
+                         scenario=scenario, rng_backend=rng_backend,
+                         device=device)
+        if not self.strategy.scan_safe:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} is not scan-safe "
+                "(host-side state or dynamic shapes); use the host loop")
+        for codec in (self.codec_up, self.codec_down):
+            if not codec.scan_safe:
+                raise ValueError(f"codec {codec.name!r} is not scan-safe; "
+                                 "use the host loop")
+        # the fused round path, validated here so a bad combination fails
+        # at construction and not inside a run
+        self._fused_spec = None
+        if self.cfg.fused_round:
+            if not self.strategy.supports_fused_round:
+                raise ValueError(
+                    f"fused_round: strategy {self.strategy.name!r} has no "
+                    "fused round path (adaptive beta needs the per-op chain)")
+            self._fused_spec = round_kernel.codec_kernel_spec(self.codec_up)
+            if self._fused_spec is None:
+                raise ValueError(
+                    f"fused_round: uplink codec {self.codec_up.name!r} has "
+                    "no kernel form (supported: identity, quantB, "
+                    "cache_delta[+quantB])")
+
+    # ------------------------------------------------------------------
+    def run(self, rounds: Optional[int] = None, *,
+            draws: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> History:
+        """Run ``rounds`` more rounds (default: the configured count),
+        numbered on from ``t_done``; returns a fresh :class:`History` for
+        this leg.  ``draws=(part, idx)`` gives the leg's ``(T, K)`` bool
+        participation masks and ``(T, m)`` P^t indices in place of the
+        engine's own (its numpy Generators are then not advanced)."""
+        leg = self._start_leg(rounds, draws)
+        self._run_rounds(leg)
+        return self._finish_run(leg)
+
+    def _start_leg(self, rounds: Optional[int], draws) -> _Leg:
+        """Draw (or check) the leg's draws on the host and upload them,
+        with the initial state, before any round runs."""
+        c = self.cfg
+        T = c.rounds if rounds is None else rounds
+        t0 = self.t_done
+        ts = list(range(t0 + 1, t0 + T + 1))
+        K, m = c.n_clients, c.public_per_round
+        if draws is None:
+            pairs = [self._draw_round(t) for t in ts]
+            part = np.array([p for p, _ in pairs], bool).reshape(T, K)
+            idx = np.array([i for _, i in pairs], np.int64).reshape(T, m)
+        else:
+            part, idx = np.asarray(draws[0]).astype(bool), np.asarray(draws[1])
+            if part.shape != (T, K) or idx.shape != (T, m):
+                raise ValueError(f"draws must be ({T}, {K}) and ({T}, {m}), "
+                                 f"got {part.shape} and {idx.shape}")
+            if (part & self.scenario.offline_masks(T, K, start=t0 + 1)).any():
+                raise ValueError("draws let an offline client participate")
+            srt = np.sort(idx, axis=1)
+            if T and (srt[:, 0].min() < 0 or srt[:, -1].max() >= c.public_size
+                      or (np.diff(srt, axis=1) <= 0).any()):
+                raise ValueError("each round's P^t must hold distinct public "
+                                 f"indices in [0, {c.public_size})")
+        state = self.state_dict()
+        del state["t_done"]
+        return _Leg(t0=t0, ts=ts, part=self._tensor(part),
+                    idx=self._tensor(idx, torch.int64),
+                    do_eval=[t % c.eval_every == 0 or t == t0 + T for t in ts],
+                    state=state)
+
+    def _run_rounds(self, leg: _Leg) -> None:
+        """The leg's rounds, on the device; on a CUDA device any host sync
+        inside them raises."""
+        prev = torch.cuda.get_sync_debug_mode() if self.device.type == "cuda" else None
+        if prev is not None:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = leg.state
+            for i, t in enumerate(leg.ts):
+                st, out = self._round_device(st, t, leg.part[i], leg.idx[i],
+                                             leg.do_eval[i])
+                leg.outputs.append(out)
+            leg.state = st
+        finally:
+            if prev is not None:
+                torch.cuda.set_sync_debug_mode(prev)
+
+    # ------------------------------------------------------------------
+    def _round_device(self, st: Dict[str, Any], t: int, part: torch.Tensor,
+                      idx: torch.Tensor, do_eval: bool):
+        """One round on the device (reference ``_round_device``): the
+        state in, the state out and this round's results.  ``t`` and
+        ``do_eval`` are host values; nothing here reads the device."""
+        c, s = self.cfg, self.strategy
+        m, N = c.public_per_round, c.n_classes
+        part_f = part.to(torch.float32)
+        n_part = part_f.sum()
+        any_p = n_part > 0
+
+        def gate(new, old):
+            """Keep ``old`` wholesale on a total-outage round."""
+            return torch.where(any_p, new, old)
+
+        # --- clients: distill on the previous teacher, then train ---------
+        cp = st["client_params"]
+        upd = self._distill_all(cp, self.x_pub[st["prev_idx"]],
+                                st["prev_teacher"])
+        cp = _select_cohorts(upd, cp, self.models.split(part & st["have_prev"]))
+        cp = _select_cohorts(self._local_train_all(cp), cp,
+                             self.models.split(part))
+
+        # --- request list (cache) ------------------------------------------
+        cache_prev = st["cache"]
+        if self.use_cache:
+            miss = cache_lib.miss_mask(cache_prev, idx, t, self.D)
+        else:
+            miss = torch.ones(m, dtype=torch.bool, device=self.device)
+        n_req = miss.to(torch.float32).sum()
+        # shared delta-coding base: the synchronized cache at P^t (pre-update)
+        base, base_present = cache_lib.cached_at(cache_prev, idx)
+
+        # --- uplink + aggregation (fixed shapes, participation-weighted) ---
+        x_round = self.x_pub[idx]
+        z_all = s.transmit(self._predict_all(cp, x_round))     # (K, m, N)
+        if self._fused_spec is not None:
+            um = s.upload_mask(z_all)
+            fbase = (round_kernel.resolve_delta_base(base, base_present, m, N)
+                     if self._fused_spec["mode"] == "delta" else None)
+            fresh = s.aggregate_masked_fused(z_all, part_f, self._fused_spec,
+                                             fbase, t)
+        else:
+            if not self.codec_up.is_identity:  # lossy wire: the server's view
+                z_all = self.codec_up.roundtrip(z_all, base=base,
+                                                present=base_present)
+            um = s.upload_mask(z_all)
+            fresh = s.aggregate_masked(z_all, part_f, um, t)
+        if um is not None:
+            raise NotImplementedError("upload masks (Selective-FD) are not "
+                                      "yet ported")
+        if not self.codec_down.is_identity:  # decoded broadcast (see rounds.py)
+            fresh = self.codec_down.roundtrip(fresh, base=base,
+                                              present=base_present)
+
+        # --- assemble teacher + cache update ------------------------------
+        cache = cache_prev
+        if self.use_cache:
+            teacher = cache_lib.assemble_teacher(cache_prev, idx, fresh, miss)
+            new_cache, _ = cache_lib.update_global_cache(cache_prev, idx,
+                                                         teacher, miss, t)
+            cache = cache_lib.CacheState(
+                *(gate(a, b) for a, b in zip(new_cache, cache_prev)))
+        else:
+            teacher = fresh
+
+        # --- server distillation + App.-D proxy teacher -------------------
+        sp = distill(st["server_params"], x_round, teacher, c.lr_dist,
+                     c.distill_steps)
+        server_params = {k: gate(v, st["server_params"][k])
+                         for k, v in sp.items()}
+        zv = self._predict_all(cp, self.x_pub[self.pub_val_idx])
+        teacher_val = gate(zv.mean(0), st["teacher_val"])
+
+        # --- communication accounting (float32, on the device) ------------
+        catch_up = 0.0
+        if self.use_cache:
+            catch_up = cache_lib.catch_up_bytes_device(
+                cache_prev, st["last_sync"], part, t)
+        uplink, downlink = comm_lib.distillation_round_cost_device(
+            n_clients=n_part,
+            n_selected=float(m),
+            n_up_samples=n_req,
+            n_down_samples=n_req,
+            n_classes=N,
+            uplink_bits=s.uplink_bits,
+            downlink_bits=s.downlink_bits,
+            with_cache_signals=self.use_cache,
+            catch_up_down=catch_up,
+            bytes_index=c.index_bytes,
+            uplink_codec=self.codec_up,
+            downlink_codec=self.codec_down,
+        )
+        new_st = dict(
+            client_params=cp,
+            server_params=server_params,
+            cache=cache,
+            prev_idx=gate(idx, st["prev_idx"]),
+            prev_teacher=gate(teacher, st["prev_teacher"]),
+            have_prev=st["have_prev"] | any_p,
+            teacher_val=teacher_val,
+            have_tv=st["have_tv"] | any_p,
+            last_sync=torch.where(part, t, st["last_sync"]),
+        )
+        out = dict(uplink=torch.where(any_p, uplink, 0.0),
+                   downlink=torch.where(any_p, downlink, 0.0),
+                   have_tv=new_st["have_tv"])
+        if do_eval:  # the schedule is known on the host
+            out.update(self._eval_metrics(cp, server_params, teacher_val))
+        return new_st, out
+
+    # ------------------------------------------------------------------
+    def _finish_run(self, leg: _Leg) -> History:
+        """Persist the final state and rebuild the host-visible History
+        from the leg's results, read back from the device in one copy
+        (plus one for ``last_sync``)."""
+        st = leg.state
+        self.client_params = st["client_params"]
+        self.server_params = st["server_params"]
+        self.cache_g = st["cache"]
+        self.t_done = leg.t0 + len(leg.ts)
+
+        outs = leg.outputs
+        evals = [o for o in outs if "server_acc" in o]
+        n_coh = self.models.n_cohorts
+        f32 = dict(dtype=torch.float32, device=self.device)
+        rows = [torch.stack([o["uplink"], o["downlink"],
+                             o["have_tv"].to(torch.float32)]) for o in outs]
+        erows = [torch.cat([torch.stack([o["server_acc"], o["client_acc"],
+                                         o["server_val"], o["client_val"]]),
+                            o["cohort_acc"]]) for o in evals]
+        flat = torch.cat([torch.stack(rows).flatten() if rows else torch.zeros(0, **f32),
+                          torch.stack(erows).flatten() if erows else torch.zeros(0, **f32),
+                          torch.stack([st["have_prev"], st["have_tv"]]).to(torch.float32)])
+        flat = flat.cpu().numpy()
+        self.last_sync = st["last_sync"].cpu().numpy().astype(np.int64)
+        T, E = len(outs), len(evals)
+        per_round = flat[:3 * T].reshape(T, 3)
+        per_eval = flat[3 * T:3 * T + (4 + n_coh) * E].reshape(E, 4 + n_coh)
+        have_prev, have_tv = flat[-2:] > 0
+        if have_prev:
+            self.prev_teacher = (st["prev_idx"], st["prev_teacher"])
+        if have_tv:
+            self.last_teacher_val = st["teacher_val"]
+
+        # --- the History, as the reference's _finish_run builds it --------
+        up = per_round[:, 0].astype(np.float64)
+        down = per_round[:, 1].astype(np.float64)
+        cum = np.cumsum(up + down)
+        hist = History()
+        for u, d in zip(up, down):
+            hist.ledger.record(comm_lib.RoundCost(float(u), float(d)))
+        eval_rounds = [i for i, e in enumerate(leg.do_eval) if e]
+        for i, row in zip(eval_rounds, per_eval):
+            hist.rounds.append(leg.ts[i])
+            hist.server_acc.append(float(row[0]))
+            hist.client_acc.append(float(row[1]))
+            hist.cohort_client_acc.append([float(x) for x in row[4:]])
+            hist.cumulative_mb.append(float(cum[i]) / 1e6)
+            if per_round[i, 2] > 0:
+                hist.server_val_loss.append(float(row[2]))
+            hist.client_val_loss.append(float(row[3]))
+        hist.final_server_acc = hist.server_acc[-1] if hist.server_acc else None
+        hist.final_client_acc = hist.client_acc[-1] if hist.client_acc else None
+        return hist

@@ -97,6 +97,15 @@ class Scenario:
                 off[o.client] = True
         return off
 
+    def offline_masks(self, n_rounds: int, n_clients: int,
+                      start: int = 1) -> np.ndarray:
+        """``(T, K)`` stacked offline masks for rounds
+        ``start..start+n_rounds-1`` (``(0, K)`` for a zero-round leg)."""
+        if n_rounds == 0:
+            return np.zeros((0, n_clients), bool)
+        return np.stack([self.offline_mask(t, n_clients)
+                         for t in range(start, start + n_rounds)])
+
     def participation_mask(self, t: int, n_clients: int,
                            rng: np.random.Generator) -> np.ndarray:
         mask = self.participation.sample(n_clients, rng)

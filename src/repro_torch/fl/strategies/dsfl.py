@@ -14,6 +14,13 @@ class ERAStrategy(Strategy):
     no kernel)."""
 
     name = "dsfl"
+    scan_safe = True
 
     def aggregate(self, z, t):
         return era_lib.era(torch.mean(z, dim=0), self.opts.get("T", 0.1)), None
+
+    # two-phase contract: the linear phase is inherited (weighted sum);
+    # the temperature softmax runs once on the reduced mean
+    def finalize_aggregate(self, partials, t):
+        zbar = super().finalize_aggregate(partials, t)
+        return era_lib.era(zbar, self.opts.get("T", 0.1))

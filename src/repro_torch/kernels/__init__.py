@@ -3,6 +3,8 @@ kernel of ``repro.kernels`` that the port's path runs:
 
 - era_kernel:   fused client mean + Enhanced-ERA sharpening
 - quant_kernel: per-row min-max quantize-dequantize round trip
+- round_kernel: the fused round (codec round trip + weighted client sum +
+  Enhanced ERA)
 
 Each module holds the wrapper, its launch count and its plain PyTorch
 version; ``csrc/`` holds the CUDA sources and ``runtime`` builds them

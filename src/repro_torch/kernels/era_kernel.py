@@ -29,7 +29,7 @@ def enhanced_era_fused_plain(z: torch.Tensor, beta) -> torch.Tensor:
     """(K, B, N) -> (B, N) in the Pallas kernel's order of operations:
     sum over K then ``/K``; clamp at 1e-12, log, ``*beta``; subtract the
     row max, exp; divide by the row sum."""
-    zbar = z.sum(0) / z.shape[0]
+    zbar = runtime.divide(z.sum(0), float(z.shape[0]))
     logz = torch.log(torch.clamp_min(zbar, _EPS)) * beta
     e = torch.exp(logz - logz.amax(-1, keepdim=True))
     return e / e.sum(-1, keepdim=True)

@@ -35,8 +35,8 @@ def quantize_dequantize_plain(z: torch.Tensor, bits: int) -> torch.Tensor:
     zmin = z.amin(-1, keepdim=True)
     zmax = z.amax(-1, keepdim=True)
     scale = torch.clamp_min(zmax - zmin, _EPS_SCALE)
-    q = torch.clamp(torch.round((z - zmin) / scale * levels) / levels, 0.0, 1.0)
-    return q * scale + zmin
+    q = runtime.divide(torch.round((z - zmin) / scale * levels), levels)
+    return torch.clamp(q, 0.0, 1.0) * scale + zmin
 
 
 def _launcher():

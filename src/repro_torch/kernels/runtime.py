@@ -24,13 +24,14 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
-           "resolve_device", "launch_args"]
+           "resolve_device", "launch_args", "divide"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel library name -> source file under csrc/
-SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu"}
+SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu",
+           "fused_round": "fused_round.cu"}
 
 # -fmad=false: no fused multiply-add contraction, so each product and sum
 # rounds as in the reference; no --use_fast_math, so logf/expf and
@@ -53,6 +54,15 @@ def resolve_device(device) -> torch.device:
             "device='cuda' but no CUDA device is available; pass "
             "device='cpu' to run the port's plain PyTorch path")
     return dev
+
+
+def divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as an IEEE division on every device.  PyTorch's CUDA
+    kernels compute ``tensor / python_number`` as a multiply by the
+    reciprocal, which can differ by an ulp from the division that the
+    reference and the CUDA kernels perform; a divisor on ``x``'s device
+    (a fill, no host-to-device copy) keeps the division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def nvcc() -> str:

@@ -5,14 +5,17 @@ kernels have no CPU mode).  On a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: as ``chip_smoke.py`` states them, atol 1e-6 for both kernels
-and zero quantization level flips.
+Tolerances: as ``chip_smoke.py`` states them, atol 1e-6 for the ERA and
+qdq kernels and zero quantization level flips; the fused round atol 1e-6
+on probabilities and 2e-6 * sum|w| on its linear moment (a weighted sum
+of up to K values in [0, 1], rounded in other orders on the two sides).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import era_kernel, ops, quant_kernel
+import repro_torch.fl as pfl
+from repro_torch.kernels import era_kernel, ops, quant_kernel, round_kernel, runtime
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +71,76 @@ def test_kernels_reject_wrong_dtype(dev):
     with pytest.raises(TypeError):
         quant_kernel.quantize_dequantize(torch.ones(3, 4, device=dev,
                                                     dtype=torch.float16), 8)
+
+
+@pytest.mark.parametrize("mode,bits", [("identity", None), ("quant", 8), ("quant", 1),
+                                       ("delta", None), ("delta", 8)])
+@pytest.mark.parametrize("K,m,N", [(1, 1, 2), (7, 1001, 10), (100, 1000, 10),
+                                   (3, 40, 130)])
+def test_fused_round_kernel_matches_plain(dev, mode, bits, K, m, N):
+    rng = np.random.default_rng(K + m + N)
+    z = _probs(K * m, (K, m, N), dev)
+    part = (rng.random(K) < 0.6).astype(np.float32)
+    part[0] = 1.0
+    w = torch.from_numpy(part * np.float32(K / part.sum())).to(dev)
+    base = _probs(m, (m, N), dev) if mode == "delta" else None
+    for sharpen, beta in [(False, None), (True, 0.5), (True, 1.5), (True, 4.0)]:
+        ops.reset_launches()
+        kw = dict(mode=mode, bits=bits, sharpen=sharpen)
+        got = round_kernel.fused_round(z, w, beta, base, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches()["fused_round"] == 1
+        want = round_kernel.fused_round_plain(z, w, beta, base, **kw)
+        atol = ATOL if sharpen else 2e-6 * float(w.sum())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_fused_round_kernel_rejects_wrong_dtype(dev):
+    z = torch.ones(2, 3, 4, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        round_kernel.fused_round(z, torch.ones(2, device=dev), 1.5)
+
+
+_SMALL = dict(n_clients=8, n_classes=10, dim=16, hidden=32, rounds=3,
+              local_steps=2, distill_steps=2, public_size=200,
+              public_per_round=64, private_size=800, eval_every=1,
+              participation=0.5, alpha=0.5, uplink_codec="cache_delta+quant8")
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_device_engine_runs_without_host_sync(dev, fused):
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused)
+    eng = pfl.ScannedFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5),
+                                           cache_duration=2, device=dev)
+    ops.reset_launches()
+    h = eng.run()  # the rounds run under sync debug mode "error"
+    assert torch.cuda.get_sync_debug_mode() == 0
+    n = _SMALL["rounds"]
+    want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": n}
+            if fused else
+            {"enhanced_era_fused": n, "quantize_dequantize": n, "fused_round": 0})
+    assert ops.launches() == want
+    assert h.ledger.summary()["rounds"] == float(n)
+    assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
+
+
+def test_host_sync_inside_a_device_round_raises(dev):
+    class Syncing(pfl.ScannedFederatedDistillation):
+        def _round_device(self, st, t, part, idx, do_eval):
+            float(part.sum())
+            return super()._round_device(st, t, part, idx, do_eval)
+
+    eng = Syncing(pfl.FLConfig(**_SMALL), pfl.STRATEGIES["scarlet"](beta=1.5),
+                  cache_duration=2, device=dev)
+    with pytest.raises(RuntimeError):
+        eng.run(1)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_divide_is_a_true_division_on_the_card(dev):
+    """PyTorch's CUDA ``tensor / python_number`` multiplies by the float32
+    reciprocal; ``runtime.divide`` divides, bit for bit as the CPU does."""
+    x = torch.from_numpy(np.random.default_rng(0).random(1 << 16, dtype=np.float32))
+    want = x / 255.0  # the CPU divides
+    assert torch.equal(runtime.divide(x.to(dev), 255.0).cpu(), want)
+    assert not torch.equal((x.to(dev) / 255.0).cpu(), want)

@@ -20,7 +20,7 @@ import torch
 from repro.kernels import era_kernel as jera
 from repro.kernels import quant_kernel as jquant
 from repro.kernels import ref as jref
-from repro_torch.kernels import era_kernel, ops, quant_kernel
+from repro_torch.kernels import era_kernel, ops, quant_kernel, round_kernel
 
 ATOL = 1e-6
 PADDED_ATOL = 1e-5
@@ -180,4 +180,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                        era_kernel.enhanced_era_fused_plain(z, 1.5))
     assert torch.equal(ops.quantize_dequantize(z, 8),
                        quant_kernel.quantize_dequantize_plain(z, 8))
-    assert ops.launches() == {"enhanced_era_fused": 0, "quantize_dequantize": 0}
+    w = torch.ones(3)
+    assert torch.equal(ops.fused_round(z, w, 1.5, mode="quant", bits=8),
+                       round_kernel.fused_round_plain(z, w, 1.5, mode="quant", bits=8))
+    assert ops.launches() == {"enhanced_era_fused": 0, "quantize_dequantize": 0,
+                              "fused_round": 0}

@@ -130,6 +130,25 @@ def test_cache_round_equals_reference(D):
         assert jcache.catch_up_bytes(jp) == pcache.catch_up_bytes(pp)
 
 
+@pytest.mark.parametrize("t", [2, 5, 9, 12])
+def test_catch_up_bytes_device_equals_reference(t):
+    """The device engine's catch-up count (float32 on the device) against
+    the reference's, and against the host loop's packages summed."""
+    rng = np.random.default_rng(t)
+    jc, pc = _cache_pair(rng, P=40, N=6, t=t)
+    K = 7
+    last_sync = rng.integers(0, t, K).astype(np.int32)
+    part = rng.random(K) < 0.6
+    want = jcache.catch_up_bytes_device(jc, jnp.asarray(last_sync), jnp.asarray(part), t)
+    got = pcache.catch_up_bytes_device(pc, torch.from_numpy(last_sync),
+                                       torch.from_numpy(part), t)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert float(got) == float(want)
+    host = sum(pcache.catch_up_bytes(pcache.make_catch_up(pc, int(last_sync[k])))
+               for k in range(K) if part[k] and last_sync[k] < t - 1)
+    assert float(got) == host
+
+
 def test_cache_duration_validation_matches_reference():
     for D in (0, 3, np.int64(2), 4.0):
         assert jcache.normalize_cache_duration(D) == pcache.normalize_cache_duration(D)
@@ -189,6 +208,29 @@ def test_round_cost_and_payload_bytes_equal(spec):
 # ---------------------------------------------------------------------------
 # compress/codecs: round trips
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ["identity", "quant8", "cache_delta+quant8"])
+@pytest.mark.parametrize("cache", [False, True])
+def test_device_round_cost_equals_reference_float32(spec, cache):
+    """The device engine's float32 cost on 0-dim tensors: bit for bit the
+    reference scan engine's, and a pair of float32 tensors."""
+    for n_clients, n_req, catch_up in [(6.0, 24.0, 0.0), (3.0, 17.0, 336.0),
+                                       (100.0, 1000.0, 48.0), (0.0, 5.0, 0.0)]:
+        kw = dict(n_selected=24.0, n_classes=10, with_cache_signals=cache,
+                  bytes_index=4.0, uplink_bits=32.0, downlink_bits=32.0)
+        ju, jd = jcomm.distillation_round_cost_device(
+            n_clients=jnp.float32(n_clients), n_up_samples=jnp.float32(n_req),
+            n_down_samples=jnp.float32(n_req),
+            catch_up_down=jnp.float32(catch_up) if cache else 0.0,
+            uplink_codec=jcodecs.get_codec(spec), **kw)
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+        pu, pd = pcomm.distillation_round_cost_device(
+            n_clients=f32(n_clients), n_up_samples=f32(n_req),
+            n_down_samples=f32(n_req), catch_up_down=f32(catch_up) if cache else 0.0,
+            uplink_codec=pcodecs.get_codec(spec), **kw)
+        assert pu.dtype == pd.dtype == torch.float32
+        assert (pu.item(), pd.item()) == (float(ju), float(jd))
+
 
 @pytest.mark.parametrize("spec", ["identity", "quant8", "quant4", "quant1",
                                   "cache_delta", "cache_delta+quant8",
@@ -272,6 +314,108 @@ def test_init_mlp_is_he_normal():
 
 
 # ---------------------------------------------------------------------------
+# fl/scenarios offline masks, fl/strategies fixed-shape hooks
+# ---------------------------------------------------------------------------
+
+def test_offline_masks_equal_reference():
+    outages = (2, 3, 5), (0, 1, 1), (4, 2, 9)
+    js = jscen.Scenario(outages=tuple(jscen.Outage(*o) for o in outages))
+    ps = pscen.Scenario(outages=tuple(pscen.Outage(*o) for o in outages))
+    for T, start in [(6, 1), (4, 3), (0, 7)]:
+        want = js.offline_masks(T, 5, start=start)
+        got = ps.offline_masks(T, 5, start=start)
+        assert got.shape == want.shape == (T, 5)
+        np.testing.assert_array_equal(got, want)
+
+
+def _strategy_pair(method, **kw):
+    from repro.fl.strategies import STRATEGIES as JS
+    return JS[method](**kw), pfl.STRATEGIES[method](**kw)
+
+
+_STRATEGY_CASES = [("scarlet", {"beta": 1.5}), ("scarlet", {"beta": "adaptive"}),
+                   ("dsfl", {}), ("dsfl", {"T": 0.5})]
+
+
+@pytest.mark.parametrize("method,kw", _STRATEGY_CASES)
+def test_two_phase_contract_equals_reference(method, kw):
+    """partial/finalize/aggregate_masked against the reference, and
+    aggregate_masked against aggregate on the participants (atol 1e-6:
+    float32 sums in other orders)."""
+    js, ps = _strategy_pair(method, **kw)
+    assert ps.scan_safe and js.scan_safe
+    assert ps.supports_fused_round == js.supports_fused_round
+    rng = np.random.default_rng(4)
+    z = _probs(rng, (6, 9, 10))
+    part = np.array([1, 0, 1, 1, 0, 1], np.float32)
+    jz, pz = jnp.asarray(z), torch.from_numpy(z)
+    jp, pp = jnp.asarray(part), torch.from_numpy(part)
+    jpart, ppart = js.partial_aggregate(jz, jp, None, 1), ps.partial_aggregate(pz, pp, None, 1)
+    np.testing.assert_allclose(ppart["zsum"].numpy(), np.asarray(jpart["zsum"]),
+                               rtol=0, atol=ATOL)
+    assert float(ppart["wsum"]) == float(jpart["wsum"]) == 4.0
+    np.testing.assert_allclose(ps.finalize_aggregate(ppart, 1).numpy(),
+                               np.asarray(js.finalize_aggregate(jpart, 1)),
+                               rtol=0, atol=ATOL)
+    masked = ps.aggregate_masked(pz, pp, None, 1).numpy()
+    np.testing.assert_allclose(masked, np.asarray(js.aggregate_masked(jz, jp, None, 1)),
+                               rtol=0, atol=ATOL)
+    subset, _ = ps.aggregate(pz[pp > 0], 1)
+    np.testing.assert_allclose(masked, subset.numpy(), rtol=0, atol=ATOL)
+    # total outage: the uniform teacher, as the two-phase path gives it
+    zero = torch.zeros(6)
+    np.testing.assert_allclose(ps.aggregate_masked(pz, zero, None, 1).numpy(),
+                               np.asarray(js.aggregate_masked(jz, jnp.zeros(6), None, 1)),
+                               rtol=0, atol=ATOL)
+
+
+def test_base_strategy_hooks():
+    s = pfl.Strategy()
+    z = torch.rand(3, 4, 5)
+    assert s.transmit(z) is z and s.upload_mask(z) is None
+    assert not s.scan_safe and not s.supports_fused_round
+    with pytest.raises(NotImplementedError):
+        s.aggregate_masked_fused(z, torch.ones(3), {"mode": "identity", "bits": None},
+                                 None, 1)
+    with pytest.raises(NotImplementedError):
+        s.partial_aggregate_fused(z, torch.ones(3), {"mode": "identity", "bits": None},
+                                  None, 1)
+
+
+@pytest.mark.parametrize("n", [2, 3, 5, 10, 100, 1000])
+def test_adaptive_beta_divides_by_the_reference_float32_log(n):
+    """``_adaptive_beta`` divides by ``math.log(n)`` (a Python float, no
+    host-to-device copy); in float32 that is the reference's jnp.log(n)."""
+    js, ps = _strategy_pair("scarlet", beta="adaptive", beta_max=3.0)
+    zbar = _probs(np.random.default_rng(n), (7, n))
+    got = ps._adaptive_beta(torch.from_numpy(zbar))
+    want = js._adaptive_beta(jnp.asarray(zbar))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert np.float32(np.log(n)) == np.asarray(jnp.log(n))
+
+
+def test_state_dict_is_the_fixed_structure():
+    cfg = pfl.FLConfig(**_TINY)
+    eng = pfl.FederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](), cache_duration=2,
+                                    device="cpu")
+    st = eng.state_dict()
+    assert set(st) == {"t_done", "client_params", "server_params", "cache", "prev_idx",
+                       "prev_teacher", "have_prev", "teacher_val", "have_tv",
+                       "last_sync"}
+    m, N = cfg.public_per_round, cfg.n_classes
+    assert st["prev_idx"].shape == (m,) and st["prev_teacher"].shape == (m, N)
+    assert not bool(st["have_prev"]) and not bool(st["have_tv"])
+    assert st["last_sync"].dtype == torch.int32 and int(st["t_done"]) == 0
+    eng.run(1)
+    st = eng.state_dict()
+    assert bool(st["have_prev"]) and bool(st["have_tv"]) and int(st["t_done"]) == 1
+    assert st["prev_teacher"].shape == (m, N)
+    assert st["teacher_val"].shape == (len(eng.pub_val_idx), N)
+    assert st["last_sync"].tolist() == [1] * cfg.n_clients
+
+
+# ---------------------------------------------------------------------------
 # Device and carry-over contracts
 # ---------------------------------------------------------------------------
 
@@ -294,7 +438,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
-    for kw in [dict(engine="scan"), dict(rng_backend="jax"),
+    for kw in [dict(engine="shard"), dict(engine="active"), dict(engine="async"),
+               dict(rng_backend="jax"),
                dict(track_local_caches=True), dict(telemetry=True),
                dict(probabilistic_expiry=True, cache_duration=2)]:
         with pytest.raises(NotImplementedError):
@@ -328,6 +473,9 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_slice.py"]
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/fl/scan_engine.py",
+            "src/repro_torch/kernels/round_kernel.py"} <= names
     assert len(files) > 15
     for f in files:
         for mod in _imports(f):

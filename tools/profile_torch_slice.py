@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Where a round of the port's SCARLET host loop spends its time on the card.
+"""Where a round of the port's SCARLET slice spends its time on the card.
 
 Runs the slice of ``chip_smoke.py`` (100 clients, 1000 public samples a
-round, 10 classes, ``cache_delta+quant8``) on one CUDA device: two warm-up
-rounds, three rounds timed with the profiler off, then ``torch.profiler``
-over three more.  Prints the wall time per round with and without the
-profiler, the device's busy share (the union of kernel
-intervals over the wall time), and the device time by class of
-operation (matrix products, elementwise, reductions, the port's two
-kernels, ...) and by operator.  Run from the repo root:
+round, 10 classes, ``cache_delta+quant8``) on one CUDA device through
+two engines in turn: the host round loop (``engine="host"``) and the
+device-resident engine on its fused path (``engine="scan"``,
+``fused_round=True``).  For each: two warm-up rounds and three rounds
+timed with the profiler off; then, once every engine is timed,
+``torch.profiler`` over three more rounds of each.  Prints
+the wall time per round with and without the profiler, the device's busy
+share (the union of kernel intervals over the wall time), and the device
+operations per round by class (matrix products, elementwise,
+reductions, the port's kernels, ...) and by operator.  Run from the repo
+root:
 
     python3 tools/profile_torch_slice.py [out_dir]
 
 ``out_dir`` (default ``profile_out`` in the repo root, gitignored)
-receives ``torch_slice_trace.json`` (a Chrome trace) and
-``torch_slice_profile.txt``.
+receives, per engine, ``torch_slice_<engine>_trace.json`` (a Chrome
+trace) and ``torch_slice_<engine>_profile.txt``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.fl import FederatedDistillation, FLConfig, STRATEGIES  # noqa: E402
+from repro_torch.fl import (  # noqa: E402
+    FederatedDistillation,
+    FLConfig,
+    STRATEGIES,
+    ScannedFederatedDistillation,
+)
 
 SLICE = dict(n_clients=100, n_classes=10, public_per_round=1000,
              public_size=10000, private_size=50000, rounds=5, eval_every=5,
@@ -39,6 +48,7 @@ WARM, PROFILED = 2, 3
 # Device operations by class, matched on the kernel name in this order.
 CLASSES = (("port ERA kernel", ("era_fused_kernel",)),
            ("port qdq kernel", ("qdq_kernel",)),
+           ("port fused_round kernel", ("fused_round_kernel",)),
            ("matrix products", ("gemm", "xmma")),
            ("softmax", ("softmax",)),
            ("reductions", ("reduce_kernel",)),
@@ -77,20 +87,20 @@ def _busy_us(events) -> float:
     return busy
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
-        return 1
-    out_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "profile_out")
-    os.makedirs(out_dir, exist_ok=True)
-    eng = FederatedDistillation(FLConfig(**SLICE), STRATEGIES["scarlet"](beta=1.5),
-                                cache_duration=25, device="cuda")
+def time_engine(eng) -> float:
+    """Warm up, then the wall time of PROFILED rounds with the profiler
+    off (seconds)."""
     eng.run(WARM)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run(PROFILED)
     torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def profile_engine(name: str, eng, plain_wall: float, out_dir: str) -> list:
+    """Profile PROFILED rounds; returns the report lines and writes the
+    trace and table under ``out_dir``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(PROFILED)
@@ -101,25 +111,46 @@ def main() -> int:
     classes = _by_class(events)
     dev_us = sum(us for _, us in classes.values())
     lines = [
-        f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}",
+        f"== {name}: device {torch.cuda.get_device_name(0)}; torch {torch.__version__}",
         f"profiled {PROFILED} rounds: {wall * 1e3 / PROFILED:.3f} ms/round wall "
         f"(profiler on, one eval included)",
         f"device busy {busy / 1e3 / PROFILED:.3f} ms/round = "
         f"{busy / (wall * 1e6):.4f} of wall; idle share {1 - busy / (wall * 1e6):.4f}",
-        f"profiler off, the {PROFILED} rounds before: {plain_wall * 1e3 / PROFILED:.3f} "
+        f"profiler off ({PROFILED} rounds, before any profiling): "
+        f"{plain_wall * 1e3 / PROFILED:.3f} "
         f"ms/round wall; the profiled device busy time over it: "
         f"{busy / (plain_wall * 1e6):.4f} (idle share {1 - busy / (plain_wall * 1e6):.4f})",
         f"device operations {sum(n for n, _ in classes.values()) / PROFILED:.1f}"
         f"/round, {dev_us / 1e3 / PROFILED:.3f} ms/round of device time:",
     ]
     for cls, (n, us) in sorted(classes.items(), key=lambda kv: -kv[1][1]):
-        lines.append(f"  {cls:18s} {n / PROFILED:7.1f} ops/round "
+        lines.append(f"  {cls:24s} {n / PROFILED:7.1f} ops/round "
                      f"{us / PROFILED:10.1f} us/round {us / dev_us:7.4f} of device time")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    with open(os.path.join(out_dir, "torch_slice_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"torch_slice_{name}_profile.txt"), "w") as f:
         f.write("\n".join(lines + ["", table]))
-    prof.export_chrome_trace(os.path.join(out_dir, "torch_slice_trace.json"))
-    print("\n".join(lines))
+    prof.export_chrome_trace(os.path.join(out_dir, f"torch_slice_{name}_trace.json"))
+    return lines
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
+        return 1
+    out_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "profile_out")
+    os.makedirs(out_dir, exist_ok=True)
+    engines = {
+        "host": FederatedDistillation(FLConfig(**SLICE), STRATEGIES["scarlet"](beta=1.5),
+                                      cache_duration=25, device="cuda"),
+        "scan_fused": ScannedFederatedDistillation(
+            FLConfig(**SLICE, fused_round=True), STRATEGIES["scarlet"](beta=1.5),
+            cache_duration=25, device="cuda"),
+    }
+    # every engine is timed before any is profiled: a process that has
+    # run the profiler once issues slower afterwards
+    walls = {name: time_engine(eng) for name, eng in engines.items()}
+    for name, eng in engines.items():
+        print("\n".join(profile_engine(name, eng, walls[name], out_dir)), flush=True)
     return 0
 
 
