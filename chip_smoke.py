@@ -5,13 +5,18 @@ Run from the root of a checkout, with no arguments and no PYTHONPATH:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels (``sm_90a``) from
+It builds the four CUDA kernels (``sm_90a``) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
 ``cache_delta+quant8`` uplink): the SCARLET host round loop, then the
 device-resident engine (``engine="scan"``) with and without its fused
 round kernel, each with launch counts that show its kernels on the path.
+It then runs whisper-large-v3's prefill at full width and depth (random
+weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
+frames, bfloat16), whose decoder self-attention goes through the flash
+attention kernel once per layer, and the reduced whisper configuration
+on the card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
 mode itself), so a host sync inside a round fails the run.  A small
@@ -40,6 +45,9 @@ import torch  # noqa: E402
 # larger of bytes / HBM rate and operations / float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# ... and the dense bfloat16 tensor-core rate, the peak for attention's
+# products on bfloat16 inputs.
+BF16_OPS_PER_S = 989e12
 
 # The slice at full width: the paper's population on the repo's MLP client.
 SLICE = dict(n_clients=100, n_classes=10, public_per_round=1000,
@@ -81,6 +89,32 @@ SMALL = dict(n_clients=8, n_classes=10, dim=16, hidden=32, rounds=4,
              public_per_round=64, private_size=800, eval_every=1,
              participation=0.5, alpha=0.5, uplink_codec=CODEC)
 SMALL_TEACHER_ATOL = 1e-3
+
+# whisper-large-v3's prefill at full width: 4 requests of 384 decoder
+# tokens (a multiple of 128, so the decoder's causal self-attention takes
+# the flash kernel; inside Whisper's 448-token text context), over the
+# configuration's 1500 audio frames.
+WHISPER_B, WHISPER_S = 4, 384
+WHISPER_SEED = 0
+WHISPER_TIMED = 3
+# Flash attention, kernel vs plain version on the card: float32 to atol
+# 1e-5 (the FMA kernel sums in its own order and runs an online softmax;
+# the plain version is the oracle's order; they agree to ~1e-6); bfloat16
+# compared in bfloat16: both sides compute in float32 (the tensor-core
+# kernel with p split exactly into three bf16 pieces) and round once, so
+# to one bfloat16 step: |got - want| <= 2**-7 * max(|want|, 1).
+FLASH_F32_ATOL = 1e-5
+BF16_STEP = 2.0 ** -7
+# The reduced whisper configuration at S=128 in float32, card vs CPU:
+# float32 products summed in other orders and the kernel vs its plain
+# version, about 2e-6 on logits up to ~3 (the CPU port against the JAX
+# package gives 2.3e-6 on the same tempered weights); atol 1e-4.  The q
+# and k projections are scaled by 1/8 first: with the initialiser's
+# fan-in rule the scores have a standard deviation near 64, and near-ties
+# of so peaked a softmax turn 1e-7 roundings into logits differences of
+# ~0.1 between any two float32 implementations (tests/test_torch_whisper.py).
+WHISPER_SMALL_S = 128
+WHISPER_SMALL_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -325,7 +359,8 @@ def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
     # the path went through the ERA and qdq kernels, once per round each
     # (no round here is an outage: participation is full)
     check_launches(launches, {"enhanced_era_fused": rounds,
-                              "quantize_dequantize": rounds, "fused_round": 0})
+                              "quantize_dequantize": rounds, "fused_round": 0,
+                              "flash_attention": 0})
     check_slice_result(eng, ledger, sa, ca)
     return dict(eng=eng, ledger=ledger, launches=launches,
                 per_round_ms=per_round * 1e3, summary=summary)
@@ -398,7 +433,7 @@ def run_device_slice(device, fused: bool, rounds: int = SLICE_ROUNDS) -> dict:
     want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": rounds}
             if fused else
             {"enhanced_era_fused": rounds, "quantize_dequantize": rounds, "fused_round": 0})
-    check_launches(launches, want)
+    check_launches(launches, dict(want, flash_attention=0))
     check_slice_result(eng, ledger, sa, ca)
     return dict(eng=eng, ledger=ledger, launches=launches,
                 per_round_ms=per_round * 1e3, summary=summary)
@@ -500,6 +535,157 @@ def check_small_cuda_vs_cpu(engine: str) -> None:
         raise AssertionError("run_method's ledger differs from the engine's")
 
 
+# flash attention cases on the card: (label, B, Sq, Sk, H, Hkv, d, causal,
+# window), each in bfloat16 (the tensor-core kernel) and float32 (the FMA
+# kernel), whisper's shape in bfloat16 only, as the path gives it
+FLASH_CASES = tuple(
+    case + (dtype,)
+    for case in (("GQA + window, ragged", 2, 200, 200, 8, 2, 64, True, 64),
+                 ("non-causal Sq != Sk", 2, 100, 300, 4, 4, 64, False, 0),
+                 ("rows left with no key", 1, 300, 100, 4, 2, 64, False, 16),
+                 ("d=32 window 7", 1, 130, 130, 2, 1, 32, True, 7),
+                 ("d=128", 1, 129, 129, 4, 1, 128, True, 0),
+                 ("tiny", 1, 4, 4, 2, 1, 64, True, 0))
+    for dtype in (torch.bfloat16, torch.float32)
+) + (("whisper decoder", WHISPER_B, WHISPER_S, WHISPER_S, 20, 20, 64, True, 0,
+      torch.bfloat16),)
+
+
+def attn_inputs(rng, B, Sq, Sk, H, Hkv, d, dtype, device):
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+            for s in ((B, Sq, H, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+
+
+def check_flash(device) -> float:
+    from repro_torch.kernels import attn_kernel
+
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for label, B, Sq, Sk, H, Hkv, d, causal, window, dtype in FLASH_CASES:
+        q, k, v = attn_inputs(rng, B, Sq, Sk, H, Hkv, d, dtype, device)
+        got = attn_kernel.flash_attention(q, k, v, causal=causal, window=window)
+        want = attn_kernel.flash_attention_plain(q, k, v, causal, window)
+        _sync(device)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.bfloat16:
+            ok = bool((diff <= BF16_STEP * want.float().abs().clamp_min(1.0)).all())
+            tol = "one bf16 step, 2^-7 * max(|want|, 1)"
+        else:
+            ok = err <= FLASH_F32_ATOL
+            tol = f"atol {FLASH_F32_ATOL}"
+        ok = ok and bool(torch.isfinite(got).all()) and got.dtype == dtype
+        log(f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} d={d} "
+            f"causal={causal} window={window} {str(dtype)[6:]}: max_abs_err={err!r} "
+            f"({tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention {label}: max_abs_err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: whisper-large-v3 prefill at full width
+# ---------------------------------------------------------------------------
+
+def run_whisper(device) -> dict:
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry, whisper
+
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=device).manual_seed(WHISPER_SEED),
+                           device=device)
+    batch = make_batch(cfg, WHISPER_B, WHISPER_S, seed=WHISPER_SEED, device=device)
+    _sync(device)
+    log(f"whisper: {cfg.name} {cfg.n_encoder_layers}+{cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.param_dtype}; "
+        f"{cm.n_params(params)} parameters, set up in {time.perf_counter() - t0:.3f} s")
+    registry.prefill(cfg, params, batch)  # warm-up
+    _sync(device)
+
+    # the encoder and the cross-attention never reach the kernel
+    ops.reset_launches()
+    whisper.encode(cfg, params, batch["audio_embeds"])
+    _sync(device)
+    enc_launches = ops.launches()
+    check_launches(enc_launches, {"enhanced_era_fused": 0, "quantize_dequantize": 0,
+                                  "fused_round": 0, "flash_attention": 0})
+
+    # the main path: one prefill, counted
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = registry.prefill(cfg, params, batch)
+    _sync(device)
+    times = [time.perf_counter() - t0]
+    launches = ops.launches()
+    log(f"whisper: launches of one prefill {launches}; of the encoder alone {enc_launches}")
+    check_launches(launches, {"enhanced_era_fused": 0, "quantize_dequantize": 0,
+                              "fused_round": 0, "flash_attention": cfg.n_layers})
+    want_shape = (WHISPER_B, WHISPER_S, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape or logits.dtype != torch.float32:
+        raise AssertionError(f"logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {want_shape} float32")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("whisper logits are not finite")
+    for _ in range(WHISPER_TIMED - 1):
+        t0 = time.perf_counter()
+        registry.prefill(cfg, params, batch)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    tokens = WHISPER_B * WHISPER_S
+    log(f"whisper: prefill B={WHISPER_B} S={WHISPER_S} over {cfg.encoder_len} frames: "
+        f"{ms:.3f} ms median of {[round(t * 1e3, 3) for t in times]} ms "
+        f"(host clock, synchronized, after one warm-up), "
+        f"{tokens / (ms / 1e3):.1f} decoder tokens/s; logits {want_shape} finite, "
+        f"max |logit| {float(logits.abs().max())!r}")
+    return dict(launches=launches, ms=ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the reduced whisper prefill on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+def tempered(params: dict) -> dict:
+    """``params`` with the q and k projections scaled by 1/8 (see
+    WHISPER_SMALL_ATOL)."""
+    for part, names in (("encoder", ("wq", "wk")), ("decoder", ("wq", "wk", "xwq", "xwk"))):
+        for n in names:
+            params[part][n] = params[part][n] / 8
+    return params
+
+
+def check_whisper_cuda_vs_cpu() -> float:
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CONFIG.reduced()
+    p = tempered(registry.init(cfg, torch.Generator().manual_seed(WHISPER_SEED), device="cpu"))
+    batch = make_batch(cfg, 2, WHISPER_SMALL_S, seed=WHISPER_SEED, device="cpu")
+    want = registry.prefill(cfg, p, batch)
+    p_dev = cm.tree_map(lambda t: t.cuda(), p)
+    ops.reset_launches()
+    got = registry.prefill(cfg, p_dev, {n: t.cuda() for n, t in batch.items()})
+    _sync(torch.device("cuda"))
+    n = ops.launches()["flash_attention"]
+    err = float((got.cpu() - want).abs().max())
+    log(f"whisper small ({cfg.name}, S={WHISPER_SMALL_S}, float32) cuda vs cpu: "
+        f"logits max_abs_err={err!r} (atol {WHISPER_SMALL_ATOL}), "
+        f"max |logit| {float(want.abs().max())!r}, flash launches {n}")
+    if n != cfg.n_layers or not bool(torch.isfinite(got).all()) or err > WHISPER_SMALL_ATOL:
+        raise AssertionError(f"whisper small cuda vs cpu: err {err}, launches {n}")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 6: times at the slice shapes
 # ---------------------------------------------------------------------------
@@ -527,13 +713,13 @@ def cuda_ms(fn, batches: int = 15, per_batch: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_report(launches: dict, errs: dict) -> list:
-    from repro_torch.kernels import era_kernel, quant_kernel, round_kernel
+    from repro_torch.kernels import attn_kernel, era_kernel, quant_kernel, round_kernel
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -583,9 +769,30 @@ def kernel_report(launches: dict, errs: dict) -> list:
         ms=cuda_ms(lambda: round_kernel.fused_round(z, w, BETA, base, **rkw)),
         plain_ms=cuda_ms(lambda: round_kernel.fused_round_plain(z, w, BETA, base, **rkw)),
         bound_ms=b, bound_by=why, library_ms=None))
+
+    # whisper's decoder self-attention as the prefill calls it
+    B, S, H, d = WHISPER_B, WHISPER_S, 20, 64
+    q, k, v = attn_inputs(rng, B, S, S, H, H, d, torch.bfloat16, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, d) views
+    # bytes: q, k, v read once and o written once, bfloat16; operations:
+    # q.k and p.v, 2 * d each, over the S(S+1)/2 causal (query, key) pairs
+    # of each batch row and head
+    pairs = B * H * S * (S + 1) // 2
+    b, why = bound_ms(2.0 * 4 * B * S * H * d, 4.0 * d * pairs, BF16_OPS_PER_S)
+    out.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/attn_kernel.py:80",
+        launches=launches["flash_attention"], max_abs_err=errs["flash"],
+        ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: attn_kernel.flash_attention_plain(q, k, v, True, 0)),
+        bound_ms=b, bound_by=why,
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))))
     for k in out:
+        lib = "" if k["library_ms"] is None else f", library {k['library_ms'] * 1e3:.2f} us"
         log(f"time {k['name']}: {k['ms'] * 1e3:.2f} us (plain {k['plain_ms'] * 1e3:.2f} us, "
-            f"bound {k['bound_ms'] * 1e3:.3f} us by {k['bound_by']})")
+            f"bound {k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}{lib})")
     return out
 
 
@@ -604,7 +811,7 @@ def main() -> int:
     build_kernels()
     # 3. kernels against their plain versions
     errs = {"era": check_era(dev), "qdq": check_qdq(dev),
-            "round": check_fused_round(dev)}
+            "round": check_fused_round(dev), "flash": check_flash(dev)}
     # 4. the full-width slice through the host loop
     sl = run_slice(dev)
     # 4b. ... and through the device engine, fused and per-op
@@ -614,17 +821,23 @@ def main() -> int:
     compare_runs("fused vs per-op device engine", fused, perop, 0.0, QUANT_STEP_ATOL)
     compare_runs("fused device engine vs host loop", fused, sl, 1e-7, QUANT_STEP_ATOL)
     compare_runs("per-op device engine vs host loop", perop, sl, 1e-7, QUANT_STEP_ATOL)
+    # 4c. whisper-large-v3 prefill at full width
+    wh = run_whisper(dev)
     # 5. card vs CPU on a small configuration, both engines
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
+    # 5b. the reduced whisper prefill, card vs CPU
+    check_whisper_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the
     # run of the path it serves (ERA and qdq: the host loop; fused_round:
-    # the fused device engine)
-    launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"])
+    # the fused device engine; flash_attention: one whisper prefill)
+    launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"],
+                    flash_attention=wh["launches"]["flash_attention"])
     kernels = kernel_report(launches, errs)
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "
-        f"per-op {perop['per_round_ms']:.3f} ms/round")
+        f"per-op {perop['per_round_ms']:.3f} ms/round; whisper-large-v3 prefill "
+        f"({WHISPER_B},{WHISPER_S}) {wh['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

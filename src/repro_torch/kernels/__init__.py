@@ -5,6 +5,7 @@ kernel of ``repro.kernels`` that the port's path runs:
 - quant_kernel: per-row min-max quantize-dequantize round trip
 - round_kernel: the fused round (codec round trip + weighted client sum +
   Enhanced ERA)
+- attn_kernel:  flash attention forward (causal, GQA, sliding window)
 
 Each module holds the wrapper, its launch count and its plain PyTorch
 version; ``csrc/`` holds the CUDA sources and ``runtime`` builds them

@@ -23,15 +23,15 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
-           "resolve_device", "launch_args", "divide"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "nvcc_flags", "build", "load",
+           "check", "resolve_device", "launch_args", "divide"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu",
-           "fused_round": "fused_round.cu"}
+           "fused_round": "fused_round.cu", "flash_attn": "flash_attn.cu"}
 
 # -fmad=false: no fused multiply-add contraction, so each product and sum
 # rounds as in the reference; no --use_fast_math, so logf/expf and
@@ -39,6 +39,13 @@ SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# Sources built with nvcc's default contraction (-fmad=true) instead.
+# Attention's scores and outputs are sums of d and Sk products with no
+# bit-for-bit contract with the reference (its tolerance is stated with
+# the tests), and a fused multiply-add rounds once where a multiply and
+# an add round twice, with half the instructions.
+FMAD_SOURCES = ("flash_attn",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -82,9 +89,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The ``nvcc`` flags of kernel library ``name``."""
+    if name in FMAD_SOURCES:
+        return tuple("-fmad=true" if f == "-fmad=false" else f for f in NVCC_FLAGS)
+    return NVCC_FLAGS
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -102,7 +116,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs = {}
     for n in todo:
         tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [cc, *nvcc_flags(n), "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []

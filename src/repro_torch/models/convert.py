@@ -1,0 +1,51 @@
+"""Carry the JAX package's model parameters into the port.
+
+``params_from_numpy(cfg, tree)`` takes the reference's parameter tree
+(nested dicts of arrays from ``repro.models.registry.init``, as numpy)
+and returns the port's parameters with the same names, shapes and
+dtypes, so the tests run both packages on the same weights.  Nothing
+here imports the JAX package: the caller converts its arrays to numpy.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.registry import module_for
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype (a copy)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _convert(specs: cm.Specs, tree: Dict[str, Any], dtype, device, path=""):
+    if set(specs) != set(tree):
+        raise ValueError(f"parameter names differ at {path or 'the root'}: "
+                         f"missing {sorted(set(specs) - set(tree))}, "
+                         f"unexpected {sorted(set(tree) - set(specs))}")
+    out = {}
+    for name, s in specs.items():
+        if isinstance(s, dict):
+            out[name] = _convert(s, tree[name], dtype, device, f"{path}{name}.")
+            continue
+        t = _tensor(tree[name])
+        if tuple(t.shape) != s[0]:
+            raise ValueError(f"{path}{name}: shape {tuple(t.shape)}, expected {s[0]}")
+        out[name] = t.to(device=device, dtype=dtype)
+    return out
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cuda") -> cm.Params:
+    """The reference's parameter tree for ``cfg`` as the port's
+    parameters on ``device``, cast to ``cfg.param_dtype``."""
+    specs = module_for(cfg).param_specs(cfg)
+    return _convert(specs, tree, cm.dtype_of(cfg.param_dtype), resolve_device(device))

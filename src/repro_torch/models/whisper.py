@@ -1,0 +1,139 @@
+"""Whisper-large-v3-style encoder-decoder (arXiv:2212.04356), the port of
+``repro.models.whisper``'s full-sequence forward.
+
+The mel-spectrogram and conv feature extractor is a stub, as in the
+reference: the encoder takes precomputed audio frame embeddings
+(B, encoder_len, d_model).  The backbone: a bidirectional encoder, a
+causal decoder with cross-attention, learned positions, a GELU MLP (tanh
+approximation, ``jax.nn.gelu``'s default) and multi-head attention
+(kv = heads).  The decoder's causal self-attention is eligible for the
+flash kernel at every layer when the decoder length is a multiple of
+128; the encoder's and the cross-attention stay on the plain path, as in
+the reference.
+
+Not ported: ``decode_step``, ``init_decode_cache``,
+``precompute_cross_kv`` and ``lm_loss``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
+
+
+def _max_pos(cfg: ModelConfig) -> int:
+    # decoder learned positions; sized as the reference sizes them
+    return 128 if cfg.vocab_size <= 512 else 32_768
+
+
+def param_specs(cfg: ModelConfig) -> cm.Specs:
+    """Every parameter's shape, scale and init, in the reference's order."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    H, Hkv, dh, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
+    Le, Ld = cfg.n_encoder_layers, cfg.n_layers
+    s = cm.spec
+    encoder = {
+        "ln1": s((Le, D), init="zeros"),
+        "wq": s((Le, D, H, dh)),
+        "wk": s((Le, D, Hkv, dh)),
+        "wv": s((Le, D, Hkv, dh)),
+        "wo": s((Le, H, dh, D)),
+        "ln2": s((Le, D), init="zeros"),
+        "mlp_in": s((Le, D, Fd)),
+        "mlp_out": s((Le, Fd, D)),
+    }
+    decoder = {
+        "ln1": s((Ld, D), init="zeros"),
+        "wq": s((Ld, D, H, dh)),
+        "wk": s((Ld, D, Hkv, dh)),
+        "wv": s((Ld, D, Hkv, dh)),
+        "wo": s((Ld, H, dh, D)),
+        "lnx": s((Ld, D), init="zeros"),
+        "xwq": s((Ld, D, H, dh)),
+        "xwk": s((Ld, D, Hkv, dh)),
+        "xwv": s((Ld, D, Hkv, dh)),
+        "xwo": s((Ld, H, dh, D)),
+        "ln2": s((Ld, D), init="zeros"),
+        "mlp_in": s((Ld, D, Fd)),
+        "mlp_out": s((Ld, Fd, D)),
+    }
+    return {
+        "embed": s((V, D), scale=1.0),
+        "enc_pos": s((cfg.encoder_len, D), scale=0.02),
+        "dec_pos": s((_max_pos(cfg), D), scale=0.02),
+        "encoder": encoder,
+        "enc_final_norm": s((D,), init="zeros"),
+        "decoder": decoder,
+        "final_norm": s((D,), init="zeros"),
+        "lm_head": s((V, D)),
+    }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device: torch.device) -> cm.Params:
+    return cm.init_params(param_specs(cfg), generator,
+                          cm.dtype_of(cfg.param_dtype), device)
+
+
+def _layers(stacked: cm.Params):
+    """The per-layer views of weights stacked on a leading layer axis."""
+    n = next(iter(stacked.values())).shape[0]
+    for i in range(n):
+        yield {name: w[i] for name, w in stacked.items()}
+
+
+def _mlp(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    return F.gelu(h @ w_in, approximate="tanh") @ w_out
+
+
+def encode(cfg: ModelConfig, params: cm.Params, audio_embeds: torch.Tensor) -> torch.Tensor:
+    """audio_embeds: (B, enc_len, D) stub frontend output -> encoder states."""
+    x = audio_embeds.to(cm.dtype_of(cfg.compute_dtype))
+    x = x + params["enc_pos"][None, : x.shape[1]].to(x.dtype)
+    for lp in _layers(params["encoder"]):
+        h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
+        o = cm.attention(q, k, v, causal=False)
+        x = x + cm.project_out(o, lp["wo"])
+        h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+    return cm.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _dec_layer(cfg: ModelConfig, lp: cm.Params, x: torch.Tensor, enc: torch.Tensor,
+               chunk_q: int) -> torch.Tensor:
+    """One decoder layer over the whole sequence (the reference's
+    ``self_kv is None`` branch): causal self-attention, cross-attention
+    over the encoder states, MLP."""
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    o = cm.attention(q, k, v, causal=True, chunk_q=chunk_q)
+    x = x + cm.project_out(o, lp["wo"])
+    h = cm.rms_norm(x, lp["lnx"], cfg.norm_eps)
+    q = cm.project(h, lp["xwq"])
+    xk, xv = cm.project(enc, lp["xwk"]), cm.project(enc, lp["xwv"])
+    o = cm.attention(q, xk, xv, causal=False)
+    x = x + cm.project_out(o, lp["xwo"])
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+
+
+def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
+            audio_embeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) and audio_embeds (B, enc_len, D) -> logits (B, S, V)
+    and a zero auxiliary loss, as the reference returns them.  The logits
+    are a product in the compute dtype, cast to the logits dtype after."""
+    enc = encode(cfg, params, audio_embeds)
+    S = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = x + params["dec_pos"][None, :S].to(x.dtype)
+    chunk_q = 1024 if S >= 8192 else 0
+    for lp in _layers(params["decoder"]):
+        x = _dec_layer(cfg, lp, x, enc, chunk_q)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"].T).to(cm.logits_dtype(cfg))
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)

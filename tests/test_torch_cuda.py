@@ -8,14 +8,16 @@ kernels have no CPU mode).  On a machine with the card:
 Tolerances: as ``chip_smoke.py`` states them, atol 1e-6 for the ERA and
 qdq kernels and zero quantization level flips; the fused round atol 1e-6
 on probabilities and 2e-6 * sum|w| on its linear moment (a weighted sum
-of up to K values in [0, 1], rounded in other orders on the two sides).
+of up to K values in [0, 1], rounded in other orders on the two sides);
+flash attention atol 1e-5 in float32 and one bfloat16 step in bfloat16.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.fl as pfl
-from repro_torch.kernels import era_kernel, ops, quant_kernel, round_kernel, runtime
+from repro_torch.kernels import (attn_kernel, era_kernel, ops, quant_kernel,
+                                 round_kernel, runtime)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,7 +121,7 @@ def test_device_engine_runs_without_host_sync(dev, fused):
     want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": n}
             if fused else
             {"enhanced_era_fused": n, "quantize_dequantize": n, "fused_round": 0})
-    assert ops.launches() == want
+    assert ops.launches() == dict(want, flash_attention=0)
     assert h.ledger.summary()["rounds"] == float(n)
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
@@ -144,3 +146,114 @@ def test_divide_is_a_true_division_on_the_card(dev):
     want = x / 255.0  # the CPU divides
     assert torch.equal(runtime.divide(x.to(dev), 255.0).cpu(), want)
     assert not torch.equal((x.to(dev) / 255.0).cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: kernel against its plain version, and the whisper
+# prefill through it.  float32 to atol 1e-5 (the kernel sums with FMA in
+# its own order and runs an online softmax; the plain version is the
+# oracle's order); bfloat16 to one bfloat16 step, 2**-7 * max(|want|, 1)
+# (both round one float32 value each).
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(seed, B, Sq, Sk, H, Hkv, d, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+            for s in ((B, Sq, H, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d))]
+
+
+def _assert_attn_close(got, want):
+    if got.dtype == torch.bfloat16:
+        got, want = got.float(), want.float()
+        assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs().clamp_min(1.0)).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", [
+    (4, 384, 384, 20, 20, 64, True, 0),   # whisper's decoder
+    (2, 200, 200, 8, 2, 64, True, 64),    # GQA + window, ragged
+    (2, 100, 300, 4, 4, 64, False, 0),    # non-causal, Sq != Sk
+    (1, 300, 100, 4, 2, 64, False, 16),   # rows left with no key
+    (1, 130, 130, 2, 1, 32, True, 7),
+    (1, 129, 129, 4, 1, 128, True, 0),
+    (1, 4, 4, 2, 1, 64, True, 0),
+])
+def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, d, causal, window, dtype):
+    q, k, v = _attn_inputs(Sq + Sk + d, B, Sq, Sk, H, Hkv, d, dtype, dev)
+    ops.reset_launches()
+    got = attn_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attn_close(got, attn_kernel.flash_attention_plain(q, k, v, causal, window))
+
+
+def test_flash_kernel_reads_strided_views_in_place(dev):
+    """q, k, v as views of one (B, S, 3, H, d) projection: the kernel reads
+    them through their strides."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(2, 256, 3, 4, 64, device=dev, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv.to(dtype).unbind(2)
+        assert not q.is_contiguous()
+        got = attn_kernel.flash_attention(q, k, v, causal=True)
+        _assert_attn_close(got, attn_kernel.flash_attention_plain(q, k, v, True, 0))
+
+
+def test_flash_kernel_takes_a_misaligned_bf16_view(dev):
+    """A bf16 view starting 2 bytes past a 4-byte boundary: the tensor-core
+    kernel reads bf16 pairs, so the wrapper hands it an aligned copy."""
+    B, S, H, d = 1, 128, 2, 64
+    base = torch.randn(3 * B * S * H * d + 1, device=dev).to(torch.bfloat16)
+    q, k, v = (base[1 + i * B * S * H * d:1 + (i + 1) * B * S * H * d].view(B, S, H, d)
+               for i in range(3))
+    assert q.data_ptr() % 4 == 2
+    got = attn_kernel.flash_attention(q, k, v, causal=True)
+    _assert_attn_close(got, attn_kernel.flash_attention_plain(q, k, v, True, 0))
+
+
+def test_flash_wrapper_raises_on_a_refused_launch(dev):
+    """A grid past the card's limit (batch 65536 on the grid's z axis) is
+    refused at launch: the wrapper raises, counts no launch and does not
+    fall back to the plain version."""
+    q = torch.zeros(65536, 1, 1, 32, device=dev)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        attn_kernel.flash_attention(q, q, q)
+    assert ops.launches()["flash_attention"] == 0
+    torch.cuda.synchronize()  # the refusal left the context usable
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    with pytest.raises(TypeError):
+        attn_kernel.flash_attention(*(torch.zeros(1, 8, 2, 64, device=dev,
+                                                  dtype=torch.float16),) * 3)
+    with pytest.raises(ValueError):
+        attn_kernel.flash_attention(*(torch.zeros(1, 8, 2, 48, device=dev),) * 3)
+
+
+def test_whisper_prefill_on_the_card_matches_the_cpu(dev):
+    """The reduced whisper configuration at S=128 in float32: the card
+    (through the kernel, once per decoder layer) against the CPU (plain
+    version), q and k projections scaled by 1/8 as in
+    tests/test_torch_whisper.py, atol 1e-4."""
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+
+    cfg = CONFIG.reduced()
+    p = registry.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for part, names in (("encoder", ("wq", "wk")), ("decoder", ("wq", "wk", "xwq", "xwk"))):
+        for n in names:
+            p[part][n] = p[part][n] / 8
+    b = make_batch(cfg, 2, 128, seed=1, device="cpu")
+    want = registry.prefill(cfg, p, b)
+    p_dev = cm.tree_map(lambda t: t.to(dev), p)
+    ops.reset_launches()
+    got = registry.prefill(cfg, p_dev, {n: t.to(dev) for n, t in b.items()})
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -60,11 +60,11 @@ def _device(events):
     return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _by_class(events):
+def _by_class(events, classes=CLASSES):
     """{class: (device ops, device us)} over the device events."""
     out = {}
     for e in _device(events):
-        cls = next((c for c, keys in CLASSES if any(k in e.name for k in keys)),
+        cls = next((c for c, keys in classes if any(k in e.name for k in keys)),
                    "other")
         n, us = out.get(cls, (0, 0.0))
         out[cls] = (n + 1, us + e.time_range.elapsed_us())
