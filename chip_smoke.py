@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments and no PYTHONPATH:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels (``sm_90a``) from
+It builds the six CUDA kernels (``sm_90a``) from
 ``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
 version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
@@ -15,8 +15,13 @@ round kernel, each with launch counts that show its kernels on the path.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
-attention kernel once per layer, and the reduced whisper configuration
-on the card and on the CPU.
+attention kernel once per layer, and then the soft-label library's
+kernel seams at full width (``repro_torch.core`` with ``impl="kernel"``):
+``aggregate_soft_labels`` over the paper's (100, 1000, 10) stack with
+SCARLET's adaptive beta computed on the card, ``enhanced_era`` over
+whisper's vocabulary as soft-labels, and ``soft_cross_entropy`` over the
+prefill's logits, all under ``torch.cuda.set_sync_debug_mode("error")``.
+Last come the reduced whisper configuration on the card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
 mode itself), so a host sync inside a round fails the run.  A small
@@ -115,6 +120,27 @@ BF16_STEP = 2.0 ** -7
 # ~0.1 between any two float32 implementations (tests/test_torch_whisper.py).
 WHISPER_SMALL_S = 128
 WHISPER_SMALL_ATOL = 1e-4
+
+# Per-row Enhanced ERA, kernel vs plain version: float32 to ERA_ATOL (the
+# row sums run in other orders); bfloat16 bit for bit the float32
+# kernel's result rounded once (the same float32 arithmetic on the
+# upcast input), and within one bfloat16 step of the plain version.
+# Shapes (B, N): N=1, the paper's 10, 100 (warp per row); 12289, one past
+# the fused kernel's limit, and whisper's padded vocabulary 51968 (block
+# per row).  The first and last row of each input are all zero.
+ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (48, 51968))
+ERA_ROWS_BETAS = (0.5, 1.0, 1.5, 4.0, 200.0)
+# The distillation loss, kernel vs plain version: both sum V float32
+# terms in other orders (the kernel per thread, then a shuffle tree), and
+# the rounding grows with the magnitudes summed, so each row's loss is
+# held to DISTILL_RTOL of its scale |lse| * |sum t| + sum |t * l|.
+DISTILL_SHAPES = ((8, 100), (3, 131), (64, 32000), (100, 163840))
+DISTILL_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+DISTILL_RTOL = 1e-5
+# The soft-label library at full width: SCARLET's adaptive beta (entropy
+# of the client mean) with the reference's default beta_max.
+ADAPTIVE_BETA_MAX = 2.5
 
 
 def log(msg: str) -> None:
@@ -367,6 +393,8 @@ def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
 
 
 def check_launches(got: dict, want: dict) -> None:
+    """``got`` equals ``want``, with every kernel ``want`` does not name at 0."""
+    want = dict(dict.fromkeys(got, 0), **want)
     if got != want:
         raise AssertionError(f"kernel launches {got}, expected {want}")
 
@@ -584,6 +612,89 @@ def check_flash(device) -> float:
     return worst
 
 
+def check_era_rows(device) -> float:
+    from repro_torch.kernels import era_kernel
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for B, N in ERA_ROWS_SHAPES:
+        z = _probs(rng, (B, N), device)
+        z[0] = 0.0
+        z[-1] = 0.0
+        errs = []
+        for beta in ERA_ROWS_BETAS:
+            got = era_kernel.enhanced_era(z, beta)
+            want = era_kernel.enhanced_era_plain(z, beta)
+            zb = z.to(torch.bfloat16)
+            got_b = era_kernel.enhanced_era(zb, beta)
+            got_up = era_kernel.enhanced_era(zb.float(), beta).to(torch.bfloat16)
+            want_b = era_kernel.enhanced_era_plain(zb, beta).float()
+            _sync(device)
+            err = float((got - want).abs().max())
+            err_b = float((got_b.float() - want_b).abs().max())
+            ok = (bool(torch.isfinite(got).all()) and err <= ERA_ATOL
+                  and float((got[0] - 1.0 / N).abs().max()) <= ERA_ATOL
+                  and got_b.dtype == torch.bfloat16
+                  and torch.equal(got_b, got_up)
+                  and bool(((got_b.float() - want_b).abs()
+                            <= BF16_STEP * want_b.abs() + ERA_ATOL).all()))
+            if not ok:
+                raise AssertionError(f"era_rows ({B},{N}) beta={beta}: float32 max_abs_err "
+                                     f"{err}, bfloat16 {err_b}")
+            errs.append((err, err_b))
+            worst = max(worst, err)
+        log(f"era_rows ({B},{N}) beta in {ERA_ROWS_BETAS}, zero first/last rows: float32 "
+            f"max_abs_err={max(e for e, _ in errs)!r} (atol {ERA_ATOL}); bfloat16 equal "
+            f"to the float32 kernel rounded, max_abs_err vs plain="
+            f"{max(e for _, e in errs)!r} (one bf16 step) ok")
+    # beta as a float32 tensor on the card, read by the kernel
+    z = _probs(rng, (1000, 10), device)
+    got = era_kernel.enhanced_era(z, torch.full((), BETA, device=device))
+    if not torch.equal(got, era_kernel.enhanced_era(z, BETA)):
+        raise AssertionError("era_rows: beta as a CUDA tensor differs from beta as a float")
+    log("era_rows beta as a CUDA 0-d tensor: equal to beta as a float ok")
+    return worst
+
+
+def _distill_inputs(gen, B, V, ldt, tdt, device):
+    """Student logits (3 * N(0, 1)) and a teacher's softmax rows."""
+    logits = 3.0 * torch.randn(B, V, device=device, generator=gen)
+    teacher = torch.softmax(torch.randn(B, V, device=device, generator=gen), -1)
+    return logits.to(ldt), teacher.to(tdt)
+
+
+def distill_scale(logits, teacher) -> torch.Tensor:
+    """Per row ``|lse| * |sum t| + sum |t * l|``: the magnitudes the
+    loss's float32 sums carry."""
+    l32, t32 = logits.float(), teacher.float()
+    return torch.logsumexp(l32, -1).abs() * t32.sum(-1).abs() + (t32 * l32).abs().sum(-1)
+
+
+def check_distill(device) -> float:
+    from repro_torch.kernels import distill_kernel
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst = 0.0
+    for B, V in DISTILL_SHAPES:
+        for ldt, tdt in DISTILL_DTYPES:
+            logits, teacher = _distill_inputs(gen, B, V, ldt, tdt, device)
+            got = distill_kernel.distill_loss(logits, teacher)
+            want = distill_kernel.distill_loss_plain(logits, teacher)
+            _sync(device)
+            diff = (got - want).abs()
+            rel = float((diff / distill_scale(logits, teacher)).max())
+            err = float(diff.max())
+            ok = (got.shape == (B,) and got.dtype == torch.float32
+                  and bool(torch.isfinite(got).all()) and rel <= DISTILL_RTOL)
+            log(f"distill ({B},{V}) logits {str(ldt)[6:]} teacher {str(tdt)[6:]}: "
+                f"max_abs_err={err!r}, max err/scale={rel!r} (rtol {DISTILL_RTOL}), "
+                f"mean loss {float(want.mean())!r} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"distill ({B},{V}) {ldt}/{tdt}: err/scale {rel}")
+            worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4c: whisper-large-v3 prefill at full width
 # ---------------------------------------------------------------------------
@@ -644,7 +755,86 @@ def run_whisper(device) -> dict:
         f"(host clock, synchronized, after one warm-up), "
         f"{tokens / (ms / 1e3):.1f} decoder tokens/s; logits {want_shape} finite, "
         f"max |logit| {float(logits.abs().max())!r}")
-    return dict(launches=launches, ms=ms)
+    return dict(launches=launches, ms=ms, logits=logits, params=params)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the soft-label library's kernel seams at full width
+# ---------------------------------------------------------------------------
+
+def _row_sum_err(p: torch.Tensor) -> float:
+    return float((p.sum(-1) - 1.0).abs().max())
+
+
+def run_library(device, wh: dict) -> dict:
+    """``repro_torch.core`` with ``impl="kernel"``: SCARLET's aggregation
+    over the paper's stack with the adaptive beta computed on the card,
+    Enhanced ERA over whisper's vocabulary, and the distillation loss of
+    the prefill's logits against a teacher's, all under sync debug mode
+    "error"; each against the kernel's plain version."""
+    from repro_torch import core
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.fl import STRATEGIES
+    from repro_torch.kernels import distill_kernel, era_kernel, ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import registry
+
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    z = _probs(np.random.default_rng(8), (K, m, N), device)
+    scarlet = STRATEGIES["scarlet"](beta="adaptive", beta_max=ADAPTIVE_BETA_MAX)
+    student = wh["logits"]                       # (4, 384, V) float32
+    soft = torch.softmax(student, -1)            # whisper's vocab as soft-labels
+    batch = make_batch(CONFIG, WHISPER_B, WHISPER_S, seed=WHISPER_SEED + 1, device=device)
+    teacher = torch.softmax(registry.prefill(CONFIG, wh["params"], batch), -1)
+    _sync(device)
+
+    # the path: counts set to 0 just before, read just after
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        beta = scarlet._adaptive_beta(torch.mean(z, 0))
+        agg = core.aggregate_soft_labels(z, "enhanced_era", beta=beta, impl="kernel")
+        sharp = core.enhanced_era(soft, BETA, impl="kernel")
+        loss = core.soft_cross_entropy(student, teacher, impl="kernel")
+        t_issue = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync(device)
+    launches = ops.launches()
+    log(f"library: launches {launches} (host issue {t_issue * 1e3:.3f} ms under sync "
+        f"debug mode 'error')")
+    check_launches(launches, {"enhanced_era": 2, "distill_loss": 1})
+
+    want_agg = era_kernel.enhanced_era_plain(torch.mean(z, 0), beta)
+    err_agg = float((agg - want_agg).abs().max())
+    V = student.shape[-1]
+    want_sharp = era_kernel.enhanced_era_plain(soft.reshape(-1, V), BETA).reshape(soft.shape)
+    err_sharp = float((sharp - want_sharp).abs().max())
+    rows_l, rows_t = student.reshape(-1, V), teacher.reshape(-1, V)
+    want_loss = distill_kernel.distill_loss_plain(rows_l, rows_t).mean()
+    torch_loss = core.soft_cross_entropy(student, teacher)   # the log_softmax path
+    scale = float(distill_scale(rows_l, rows_t).mean())
+    err_loss = abs(float(loss) - float(want_loss))
+    err_torch = abs(float(loss) - float(torch_loss))
+    log(f"library: aggregate_soft_labels {tuple(z.shape)} -> {tuple(agg.shape)}, adaptive "
+        f"beta {float(beta)!r}: max_abs_err={err_agg!r} (atol {ERA_ATOL}), rows sum to 1 "
+        f"within {_row_sum_err(agg)!r}")
+    log(f"library: enhanced_era over whisper's vocab {tuple(soft.shape)} beta={BETA}: "
+        f"max_abs_err={err_sharp!r} (atol {ERA_ATOL}), rows sum to 1 within {_row_sum_err(sharp)!r}")
+    log(f"library: soft_cross_entropy over the prefill's logits {tuple(student.shape)}: "
+        f"{float(loss)!r}; plain {float(want_loss)!r} (err {err_loss!r}), impl='torch' "
+        f"{float(torch_loss)!r} (err {err_torch!r}); rtol {DISTILL_RTOL} of the mean "
+        f"scale {scale!r}")
+    ok = (agg.shape == (m, N) and sharp.shape == soft.shape and sharp.dtype == soft.dtype
+          and loss.dim() == 0 and loss.dtype == torch.float32
+          and all(bool(torch.isfinite(t).all()) for t in (agg, sharp, loss))
+          and err_agg <= ERA_ATOL and err_sharp <= ERA_ATOL
+          and _row_sum_err(agg) <= 1e-5 and _row_sum_err(sharp) <= 1e-5
+          and err_loss <= DISTILL_RTOL * scale and err_torch <= DISTILL_RTOL * scale)
+    if not ok:
+        raise AssertionError("the soft-label library's results are wrong")
+    return dict(launches=launches, loss=float(loss))
 
 
 # ---------------------------------------------------------------------------
@@ -719,7 +909,8 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 
 def kernel_report(launches: dict, errs: dict) -> list:
-    from repro_torch.kernels import attn_kernel, era_kernel, quant_kernel, round_kernel
+    from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, quant_kernel,
+                                     round_kernel)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -789,6 +980,47 @@ def kernel_report(launches: dict, errs: dict) -> list:
         bound_ms=b, bound_by=why,
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))))
+    # per-row Enhanced ERA: the paper's aggregate (1000, 10), then
+    # whisper's vocabulary as soft-labels (1536, 51968), both float32;
+    # bytes: the input read once and the output written once; operations:
+    # clamp, log, *beta, max, -, exp, +, / per value.  The line reports the
+    # vocabulary shape.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V, rows = 51968, WHISPER_B * WHISPER_S
+    z_small = _probs(rng, (m, N), dev)
+    z_vocab = torch.softmax(torch.randn(rows, V, device=dev, generator=gen), -1)
+    for zz in (z_small, z_vocab):
+        b, why = bound_ms(4.0 * 2 * zz.numel(), 8.0 * zz.numel())
+        row = dict(
+            name="enhanced_era", route="cuda",
+            source="src/repro_torch/kernels/csrc/era_rows.cu",
+            replaces="src/repro/kernels/era_kernel.py:61",
+            launches=launches["enhanced_era"], max_abs_err=errs["era_rows"],
+            ms=cuda_ms(lambda: era_kernel.enhanced_era(zz, BETA)),
+            plain_ms=cuda_ms(lambda: era_kernel.enhanced_era_plain(zz, BETA)),
+            bound_ms=b, bound_by=why, library_ms=None)
+        log(f"time enhanced_era {tuple(zz.shape)}: ms={row['ms']!r} "
+            f"plain_ms={row['plain_ms']!r} bound_ms={b!r} by {why}")
+    out.append(row)
+    del z_vocab
+
+    # the distillation loss at whisper's vocabulary, float32; bytes: logits
+    # and teacher read once, the (B,) losses written once; operations per
+    # value pair: max, -, exp, + (the exp sum), *, + (t.l), + (sum t)
+    logits = 3.0 * torch.randn(rows, V, device=dev, generator=gen)
+    teacher = torch.softmax(torch.randn(rows, V, device=dev, generator=gen), -1)
+    b, why = bound_ms(4.0 * (2 * rows * V + rows), 7.0 * rows * V)
+    out.append(dict(
+        name="distill_loss", route="cuda",
+        source="src/repro_torch/kernels/csrc/distill.cu",
+        replaces="src/repro/kernels/distill_kernel.py:64",
+        launches=launches["distill_loss"], max_abs_err=errs["distill"],
+        ms=cuda_ms(lambda: distill_kernel.distill_loss(logits, teacher)),
+        plain_ms=cuda_ms(lambda: distill_kernel.distill_loss_plain(logits, teacher)),
+        bound_ms=b, bound_by=why,
+        library_ms=cuda_ms(lambda: torch.nn.functional.cross_entropy(
+            logits, teacher, reduction="none"))))
+    del logits, teacher
     for k in out:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms'] * 1e3:.2f} us"
         log(f"time {k['name']}: {k['ms'] * 1e3:.2f} us (plain {k['plain_ms'] * 1e3:.2f} us, "
@@ -811,7 +1043,8 @@ def main() -> int:
     build_kernels()
     # 3. kernels against their plain versions
     errs = {"era": check_era(dev), "qdq": check_qdq(dev),
-            "round": check_fused_round(dev), "flash": check_flash(dev)}
+            "round": check_fused_round(dev), "flash": check_flash(dev),
+            "era_rows": check_era_rows(dev), "distill": check_distill(dev)}
     # 4. the full-width slice through the host loop
     sl = run_slice(dev)
     # 4b. ... and through the device engine, fused and per-op
@@ -823,6 +1056,9 @@ def main() -> int:
     compare_runs("per-op device engine vs host loop", perop, sl, 1e-7, QUANT_STEP_ATOL)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
+    # 4d. the soft-label library's kernel seams at full width
+    lib = run_library(dev, wh)
+    del wh["logits"], wh["params"]
     # 5. card vs CPU on a small configuration, both engines
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
@@ -830,9 +1066,12 @@ def main() -> int:
     check_whisper_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the
     # run of the path it serves (ERA and qdq: the host loop; fused_round:
-    # the fused device engine; flash_attention: one whisper prefill)
+    # the fused device engine; flash_attention: one whisper prefill;
+    # enhanced_era and distill_loss: the library at full width)
     launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"],
-                    flash_attention=wh["launches"]["flash_attention"])
+                    flash_attention=wh["launches"]["flash_attention"],
+                    enhanced_era=lib["launches"]["enhanced_era"],
+                    distill_loss=lib["launches"]["distill_loss"])
     kernels = kernel_report(launches, errs)
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "

@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas
 kernel of ``repro.kernels`` that the port's path runs:
 
-- era_kernel:   fused client mean + Enhanced-ERA sharpening
+- era_kernel:   Enhanced-ERA sharpening, fused with the client mean
+  (``enhanced_era_fused``) and per row (``enhanced_era``)
 - quant_kernel: per-row min-max quantize-dequantize round trip
 - round_kernel: the fused round (codec round trip + weighted client sum +
   Enhanced ERA)
 - attn_kernel:  flash attention forward (causal, GQA, sliding window)
+- distill_kernel: per-row soft-target cross entropy over up to an LM's
+  vocabulary (the distillation loss)
 
 Each module holds the wrapper, its launch count and its plain PyTorch
 version; ``csrc/`` holds the CUDA sources and ``runtime`` builds them

@@ -24,14 +24,15 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "nvcc_flags", "build", "load",
-           "check", "resolve_device", "launch_args", "divide"]
+           "check", "resolve_device", "launch_args", "divide", "forward_only"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu",
-           "fused_round": "fused_round.cu", "flash_attn": "flash_attn.cu"}
+           "fused_round": "fused_round.cu", "flash_attn": "flash_attn.cu",
+           "era_rows": "era_rows.cu", "distill": "distill.cu"}
 
 # -fmad=false: no fused multiply-add contraction, so each product and sum
 # rounds as in the reference; no --use_fast_math, so logf/expf and
@@ -70,6 +71,18 @@ def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     reference and the CUDA kernels perform; a divisor on ``x``'s device
     (a fill, no host-to-device copy) keeps the division."""
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def forward_only(what: str, *inputs) -> None:
+    """Raise if autograd would need a gradient through kernel ``what``.
+    The kernel has no backward, as the reference's Pallas kernel has none
+    (``jax.grad`` through it fails); a result silently detached from the
+    graph would give wrong gradients instead."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward; call it under torch.no_grad() "
+            "or use impl='torch' for a differentiable result")
 
 
 def nvcc() -> str:

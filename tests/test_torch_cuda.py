@@ -9,15 +9,21 @@ Tolerances: as ``chip_smoke.py`` states them, atol 1e-6 for the ERA and
 qdq kernels and zero quantization level flips; the fused round atol 1e-6
 on probabilities and 2e-6 * sum|w| on its linear moment (a weighted sum
 of up to K values in [0, 1], rounded in other orders on the two sides);
-flash attention atol 1e-5 in float32 and one bfloat16 step in bfloat16.
+flash attention atol 1e-5 in float32 and one bfloat16 step in bfloat16;
+per-row Enhanced ERA atol 1e-6 in float32, and in bfloat16 bit for bit the
+float32 kernel's result rounded once; the distillation loss 1e-5 of each
+row's magnitude ``|lse| * |sum t| + sum |t * l|`` (float32 sums of V terms
+in two orders).
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.fl as pfl
-from repro_torch.kernels import (attn_kernel, era_kernel, ops, quant_kernel,
-                                 round_kernel, runtime)
+from repro_torch.core import era as pera
+from repro_torch.core import losses as plosses
+from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, ops,
+                                 quant_kernel, round_kernel, runtime)
 
 pytestmark = pytest.mark.cuda
 
@@ -121,7 +127,7 @@ def test_device_engine_runs_without_host_sync(dev, fused):
     want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": n}
             if fused else
             {"enhanced_era_fused": n, "quantize_dequantize": n, "fused_round": 0})
-    assert ops.launches() == dict(want, flash_attention=0)
+    assert ops.launches() == dict(want, flash_attention=0, enhanced_era=0, distill_loss=0)
     assert h.ledger.summary()["rounds"] == float(n)
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
@@ -257,3 +263,106 @@ def test_whisper_prefill_on_the_card_matches_the_cpu(dev):
     torch.cuda.synchronize()
     assert ops.launches()["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Per-row Enhanced ERA and the distillation loss: each kernel against its
+# plain version over chip_smoke.py's phase-3 cases.
+# ---------------------------------------------------------------------------
+
+ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (48, 51968))
+ERA_ROWS_BETAS = (0.5, 1.0, 1.5, 4.0, 200.0)
+DISTILL_SHAPES = ((8, 100), (3, 131), (64, 32000), (100, 163840))
+DISTILL_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+DISTILL_RTOL = 1e-5
+
+
+def _rows_with_zeros(seed, B, N, dev):
+    z = _probs(seed, (B, N), dev)
+    z[0] = 0.0
+    z[-1] = 0.0
+    return z
+
+
+@pytest.mark.parametrize("B,N", ERA_ROWS_SHAPES)
+@pytest.mark.parametrize("beta", ERA_ROWS_BETAS)
+def test_era_rows_kernel_matches_plain(dev, B, N, beta):
+    z = _rows_with_zeros(B + N, B, N, dev)
+    ops.reset_launches()
+    got = era_kernel.enhanced_era(z, beta)
+    torch.cuda.synchronize()
+    assert ops.launches()["enhanced_era"] == 1
+    torch.testing.assert_close(got, era_kernel.enhanced_era_plain(z, beta), rtol=0, atol=ATOL)
+    torch.testing.assert_close(got[0], torch.full((N,), 1.0 / N, device=dev),
+                               rtol=0, atol=ATOL)
+    # bfloat16: the same float32 arithmetic, rounded once
+    zb = z.to(torch.bfloat16)
+    got_b = era_kernel.enhanced_era(zb, beta)
+    assert got_b.dtype == torch.bfloat16
+    assert torch.equal(got_b, era_kernel.enhanced_era(zb.float(), beta).to(torch.bfloat16))
+    want_b = era_kernel.enhanced_era_plain(zb, beta).float()
+    assert bool(((got_b.float() - want_b).abs() <= 2.0 ** -7 * want_b.abs() + ATOL).all())
+
+
+def test_era_rows_kernel_reads_beta_on_the_card_without_a_sync(dev):
+    z = _probs(7, (1000, 10), dev)
+    beta = torch.full((), 2.5, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pera.enhanced_era(z, beta, impl="kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, era_kernel.enhanced_era(z, 2.5))
+
+
+def _distill_inputs(seed, B, V, ldt, tdt, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = 3.0 * torch.randn(B, V, device=dev, generator=g)
+    teacher = torch.softmax(torch.randn(B, V, device=dev, generator=g), -1)
+    return logits.to(ldt), teacher.to(tdt)
+
+
+def _distill_scale(logits, teacher):
+    l, t = logits.float(), teacher.float()
+    return torch.logsumexp(l, -1).abs() * t.sum(-1).abs() + (t * l).abs().sum(-1)
+
+
+@pytest.mark.parametrize("B,V", DISTILL_SHAPES)
+@pytest.mark.parametrize("ldt,tdt", DISTILL_DTYPES)
+def test_distill_kernel_matches_plain(dev, B, V, ldt, tdt):
+    logits, teacher = _distill_inputs(B + V, B, V, ldt, tdt, dev)
+    ops.reset_launches()
+    got = distill_kernel.distill_loss(logits, teacher)
+    torch.cuda.synchronize()
+    assert ops.launches()["distill_loss"] == 1
+    assert got.shape == (B,) and got.dtype == torch.float32
+    want = distill_kernel.distill_loss_plain(logits, teacher)
+    assert bool(((got - want).abs() <= DISTILL_RTOL * _distill_scale(logits, teacher)).all())
+    mean = plosses.soft_cross_entropy(logits, teacher, impl="kernel")
+    assert abs(float(mean) - float(want.mean())) <= DISTILL_RTOL * float(
+        _distill_scale(logits, teacher).mean())
+
+
+def test_row_kernels_reject_wrong_dtypes(dev):
+    with pytest.raises(TypeError):
+        era_kernel.enhanced_era(torch.ones(2, 3, device=dev, dtype=torch.float16), 1.5)
+    with pytest.raises(TypeError):
+        distill_kernel.distill_loss(torch.ones(2, 3, device=dev, dtype=torch.float64),
+                                    torch.ones(2, 3, device=dev))
+
+
+def test_row_kernel_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
+    """A block of 2048 threads is past the card's limit of 1024: the launch
+    is refused, the wrapper raises, counts no launch and does not fall
+    back to the plain version."""
+    monkeypatch.setattr(era_kernel, "THREADS", 2048)
+    monkeypatch.setattr(distill_kernel, "THREADS", 2048)
+    z = _probs(1, (64, 10), dev)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        era_kernel.enhanced_era(z, 1.5)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        distill_kernel.distill_loss(z, z)
+    assert ops.launches()["enhanced_era"] == 0 and ops.launches()["distill_loss"] == 0
+    torch.cuda.synchronize()  # the refusal left the context usable

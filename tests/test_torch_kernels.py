@@ -184,4 +184,5 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(ops.fused_round(z, w, 1.5, mode="quant", bits=8),
                        round_kernel.fused_round_plain(z, w, 1.5, mode="quant", bits=8))
     assert ops.launches() == {"enhanced_era_fused": 0, "quantize_dequantize": 0,
-                              "fused_round": 0, "flash_attention": 0}
+                              "fused_round": 0, "flash_attention": 0,
+                              "enhanced_era": 0, "distill_loss": 0}
