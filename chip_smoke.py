@@ -5,9 +5,9 @@ Run from the root of a checkout, with no arguments and no PYTHONPATH:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels (``sm_90a``) from
-``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version on the card, and drives both engines of the port at the paper's
+It builds the seven CUDA kernel libraries (``sm_90a``) from
+``src/repro_torch/kernels/csrc``, holds each kernel against its plain
+PyTorch version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
 ``cache_delta+quant8`` uplink): the SCARLET host round loop, then the
 device-resident engine (``engine="scan"``) with and without its fused
@@ -21,6 +21,13 @@ kernel seams at full width (``repro_torch.core`` with ``impl="kernel"``):
 SCARLET's adaptive beta computed on the card, ``enhanced_era`` over
 whisper's vocabulary as soft-labels, and ``soft_cross_entropy`` over the
 prefill's logits, all under ``torch.cuda.set_sync_debug_mode("error")``.
+Then the static analyzer (``python -m repro_torch.analysis``) runs on the
+card: the card's limits against ``runtime.HOPPER``, the strict pass with
+the compiled kernels' attributes, the selftest (which launches the three
+fixture kernels on their valid plans and has the card refuse the
+shared-memory hog), the fixture kernels against their plain versions, the
+misaligned plan faulting in a child process, and the contract pass's
+verdicts confirmed by CUDA graph capture in another.
 Last come the reduced whisper configuration on the card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
@@ -175,7 +182,8 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     logs = runtime.build()
-    log(f"kernel build: {time.perf_counter() - t0:.3f} s for {sorted(runtime.SOURCES)}")
+    log(f"kernel build: {time.perf_counter() - t0:.3f} s for {sorted(runtime.SOURCES)} "
+        f"({len(runtime.SOURCES)} libraries)")
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -838,6 +846,173 @@ def run_library(device, wh: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the static analyzer on the card
+# ---------------------------------------------------------------------------
+
+# torch.cuda.get_device_properties fields that hold a runtime.Limits field
+# (where this torch has them)
+TORCH_PROPS = (("max_threads_per_block", "max_threads_per_block"),
+               ("smem_per_block", "shared_memory_per_block"),
+               ("smem_per_block_optin", "shared_memory_per_block_optin"),
+               ("smem_per_sm", "shared_memory_per_multiprocessor"),
+               ("regs_per_sm", "regs_per_multiprocessor"),
+               ("warp_size", "warp_size"))
+
+# A child process: the float4 copy of a view 4 bytes into its storage.
+MISALIGNED_CHILD = """
+import sys, torch
+from repro_torch.kernels import fixture_kernel
+base = torch.zeros(100 * 128 + 1, device="cuda")
+fixture_kernel.copy_vec4(base.narrow(0, 1, 100 * 128).view(100, 128))
+torch.cuda.synchronize()
+print("no fault")
+"""
+
+# A child process: each strategy's aggregate_masked at the analysis shapes
+# captured in a CUDA graph (and, where the capture holds, replayed); one
+# JSON line {name: "captured" or the capture's error}.
+CAPTURE_CHILD = """
+import json, numpy as np, torch
+from repro_torch.analysis import fixtures
+from repro_torch.fl.strategies import STRATEGIES
+K, M, N = 8, 16, 10
+rng = np.random.default_rng(0)
+z = torch.from_numpy(rng.dirichlet(np.ones(N), size=K * M).astype(np.float32)
+                     .reshape(K, M, N)).cuda()
+part = torch.ones(K, device="cuda")
+out = {}
+for name, s in (("scarlet", STRATEGIES["scarlet"](beta=1.5)), ("dsfl", STRATEGIES["dsfl"]()),
+                ("fixture_callback_smuggler", fixtures.CallbackSmugglerStrategy())):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s.aggregate_masked(z, part, None, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            t = s.aggregate_masked(z, part, None, 1)
+        g.replay()
+        torch.cuda.synchronize()
+        ok = torch.equal(t, s.aggregate_masked(z, part, None, 1))
+        out[name] = "captured" if ok else "captured, replay differs"
+    except Exception as e:
+        out[name] = type(e).__name__ + ": " + str(e).strip().splitlines()[0][:160]
+print(json.dumps(out))
+"""
+
+
+def _child(code: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=timeout)
+
+
+def check_device_limits() -> None:
+    """``runtime.HOPPER`` against the card: every field through
+    ``cudaDeviceGetAttribute``, and torch's device properties where they
+    hold the same field."""
+    from repro_torch.kernels import runtime
+
+    card = runtime.device_limits(0)
+    log(f"analysis: the card's limits (cudaDeviceGetAttribute): {card}")
+    props = torch.cuda.get_device_properties(0)
+    seen = {f: getattr(props, p) for f, p in TORCH_PROPS if hasattr(props, p)}
+    log(f"analysis: torch.cuda.get_device_properties(0) fields: {seen}; "
+        f"absent in torch {torch.__version__}: "
+        f"{[p for f, p in TORCH_PROPS if f not in seen]}")
+    bad = [f for f, v in seen.items() if v != getattr(runtime.HOPPER, f)]
+    if card != runtime.HOPPER or bad:
+        raise AssertionError(f"runtime.HOPPER {runtime.HOPPER} differs from the card "
+                             f"{card} (torch fields off: {bad})")
+    log("analysis: runtime.HOPPER equals the card's limits ok")
+
+
+def run_analysis(device) -> dict:
+    """The analyzer on the card: the strict pass with compiled attributes,
+    the selftest (the path of the fixture kernels: counts set to 0 just
+    before, read just after), each fixture kernel's valid plan bit for bit
+    against its plain version, the hog refused then a valid launch, the
+    misaligned plan faulting in a child, and graph capture of the
+    strategies' aggregation in another."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import fixture_kernel as fk
+    from repro_torch.kernels import ops, runtime
+
+    check_device_limits()
+    attrs = {}
+    for lib in runtime.SOURCES:
+        for name in runtime.kernel_names(lib):
+            attrs[name] = runtime.func_attrs(lib, name)
+            log(f"analysis: func_attrs {lib}/{name}: {attrs[name]}")
+
+    t0 = time.perf_counter()
+    rc = analysis_main(["--strict"])
+    log(f"analysis: python -m repro_torch.analysis --strict (device cuda) exit {rc} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    if rc != 0:
+        raise AssertionError("the strict analysis pass found errors or warnings on the card")
+
+    ops.reset_launches()
+    rc = analysis_main(["--selftest"])
+    torch.cuda.synchronize()
+    launches = ops.launches()
+    log(f"analysis: --selftest exit {rc}, launches {launches}")
+    if rc != 0:
+        raise AssertionError("the analyzer's selftest failed on the card")
+    check_launches(launches, {"copy_vec4": 1, "scale": 1, "copy_smem": 1})
+
+    rng = np.random.default_rng(10)
+
+    def card(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+    x, xs, s, xh = card((100, 128)), card((16, 128)), card((1,)), card((4096, 1024))
+    pairs = (("copy_vec4", fk.copy_vec4(x), fk.copy_plain(x)),
+             ("scale", fk.scale(xs, s), fk.scale_plain(xs, s)),
+             ("copy_smem", fk.copy_smem(xh), fk.copy_plain(xh)))
+    errs = {}
+    for name, got, want in pairs:
+        errs[name] = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the kernel differs from its plain version")
+        log(f"analysis: {name} valid plan {tuple(got.shape)} equals its plain version bit "
+            "for bit ok")
+
+    n = fk.copy_smem.launches
+    try:
+        fk.copy_smem(xh, fk.HOG_TILE)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the card launched the shared-memory hog")
+    if fk.copy_smem.launches != n or not torch.equal(fk.copy_smem(xh), xh):
+        raise AssertionError("after the hog's refusal a valid launch failed or was miscounted")
+    torch.cuda.synchronize()
+    log(f"analysis: hog plan {fk.HOG_TILE} refused ({refused}); a valid launch after it ok")
+
+    p = _child(MISALIGNED_CHILD)
+    fault = [ln for ln in p.stderr.splitlines() if "misaligned address" in ln]
+    log(f"analysis: misaligned plan in a child: exit {p.returncode}, "
+        f"{(fault or [''])[0].strip()[:200]}")
+    if p.returncode == 0 or "misaligned address" not in p.stderr:
+        raise AssertionError("the misaligned float4 copy did not fault with "
+                             f"cudaErrorMisalignedAddress:\n{p.stdout}\n{p.stderr[-3000:]}")
+
+    p = _child(CAPTURE_CHILD)
+    if p.returncode != 0:
+        raise AssertionError(f"graph capture child failed:\n{p.stderr[-3000:]}")
+    cap = json.loads(p.stdout.strip().splitlines()[-1])
+    log(f"analysis: CUDA graph capture of aggregate_masked: {cap}")
+    if (cap["scarlet"], cap["dsfl"]) != ("captured", "captured") or \
+            cap["fixture_callback_smuggler"].startswith("captured"):
+        raise AssertionError("graph capture disagrees with the contract pass")
+    return dict(launches=launches, errs=errs, attrs=attrs)
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the reduced whisper prefill on the card and on the CPU
 # ---------------------------------------------------------------------------
 
@@ -906,6 +1081,12 @@ def cuda_ms(fn, batches: int = 15, per_batch: int = 20) -> float:
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# The Pallas fixture each fixture kernel replaces (src/repro/analysis/fixtures.py).
+FIXTURE_REPLACES = {"copy_vec4": "src/repro/analysis/fixtures.py:125",
+                    "scale": "src/repro/analysis/fixtures.py:135",
+                    "copy_smem": "src/repro/analysis/fixtures.py:146"}
 
 
 def kernel_report(launches: dict, errs: dict) -> list:
@@ -1021,6 +1202,27 @@ def kernel_report(launches: dict, errs: dict) -> list:
         library_ms=cuda_ms(lambda: torch.nn.functional.cross_entropy(
             logits, teacher, reduction="none"))))
     del logits, teacher
+
+    # the analyzer's fixture kernels on their valid plans, at the selftest's
+    # shapes; bytes: the input read once and the output written once
+    # (scale: and s); operations: scale's one multiply a value
+    from repro_torch.kernels import fixture_kernel as fk
+
+    x, xs, sv, xh = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                     for shape in ((100, 128), (16, 128), (1,), (4096, 1024)))
+    for name, fn, plain, lib, inp, n_ops, extra in (
+            ("copy_vec4", lambda: fk.copy_vec4(x), lambda: fk.copy_plain(x),
+             lambda o=torch.empty_like(x): o.copy_(x), x, 0.0, 0),
+            ("scale", lambda: fk.scale(xs, sv), lambda: fk.scale_plain(xs, sv),
+             lambda: torch.mul(xs, sv), xs, float(xs.numel()), 4),
+            ("copy_smem", lambda: fk.copy_smem(xh), lambda: fk.copy_plain(xh),
+             lambda o=torch.empty_like(xh): o.copy_(xh), xh, 0.0, 0)):
+        b, why = bound_ms(4.0 * 2 * inp.numel() + extra, n_ops)
+        out.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/fixtures.cu",
+            replaces=FIXTURE_REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b,
+            bound_by=why, library_ms=cuda_ms(lib)))
     for k in out:
         lib = "" if k["library_ms"] is None else f", library {k['library_ms'] * 1e3:.2f} us"
         log(f"time {k['name']}: {k['ms'] * 1e3:.2f} us (plain {k['plain_ms'] * 1e3:.2f} us, "
@@ -1059,6 +1261,8 @@ def main() -> int:
     # 4d. the soft-label library's kernel seams at full width
     lib = run_library(dev, wh)
     del wh["logits"], wh["params"]
+    # 4e. the static analyzer on the card
+    an = run_analysis(dev)
     # 5. card vs CPU on a small configuration, both engines
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
@@ -1067,12 +1271,14 @@ def main() -> int:
     # 6. kernel times and the kernel line: each kernel's launches from the
     # run of the path it serves (ERA and qdq: the host loop; fused_round:
     # the fused device engine; flash_attention: one whisper prefill;
-    # enhanced_era and distill_loss: the library at full width)
+    # enhanced_era and distill_loss: the library at full width; the
+    # fixture kernels: the analyzer's selftest)
     launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"],
                     flash_attention=wh["launches"]["flash_attention"],
                     enhanced_era=lib["launches"]["enhanced_era"],
-                    distill_loss=lib["launches"]["distill_loss"])
-    kernels = kernel_report(launches, errs)
+                    distill_loss=lib["launches"]["distill_loss"],
+                    **{k: an["launches"][k] for k in FIXTURE_REPLACES})
+    kernels = kernel_report(launches, dict(errs, **an["errs"]))
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "
         f"per-op {perop['per_round_ms']:.3f} ms/round; whisper-large-v3 prefill "

@@ -10,7 +10,7 @@ and never wait for the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,15 +26,32 @@ class Strategy:
     uplink_bits = 32.0
     downlink_bits = 32.0
     # True when every hook runs in fixed shapes without a host sync: the
-    # device engine requires it.
+    # device engine requires it.  ``repro_torch.analysis`` verifies the
+    # declaration by tracing every hook on fake CUDA tensors.
     scan_safe = False
     # True when codec round trip + masked aggregation can run as one
     # fused_round kernel (aggregate_masked_fused); engines check it at
     # construction.
     supports_fused_round = False
 
+    # Constructor-kwarg variants the static analyzer instantiates when
+    # tracing this class (each entry is one ``cls(**kw)`` call): the option
+    # combinations that change the traced hooks.
+    analysis_variants: Tuple[Dict[str, Any], ...] = ({},)
+
     def __init__(self, **kw):
         self.opts = kw
+
+    def declared_contract(self) -> Dict[str, Any]:
+        """The machine-checkable contract this instance claims:
+        ``repro_torch.analysis`` traces the hooks and diffs the trace
+        against these declarations; engines trust them at construction."""
+        return {
+            "name": self.name,
+            "scan_safe": bool(self.scan_safe),
+            "supports_fused_round": bool(self.supports_fused_round),
+            "uses_cache": bool(self.uses_cache),
+        }
 
     def aggregate(self, z_clients: torch.Tensor, t
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

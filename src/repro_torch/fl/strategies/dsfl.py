@@ -15,6 +15,7 @@ class ERAStrategy(Strategy):
 
     name = "dsfl"
     scan_safe = True
+    analysis_variants = ({}, {"T": 0.5})
 
     def aggregate(self, z, t):
         return era_lib.era(torch.mean(z, dim=0), self.opts.get("T", 0.1)), None

@@ -45,6 +45,7 @@ class EnhancedERAStrategy(Strategy):
     name = "scarlet"
     uses_cache = True
     scan_safe = True
+    analysis_variants = ({}, {"beta": "adaptive"})
 
     def _adaptive_beta(self, zbar: torch.Tensor) -> torch.Tensor:
         # math.log(n) is a Python float, so no host-to-device copy; as a

@@ -9,8 +9,12 @@ kernel of ``repro.kernels`` that the port's path runs:
 - attn_kernel:  flash attention forward (causal, GQA, sliding window)
 - distill_kernel: per-row soft-target cross entropy over up to an LM's
   vocabulary (the distillation loss)
+- fixture_kernel: the static analyzer's three fixtures (a float4 copy, a
+  scale by a scalar, a copy through shared memory), each with a valid and
+  a broken launch plan
 
 Each module holds the wrapper, its launch count and its plain PyTorch
 version; ``csrc/`` holds the CUDA sources and ``runtime`` builds them
-with ``nvcc`` at first use.
+with ``nvcc`` at first use and launches them with the plan each wrapper
+computes.
 """

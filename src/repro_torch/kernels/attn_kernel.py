@@ -24,11 +24,24 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "launch_plan",
+           "analysis_cases"]
 
 # Head dims the kernel is instantiated for (csrc/flash_attn.cu).
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernels' tiling (csrc/flash_attn.cu kThreads, kBQ, kBK): a block of
+# 128 threads per 64 query rows; the float32 kernel stages 64 keys of k
+# (rows padded to d + 4 floats) and of v in dynamic shared memory, and at
+# d = 128 also its 64 rows of q (padded to d + 4), which in registers
+# would spill.
+THREADS = 128
+BLOCK_Q = 64
+BLOCK_K = 64
+# The widest access the kernels make to q, k, v and o: bfloat16 in pairs,
+# float32 one value at a time; 4 bytes either way.
+_VECTOR_BYTES = 4
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,19 +86,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernel can read it in place (d contiguous; for
     bfloat16, which the kernel reads in pairs, even strides and a 4-byte
-    aligned start), else a contiguous copy."""
+    aligned start), else a contiguous copy.  The start's alignment is
+    ``storage_offset() * 2`` bytes past the storage's, which PyTorch's
+    caching allocator places on a boundary of at least 256 bytes."""
     ok = t.stride(-1) == 1
     if t.dtype == torch.bfloat16:
-        ok = ok and t.data_ptr() % 4 == 0 and all(st % 2 == 0 for st in t.stride()[:3])
+        ok = (ok and t.storage_offset() * t.element_size() % 4 == 0
+              and all(st % 2 == 0 for st in t.stride()[:3]))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _launcher():
-    fn = runtime.load("flash_attn").flash_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor) -> runtime.LaunchPlan:
+    """The launch of ``csrc/flash_attn.cu``: a block per (query tile of
+    BLOCK_Q rows, head, batch row); bfloat16 on the tensor-core kernel
+    (static shared memory only), float32 on the FMA kernel with its k and v
+    tiles (at d = 128 with its q rows) in dynamic shared memory, opted in
+    above 48 KB (d = 128)."""
+    B, Sq, H, d = q.shape
+    f32 = q.dtype == torch.float32
+    q_rows = BLOCK_Q * (d + 4) if d > 64 else 0
+    smem = 4 * (BLOCK_K * (2 * d + 4) + q_rows) if f32 else 0
+    return runtime.LaunchPlan(
+        f"flash_fwd_{'' if f32 else 'mma_'}kernel<{d}>",
+        grid=(runtime.cdiv(Sq, BLOCK_Q), H, B), block=(THREADS, 1, 1), dyn_smem=smem,
+        smem_optin=smem > runtime.HOPPER.smem_per_block,
+        operands=tuple(runtime.ptr(n, t, _VECTOR_BYTES)
+                       for n, t in (("q", q), ("k", k), ("v", v), ("o", out)))
+        + tuple(runtime.value(n, ctypes.c_int)
+                for n in ("dtype", "d", "batch", "sq", "sk", "heads", "kv_heads", "causal",
+                          "window"))
+        + (runtime.value("strides", ctypes.c_longlong * 9),))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,14 +142,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    guard, stream = runtime.launch_args(q)
-    with guard:
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          _DTYPE_CODE[q.dtype], d, B, Sq, Sk, H, Hkv, int(causal),
-                          window, strides, stream)
-    runtime.check(err, "flash_attn")
+    ints = (_DTYPE_CODE[q.dtype], d, B, Sq, Sk, H, Hkv, int(causal), window)
+    runtime.launch("flash_attn", "flash_attn_launch", launch_plan(q, k, v, out), q, k, v, out,
+                   *(ctypes.c_int(i) for i in ints), strides)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def analysis_cases():
+    """(label, fn, args) triples for the launch-plan lint
+    (:mod:`repro_torch.analysis.launch_checks`), ``args`` as (shape,
+    dtype) pairs made on the fake card: the reference's cases
+    (``repro.kernels.attn_kernel.analysis_cases``), then whisper-large-v3's
+    decoder self-attention as the prefill launches it, (4, 384, 20, 64)
+    bfloat16, causal, and d = 128 in float32, the one plan that opts in to
+    more than 48 KB."""
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def case(B, Sq, Sk, H, Hkv, d, dtype=f32, **kw):
+        return (lambda q, k, v: flash_attention(q, k, v, **kw),
+                (((B, Sq, H, d), dtype), ((B, Sk, Hkv, d), dtype), ((B, Sk, Hkv, d), dtype)))
+
+    return [
+        ("attn/S128-gqa-d64", *case(2, 128, 128, 4, 2, 64)),
+        ("attn/small-Sq4", *case(1, 4, 4, 2, 2, 64)),
+        ("attn/odd-S100-window", *case(1, 100, 100, 2, 1, 64, window=7)),
+        ("attn/bf16-S64", *case(1, 64, 64, 2, 2, 64, dtype=bf16)),
+        ("attn/whisper-B4-S384-H20-d64-bf16", *case(4, 384, 384, 20, 20, 64, dtype=bf16)),
+        ("attn/S256-d128-f32", *case(1, 256, 256, 4, 4, 128)),
+    ]

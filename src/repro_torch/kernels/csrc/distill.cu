@@ -30,7 +30,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
+#include "plan.cuh"
 
 namespace {
 
@@ -92,35 +92,45 @@ __global__ void distill_kernel(const TL* __restrict__ logits, const TT* __restri
 }
 
 template <typename TL, typename TT>
-int launch(const void* l, const void* t, void* out, long long rows, int v, int threads,
+int launch(const plan::Plan& p, const void* l, const void* t, void* out, int v,
            cudaStream_t stream) {
-  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  distill_kernel<TL, TT><<<static_cast<unsigned int>(rows), threads, 0, stream>>>(
-      static_cast<const TL*>(l), static_cast<const TT*>(t), static_cast<float*>(out), v);
-  return static_cast<int>(cudaGetLastError());
+  return plan::launch(distill_kernel<TL, TT>, p, stream, static_cast<const TL*>(l),
+                      static_cast<const TT*>(t), static_cast<float*>(out), v);
 }
+
+const plan::Kernel kKernels[] = {
+    {"distill_kernel<float,float>", reinterpret_cast<const void*>(&distill_kernel<float, float>)},
+    {"distill_kernel<float,bf16>",
+     reinterpret_cast<const void*>(&distill_kernel<float, __nv_bfloat16>)},
+    {"distill_kernel<bf16,float>",
+     reinterpret_cast<const void*>(&distill_kernel<__nv_bfloat16, float>)},
+    {"distill_kernel<bf16,bf16>",
+     reinterpret_cast<const void*>(&distill_kernel<__nv_bfloat16, __nv_bfloat16>)}};
 
 }  // namespace
 
+PLAN_KERNEL_TABLE(distill, kKernels)
+
 // logits, teacher: contiguous (rows, v); dtype codes 0 float32, 1 bfloat16,
-// each on its own.
-// out: (rows,) float32.  threads: a multiple of 32 (the card refuses more
-// than 1024).  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int distill_launch(const void* logits, const void* teacher, void* out,
-                              int l_dtype, int t_dtype, long long rows, int v,
-                              int threads, void* stream) {
+// each on its own.  out: (rows,) float32.  One block a row, the plan's grid
+// covering the rows (distill_kernel.launch_plan).  Refuses a block that is
+// not whole warps.  Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int distill_launch(const plan::Plan* p, const void* logits, const void* teacher,
+                              void* out, int l_dtype, int t_dtype, long long rows, int v,
+                              void* stream) {
   if (rows == 0) return 0;
-  if (threads <= 0 || threads % 32 != 0 || v <= 0 || l_dtype < 0 || l_dtype > 1 ||
-      t_dtype < 0 || t_dtype > 1) {
+  const long long threads = plan::threads(*p);
+  if (threads <= 0 || threads % 32 != 0 || p->block[1] != 1 || p->block[2] != 1 || v <= 0 ||
+      l_dtype < 0 || l_dtype > 1 || t_dtype < 0 || t_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (l_dtype * 2 + t_dtype) {
-    case 0: return launch<float, float>(logits, teacher, out, rows, v, threads, s);
-    case 1: return launch<float, __nv_bfloat16>(logits, teacher, out, rows, v, threads, s);
-    case 2: return launch<__nv_bfloat16, float>(logits, teacher, out, rows, v, threads, s);
-    case 3:
-      return launch<__nv_bfloat16, __nv_bfloat16>(logits, teacher, out, rows, v, threads, s);
+    case 0: return launch<float, float>(*p, logits, teacher, out, v, s);
+    case 1: return launch<float, __nv_bfloat16>(*p, logits, teacher, out, v, s);
+    case 2: return launch<__nv_bfloat16, float>(*p, logits, teacher, out, v, s);
+    case 3: return launch<__nv_bfloat16, __nv_bfloat16>(*p, logits, teacher, out, v, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

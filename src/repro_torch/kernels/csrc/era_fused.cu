@@ -28,9 +28,9 @@
 // logf/expf and the division are the precise library versions.
 #include <cuda_runtime.h>
 
-namespace {
+#include "plan.cuh"
 
-constexpr int kThreads = 128;
+namespace {
 
 __global__ void era_fused_kernel(const float* __restrict__ z,
                                  float* __restrict__ out,
@@ -76,23 +76,27 @@ __global__ void era_fused_kernel(const float* __restrict__ z,
   for (int e = threadIdx.x; e < elems; e += blockDim.x) ob[e] = vals[e];
 }
 
-// Rows per block: enough rows that one pass covers ~kThreads elements.
-int block_rows(int n) { return n >= kThreads ? 1 : kThreads / n; }
+const plan::Kernel kKernels[] = {
+    {"era_fused_kernel", reinterpret_cast<const void*>(&era_fused_kernel)}};
 
 }  // namespace
 
-// z: contiguous (k_clients, rows, n) float32; out: contiguous (rows, n).
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int era_fused_launch(const void* z, void* out, int k_clients,
-                                long long rows, int n, float beta,
-                                void* stream) {
+PLAN_KERNEL_TABLE(era_fused, kKernels)
+
+// z: contiguous (k_clients, rows, n) float32; out: contiguous (rows, n);
+// rows_per_block rows a block, their log values in the plan's dynamic
+// shared memory (era_kernel.launch_plan).  Refuses a plan whose shared
+// memory cannot hold rows_per_block rows.  Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int era_fused_launch(const plan::Plan* p, const void* z, void* out,
+                                int k_clients, long long rows, int n,
+                                int rows_per_block, float beta, void* stream) {
   if (rows == 0) return 0;
-  const int rpb = block_rows(n);
-  const long long blocks = (rows + rpb - 1) / rpb;
-  const size_t smem = static_cast<size_t>(rpb) * n * sizeof(float);
-  era_fused_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<float*>(out), k_clients, rows,
-      n, rpb, beta);
-  return static_cast<int>(cudaGetLastError());
+  if (rows_per_block < 1 ||
+      p->smem < static_cast<long long>(rows_per_block) * n * static_cast<long long>(sizeof(float))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return plan::launch(era_fused_kernel, *p, static_cast<cudaStream_t>(stream),
+                      static_cast<const float*>(z), static_cast<float*>(out), k_clients,
+                      rows, n, rows_per_block, beta);
 }

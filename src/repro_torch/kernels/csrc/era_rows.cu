@@ -20,8 +20,9 @@
 // do not, the kernel moves up to twice the bound's bytes (three reads and
 // a write against one of each).
 //
-// Layout: for N <= kWarpRowMaxN (the paper's N = 10) one warp per row,
-// blockDim/32 rows per block; above, one block per row.  Reductions use a
+// Layout (chosen by era_kernel.launch_plan): for N <= 1024 (the paper's
+// N = 10) one warp per row, blockDim/32 rows per block; above, one block
+// per row.  Reductions use a
 // fixed tree: an xor-shuffle butterfly in each warp (every lane ends with
 // the same value), then warp 0 combines the warps' partials in warp order,
 // so a row's result does not depend on timing.
@@ -37,12 +38,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cmath>
+
+#include "plan.cuh"
 
 namespace {
 
-constexpr int kWarpRowMaxN = 1024;
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -130,42 +131,44 @@ __global__ void era_rows_block(const T* __restrict__ z, T* __restrict__ out, int
 }
 
 template <typename T>
-int launch(const void* z, void* out, long long rows, int n, float beta,
-           const void* beta_ptr, int threads, cudaStream_t stream) {
+int launch(const plan::Plan& p, int layout, const void* z, void* out, long long rows,
+           int n, float beta, const void* beta_ptr, cudaStream_t stream) {
   const T* zt = static_cast<const T*>(z);
   T* ot = static_cast<T*>(out);
   const float* bp = static_cast<const float*>(beta_ptr);
-  if (n <= kWarpRowMaxN) {
-    const int per_block = threads / 32;
-    const long long blocks = (rows + per_block - 1) / per_block;
-    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-    era_rows_warp<T><<<static_cast<unsigned int>(blocks), threads, 0, stream>>>(
-        zt, ot, rows, n, beta, bp);
-  } else {
-    if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-    era_rows_block<T><<<static_cast<unsigned int>(rows), threads, 0, stream>>>(
-        zt, ot, n, beta, bp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (layout == 0) return plan::launch(era_rows_warp<T>, p, stream, zt, ot, rows, n, beta, bp);
+  return plan::launch(era_rows_block<T>, p, stream, zt, ot, n, beta, bp);
 }
+
+const plan::Kernel kKernels[] = {
+    {"era_rows_warp<float>", reinterpret_cast<const void*>(&era_rows_warp<float>)},
+    {"era_rows_warp<bf16>", reinterpret_cast<const void*>(&era_rows_warp<__nv_bfloat16>)},
+    {"era_rows_block<float>", reinterpret_cast<const void*>(&era_rows_block<float>)},
+    {"era_rows_block<bf16>", reinterpret_cast<const void*>(&era_rows_block<__nv_bfloat16>)}};
 
 }  // namespace
 
+PLAN_KERNEL_TABLE(era_rows, kKernels)
+
 // z, out: contiguous (rows, n) of one dtype (0 float32, 1 bfloat16).  beta_ptr,
-// when not null, points to a float32 on the card and replaces beta.
-// threads: a multiple of 32 (the card refuses more than 1024).  Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int era_rows_launch(const void* z, void* out, int dtype, long long rows,
-                               int n, float beta, const void* beta_ptr, int threads,
-                               void* stream) {
+// when not null, points to a float32 on the card and replaces beta.  layout 0
+// is a warp a row (era_rows_warp, block / 32 rows a block), 1 a block a row
+// (era_rows_block); the plan's grid covers the rows (era_kernel.launch_plan).
+// Refuses a block that is not whole warps.  Returns cudaGetLastError() after
+// the launch (0 on success).
+extern "C" int era_rows_launch(const plan::Plan* p, const void* z, void* out, int dtype,
+                               int layout, long long rows, int n, float beta,
+                               const void* beta_ptr, void* stream) {
   if (rows == 0) return 0;
-  if (threads <= 0 || threads % 32 != 0 || n <= 0) {
+  const long long threads = plan::threads(*p);
+  if (threads <= 0 || threads % 32 != 0 || p->block[1] != 1 || p->block[2] != 1 || n <= 0 ||
+      layout < 0 || layout > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(z, out, rows, n, beta, beta_ptr, threads, s);
-    case 1: return launch<__nv_bfloat16>(z, out, rows, n, beta, beta_ptr, threads, s);
+    case 0: return launch<float>(*p, layout, z, out, rows, n, beta, beta_ptr, s);
+    case 1: return launch<__nv_bfloat16>(*p, layout, z, out, rows, n, beta, beta_ptr, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -36,7 +36,8 @@
 //     operand layout, so p never leaves registers; a row's max and sum
 //     cross the four lanes that hold it by xor-shuffles.
 //   - float32: flash_fwd_kernel, on the FMA pipes (67 TFLOP/s): two
-//     threads per query row, each holding the row of q in registers,
+//     threads per query row, each holding the row of q in registers (at
+//     d = 128 in shared memory: registers would spill),
 //     scoring 32 of a tile's 64 keys (the interleaved keys 2i + half) and
 //     accumulating half of the output columns; k's tile rows are padded to
 //     d + 4 floats and v's columns owned in alternating float4 chunks so
@@ -53,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "plan.cuh"
 
 namespace {
 
@@ -118,14 +121,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + g * ks.h;
   const float* vb = v + b * vs.b + g * vs.h;
 
-  // the row of q in registers (a row past Sq reads the last row, never
-  // written back)
-  float qr[D];
+  // the row of q (a row past Sq reads the last row, never written back):
+  // in registers for D <= 64; at D = 128 those 128 registers with the
+  // accumulator and the scores spill (255 registers and 160 bytes of
+  // local memory), so the row is staged in shared memory after the v tile,
+  // rows padded to kLd floats, each half of the pair writing every other
+  // value (the first tile's barrier publishes them), and the scores loop
+  // over d outside the keys
+  constexpr bool kQShared = D > 64;
+  float qr[kQShared ? 1 : D];
+  float* q_row = v_tile + kBK * D + (tid >> 1) * kLd;
   {
     const float* qp = q + b * qs.b + static_cast<long long>(min(qi, sq - 1)) * qs.s
                       + h * qs.h;
+    if constexpr (kQShared) {
+      for (int c = half; c < D; c += 2) q_row[c] = qp[c];
+    } else {
 #pragma unroll
-    for (int c = 0; c < D; ++c) qr[c] = qp[c];
+      for (int c = 0; c < D; ++c) qr[c] = qp[c];
+    }
   }
 
   const TileRange tr = tile_range(iq, sq, sk, causal, window);
@@ -148,21 +162,48 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // scores of this thread's keys j0 + 2i + half
     float s[kKeys];
     float tmax = -INFINITY;
+    if constexpr (kQShared) {
+      // d outer, keys inner: each value of q is read once for all the keys,
+      // so no row of q is live in registers; each key's dot still adds its
+      // d products in order, as below
 #pragma unroll
-    for (int i = 0; i < kKeys; ++i) {
-      const int jr = 2 * i + half;
-      const float4* kr = reinterpret_cast<const float4*>(k_tile + jr * kLd);
-      float dot = 0.0f;
-#pragma unroll
+      for (int i = 0; i < kKeys; ++i) s[i] = 0.0f;
+      const float4* qv = reinterpret_cast<const float4*>(q_row);
+#pragma unroll 2
       for (int c4 = 0; c4 < D / 4; ++c4) {
-        const float4 kk = kr[c4];
-        dot += qr[4 * c4] * kk.x;
-        dot += qr[4 * c4 + 1] * kk.y;
-        dot += qr[4 * c4 + 2] * kk.z;
-        dot += qr[4 * c4 + 3] * kk.w;
+        const float4 qq = qv[c4];
+#pragma unroll
+        for (int i = 0; i < kKeys; ++i) {
+          const float4 kk = reinterpret_cast<const float4*>(k_tile + (2 * i + half) * kLd)[c4];
+          s[i] += qq.x * kk.x;
+          s[i] += qq.y * kk.y;
+          s[i] += qq.z * kk.z;
+          s[i] += qq.w * kk.w;
+        }
       }
-      s[i] = key_valid(j0 + jr, qi, sk, causal, window) ? dot / sqrt_d : -INFINITY;
-      tmax = fmaxf(tmax, s[i]);
+#pragma unroll
+      for (int i = 0; i < kKeys; ++i) {
+        s[i] = key_valid(j0 + 2 * i + half, qi, sk, causal, window) ? s[i] / sqrt_d
+                                                                     : -INFINITY;
+        tmax = fmaxf(tmax, s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kKeys; ++i) {
+        const int jr = 2 * i + half;
+        const float4* kr = reinterpret_cast<const float4*>(k_tile + jr * kLd);
+        float dot = 0.0f;
+#pragma unroll
+        for (int c4 = 0; c4 < D / 4; ++c4) {
+          const float4 kk = kr[c4];
+          dot += qr[4 * c4] * kk.x;
+          dot += qr[4 * c4 + 1] * kk.y;
+          dot += qr[4 * c4 + 2] * kk.z;
+          dot += qr[4 * c4 + 3] * kk.w;
+        }
+        s[i] = key_valid(j0 + jr, qi, sk, causal, window) ? dot / sqrt_d : -INFINITY;
+        tmax = fmaxf(tmax, s[i]);
+      }
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
@@ -480,40 +521,40 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// The float32 kernel's dynamic shared memory: the k tile (kBK rows of
+// D + 4 floats), the v tile (kBK rows of D) and, for D > 64, the block's
+// q rows (kBQ rows of D + 4).  The launcher refuses a plan with less
+// (attn_kernel.launch_plan computes it).
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int batch,
+constexpr long long f32_smem() {
+  return static_cast<long long>(sizeof(float)) *
+         (kBK * (2 * D + 4) + (D > 64 ? kBQ * (D + 4) : 0));
+}
+
+template <int D>
+int launch_f32(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
                int sq, int sk, int heads, int kv_heads, int causal, int window,
                const long long* st, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kBK * (2 * D + 4);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, heads,
-      heads / kv_heads, causal, window, Strides{st[0], st[1], st[2]},
-      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]});
-  return static_cast<int>(cudaGetLastError());
+  if (p.smem < f32_smem<D>()) return static_cast<int>(cudaErrorInvalidValue);
+  return plan::launch(flash_fwd_kernel<D>, p, stream, static_cast<const float*>(q),
+                      static_cast<const float*>(k), static_cast<const float*>(v),
+                      static_cast<float*>(o), sq, sk, heads, heads / kv_heads, causal,
+                      window, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+                      Strides{st[6], st[7], st[8]});
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int batch, int sq, int sk, int heads, int kv_heads, int causal,
-                int window, const long long* st, cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_mma_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, heads, heads / kv_heads, causal, window, Strides{st[0], st[1], st[2]},
-      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]});
-  return static_cast<int>(cudaGetLastError());
+int launch_bf16(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
+                int sq, int sk, int heads, int kv_heads, int causal, int window,
+                const long long* st, cudaStream_t stream) {
+  return plan::launch(flash_fwd_mma_kernel<D>, p, stream,
+                      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
+                      sk, heads, heads / kv_heads, causal, window, Strides{st[0], st[1], st[2]},
+                      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]});
 }
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
+using Launch = int (*)(const plan::Plan&, const void*, const void*, const void*, void*, int,
                        int, int, int, int, int, const long long*, cudaStream_t);
 
 Launch pick(int dtype, int d) {
@@ -526,25 +567,40 @@ Launch pick(int dtype, int d) {
   }
 }
 
+const plan::Kernel kKernels[] = {
+    {"flash_fwd_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_kernel<32>)},
+    {"flash_fwd_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_kernel<64>)},
+    {"flash_fwd_kernel<128>", reinterpret_cast<const void*>(&flash_fwd_kernel<128>)},
+    {"flash_fwd_mma_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<32>)},
+    {"flash_fwd_mma_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<64>)},
+    {"flash_fwd_mma_kernel<128>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<128>)}};
+
 }  // namespace
+
+PLAN_KERNEL_TABLE(flash_attn, kKernels)
 
 // q: (batch, sq, heads, d), k and v: (batch, sk, kv_heads, d), each with
 // element strides st[0..2] (q), st[3..5] (k), st[6..8] (v) over its batch,
 // sequence and head axes and d contiguous; o: contiguous (batch, sq, heads,
 // d) of the same type.  dtype 0 is float32, 1 bfloat16 (then every stride
 // even and every pointer 4-byte aligned: the kernel reads bf16 pairs); d
-// is 32, 64 or 128; heads a multiple of kv_heads; sk >= 1.  Returns
-// cudaGetLastError() after the launch (0 on success); a grid past the
-// card's limits (heads or batch above 65535) is refused there.
-extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int dtype, int d, int batch, int sq,
-                                 int sk, int heads, int kv_heads, int causal,
-                                 int window, const long long* st,
-                                 void* stream) {
+// is 32, 64 or 128; heads a multiple of kv_heads; sk >= 1.  The plan
+// (attn_kernel.launch_plan): a block of kThreads threads per (query tile of
+// kBQ rows, head, batch), grid (query tiles, heads, batch); for float32 the
+// k and v tiles (and at d = 128 the q rows) in dynamic shared memory, opted
+// in above 48 KB.  Refuses
+// another block, or too little shared memory for the float32 tiles.
+// Returns cudaGetLastError() after the launch (0 on success); a grid past
+// the card's limits (heads or batch above 65535) is refused there.
+extern "C" int flash_attn_launch(const plan::Plan* p, const void* q, const void* k,
+                                 const void* v, void* o, int dtype, int d, int batch,
+                                 int sq, int sk, int heads, int kv_heads, int causal,
+                                 int window, const long long* st, void* stream) {
   if (batch == 0 || sq == 0 || heads == 0) return 0;
   const Launch fn = dtype == 0 || dtype == 1 ? pick(dtype, d) : nullptr;
-  if (fn == nullptr || sk < 1 || kv_heads < 1 || heads % kv_heads != 0)
+  if (fn == nullptr || sk < 1 || kv_heads < 1 || heads % kv_heads != 0 ||
+      p->block[0] != kThreads || p->block[1] != 1 || p->block[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, window, st,
+  return fn(*p, q, k, v, o, sq, sk, heads, kv_heads, causal, window, st,
             static_cast<cudaStream_t>(stream));
 }

@@ -58,9 +58,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "plan.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;    // rows (warps) per block
 constexpr int kChunk = 16;   // classes accumulated in registers per pass
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -163,7 +164,7 @@ __device__ __forceinline__ float sharpen_log(const Args& a, float zsum) {
 __global__ void fused_round_kernel(Args a) {
   const int lane = threadIdx.x & 31;
   const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= a.rows) return;  // the whole warp leaves together
   const long long plane = a.rows * static_cast<long long>(a.n);
   const float* br = a.base != nullptr ? a.base + row * a.n : nullptr;
@@ -204,23 +205,31 @@ __global__ void fused_round_kernel(Args a) {
   }
 }
 
+const plan::Kernel kKernels[] = {
+    {"fused_round_kernel", reinterpret_cast<const void*>(&fused_round_kernel)}};
+
 }  // namespace
+
+PLAN_KERNEL_TABLE(fused_round, kKernels)
 
 // z: contiguous (k_clients, rows, n) float32; w: (k_clients,); base:
 // contiguous (rows, n) for mode 2 (delta), else null; out: contiguous
 // (rows, n).  mode: 0 identity, 1 quant, 2 delta; levels: 2^bits - 1 or 0
-// for no min-max code.  Returns cudaGetLastError() after the launch.
-extern "C" int fused_round_launch(const void* z, const void* w,
+// for no min-max code.  A warp a row, block / 32 rows a block, the plan's
+// grid covering the rows (round_kernel.launch_plan).  Refuses a block that
+// is not whole warps.  Returns cudaGetLastError() after the launch.
+extern "C" int fused_round_launch(const plan::Plan* p, const void* z, const void* w,
                                   const void* base, void* out, int k_clients,
                                   long long rows, int n, int mode,
                                   float levels, int sharpen, float beta,
                                   void* stream) {
   if (rows == 0) return 0;
+  const long long threads = plan::threads(*p);
+  if (threads <= 0 || threads % 32 != 0 || p->block[1] != 1 || p->block[2] != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args a{static_cast<const float*>(z), static_cast<const float*>(w),
          static_cast<const float*>(base), static_cast<float*>(out),
          k_clients, rows, n, mode, levels, sharpen, beta};
-  const long long blocks = (rows + kWarps - 1) / kWarps;
-  fused_round_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return plan::launch(fused_round_kernel, *p, static_cast<cudaStream_t>(stream), a);
 }

@@ -26,9 +26,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "plan.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 __global__ void qdq_kernel(const float* __restrict__ z, float* __restrict__ out,
                            long long rows, int n, long long ld, float levels) {
@@ -52,17 +52,20 @@ __global__ void qdq_kernel(const float* __restrict__ z, float* __restrict__ out,
   }
 }
 
+const plan::Kernel kKernels[] = {{"qdq_kernel", reinterpret_cast<const void*>(&qdq_kernel)}};
+
 }  // namespace
 
+PLAN_KERNEL_TABLE(qdq, kKernels)
+
 // z: (rows, n) float32 with row stride ld and unit class stride;
-// out: contiguous (rows, n).  Returns cudaGetLastError() after the launch.
-extern "C" int qdq_launch(const void* z, void* out, long long rows, int n,
-                          long long ld, float levels, void* stream) {
+// out: contiguous (rows, n); one thread a row, the plan's grid covering
+// the rows (quant_kernel.launch_plan).  Returns cudaGetLastError() after
+// the launch.
+extern "C" int qdq_launch(const plan::Plan* p, const void* z, void* out, long long rows,
+                          int n, long long ld, float levels, void* stream) {
   if (rows == 0) return 0;
-  const long long blocks = (rows + kThreads - 1) / kThreads;
-  qdq_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<float*>(out), rows, n, ld,
-      levels);
-  return static_cast<int>(cudaGetLastError());
+  return plan::launch(qdq_kernel, *p, static_cast<cudaStream_t>(stream),
+                      static_cast<const float*>(z), static_cast<float*>(out), rows, n,
+                      ld, levels);
 }

@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["distill_loss", "distill_loss_plain", "THREADS"]
+__all__ = ["distill_loss", "distill_loss_plain", "THREADS", "launch_plan", "analysis_cases"]
 
 # Threads a block (a multiple of 32); one block a row.
 THREADS = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAME = {torch.float32: "float", torch.bfloat16: "bf16"}
 
 
 def distill_loss_plain(logits: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
@@ -31,12 +32,18 @@ def distill_loss_plain(logits: torch.Tensor, teacher: torch.Tensor) -> torch.Ten
     return torch.logsumexp(l32, -1) * t32.sum(-1) - (t32 * l32).sum(-1)
 
 
-def _launcher():
-    fn = runtime.load("distill").distill_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def launch_plan(logits: torch.Tensor, teacher: torch.Tensor,
+                out: torch.Tensor) -> runtime.LaunchPlan:
+    """The launch of ``csrc/distill.cu`` over contiguous (B, V) inputs: one
+    block of THREADS threads a row."""
+    B = logits.shape[0]
+    return runtime.LaunchPlan(
+        f"distill_kernel<{_DTYPE_NAME[logits.dtype]},{_DTYPE_NAME[teacher.dtype]}>",
+        grid=(B, 1, 1), block=(THREADS, 1, 1),
+        operands=(runtime.ptr("logits", logits), runtime.ptr("teacher", teacher),
+                  runtime.ptr("out", out), runtime.value("l_dtype", ctypes.c_int),
+                  runtime.value("t_dtype", ctypes.c_int),
+                  runtime.value("rows", ctypes.c_longlong), runtime.value("v", ctypes.c_int)))
 
 
 def distill_loss(logits: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
@@ -63,14 +70,30 @@ def distill_loss(logits: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B,), dtype=torch.float32, device=logits.device)
     if B == 0:
         return out
-    guard, stream = runtime.launch_args(logits)
-    with guard:
-        err = _launcher()(logits.data_ptr(), teacher.data_ptr(), out.data_ptr(),
-                          _DTYPE_CODE[logits.dtype], _DTYPE_CODE[teacher.dtype], B, V,
-                          THREADS, stream)
-    runtime.check(err, "distill")
+    runtime.launch("distill", "distill_launch", launch_plan(logits, teacher, out), logits,
+                   teacher, out, ctypes.c_int(_DTYPE_CODE[logits.dtype]),
+                   ctypes.c_int(_DTYPE_CODE[teacher.dtype]), ctypes.c_longlong(B),
+                   ctypes.c_int(V))
     distill_loss.launches += 1
     return out
 
 
 distill_loss.launches = 0
+
+
+def analysis_cases():
+    """(label, fn, args) triples for the launch-plan lint
+    (:mod:`repro_torch.analysis.launch_checks`), ``args`` as (shape,
+    dtype) pairs made on the fake card: the reference's cases
+    (``repro.kernels.distill_kernel.analysis_cases``; its odd Pallas
+    blocks have no counterpart here, the shape stays), then whisper's
+    prefill logits against a teacher as the main path launches them,
+    (1536, 51968) float32, and a bfloat16 teacher."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("distill/B100-V163840", distill_loss, (((100, 163840), f32), ((100, 163840), f32))),
+        ("distill/B13-V1000-oddblocks", distill_loss, (((13, 1000), f32), ((13, 1000), f32))),
+        ("distill/B1536-V51968", distill_loss, (((1536, 51968), f32), ((1536, 51968), f32))),
+        ("distill/B1536-V51968-bf16-teacher", distill_loss,
+         (((1536, 51968), f32), ((1536, 51968), bf16))),
+    ]

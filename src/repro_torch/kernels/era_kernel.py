@@ -18,13 +18,15 @@ mass at beta < 1 (ROADMAP, Queue C).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import runtime
 
 __all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES",
-           "enhanced_era", "enhanced_era_plain", "THREADS"]
+           "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS",
+           "WARP_ROW_MAX_N", "fused_launch_plan", "rows_launch_plan", "analysis_cases"]
 
 _EPS = 1e-12
 
@@ -32,9 +34,15 @@ _EPS = 1e-12
 # gets without opting in to more.
 MAX_CLASSES = 12288
 
-# Threads a block of the per-row kernel (a multiple of 32): 8 rows a block
-# for N <= 1024, one row a block above.
+# Threads a block of the fused kernel; rows a block: enough that one pass
+# covers about FUSED_THREADS values.
+FUSED_THREADS = 128
+
+# Threads a block of the per-row kernel (a multiple of 32): a warp a row,
+# 8 rows a block, for N <= WARP_ROW_MAX_N; one row a block above.
 THREADS = 256
+WARP_ROW_MAX_N = 1024
+_DTYPE_NAME = {torch.float32: "float", torch.bfloat16: "bf16"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -53,13 +61,27 @@ def enhanced_era_fused_plain(z: torch.Tensor, beta) -> torch.Tensor:
     return enhanced_era_plain(runtime.divide(z.sum(0), float(z.shape[0])), beta)
 
 
-def _launcher():
-    fn = runtime.load("era_fused").era_fused_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _fused_rows_per_block(n: int) -> int:
+    return 1 if n >= FUSED_THREADS else FUSED_THREADS // n
+
+
+def fused_launch_plan(z: torch.Tensor, out: torch.Tensor,
+                      beta_source: str = "python") -> runtime.LaunchPlan:
+    """The launch of ``csrc/era_fused.cu`` over the contiguous (K, B, N)
+    ``z``: ``rows_per_block`` rows a block (one row when N >= 128), their
+    N log values each in dynamic shared memory.  At N = MAX_CLASSES one
+    row fills the 48 KB a block gets without opting in; the kernel never
+    opts in."""
+    _K, B, N = z.shape
+    rpb = _fused_rows_per_block(N)
+    return runtime.LaunchPlan(
+        "era_fused_kernel", grid=(runtime.cdiv(B, rpb), 1, 1), block=(FUSED_THREADS, 1, 1),
+        dyn_smem=rpb * N * 4,
+        operands=(runtime.ptr("z", z), runtime.ptr("out", out),
+                  runtime.value("k_clients", ctypes.c_int),
+                  runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
+                  runtime.value("rows_per_block", ctypes.c_int),
+                  runtime.value("beta", ctypes.c_float, beta_source)))
 
 
 def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
@@ -82,11 +104,11 @@ def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
     out = torch.empty((B, N), dtype=z.dtype, device=z.device)
     if B == 0:
         return out
-    guard, stream = runtime.launch_args(z)
-    with guard:
-        err = _launcher()(z.data_ptr(), out.data_ptr(), K, B, N,
-                          float(beta), stream)
-    runtime.check(err, "era_fused")
+    beta_val, beta_source = runtime.host_value(beta)
+    plan = fused_launch_plan(z, out, beta_source)
+    runtime.launch("era_fused", "era_fused_launch", plan, z, out, ctypes.c_int(K),
+                   ctypes.c_longlong(B), ctypes.c_int(N),
+                   ctypes.c_int(_fused_rows_per_block(N)), ctypes.c_float(beta_val))
     enhanced_era_fused.launches += 1
     return out
 
@@ -109,13 +131,25 @@ def _beta_arg(beta, z: torch.Tensor):
     return 0.0, beta.reshape(()).to(torch.float32)
 
 
-def _rows_launcher():
-    fn = runtime.load("era_rows").era_rows_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _warp_per_row(n: int) -> bool:
+    return n <= WARP_ROW_MAX_N
+
+
+def rows_launch_plan(z: torch.Tensor, out: torch.Tensor,
+                     beta_t: Optional[torch.Tensor]) -> runtime.LaunchPlan:
+    """The launch of ``csrc/era_rows.cu`` over the contiguous (B, N) ``z``:
+    a warp a row (THREADS / 32 rows a block) for N <= WARP_ROW_MAX_N, a
+    block a row above; beta by pointer when ``beta_t`` is given."""
+    B, N = z.shape
+    warp = _warp_per_row(N)
+    grid = runtime.cdiv(B, THREADS // 32) if warp else B
+    return runtime.LaunchPlan(
+        f"era_rows_{'warp' if warp else 'block'}<{_DTYPE_NAME[z.dtype]}>",
+        grid=(grid, 1, 1), block=(THREADS, 1, 1),
+        operands=(runtime.ptr("z", z), runtime.ptr("out", out),
+                  runtime.value("dtype", ctypes.c_int), runtime.value("layout", ctypes.c_int),
+                  runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
+                  runtime.value("beta", ctypes.c_float), runtime.ptr("beta_ptr", beta_t)))
 
 
 def enhanced_era(z: torch.Tensor, beta) -> torch.Tensor:
@@ -141,14 +175,42 @@ def enhanced_era(z: torch.Tensor, beta) -> torch.Tensor:
     out = torch.empty((B, N), dtype=z.dtype, device=z.device)
     if B == 0:
         return out
-    guard, stream = runtime.launch_args(z)
-    with guard:
-        err = _rows_launcher()(z.data_ptr(), out.data_ptr(), _DTYPE_CODE[z.dtype], B, N,
-                               beta_val, None if beta_t is None else beta_t.data_ptr(),
-                               THREADS, stream)
-    runtime.check(err, "era_rows")
+    runtime.launch("era_rows", "era_rows_launch", rows_launch_plan(z, out, beta_t), z, out,
+                   ctypes.c_int(_DTYPE_CODE[z.dtype]), ctypes.c_int(0 if _warp_per_row(N) else 1),
+                   ctypes.c_longlong(B), ctypes.c_int(N), ctypes.c_float(beta_val), beta_t)
     enhanced_era.launches += 1
     return out
 
 
 enhanced_era.launches = 0
+
+
+def analysis_cases():
+    """(label, fn, args) triples for the launch-plan lint
+    (:mod:`repro_torch.analysis.launch_checks`), ``args`` as (shape,
+    dtype) pairs made on the fake card: the reference's cases
+    (``repro.kernels.era_kernel.analysis_cases``), then the shapes the
+    main path launches (the slice's (100, 1000, 10) stack; whisper's
+    (1536, 51968) vocabulary as soft-labels, in float32 and bfloat16; beta
+    on the card), and the fused kernel at its limit: N = MAX_CLASSES fills
+    48 KB exactly, and N = MAX_CLASSES + 1 is refused by the wrapper (a
+    fourth element names the exception the case must raise)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("era/B1000-N10", lambda z: enhanced_era(z, 1.5), (((1000, 10), f32),)),
+        ("era/B10-N10", lambda z: enhanced_era(z, 1.5), (((10, 10), f32),)),
+        ("era_fused/K200-B100-N10", lambda z: enhanced_era_fused(z, 1.5),
+         (((200, 100, 10), f32),)),
+        ("era_fused/K1000-B1000-N100", lambda z: enhanced_era_fused(z, 1.5),
+         (((1000, 1000, 100), f32),)),
+        ("era_fused/K100-B1000-N10", lambda z: enhanced_era_fused(z, 1.5),
+         (((100, 1000, 10), f32),)),
+        ("era_fused/K2-B3-N12288", lambda z: enhanced_era_fused(z, 1.5),
+         (((2, 3, MAX_CLASSES), f32),)),
+        ("era_fused/K2-B3-N12289", lambda z: enhanced_era_fused(z, 1.5),
+         (((2, 3, MAX_CLASSES + 1), f32),), ValueError),
+        ("era/B1536-N51968", lambda z: enhanced_era(z, 1.5), (((1536, 51968), f32),)),
+        ("era/B1536-N51968-bf16", lambda z: enhanced_era(z, 1.5), (((1536, 51968), bf16),)),
+        ("era/B1000-N10-beta-on-card", lambda z, b: enhanced_era(z, b),
+         (((1000, 10), f32), ((), f32))),
+    ]

@@ -3,19 +3,21 @@
 ERA kernels here, ``core/losses`` the distillation loss kernel, the quant
 codecs the quantize-dequantize kernel, the device engine's fused path the
 fused round kernel, and the model zoo's eligible attention
-(``models/common.attention``) the flash attention kernel.  Each kernel
-wrapper runs its plain PyTorch version for CPU tensors and its CUDA kernel
-for CUDA tensors."""
+(``models/common.attention``) the flash attention kernel, and the static
+analyzer's selftest (``repro_torch.analysis``) the three fixture kernels.
+Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
+CUDA kernel for CUDA tensors."""
 import torch
 
-from repro_torch.kernels import distill_kernel, era_kernel
+from repro_torch.kernels import distill_kernel, era_kernel, fixture_kernel
 from repro_torch.kernels.attn_kernel import flash_attention  # noqa: F401
 from repro_torch.kernels.era_kernel import enhanced_era_fused  # noqa: F401
 from repro_torch.kernels.quant_kernel import quantize_dequantize  # noqa: F401
 from repro_torch.kernels.round_kernel import fused_round  # noqa: F401
 
 KERNELS = (enhanced_era_fused, quantize_dequantize, fused_round, flash_attention,
-           era_kernel.enhanced_era, distill_kernel.distill_loss)
+           era_kernel.enhanced_era, distill_kernel.distill_loss, fixture_kernel.copy_vec4,
+           fixture_kernel.scale, fixture_kernel.copy_smem)
 
 
 def enhanced_era(z_mean: torch.Tensor, beta) -> torch.Tensor:

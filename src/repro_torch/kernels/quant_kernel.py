@@ -15,9 +15,13 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["quantize_dequantize", "quantize_dequantize_plain"]
+__all__ = ["quantize_dequantize", "quantize_dequantize_plain", "launch_plan",
+           "analysis_cases", "THREADS"]
 
 _EPS_SCALE = 1e-9
+
+# Threads a block; one thread a row.
+THREADS = 256
 
 
 def _levels(bits: int) -> float:
@@ -39,13 +43,17 @@ def quantize_dequantize_plain(z: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp(q, 0.0, 1.0) * scale + zmin
 
 
-def _launcher():
-    fn = runtime.load("qdq").qdq_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def launch_plan(flat: torch.Tensor, out: torch.Tensor) -> runtime.LaunchPlan:
+    """The launch of ``csrc/qdq.cu`` over the (rows, N) rows ``flat`` (row
+    stride ``flat.stride(0)``, unit class stride) into ``out``: one
+    thread a row."""
+    rows = flat.shape[0]
+    return runtime.LaunchPlan(
+        "qdq_kernel", grid=(runtime.cdiv(rows, THREADS), 1, 1), block=(THREADS, 1, 1),
+        operands=(runtime.ptr("z", flat), runtime.ptr("out", out),
+                  runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
+                  runtime.value("ld", ctypes.c_longlong),
+                  runtime.value("levels", ctypes.c_float)))
 
 
 def quantize_dequantize(z: torch.Tensor, bits: int) -> torch.Tensor:
@@ -75,13 +83,29 @@ def quantize_dequantize(z: torch.Tensor, bits: int) -> torch.Tensor:
     out = torch.empty((rows, N), dtype=z.dtype, device=z.device)
     if rows == 0:
         return out.reshape(z.shape)
-    guard, stream = runtime.launch_args(flat)
-    with guard:
-        err = _launcher()(flat.data_ptr(), out.data_ptr(), rows, N,
-                          flat.stride(0), levels, stream)
-    runtime.check(err, "qdq")
+    runtime.launch("qdq", "qdq_launch", launch_plan(flat, out), flat, out,
+                   ctypes.c_longlong(rows), ctypes.c_int(N),
+                   ctypes.c_longlong(flat.stride(0)), ctypes.c_float(levels))
     quantize_dequantize.launches += 1
     return out.reshape(z.shape)
 
 
 quantize_dequantize.launches = 0
+
+
+def analysis_cases():
+    """(label, fn, args) triples for the launch-plan lint
+    (:mod:`repro_torch.analysis.launch_checks`): the reference's cases
+    (``repro.kernels.quant_kernel.analysis_cases``), then the shapes the
+    main path launches (the cache-delta residual view of the slice's
+    (100, 1000, 10) stack).  ``args`` are (shape, dtype) pairs or
+    callables making the input; the lint makes them on the fake card."""
+    f32 = torch.float32
+    return [
+        ("quant/B1000-N10-bits8", lambda z: quantize_dequantize(z, 8),
+         (((1000, 10), f32),)),
+        ("quant/B10-N1-bits1", lambda z: quantize_dequantize(z, 1), (((10, 1), f32),)),
+        ("quant/residual-K100-M1000-N10-bits8",
+         lambda z, b: quantize_dequantize((z - b)[..., :-1], 8),
+         (((100, 1000, 10), f32), ((1000, 10), f32))),
+    ]

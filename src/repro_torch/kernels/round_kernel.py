@@ -34,7 +34,7 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.quant_kernel import _levels, quantize_dequantize_plain
 
 __all__ = ["MODES", "fused_round", "fused_round_plain", "resolve_delta_base",
-           "codec_kernel_spec"]
+           "codec_kernel_spec", "launch_plan", "analysis_cases", "THREADS"]
 
 # the reference's epsilons (round_kernel.py:66-68): one-step parity with
 # the per-op chain depends on using the same ones
@@ -43,6 +43,9 @@ _EPS_SIMPLEX = 1e-9
 
 MODES = ("identity", "quant", "delta")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
+
+# Threads a block: a warp a row, 4 rows a block.
+THREADS = 128
 
 
 def _check(z, weights, beta, base, mode, bits, sharpen):
@@ -109,14 +112,20 @@ def fused_round_plain(z: torch.Tensor, weights: torch.Tensor, beta=None,
     return e / _sum(e, -1)
 
 
-def _launcher():
-    fn = runtime.load("fused_round").fused_round_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def launch_plan(z: torch.Tensor, weights: torch.Tensor, base: Optional[torch.Tensor],
+                out: torch.Tensor, beta_source: str = "python") -> runtime.LaunchPlan:
+    """The launch of ``csrc/fused_round.cu`` over the contiguous (K, m, N)
+    ``z``: a warp an output row, THREADS / 32 rows a block."""
+    m = z.shape[1]
+    return runtime.LaunchPlan(
+        "fused_round_kernel", grid=(runtime.cdiv(m, THREADS // 32), 1, 1),
+        block=(THREADS, 1, 1),
+        operands=(runtime.ptr("z", z), runtime.ptr("w", weights), runtime.ptr("base", base),
+                  runtime.ptr("out", out), runtime.value("k_clients", ctypes.c_int),
+                  runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
+                  runtime.value("mode", ctypes.c_int), runtime.value("levels", ctypes.c_float),
+                  runtime.value("sharpen", ctypes.c_int),
+                  runtime.value("beta", ctypes.c_float, beta_source)))
 
 
 def fused_round(z: torch.Tensor, weights: torch.Tensor, beta=None,
@@ -149,19 +158,41 @@ def fused_round(z: torch.Tensor, weights: torch.Tensor, beta=None,
     if m == 0:
         return out
     levels = _levels(bits) if bits is not None else 0.0
-    guard, stream = runtime.launch_args(z)
-    with guard:
-        err = _launcher()(z.data_ptr(), weights.data_ptr(),
-                          base.data_ptr() if base is not None else None,
-                          out.data_ptr(), K, m, N, _MODE_ID[mode],
-                          levels, int(sharpen),
-                          float(beta) if sharpen else 0.0, stream)
-    runtime.check(err, "fused_round")
+    beta_val, beta_source = runtime.host_value(beta if sharpen else 0.0)
+    runtime.launch("fused_round", "fused_round_launch",
+                   launch_plan(z, weights, base, out, beta_source), z, weights, base, out,
+                   ctypes.c_int(K), ctypes.c_longlong(m), ctypes.c_int(N),
+                   ctypes.c_int(_MODE_ID[mode]), ctypes.c_float(levels),
+                   ctypes.c_int(int(sharpen)), ctypes.c_float(beta_val))
     fused_round.launches += 1
     return out
 
 
 fused_round.launches = 0
+
+
+def analysis_cases():
+    """(label, fn, args) triples for the launch-plan lint
+    (:mod:`repro_torch.analysis.launch_checks`), ``args`` as (shape,
+    dtype) pairs made on the fake card: the reference's cases
+    (``repro.kernels.round_kernel.analysis_cases``), then the slice's
+    (100, 1000, 10) stack through delta+quant8 as the fused device engine
+    launches it."""
+    f32 = torch.float32
+    return [
+        ("round/identity-sharpen-K200",
+         lambda z, w: fused_round(z, w, 1.5, mode="identity", sharpen=True),
+         (((200, 100, 10), f32), ((200,), f32))),
+        ("round/quant8-sharpen-K1000",
+         lambda z, w: fused_round(z, w, 1.5, mode="quant", bits=8, sharpen=True),
+         (((1000, 64, 10), f32), ((1000,), f32))),
+        ("round/delta8-linear-K50",
+         lambda z, w, b: fused_round(z, w, None, b, mode="delta", bits=8, sharpen=False),
+         (((50, 24, 10), f32), ((50,), f32), ((24, 10), f32))),
+        ("round/delta8-sharpen-K100-M1000-N10",
+         lambda z, w, b: fused_round(z, w, 1.5, b, mode="delta", bits=8, sharpen=True),
+         (((100, 1000, 10), f32), ((100,), f32), ((1000, 10), f32))),
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 import repro_torch.fl as pfl
 from repro_torch.core import era as pera
 from repro_torch.core import losses as plosses
-from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, ops,
+from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, fixture_kernel, ops,
                                  quant_kernel, round_kernel, runtime)
 
 pytestmark = pytest.mark.cuda
@@ -127,7 +127,8 @@ def test_device_engine_runs_without_host_sync(dev, fused):
     want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": n}
             if fused else
             {"enhanced_era_fused": n, "quantize_dequantize": n, "fused_round": 0})
-    assert ops.launches() == dict(want, flash_attention=0, enhanced_era=0, distill_loss=0)
+    assert ops.launches() == dict(want, flash_attention=0, enhanced_era=0, distill_loss=0,
+                                  copy_vec4=0, scale=0, copy_smem=0)
     assert h.ledger.summary()["rounds"] == float(n)
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
@@ -366,3 +367,95 @@ def test_row_kernel_wrappers_raise_on_a_refused_launch(dev, monkeypatch):
         distill_kernel.distill_loss(z, z)
     assert ops.launches()["enhanced_era"] == 0 and ops.launches()["distill_loss"] == 0
     torch.cuda.synchronize()  # the refusal left the context usable
+
+
+# ---------------------------------------------------------------------------
+# The static analyzer's fixture kernels and the compiled kernels' attributes
+# ---------------------------------------------------------------------------
+
+def _card_normal(seed, shape, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(100, 128), (4096, 1024), (3, 4)])
+def test_fixture_copies_match_plain(dev, shape):
+    x = _card_normal(sum(shape), shape, dev)
+    ops.reset_launches()
+    assert torch.equal(fixture_kernel.copy_vec4(x), fixture_kernel.copy_plain(x))
+    assert torch.equal(fixture_kernel.copy_smem(x), fixture_kernel.copy_plain(x))
+    assert ops.launches()["copy_vec4"] == 1 and ops.launches()["copy_smem"] == 1
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_fixture_scale_matches_plain(dev, sync):
+    x, s = _card_normal(1, (16, 128), dev), _card_normal(2, (1,), dev)
+    assert torch.equal(fixture_kernel.scale(x, s, sync=sync), fixture_kernel.scale_plain(x, s))
+
+
+def test_fixture_hog_is_refused_then_a_valid_launch_runs(dev):
+    """32 MiB of shared memory: the card refuses the opt-in, nothing is
+    launched or counted, and the error is not sticky."""
+    x = _card_normal(3, (4096, 1024), dev)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match=r"cudaError 1$"):
+        fixture_kernel.copy_smem(x, fixture_kernel.HOG_TILE)
+    assert ops.launches()["copy_smem"] == 0
+    assert torch.equal(fixture_kernel.copy_smem(x), x)
+    assert ops.launches()["copy_smem"] == 1
+
+
+def test_fixture_misaligned_copy_faults_in_a_child_process(dev):
+    """The float4 copy of a view 4 bytes into its storage stops on the card
+    with cudaErrorMisalignedAddress (716), which is sticky: a child
+    process runs it."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from repro_torch.kernels import fixture_kernel\n"
+            "base = torch.zeros(100 * 128 + 1, device='cuda')\n"
+            "x = base[1:].view(100, 128)\n"
+            "fixture_kernel.copy_vec4(x)\n"
+            "torch.cuda.synchronize()\n")
+    src = str(__import__("pathlib").Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       timeout=300)
+    assert p.returncode != 0
+    assert "misaligned address" in p.stderr, p.stderr[-2000:]
+
+
+def test_func_attrs_of_every_kernel(dev):
+    for lib in runtime.SOURCES:
+        names = runtime.kernel_names(lib)
+        assert names
+        for name in names:
+            a = runtime.func_attrs(lib, name)
+            assert 0 < a["numRegs"] <= 255 and a["localSizeBytes"] == 0
+            assert a["maxThreadsPerBlock"] >= 128
+
+
+def test_hopper_limits_are_the_cards(dev):
+    assert runtime.device_limits(0) == runtime.HOPPER
+    props = torch.cuda.get_device_properties(0)
+    for field, prop in (("smem_per_block", "shared_memory_per_block"),
+                        ("smem_per_block_optin", "shared_memory_per_block_optin"),
+                        ("smem_per_sm", "shared_memory_per_multiprocessor"),
+                        ("regs_per_sm", "regs_per_multiprocessor"),
+                        ("warp_size", "warp_size"),
+                        ("max_threads_per_block", "max_threads_per_block")):
+        if hasattr(props, prop):
+            assert getattr(props, prop) == getattr(runtime.HOPPER, field), prop
+
+
+def test_analyzer_on_the_card(dev, capsys):
+    from repro_torch.analysis.__main__ import main
+
+    assert main(["--strict"]) == 0
+    ops.reset_launches()
+    assert main(["--selftest"]) == 0
+    n = ops.launches()
+    assert n["copy_vec4"] == 1 and n["scale"] == 1 and n["copy_smem"] == 1
+    capsys.readouterr()

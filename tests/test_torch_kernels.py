@@ -185,4 +185,5 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                        round_kernel.fused_round_plain(z, w, 1.5, mode="quant", bits=8))
     assert ops.launches() == {"enhanced_era_fused": 0, "quantize_dequantize": 0,
                               "fused_round": 0, "flash_attention": 0,
-                              "enhanced_era": 0, "distill_loss": 0}
+                              "enhanced_era": 0, "distill_loss": 0,
+                              "copy_vec4": 0, "scale": 0, "copy_smem": 0}

@@ -1,0 +1,274 @@
+"""The port's launch plans and their lint, on the CPU (no card, nothing
+launched).
+
+Each kernel wrapper computes its launch in Python
+(``repro_torch.kernels.*.launch_plan``) and the C launchers take it as it
+is.  Here each module's plan, traced on fake CUDA tensors at the
+reference's ``analysis_cases`` shapes and at the full-width shapes
+``chip_smoke.py`` launches, is held against the grid, block and shared
+memory that the C launchers derived for themselves before the plans
+moved to Python, worked out by hand below:
+
+- qdq: 256 threads, a thread a row: grid ceil(rows / 256);
+- era_fused: 128 threads, rpb = 1 if N >= 128 else 128 // N rows a block:
+  grid ceil(B / rpb), rpb * N * 4 bytes of shared memory;
+- era_rows: 256 threads; N <= 1024: a warp a row, grid ceil(B / 8);
+  else a block a row, grid B;
+- distill: 256 threads, a block a row: grid B;
+- fused_round: 128 threads, a warp a row: grid ceil(m / 4);
+- flash_attn: 128 threads, grid (ceil(Sq / 64), H, B); float32 stages
+  64 keys of k (rows of d + 4 floats) and v: 4 * 64 * (2d + 4) bytes,
+  opted in above 48 KB; bfloat16 no dynamic shared memory.  At d = 128
+  the float32 kernel now also stages its 64 q rows (d + 4 floats each),
+  4 * 64 * 132 bytes more: the analyzer's first card run found that
+  kernel spilling 160 bytes a thread with q in registers.
+"""
+import ctypes
+
+import pytest
+import torch
+
+from repro_torch.analysis import launch_checks
+from repro_torch.analysis.traceutil import tensor_spec, trace
+from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, quant_kernel,
+                                 round_kernel, runtime)
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+# label -> (kernel, grid, block threads, dynamic shared memory, opt-in)
+WANT = {
+    "era/B1000-N10": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
+    "era/B10-N10": ("era_rows_warp<float>", (2, 1, 1), 256, 0, False),
+    "era_fused/K200-B100-N10": ("era_fused_kernel", (9, 1, 1), 128, 480, False),
+    "era_fused/K1000-B1000-N100": ("era_fused_kernel", (1000, 1, 1), 128, 400, False),
+    "era_fused/K100-B1000-N10": ("era_fused_kernel", (84, 1, 1), 128, 480, False),
+    "era_fused/K2-B3-N12288": ("era_fused_kernel", (3, 1, 1), 128, 49152, False),
+    "era/B1536-N51968": ("era_rows_block<float>", (1536, 1, 1), 256, 0, False),
+    "era/B1536-N51968-bf16": ("era_rows_block<bf16>", (1536, 1, 1), 256, 0, False),
+    "era/B1000-N10-beta-on-card": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
+    "quant/B1000-N10-bits8": ("qdq_kernel", (4, 1, 1), 256, 0, False),
+    "quant/B10-N1-bits1": ("qdq_kernel", (1, 1, 1), 256, 0, False),
+    "quant/residual-K100-M1000-N10-bits8": ("qdq_kernel", (391, 1, 1), 256, 0, False),
+    "round/identity-sharpen-K200": ("fused_round_kernel", (25, 1, 1), 128, 0, False),
+    "round/quant8-sharpen-K1000": ("fused_round_kernel", (16, 1, 1), 128, 0, False),
+    "round/delta8-linear-K50": ("fused_round_kernel", (6, 1, 1), 128, 0, False),
+    "round/delta8-sharpen-K100-M1000-N10": ("fused_round_kernel", (250, 1, 1), 128, 0, False),
+    "distill/B100-V163840": ("distill_kernel<float,float>", (100, 1, 1), 256, 0, False),
+    "distill/B13-V1000-oddblocks": ("distill_kernel<float,float>", (13, 1, 1), 256, 0, False),
+    "distill/B1536-V51968": ("distill_kernel<float,float>", (1536, 1, 1), 256, 0, False),
+    "distill/B1536-V51968-bf16-teacher": ("distill_kernel<float,bf16>", (1536, 1, 1), 256, 0,
+                                          False),
+    "attn/S128-gqa-d64": ("flash_fwd_kernel<64>", (2, 4, 2), 128, 33792, False),
+    "attn/small-Sq4": ("flash_fwd_kernel<64>", (1, 2, 1), 128, 33792, False),
+    "attn/odd-S100-window": ("flash_fwd_kernel<64>", (2, 2, 1), 128, 33792, False),
+    "attn/bf16-S64": ("flash_fwd_mma_kernel<64>", (1, 2, 1), 128, 0, False),
+    "attn/whisper-B4-S384-H20-d64-bf16": ("flash_fwd_mma_kernel<64>", (6, 20, 4), 128, 0, False),
+    "attn/S256-d128-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
+}
+
+CASES = {label: (fn, args, expect) for label, fn, args, expect in launch_checks.iter_cases()}
+
+
+def test_every_module_case_has_a_worked_plan():
+    assert set(CASES) == set(WANT) | {"era_fused/K2-B3-N12289"}
+
+
+@pytest.mark.parametrize("label", sorted(WANT))
+def test_plan_is_what_the_launcher_derived(label):
+    fn, args, _ = CASES[label]
+    tr = trace(fn, *args)
+    assert tr.ok, tr.error
+    assert len(tr.launches) == 1
+    plan = tr.launches[0].plan
+    kernel, grid, threads, smem, optin = WANT[label]
+    assert (plan.kernel, plan.grid, plan.block, plan.dyn_smem, plan.smem_optin) == (
+        kernel, grid, (threads, 1, 1), smem, optin)
+    assert launch_checks.check_plan(label, plan) == []
+
+
+@pytest.mark.parametrize("label", sorted(WANT))
+def test_plan_operands_match_the_launch_arguments(label):
+    """Each recorded launch passed one argument per operand of its plan,
+    pointers for tensors: the recorder checks as ``runtime.launch`` does."""
+    fn, args, _ = CASES[label]
+    tr = trace(fn, *args)
+    (launch,) = tr.launches
+    ptrs = [op for op in launch.plan.operands if op.kind == "ptr"]
+    assert ptrs and all(op.source in ("cuda tensor", "null") for op in ptrs)
+    assert all(op.source == "python" for op in launch.plan.operands if op.kind == "value")
+
+
+def test_era_fused_past_its_limit_is_refused_by_the_wrapper_and_the_lint():
+    fn, args, expect = CASES["era_fused/K2-B3-N12289"]
+    assert expect is ValueError
+    assert isinstance(trace(fn, *args).error, ValueError)
+    # the plan itself, had the wrapper let it through: 4 bytes over 48 KB
+    n = era_kernel.MAX_CLASSES + 1
+    tr = trace(lambda z, o: era_kernel.fused_launch_plan(z, o),
+               tensor_spec((2, 3, n)), tensor_spec((3, n)))
+    plan = tr.output
+    assert plan.dyn_smem == 49156 and not plan.smem_optin
+    assert [f.level for f in launch_checks.check_plan("N12289", plan)] == ["error"]
+
+
+def test_flash_opts_in_exactly_above_48kb():
+    for d, optin in ((32, False), (64, False), (128, True)):
+        tr = trace(lambda q: attn_kernel.flash_attention(q, q, q),
+                   tensor_spec((1, 64, 2, d)))
+        plan = tr.launches[0].plan
+        assert plan.dyn_smem == 4 * 64 * (2 * d + 4) + (4 * 64 * (d + 4) if d > 64 else 0)
+        assert plan.smem_optin is optin is (plan.dyn_smem > 48 * 1024)
+
+
+def test_flash_bf16_plan_reads_pairs_and_copies_a_misaligned_view():
+    """A bf16 view 2 bytes off a 4-byte boundary is copied by the wrapper
+    (``_readable``), so the plan the kernel gets is aligned."""
+    def fn(base):
+        n = 1 * 128 * 2 * 64
+        q = base.narrow(0, 1, n).view(1, 128, 2, 64)
+        return attn_kernel.flash_attention(q, q, q)
+
+    tr = trace(fn, tensor_spec((1 + 1 * 128 * 2 * 64,), BF16))
+    plan = tr.launches[0].plan
+    q_op = plan.operands[0]
+    assert (q_op.vector_bytes, q_op.storage_offset) == (4, 0)
+    assert launch_checks.check_plan("bf16", plan) == []
+
+
+def test_quant_plan_reads_the_residual_view_in_place():
+    tr = trace(lambda z, b: quant_kernel.quantize_dequantize((z - b)[..., :-1], 8),
+               tensor_spec((7, 33, 10)), tensor_spec((33, 10)))
+    z_op = tr.launches[0].plan.operands[0]
+    assert z_op.shape == (7 * 33, 9) and z_op.strides == (10, 1)
+
+
+def test_era_rows_beta_on_the_card_goes_by_pointer():
+    tr = trace(lambda z, b: era_kernel.enhanced_era(z, b), tensor_spec((10, 10)),
+               tensor_spec(()))
+    ops = {op.name: op for op in tr.launches[0].plan.operands}
+    assert ops["beta_ptr"].source == "cuda tensor" and ops["beta"].source == "python"
+    assert tr.host_reads == []
+
+
+def test_fused_round_beta_read_from_the_card_is_an_error():
+    """beta as a CUDA tensor goes through ``float()`` (the kernel takes it
+    by value): a host read the trace records and the lint reports."""
+    tr = trace(lambda z, w, b: round_kernel.fused_round(z, w, b), tensor_spec((4, 8, 10)),
+               tensor_spec((4,)), tensor_spec(()))
+    assert tr.host_reads
+    levels = [f.level for f in launch_checks.check_plan("beta", tr.launches[0].plan)]
+    assert levels == ["error"]
+
+
+def _plan(**kw):
+    base = dict(kernel="k", grid=(1, 1, 1), block=(128, 1, 1))
+    base.update(kw)
+    return runtime.LaunchPlan(**base)
+
+
+def _ptr(shape, strides, offset=0, vb=4, itemsize=4):
+    return runtime.Operand("x", "ptr", dtype="float32", shape=shape, strides=strides,
+                           storage_offset=offset, vector_bytes=vb, source="cuda tensor",
+                           itemsize=itemsize)
+
+
+@pytest.mark.parametrize("plan,want", [
+    (_plan(), []),
+    (_plan(block=(2048, 1, 1)), ["error", "error"]),
+    (_plan(block=(32, 32, 2)), ["error"]),
+    (_plan(block=(1, 1, 128)), ["error"]),
+    (_plan(grid=(1, 65536, 1)), ["error"]),
+    (_plan(grid=(2 ** 31, 1, 1)), ["error"]),
+    (_plan(grid=(0, 1, 1)), ["error"]),
+    (_plan(block=(100, 1, 1)), ["warn"]),
+    (_plan(dyn_smem=48 * 1024), []),
+    (_plan(dyn_smem=48 * 1024 + 4), ["error"]),
+    (_plan(dyn_smem=100 * 1024, smem_optin=True), []),
+    (_plan(dyn_smem=120 * 1024, smem_optin=True), ["warn"]),
+    (_plan(dyn_smem=232448, smem_optin=True), ["warn"]),
+    (_plan(dyn_smem=232452, smem_optin=True), ["error"]),
+    (_plan(operands=(_ptr((100, 128), (128, 1), 0, 16),)), []),
+    (_plan(operands=(_ptr((100, 128), (128, 1), 1, 16),)), ["error"]),
+    (_plan(operands=(_ptr((100, 130), (130, 1), 0, 16),)), ["error"]),
+    (_plan(operands=(_ptr((100, 128), (129, 1), 0, 16),)), ["error"]),
+    (_plan(operands=(_ptr((100, 128), (1, 100), 0, 16),)), ["error"]),
+    (_plan(operands=(_ptr((1, 128), (7, 1), 0, 16),)), []),
+    (_plan(operands=(_ptr((4, 64), (65, 1), 0, 4, 2),)), ["error"]),
+    (_plan(operands=(_ptr((4, 64), (66, 1), 1, 4, 2),)), ["error"]),
+    (_plan(operands=(_ptr((4, 64), (66, 1), 2, 4, 2),)), []),
+    (_plan(operands=(runtime.Operand("x", "ptr", source="null"),)), []),
+    (_plan(operands=(runtime.value("s", ctypes.c_float),)), []),
+    (_plan(operands=(runtime.value("s", ctypes.c_float, "cpu tensor"),)), []),
+    (_plan(operands=(runtime.value("s", ctypes.c_float, "cuda tensor"),)), ["error"]),
+])
+def test_check_plan_levels(plan, want):
+    assert [f.level for f in launch_checks.check_plan("p", plan)] == want
+
+
+@pytest.mark.parametrize("attrs,want", [
+    (dict(numRegs=32, localSizeBytes=0, sharedSizeBytes=0, maxThreadsPerBlock=1024), []),
+    (dict(numRegs=255, localSizeBytes=0, sharedSizeBytes=0, maxThreadsPerBlock=1024),
+     ["error"]),
+    (dict(numRegs=32, localSizeBytes=0, sharedSizeBytes=0, maxThreadsPerBlock=256), ["error"]),
+    (dict(numRegs=32, localSizeBytes=8, sharedSizeBytes=0, maxThreadsPerBlock=1024), ["warn"]),
+    (dict(numRegs=32, localSizeBytes=0, sharedSizeBytes=16 * 1024, maxThreadsPerBlock=1024),
+     ["error"]),
+])
+def test_check_plan_against_compiled_attributes(attrs, want):
+    """512 threads with 40 KB of dynamic shared memory, held against a
+    compiled kernel's registers (255 x 512 is past a block's 65536), thread
+    limit, spills and static shared memory (static + dynamic past 48 KB
+    without opting in)."""
+    plan = _plan(block=(512, 1, 1), dyn_smem=40 * 1024)
+    assert [f.level for f in launch_checks.check_plan("p", plan, attrs=attrs)] == want
+
+
+def test_check_launches_reads_attributes_by_library_and_kernel():
+    seen = []
+
+    def attrs(lib, kernel):
+        seen.append((lib, kernel))
+        return dict(numRegs=30, localSizeBytes=0, sharedSizeBytes=0, maxThreadsPerBlock=1024)
+
+    got = launch_checks.run(modules=("repro_torch.kernels.quant_kernel",), attrs=attrs)
+    assert [f.level for f in got] == ["ok"] * 3
+    assert seen == [("qdq", "qdq_kernel")] * 3
+    assert "30 registers" in got[0].message
+
+
+def test_hopper_limits_are_the_compute_capability_9_table():
+    h = runtime.HOPPER
+    assert (h.max_threads_per_block, h.max_block, h.max_grid) == (
+        1024, (1024, 1024, 64), (2 ** 31 - 1, 65535, 65535))
+    assert (h.smem_per_block, h.smem_per_block_optin, h.smem_per_sm) == (
+        49152, 232448, 233472)
+    assert (h.regs_per_block, h.regs_per_sm, h.max_regs_per_thread, h.warp_size) == (
+        65536, 65536, 255, 32)
+
+
+def test_launch_checks_its_arguments_against_the_plan():
+    plan = _plan(operands=(runtime.value("n", ctypes.c_int),))
+    with pytest.raises(ValueError, match="arguments"):
+        runtime.check_operands("f", plan, ())
+    with pytest.raises(TypeError):
+        runtime.check_operands("f", plan, (3,))
+    with pytest.raises(ValueError, match="CUDA"):
+        runtime.check_operands("f", plan, (ctypes.c_int(3),))
+    ptr_plan = _plan(operands=(_ptr((4,), (1,)),))
+    with pytest.raises(ValueError, match="CUDA"):
+        runtime.check_operands("f", ptr_plan, (torch.zeros(4),))
+
+
+def test_wrappers_on_cpu_tensors_make_no_plan(monkeypatch):
+    """The CPU path is the plain version: no plan, no launch."""
+    def boom(*a):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(runtime, "launch", boom)
+    z = torch.rand(3, 4, 10)
+    era_kernel.enhanced_era_fused(z, 1.5)
+    quant_kernel.quantize_dequantize(z, 8)
+    round_kernel.fused_round(z, torch.ones(3), 1.5)
+    era_kernel.enhanced_era(z[0], 1.5)
+    distill_kernel.distill_loss(z[0], z[1])
+    attn_kernel.flash_attention(torch.rand(1, 8, 2, 32), *(torch.rand(1, 8, 2, 32),) * 2)
