@@ -190,6 +190,22 @@ def build_kernels() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
+def check_flash_sass() -> None:
+    """Phase 2b: the bf16 flash kernels are Hopper kernels: their machine
+    code (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA loads (UTMALDG)
+    and no mma.sync (HMMA)."""
+    from repro_torch.kernels import attn_kernel
+
+    counts = attn_kernel.sass_opcodes()
+    for name, c in sorted(counts.items()):
+        log(f"flash sass {name}: {c}")
+    bf16 = {n: c for n, c in counts.items() if n.startswith("flash_fwd_wgmma_kernel")}
+    if len(bf16) != len(attn_kernel.HEAD_DIMS) or any(
+            c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] for c in bf16.values()):
+        raise AssertionError(f"the bf16 flash kernels are not wgmma/TMA kernels: {bf16}")
+    log("flash sass: every bf16 kernel has HGMMA and UTMALDG and no HMMA ok")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -572,8 +588,12 @@ def check_small_cuda_vs_cpu(engine: str) -> None:
 
 
 # flash attention cases on the card: (label, B, Sq, Sk, H, Hkv, d, causal,
-# window), each in bfloat16 (the tensor-core kernel) and float32 (the FMA
-# kernel), whisper's shape in bfloat16 only, as the path gives it
+# window), each in bfloat16 (the Hopper kernel) and float32 (the FMA
+# kernel), whisper's shape in bfloat16 only, as the path gives it.  The
+# bfloat16 kernel's pipeline edges: a key range that wraps its stage ring
+# 16 times (32 key tiles, 2 stages), Sk one past whole key tiles (TMA's
+# zero fill of the last tile), and GQA at d = 32 (64-byte swizzle, 4
+# stages).
 FLASH_CASES = tuple(
     case + (dtype,)
     for case in (("GQA + window, ragged", 2, 200, 200, 8, 2, 64, True, 64),
@@ -581,7 +601,10 @@ FLASH_CASES = tuple(
                  ("rows left with no key", 1, 300, 100, 4, 2, 64, False, 16),
                  ("d=32 window 7", 1, 130, 130, 2, 1, 32, True, 7),
                  ("d=128", 1, 129, 129, 4, 1, 128, True, 0),
-                 ("tiny", 1, 4, 4, 2, 1, 64, True, 0))
+                 ("tiny", 1, 4, 4, 2, 1, 64, True, 0),
+                 ("stage ring wraps", 1, 2048, 2048, 4, 1, 128, True, 0),
+                 ("Sk one past 4 key tiles", 2, 200, 257, 4, 2, 64, False, 0),
+                 ("GQA d=32", 2, 256, 256, 8, 2, 32, True, 0))
     for dtype in (torch.bfloat16, torch.float32)
 ) + (("whisper decoder", WHISPER_B, WHISPER_S, WHISPER_S, 20, 20, 64, True, 0,
       torch.bfloat16),)
@@ -1241,8 +1264,9 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    # 2. build
+    # 2. build; 2b. what the bf16 flash kernel compiled to
     build_kernels()
+    check_flash_sass()
     # 3. kernels against their plain versions
     errs = {"era": check_era(dev), "qdq": check_qdq(dev),
             "round": check_fused_round(dev), "flash": check_flash(dev),

@@ -2,46 +2,78 @@
 its plain PyTorch version.
 
 Port of ``repro.kernels.attn_kernel.flash_attention`` (the Pallas
-``_flash_kernel``).  The kernel source is ``csrc/flash_attn.cu``: a
-tensor-core kernel for bfloat16 inputs and an FMA kernel for float32,
-both with float32 arithmetic; its header says what bounds them on the
-card and how the tiles are laid out.  :func:`flash_attention` takes the
-plain version for a CPU tensor and launches the kernel for a CUDA
-tensor; there is no other path.
+``_flash_kernel``, ``src/repro/kernels/attn_kernel.py:80``, its
+``pallas_call`` at ``:113``).  The kernel source is ``csrc/flash_attn.cu``;
+its header says what bounds it on the card and how the tiles are laid out.
+:func:`flash_attention` takes the plain version for a CPU tensor and
+launches the kernel for a CUDA tensor; there is no other path.
+
+- bfloat16 (the model path: whisper's decoder self-attention): a Hopper
+  kernel, a block of one consumer warpgroup (64 query rows) and one
+  producer warp that keeps TMA loads of 64-key tiles of k and v in flight
+  in a ring of shared-memory stages (4 at d = 32, 2 at d = 64 and 128);
+  ``wgmma`` computes q.k and p.v.  The reference computes p.v in float32,
+  so each probability is split exactly into three bf16 pieces and the
+  three products accumulate in float32: the arithmetic stays float32 to
+  rounding at three times p.v's tensor work, which stays under the
+  function's byte bound.  TMA reads a view in place only if it starts on a 16-byte
+  boundary and its strides are multiples of 16 bytes; :func:`_readable`
+  copies any other.
+- float32: an FMA kernel, 128 threads per 64 query rows, k and v staged
+  in shared memory by all threads.
 
 Both follow the oracle ``repro.kernels.ref.flash_attention``: scores
-``q . k`` in float32 divided by ``sqrt(d)`` (the Pallas kernel scales q
-before the product instead, which differs at float32 rounding), masked
-keys excluded, softmax in float32, the output cast to q's type.  A query
-row that no key is left to (only possible with a window) gets the
-oracle's softmax of equal scores: the mean of v over all Sk keys.
+``q . k`` in float32 scaled by ``1/sqrt(d)`` (the Pallas kernel scales q
+before the product, the oracle and the float32 kernel divide the scores,
+the bfloat16 kernel folds the scale into an exp2; they differ at float32
+rounding), masked keys excluded, softmax in float32, the output cast to
+q's type.  A query row that no key is left to (only possible with a
+window) gets the oracle's softmax of equal scores: the mean of v over all
+Sk keys.
 """
 from __future__ import annotations
 
 import ctypes
+import os
+import re
+import subprocess
 
 import torch
 
 from repro_torch.kernels import runtime
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "launch_plan",
-           "analysis_cases"]
+           "smem_bytes", "sass_opcodes", "analysis_cases"]
 
 # Head dims the kernel is instantiated for (csrc/flash_attn.cu).
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# The kernels' tiling (csrc/flash_attn.cu kThreads, kBQ, kBK): a block of
-# 128 threads per 64 query rows; the float32 kernel stages 64 keys of k
-# (rows padded to d + 4 floats) and of v in dynamic shared memory, and at
-# d = 128 also its 64 rows of q (padded to d + 4), which in registers
-# would spill.
-THREADS = 128
-BLOCK_Q = 64
-BLOCK_K = 64
-# The widest access the kernels make to q, k, v and o: bfloat16 in pairs,
-# float32 one value at a time; 4 bytes either way.
-_VECTOR_BYTES = 4
+# The kernels' tiling (csrc/flash_attn.cu), per dtype: the float32 kernel
+# runs 128 threads per 64 query rows and stages 64 keys of k (rows padded
+# to d + 4 floats) and of v in dynamic shared memory, at d = 128 also its
+# 64 rows of q (padded to d + 4), which in registers would spill; the
+# bfloat16 kernel runs a consumer warpgroup and a producer warp (160
+# threads) per 64 query rows, its q tile and STAGES[d] stages of a k and a
+# v tile (128 * d bytes each) in dynamic shared memory, with 1 KB to align
+# them and 8 bytes per mbarrier.
+THREADS = {torch.float32: 128, torch.bfloat16: 160}
+BLOCK_Q = {torch.float32: 64, torch.bfloat16: 64}
+BLOCK_K = {torch.float32: 64, torch.bfloat16: 64}
+STAGES = {32: 4, 64: 2, 128: 2}
+# The widest access the kernels make to q, k, v and o: float32 one value
+# at a time; bfloat16 through TMA, which needs a 16-byte aligned start and
+# strides that are multiples of 16 bytes.
+_VECTOR_BYTES = {torch.float32: 4, torch.bfloat16: 16}
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """The dynamic shared memory of the kernel for ``dtype`` at head dim
+    ``d`` (the C launchers refuse a plan with less)."""
+    if dtype == torch.float32:
+        return 4 * (BLOCK_K[dtype] * (2 * d + 4) + (BLOCK_Q[dtype] * (d + 4) if d > 64 else 0))
+    tiles = 1 + 2 * STAGES[d]
+    return 1024 + 2 * BLOCK_Q[dtype] * d * tiles + 8 * tiles
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,33 +117,47 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernel can read it in place (d contiguous; for
-    bfloat16, which the kernel reads in pairs, even strides and a 4-byte
-    aligned start), else a contiguous copy.  The start's alignment is
+    bfloat16, which TMA reads, a 16-byte aligned start and the strides of
+    every axis longer than 1 positive multiples of 16 bytes: an expanded
+    axis is copied too), else a contiguous copy.  The start's alignment is
     ``storage_offset() * 2`` bytes past the storage's, which PyTorch's
     caching allocator places on a boundary of at least 256 bytes."""
     ok = t.stride(-1) == 1
     if t.dtype == torch.bfloat16:
-        ok = (ok and t.storage_offset() * t.element_size() % 4 == 0
-              and all(st % 2 == 0 for st in t.stride()[:3]))
+        vb, isz = _VECTOR_BYTES[t.dtype], t.element_size()
+        ok = (ok and t.storage_offset() * isz % vb == 0
+              and all(st > 0 and st * isz % vb == 0
+                      for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """The element strides of ``t``'s batch, sequence and head axes as the
+    kernels take them; an axis of length 1 gets its contiguous stride (its
+    own stride is never multiplied by more than 0, but a tensor map needs
+    every stride a multiple of 16 bytes)."""
+    B, S, H, d = t.shape
+    contiguous = (S * H * d, H * d, d)
+    return tuple(st if n > 1 else c for n, st, c in zip((B, S, H), t.stride()[:3], contiguous))
 
 
 def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> runtime.LaunchPlan:
     """The launch of ``csrc/flash_attn.cu``: a block per (query tile of
-    BLOCK_Q rows, head, batch row); bfloat16 on the tensor-core kernel
-    (static shared memory only), float32 on the FMA kernel with its k and v
-    tiles (at d = 128 with its q rows) in dynamic shared memory, opted in
-    above 48 KB (d = 128)."""
+    BLOCK_Q rows, head, batch row) with its dynamic shared memory
+    (:func:`smem_bytes`), opted in above 48 KB.  bfloat16 runs the Hopper
+    kernel on grid (heads, batch, query tiles), so the longest causal tiles
+    of every head start first; float32 the FMA kernel on grid (query tiles,
+    heads, batch)."""
     B, Sq, H, d = q.shape
     f32 = q.dtype == torch.float32
-    q_rows = BLOCK_Q * (d + 4) if d > 64 else 0
-    smem = 4 * (BLOCK_K * (2 * d + 4) + q_rows) if f32 else 0
+    smem = smem_bytes(q.dtype, d)
+    tiles = runtime.cdiv(Sq, BLOCK_Q[q.dtype])
     return runtime.LaunchPlan(
-        f"flash_fwd_{'' if f32 else 'mma_'}kernel<{d}>",
-        grid=(runtime.cdiv(Sq, BLOCK_Q), H, B), block=(THREADS, 1, 1), dyn_smem=smem,
-        smem_optin=smem > runtime.HOPPER.smem_per_block,
-        operands=tuple(runtime.ptr(n, t, _VECTOR_BYTES)
+        f"flash_fwd_{'' if f32 else 'wgmma_'}kernel<{d}>",
+        grid=(tiles, H, B) if f32 else (H, B, tiles), block=(THREADS[q.dtype], 1, 1),
+        dyn_smem=smem, smem_optin=smem > runtime.HOPPER.smem_per_block,
+        operands=tuple(runtime.ptr(n, t, _VECTOR_BYTES[q.dtype])
                        for n, t in (("q", q), ("k", k), ("v", v), ("o", out)))
         + tuple(runtime.value(n, ctypes.c_int)
                 for n in ("dtype", "d", "batch", "sq", "sk", "heads", "kv_heads", "causal",
@@ -140,8 +186,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
         return out
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
+    strides = (ctypes.c_longlong * 9)(*_strides(q), *_strides(k), *_strides(v))
     ints = (_DTYPE_CODE[q.dtype], d, B, Sq, Sk, H, Hkv, int(causal), window)
     runtime.launch("flash_attn", "flash_attn_launch", launch_plan(q, k, v, out), q, k, v, out,
                    *(ctypes.c_int(i) for i in ints), strides)
@@ -152,14 +197,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
+# The instructions that say which kernel the card runs: HGMMA (wgmma),
+# UTMALDG / UTMASTG (TMA loads and stores), HMMA (mma.sync), MUFU.EX2 (the
+# softmax's exp2) and F2FP (float-to-bf16 conversions).
+SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "MUFU.EX2", "F2FP")
+
+
+def sass_opcodes() -> dict:
+    """{kernel: {opcode: count}} over the built ``flash_attn`` library's
+    machine code (``cuobjdump -sass`` from the CUDA toolkit beside
+    ``nvcc``), each kernel named as its launch plan names it.  Builds the
+    library first; needs the toolkit, not a card."""
+    runtime.load("flash_attn")
+    cuobjdump = os.path.join(os.path.dirname(runtime.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(runtime._lib_path("flash_attn"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"(flash_fwd_\w*?kernel)ILi(\d+)E", fn.split("\n", 1)[0])
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = {
+                op: len(re.findall(r"\b" + re.escape(op) + r"\b", fn)) for op in SASS_OPCODES}
+    return out
+
+
 def analysis_cases():
     """(label, fn, args) triples for the launch-plan lint
     (:mod:`repro_torch.analysis.launch_checks`), ``args`` as (shape,
     dtype) pairs made on the fake card: the reference's cases
     (``repro.kernels.attn_kernel.analysis_cases``), then whisper-large-v3's
     decoder self-attention as the prefill launches it, (4, 384, 20, 64)
-    bfloat16, causal, and d = 128 in float32, the one plan that opts in to
-    more than 48 KB."""
+    bfloat16, causal, d = 128 in float32, and the bfloat16 kernel at d = 32
+    (GQA) and d = 128 (a key range that wraps the stage ring 16 times);
+    both d = 128 plans opt in to more than 48 KB."""
     f32, bf16 = torch.float32, torch.bfloat16
 
     def case(B, Sq, Sk, H, Hkv, d, dtype=f32, **kw):
@@ -173,4 +243,6 @@ def analysis_cases():
         ("attn/bf16-S64", *case(1, 64, 64, 2, 2, 64, dtype=bf16)),
         ("attn/whisper-B4-S384-H20-d64-bf16", *case(4, 384, 384, 20, 20, 64, dtype=bf16)),
         ("attn/S256-d128-f32", *case(1, 256, 256, 4, 4, 128)),
+        ("attn/bf16-gqa-d32", *case(2, 130, 130, 4, 2, 32, dtype=bf16, window=7)),
+        ("attn/bf16-S2048-d128", *case(1, 2048, 2048, 4, 1, 128, dtype=bf16)),
     ]

@@ -10,46 +10,81 @@
 // the oracle's result (src/repro/kernels/ref.py::flash_attention): the
 // softmax of equal scores, 1/Sk times the sum of v over all Sk keys.
 //
-// What bounds it on the card: bytes.  At whisper-large-v3's decoder shape
-// (4, 384, 20, 64) bf16, causal, the function reads q, k and v once and
-// writes o once, 15.7 MB: 4.7 us at 3.35 TB/s, against 1.5 GFLOP of causal
-// products, 1.5 us at the bf16 tensor-core peak.  Neither kernel here
-// reaches that: they are simple first versions, with no asynchronous
-// copies and no pipelining.
+// The bound of the function on the card: bytes.  At whisper-large-v3's
+// decoder shape (4, 384, 20, 64) bf16, causal, it reads q, k and v once
+// and writes o once, 15.7 MB: 4.7 us at 3.35 TB/s.  Its products are 1.5
+// GFLOP of causal q.k and p.v; with p.v taken as three bf16 products
+// (below) the tensor cores do about 3.0 GFLOP, 3.1 us at the 989 TFLOP/s
+// bf16 peak, so the bound stays the bytes.
 //
-// Two kernels share the tiling: a block per (query tile of 64 rows, head,
-// batch), the grid walking the query tiles from the last so the long
-// causal rows start first; a loop over 64-key tiles of k and v staged in
-// shared memory, with the running max, sum and output accumulator in
-// registers; q, k and v read in place in the (B, S, H, d) layout from their
-// element strides (d contiguous), with no transposed copy, rows past Sk
-// staged as zeros and masked; tiles wholly above the causal diagonal or
-// wholly before the window of the block's rows not visited.
+// Both kernels take a block per (query tile of 64 rows, head, batch row),
+// visit only the 64-key tiles that can hold a valid key for one of the
+// block's rows (tile_range), keep the running max, sum and output in
+// registers, and read q, k and v in place in the (B, S, H, d) layout from
+// their element strides (d contiguous), with no transposed copy.  The
+// masked scores are -inf and their probabilities exactly 0, so a tile with
+// no valid key for a row adds nothing (the Pallas kernel lets such a tile
+// add exp(0) terms until a real tile rescales them away).
 //
-//   - bfloat16 (the model path): flash_fwd_mma_kernel, four warps of 16
-//     query rows each on the tensor cores (mma.sync m16n8k16, bf16 in,
-//     float32 accumulate).  q.k: the bf16 products are exact and summed in
-//     float32.  p.v: each float32 probability is split exactly into three
-//     bf16 pieces (8 significant bits each, 24 in all) and the three
-//     products are accumulated in float32, so the arithmetic stays float32
-//     to rounding.  The scores' accumulator layout is the next product's
-//     operand layout, so p never leaves registers; a row's max and sum
-//     cross the four lanes that hold it by xor-shuffles.
-//   - float32: flash_fwd_kernel, on the FMA pipes (67 TFLOP/s): two
-//     threads per query row, each holding the row of q in registers (at
-//     d = 128 in shared memory: registers would spill),
-//     scoring 32 of a tile's 64 keys (the interleaved keys 2i + half) and
-//     accumulating half of the output columns; k's tile rows are padded to
-//     d + 4 floats and v's columns owned in alternating float4 chunks so
-//     the two halves' reads fall in other banks.
-// The masked scores are -inf and their probabilities exactly 0, so a tile
-// with no valid key for a row adds nothing (the Pallas kernel lets such a
-// tile add exp(0) terms until a real tile rescales them away).
+// bfloat16 (the model path), flash_fwd_wgmma_kernel: a block of 160
+// threads, one consumer warpgroup (warps 0-3, 64 query rows, 16 a warp)
+// and one producer warp (warp 4).
+//   - Loads: the producer's lane 0 issues TMA loads (cp.async.bulk.tensor)
+//     from tensor maps over the (d, H, S, B) view, encoded on the host: the
+//     block's q tile once, then the k and v tiles of its key range into a
+//     ring of stages (4 at d = 32, 2 at d = 64 and 128), each with a full
+//     mbarrier (the bytes landed) and an empty one (the 128 consumers are
+//     done with it), so the next tile loads while this one is computed.
+//     TMA's zero fill stands for the rows past Sq and Sk.  Tiles are stored
+//     in TMA's 128-byte swizzle (d = 64; d = 128 as two 64-column blocks)
+//     or 64-byte swizzle (d = 32), the layouts the wgmma shared-memory
+//     descriptors read.
+//   - S = q.k^T: wgmma m64n64k16, q and k both K-major from shared memory,
+//     d / 16 steps, float32 accumulators.
+//   - Softmax: masks only on tiles that cross the causal diagonal, the
+//     window's edge or Sk's ragged end; 1/sqrt(d) folded into the exp2
+//     argument (scores times log2(e)/sqrt(d), which differs from the plain
+//     version's division at float32 rounding; at d = 64 the 1/8 is exact).
+//     A row's max and sum cross the four lanes that hold it by xor-shuffles.
+//   - O += p.v: wgmma m64nDk16 with p from registers (the accumulator
+//     layout of S is, per warp, the register layout of A, so p never
+//     leaves registers) and the v tile from shared memory read MN-major
+//     (the transpose bit of 16-bit types).  The reference computes p.v in
+//     float32 (attn_kernel.py:57-60), so each float32 probability is split
+//     exactly into three bf16 pieces (its top 8 significant bits, the next
+//     8, the last 8: a truncation split, three byte permutes and no
+//     conversion instruction) and three wgmmas (lo, mid, hi) accumulate
+//     into the same float32 O: the arithmetic stays float32 to rounding,
+//     at three times p.v's tensor work, which stays under the byte bound.
+//   - Epilogue: O times 1/l rounded once to bf16, staged in the q tile's
+//     shared memory in the same swizzle and written by a TMA store, which
+//     clips the rows past Sq.
+//   - Grid (H, B, query tiles), the tiles walked from the last, so the
+//     longest causal rows of every head start first.  Shared memory, all
+//     dynamic: 128 * d bytes a tile, q plus two tiles a stage, 8 bytes an
+//     mbarrier and 1 KB to align the swizzle atoms to 1024 bytes: 37960 /
+//     42024 / 82984 bytes at d = 32 / 64 / 128 (d = 128 opts in above
+//     48 KB).  Registers bound the blocks an SM holds: three at d <= 64
+//     (__launch_bounds__ caps a thread at 136), two at d = 128.
+//   - What bounds it on the card at whisper's shape: not the bytes but
+//     each block's serial chain (TMA latency for the first tiles, then per
+//     tile the scores' wgmma, the softmax and split on the ALU and MUFU
+//     pipes, and the three p.v wgmmas), with the longest causal blocks (6
+//     key tiles) setting the kernel's time (PERF.md, section 6).
+// float32, flash_fwd_kernel, on the FMA pipes (67 TFLOP/s; no model path
+// runs it): 128 threads, two per query row, each holding the row of q in
+// registers (at d = 128 in shared memory: registers would spill), scoring
+// 32 of a tile's 64 keys (the interleaved keys 2i + half) and accumulating
+// half of the output columns; k and v staged by all threads into shared
+// memory, k's tile rows padded to d + 4 floats and v's columns owned in
+// alternating float4 chunks so the two halves' reads fall in other banks.
 //
 // Built without -fmad=false (see runtime.py): the scores and the output
 // are sums of d and Sk products with no bit-for-bit contract with the
 // reference, and a fused multiply-add rounds once where a multiply and an
-// add round twice.  Division and sqrt are the IEEE versions (no fast math).
+// add round twice.  Division and sqrt are the IEEE versions (no fast
+// math); exp2 is the hardware's ex2.approx (2 ulp) on the bf16 path.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,8 +96,10 @@ namespace {
 
 constexpr int kBQ = 64;         // query rows per block
 constexpr int kBK = 64;         // keys per shared-memory tile
-constexpr int kThreads = 128;   // 2 threads per row (FMA), 4 warps (mma)
-constexpr int kKeys = kBK / 2;  // keys of a tile per thread (FMA)
+constexpr int kThreads = 128;   // the float32 kernel: 2 threads per row
+constexpr int kKeys = kBK / 2;  // keys of a tile per thread (float32)
+constexpr int kConsumers = 128;              // bf16: one warpgroup, 64 rows
+constexpr int kWgThreads = kConsumers + 32;  // ... and the producer warp
 
 struct Strides {  // element strides of a (B, S, heads, d) operand
   long long b, s, h;
@@ -291,176 +328,373 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
+// bfloat16: TMA ring, wgmma for both products
 // ---------------------------------------------------------------------------
 
-// c += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 float32.  For
-// lane = 4 * grp + tg: a = {(grp, 2tg..+1), (grp + 8, 2tg..+1), (grp,
-// 2tg + 8..+9), (grp + 8, 2tg + 8..+9)}, b = {(k 2tg..+1, n grp), (k 2tg +
-// 8..+9, n grp)}, c = {(grp, 2tg), (grp, 2tg + 1), (grp + 8, 2tg), (grp +
-// 8, 2tg + 1)}; the lower column or k index in the lower 16 bits.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// The shared-memory tiles of head dim D: 64 rows (kBQ queries or kBK
+// keys) of D bf16, stored as column blocks of kW columns, each in the
+// swizzle of its kW * 2-byte rows (the TMA box is one column block).
+template <int D>
+struct Tile {
+  static constexpr int kW = D < 64 ? D : 64;            // columns of a block
+  static constexpr int kRowBytes = 2 * kW;              // 64 or 128: the swizzle
+  static constexpr int kBlockBytes = kBQ * kRowBytes;   // one column block
+  static constexpr int kBlocks = D / kW;                // 1, 1, 2
+  static constexpr int kBytes = kBlocks * kBlockBytes;  // 128 * D
+  static constexpr int kStages = D == 32 ? 4 : 2;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  // q, then (k, v) per stage, then the mbarriers (q_full, full[s],
+  // empty[s]), after 1024 bytes of room to align the base
+  static constexpr long long kSmem =
+      1024 + static_cast<long long>(kBytes) * (1 + 2 * kStages) + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive on `bar` and expect `bytes` more from TMA before its phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// TMA: the box of `map` at coordinates (c0, c1, c2, c3) = (column, head,
+// row, batch) into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// Two float32 values as three bf16 pairs with x = hi + mid + lo exactly to
-// float32 rounding: each residual is exact in float32 and keeps the next 8
-// significant bits.
+// TMA: shared memory at `src` to the box of `map` at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout type (the swizzle).  K-major (q, k):
+// the leading offset is unused, the stride one is 8 rows.  MN-major (v):
+// the leading offset steps from one 64-column block to the next, the
+// stride one over 8 keys.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead, uint32_t stride,
+                                         uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// d (64 x 64 float32, the accumulator layout) = a . b^T, or += with accumulate;
+// a (64 x 16) and b (64 x 16) K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32 float32) += a . b: a (64 x 16 bf16) in registers in the
+// accumulator-derived layout, b (16 x 32) MN-major in shared memory
+// (transposed read).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64 float32) += a . b: a (64 x 16 bf16) in registers in the
+// accumulator-derived layout, b (16 x 64) MN-major in shared memory
+// (transposed read).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128 float32) += a . b: a (64 x 16 bf16) in registers in the
+// accumulator-derived layout, b (16 x 128) MN-major in shared memory
+// (transposed read).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Two float32 values as three bf16 pairs with x = hi + mid + lo exactly:
+// hi keeps x's top 8 significant bits (x truncated to bf16), mid the next
+// 8 of the exact residual x - hi, lo the rest, which has at most 8
+// significant bits left and is a bf16 value itself.  Each piece is the
+// upper half of a float32, so a pair packs with one byte permute (the
+// lower key in the lower 16 bits) and no conversion instruction.
+__device__ __forceinline__ float top8(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t pack_upper(float x0, float x1) {
+  return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+}
+
 __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
                                        uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const __nv_bfloat162 z = __floats2bfloat162_rn(r0 - __low2float(m),
-                                                 r1 - __high2float(m));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&z);
+  const float r0 = x0 - top8(x0), r1 = x1 - top8(x1);
+  hi = pack_upper(x0, x1);
+  mid = pack_upper(r0, r1);
+  lo = pack_upper(r0 - top8(r0), r1 - top8(r1));
 }
 
+// One block: 64 query rows of one (batch row, head); see the header.
+// Three blocks an SM at d <= 64 (at most 136 registers a thread; ptxas
+// fits d = 32 and 64 without spilling), two at d = 128 (a third would
+// spill).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int sq, int sk, int heads,
-                     int rep, int causal, int window, Strides qs, Strides ks,
-                     Strides vs) {
-  constexpr int kLd = D + 8;     // tile row stride, bf16: conflict-free reads
-  constexpr int kNT = kBK / 8;   // 8-key column tiles of the scores
-  constexpr int kKS = D / 16;    // 16-wide steps over d for q.k
-  constexpr int kOT = D / 8;     // 8-column tiles of the output
-  constexpr int kW = D / 2;      // 32-bit words of a row
-  __shared__ __align__(16) uint16_t k_raw[kBK * kLd];
-  __shared__ __align__(16) uint16_t v_raw[kBK * kLd];
-  __nv_bfloat16* k_tile = reinterpret_cast<__nv_bfloat16*>(k_raw);
-  __nv_bfloat16* v_tile = reinterpret_cast<__nv_bfloat16*>(v_raw);
-  const uint16_t* v16 = v_raw;
+__global__ void __launch_bounds__(kWgThreads, D == 128 ? 2 : 3)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap o_map,
+                       const __nv_bfloat16* __restrict__ v, Strides vs, int sq, int sk,
+                       int rep, int causal, int window) {
+  using T = Tile<D>;
+  constexpr int kS = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms' alignment
+  uint8_t* const tile0 = smem_raw + (base - raw);  // q's tile, later o's
+  const uint32_t q_full = base + T::kBytes * (1 + 2 * kS);
+  // stage s: k at kv(s), v at kv(s) + T::kBytes; barriers full(s), empty(s)
+  auto kv = [&](int s) { return base + T::kBytes * (1 + 2 * s); };
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kS + s); };
 
-  const int iq = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
-  const int tid = threadIdx.x, lane = tid & 31, grp = lane >> 2, tg = lane & 3;
-  // this thread's rows: grp and grp + 8 of its warp's 16
-  const int row[2] = {iq * kBQ + (tid >> 5) * 16 + grp,
-                      iq * kBQ + (tid >> 5) * 16 + grp + 8};
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const int h = blockIdx.x, b = blockIdx.y, iq = gridDim.z - 1 - blockIdx.z;
+  const int g = h / rep, q0 = iq * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const TileRange tr = tile_range(iq, sq, sk, causal, window);
 
-  const __nv_bfloat16* kb = k + b * ks.b + g * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
-
-  // q as the a operand of q.k, in registers (rows past Sq read the last row)
-  uint32_t qa[kKS][4];
-  {
-    const __nv_bfloat16* q0 = q + b * qs.b + h * qs.h
-                              + static_cast<long long>(min(row[0], sq - 1)) * qs.s;
-    const __nv_bfloat16* q1 = q + b * qs.b + h * qs.h
-                              + static_cast<long long>(min(row[1], sq - 1)) * qs.s;
-#pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      qa[kk][0] = ld32(q0 + kk * 16 + 2 * tg);
-      qa[kk][1] = ld32(q1 + kk * 16 + 2 * tg);
-      qa[kk][2] = ld32(q0 + kk * 16 + 8 + 2 * tg);
-      qa[kk][3] = ld32(q1 + kk * 16 + 8 + 2 * tg);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, T::kBytes);
+      for (int c = 0; c < T::kBlocks; ++c)
+        tma_load(&q_map, base + c * T::kBlockBytes, q_full, c * T::kW, h, q0, b);
+      for (int t = tr.t_begin, i = 0; t < tr.t_end; ++t, ++i) {
+        const int s = i % kS;
+        if (i >= kS) mbar_wait(empty(s), (i / kS - 1) & 1);
+        mbar_expect_tx(full(s), 2 * T::kBytes);
+        for (int c = 0; c < T::kBlocks; ++c) {
+          tma_load(&k_map, kv(s) + c * T::kBlockBytes, full(s), c * T::kW, g, t * kBK, b);
+          tma_load(&v_map, kv(s) + T::kBytes + c * T::kBlockBytes, full(s), c * T::kW, g,
+                   t * kBK, b);
+        }
+      }
+    }
+    return;
   }
 
-  const TileRange tr = tile_range(iq, sq, sk, causal, window);
-  // running max and this thread's share of the row sum, rows grp, grp + 8
+  // the consumer warpgroup; this thread's rows: row0 and row0 + 8
+  const int grp = lane >> 2, tg = lane & 3;
+  const int row0 = q0 + warp * 16 + grp;
+  const float scale = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  // running max (of the raw scores) and this thread's share of the row sum
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float acc[kOT][4];
-#pragma unroll
-  for (int ot = 0; ot < kOT; ++ot) acc[ot][0] = acc[ot][1] = acc[ot][2] = acc[ot][3] = 0.0f;
 
-  for (int t = tr.t_begin; t < tr.t_end; ++t) {
+  mbar_wait(q_full, 0);
+  for (int t = tr.t_begin, i = 0; t < tr.t_end; ++t, ++i) {
+    const int s = i % kS;
+    mbar_wait(full(s), (i / kS) & 1);
+    const uint32_t k_tile = kv(s), v_tile = kv(s) + T::kBytes;
+
+    // scores: 64 rows x 64 keys, p[4j + e] at (row0 + 8 (e >> 1), key 8j + 2tg + (e & 1))
+    float p[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / (T::kW / 16)) * T::kBlockBytes + (kk % (T::kW / 16)) * 32;
+      wgmma_ss(p, desc(base + off, 16, 8 * T::kRowBytes, T::kLayout),
+               desc(k_tile + off, 16, 8 * T::kRowBytes, T::kLayout), kk > 0);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(p);
+
     const int j0 = t * kBK;
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kBK * kW; e += kThreads) {
-      const int jr = e / kW, w = e % kW, j = j0 + jr;
-      const bool in = j < sk;
-      *reinterpret_cast<uint32_t*>(k_tile + jr * kLd + 2 * w) =
-          in ? ld32(kb + static_cast<long long>(j) * ks.s + 2 * w) : 0u;
-      *reinterpret_cast<uint32_t*>(v_tile + jr * kLd + 2 * w) =
-          in ? ld32(vb + static_cast<long long>(j) * vs.s + 2 * w) : 0u;
-    }
-    __syncthreads();
-
-    // scores: 16 rows x 64 keys per warp
-    float s[kNT][4];
+    const bool edge = j0 + kBK > sk || (causal && j0 + kBK - 1 > q0) ||
+                      (window != 0 && static_cast<long long>(j0) <=
+                                          static_cast<long long>(q0) + kBQ - 1 - window);
+    if (edge) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const __nv_bfloat16* kr = k_tile + (nt * 8 + grp) * kLd + 2 * tg;
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) {
-        mma_bf16(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+        for (int e = 0; e < 4; ++e) {
+          if (!key_valid(j0 + 8 * j + 2 * tg + (e & 1), row0 + 8 * (e >> 1), sk, causal,
+                         window))
+            p[4 * j + e] = -INFINITY;
+        }
       }
     }
-    float tmax[2] = {-INFINITY, -INFINITY};
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + nt * 8 + 2 * tg + (e & 1);
-        s[nt][e] = key_valid(j, row[e >> 1], sk, causal, window)
-                       ? s[nt][e] / sqrt_d : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2];
+    for (int j = 0; j < 32; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], p[j]);
+    float alpha[2], ms[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m[r], tmax[r]);
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
       // equal maxima (both -inf before any valid key) leave the sums as they are
-      alpha[r] = m_new == m[r] ? 1.0f : expf(m[r] - m_new);
+      alpha[r] = m_new == m[r] ? 1.0f : ex2((m[r] - m_new) * scale);
+      ms[r] = m_new == -INFINITY ? 0.0f : m_new * scale;
       m[r] = m_new;
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = s[nt][e] == -INFINITY ? 0.0f : expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += s[nt][e];
-      }
+    for (int j = 0; j < 32; ++j) {
+      p[j] = ex2(fmaf(p[j], scale, -ms[(j >> 1) & 1]));
+      l[(j >> 1) & 1] += p[j];
     }
 #pragma unroll
-    for (int ot = 0; ot < kOT; ++ot) {
-      acc[ot][0] *= alpha[0];
-      acc[ot][1] *= alpha[0];
-      acc[ot][2] *= alpha[1];
-      acc[ot][3] *= alpha[1];
-    }
+    for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
-    // acc += p . v, 16 keys a step; the scores' c layout is p's a layout
+    // O += p.v, 16 keys a step, p in three exact bf16 pieces; the pairs of
+    // p[8kk..8kk+7] are the four a registers of step kk
+    uint32_t hi[4][4], mid[4][4], lo[4][4];
 #pragma unroll
-    for (int ks16 = 0; ks16 < kBK / 16; ++ks16) {
-      uint32_t hi[4], mid[4], lo[4];
-      split3(s[2 * ks16][0], s[2 * ks16][1], hi[0], mid[0], lo[0]);
-      split3(s[2 * ks16][2], s[2 * ks16][3], hi[1], mid[1], lo[1]);
-      split3(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1], hi[2], mid[2], lo[2]);
-      split3(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3], hi[3], mid[3], lo[3]);
-      const int k0 = ks16 * 16 + 2 * tg;
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int ot = 0; ot < kOT; ++ot) {
-        const int c = ot * 8 + grp;
-        const uint32_t b0 = v16[k0 * kLd + c] | (uint32_t(v16[(k0 + 1) * kLd + c]) << 16);
-        const uint32_t b1 = v16[(k0 + 8) * kLd + c] | (uint32_t(v16[(k0 + 9) * kLd + c]) << 16);
-        mma_bf16(acc[ot], lo, b0, b1);
-        mma_bf16(acc[ot], mid, b0, b1);
-        mma_bf16(acc[ot], hi, b0, b1);
-      }
+      for (int f = 0; f < 4; ++f)
+        split3(p[8 * kk + 2 * f], p[8 * kk + 2 * f + 1], hi[kk][f], mid[kk][f], lo[kk][f]);
     }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vd = desc(v_tile + kk * 16 * T::kRowBytes, T::kBlockBytes,
+                               8 * T::kRowBytes, T::kLayout);
+      wgmma_rs(o, lo[kk], vd);
+      wgmma_rs(o, mid[kk], vd);
+      wgmma_rs(o, hi[kk], vd);
+    }
+    wgmma_commit_and_wait();
+    fence_regs(o);
+    mbar_arrive(empty(s));
   }
 
   // the row sums over the four lanes of each row
@@ -470,54 +704,59 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 
-  // rows left with no valid key: 1/Sk times the sum of v over all keys
-  const bool empty[2] = {row[0] < sq && l[0] == 0.0f, row[1] < sq && l[1] == 0.0f};
-  if (__syncthreads_or(empty[0] || empty[1])) {
+  // rows left with no valid key: 1/Sk times the sum of v over all keys,
+  // this thread's columns read from device memory (a rare path)
+  const bool empty_row[2] = {row0 < sq && l[0] == 0.0f, row0 + 8 < sq && l[1] == 0.0f};
+  if (empty_row[0] || empty_row[1]) {
     const float inv = 1.0f / static_cast<float>(sk);
-    float sum[kOT][2];
+    const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
+    float sum[D / 4];
 #pragma unroll
-    for (int ot = 0; ot < kOT; ++ot) sum[ot][0] = sum[ot][1] = 0.0f;
-    for (int j0 = 0; j0 < sk; j0 += kBK) {
-      __syncthreads();
-      for (int e = tid; e < kBK * kW; e += kThreads) {
-        const int jr = e / kW, w = e % kW, j = j0 + jr;
-        *reinterpret_cast<uint32_t*>(v_tile + jr * kLd + 2 * w) =
-            j < sk ? ld32(vb + static_cast<long long>(j) * vs.s + 2 * w) : 0u;
-      }
-      __syncthreads();
-      const int n = min(kBK, sk - j0);
-      for (int jr = 0; jr < n; ++jr) {
+    for (int c = 0; c < D / 4; ++c) sum[c] = 0.0f;
+    for (int j = 0; j < sk; ++j) {
+      const __nv_bfloat16* vr = vb + static_cast<long long>(j) * vs.s + 2 * tg;
 #pragma unroll
-        for (int ot = 0; ot < kOT; ++ot) {
-          const int c = ot * 8 + 2 * tg;
-          sum[ot][0] += inv * __bfloat162float(v_tile[jr * kLd + c]);
-          sum[ot][1] += inv * __bfloat162float(v_tile[jr * kLd + c + 1]);
-        }
+      for (int c = 0; c < D / 8; ++c) {
+        sum[2 * c] += inv * __bfloat162float(vr[8 * c]);
+        sum[2 * c + 1] += inv * __bfloat162float(vr[8 * c + 1]);
       }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (!empty[r]) continue;
+      if (!empty_row[r]) continue;
 #pragma unroll
-      for (int ot = 0; ot < kOT; ++ot) {
-        acc[ot][2 * r] = sum[ot][0];
-        acc[ot][2 * r + 1] = sum[ot][1];
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c + 2 * r] = sum[2 * c];
+        o[4 * c + 2 * r + 1] = sum[2 * c + 1];
       }
       l[r] = 1.0f;
     }
   }
 
+  // o / l in bf16 into q's tile (every wgmma of the warpgroup has read it)
+  // in the tensor map's swizzle, then one TMA store per column block
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= sq) continue;
-    __nv_bfloat16* op = o + (static_cast<long long>(b) * sq + row[r]) * heads * D
-                        + static_cast<long long>(h) * D + 2 * tg;
+    const int row = warp * 16 + grp + 8 * r;
+    const float inv_l = 1.0f / l[r];
 #pragma unroll
-    for (int ot = 0; ot < kOT; ++ot) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(acc[ot][2 * r] / l[r],
-                                                        acc[ot][2 * r + 1] / l[r]);
-      *reinterpret_cast<__nv_bfloat162*>(op + ot * 8) = pair;
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * tg;
+      const uint32_t off = row * T::kRowBytes + (col % T::kW) * 2;
+      const uint32_t at = (col / T::kW) * T::kBlockBytes +
+                          (off ^ (((off >> 7) & (T::kRowBytes / 16 - 1)) << 4));
+      *reinterpret_cast<__nv_bfloat162*>(tile0 + at) =
+          __floats2bfloat162_rn(o[4 * c + 2 * r] * inv_l, o[4 * c + 2 * r + 1] * inv_l);
     }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  if (tid == 0) {
+    for (int c = 0; c < T::kBlocks; ++c)
+      tma_store(&o_map, base + c * T::kBlockBytes, c * T::kW, h, q0, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
@@ -531,11 +770,63 @@ constexpr long long f32_smem() {
          (kBK * (2 * D + 4) + (D > 64 ? kBQ * (D + 4) : 0));
 }
 
+// ---------------------------------------------------------------------------
+// host: tensor maps and launchers
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through cudaGetDriverEntryPoint, so the
+// library links against libcuda at no point (null if the lookup fails).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The tensor map of a (batch, seq, heads, D) bf16 operand at `ptr` with
+// element strides st = (batch, seq, head) and d contiguous, as the 4-d
+// tensor (D, heads, seq, batch), in boxes of one column block of 64 rows
+// with the tile's swizzle; coordinates past seq read as zeros (and a store
+// there is dropped).  False if the encode fails.
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, long long batch, long long seq,
+            long long heads, const long long* st) {
+  using T = Tile<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                               static_cast<cuuint64_t>(st[1]) * 2,
+                               static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {T::kW, 1, kBQ, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 template <int D>
 int launch_f32(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
-               int sq, int sk, int heads, int kv_heads, int causal, int window,
+               int batch, int sq, int sk, int heads, int kv_heads, int causal, int window,
                const long long* st, cudaStream_t stream) {
-  if (p.smem < f32_smem<D>()) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.block[0] != kThreads || p.smem < f32_smem<D>())
+    return static_cast<int>(cudaErrorInvalidValue);
   return plan::launch(flash_fwd_kernel<D>, p, stream, static_cast<const float*>(q),
                       static_cast<const float*>(k), static_cast<const float*>(v),
                       static_cast<float*>(o), sq, sk, heads, heads / kv_heads, causal,
@@ -543,19 +834,26 @@ int launch_f32(const plan::Plan& p, const void* q, const void* k, const void* v,
                       Strides{st[6], st[7], st[8]});
 }
 
+// The bf16 launch: the four tensor maps (o contiguous), then the kernel.
 template <int D>
 int launch_bf16(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
-                int sq, int sk, int heads, int kv_heads, int causal, int window,
+                int batch, int sq, int sk, int heads, int kv_heads, int causal, int window,
                 const long long* st, cudaStream_t stream) {
-  return plan::launch(flash_fwd_mma_kernel<D>, p, stream,
-                      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-                      sk, heads, heads / kv_heads, causal, window, Strides{st[0], st[1], st[2]},
-                      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]});
+  if (p.block[0] != kWgThreads || p.smem < Tile<D>::kSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ost[3] = {static_cast<long long>(sq) * heads * D,
+                            static_cast<long long>(heads) * D, D};
+  CUtensorMap qm, km, vm, om;
+  if (!encode<D>(&qm, q, batch, sq, heads, st) || !encode<D>(&km, k, batch, sk, kv_heads, st + 3) ||
+      !encode<D>(&vm, v, batch, sk, kv_heads, st + 6) || !encode<D>(&om, o, batch, sq, heads, ost))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return plan::launch(flash_fwd_wgmma_kernel<D>, p, stream, qm, km, vm, om,
+                      static_cast<const __nv_bfloat16*>(v), Strides{st[6], st[7], st[8]}, sq,
+                      sk, heads / kv_heads, causal, window);
 }
 
 using Launch = int (*)(const plan::Plan&, const void*, const void*, const void*, void*, int,
-                       int, int, int, int, int, const long long*, cudaStream_t);
+                       int, int, int, int, int, int, const long long*, cudaStream_t);
 
 Launch pick(int dtype, int d) {
   const bool f32 = dtype == 0;
@@ -571,9 +869,10 @@ const plan::Kernel kKernels[] = {
     {"flash_fwd_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_kernel<32>)},
     {"flash_fwd_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_kernel<64>)},
     {"flash_fwd_kernel<128>", reinterpret_cast<const void*>(&flash_fwd_kernel<128>)},
-    {"flash_fwd_mma_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<32>)},
-    {"flash_fwd_mma_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<64>)},
-    {"flash_fwd_mma_kernel<128>", reinterpret_cast<const void*>(&flash_fwd_mma_kernel<128>)}};
+    {"flash_fwd_wgmma_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<32>)},
+    {"flash_fwd_wgmma_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<64>)},
+    {"flash_fwd_wgmma_kernel<128>",
+     reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<128>)}};
 
 }  // namespace
 
@@ -582,25 +881,25 @@ PLAN_KERNEL_TABLE(flash_attn, kKernels)
 // q: (batch, sq, heads, d), k and v: (batch, sk, kv_heads, d), each with
 // element strides st[0..2] (q), st[3..5] (k), st[6..8] (v) over its batch,
 // sequence and head axes and d contiguous; o: contiguous (batch, sq, heads,
-// d) of the same type.  dtype 0 is float32, 1 bfloat16 (then every stride
-// even and every pointer 4-byte aligned: the kernel reads bf16 pairs); d
+// d) of the same type.  dtype 0 is float32, 1 bfloat16 (then every pointer
+// 16-byte aligned and every stride a multiple of 8 elements: TMA's rule); d
 // is 32, 64 or 128; heads a multiple of kv_heads; sk >= 1.  The plan
-// (attn_kernel.launch_plan): a block of kThreads threads per (query tile of
-// kBQ rows, head, batch), grid (query tiles, heads, batch); for float32 the
-// k and v tiles (and at d = 128 the q rows) in dynamic shared memory, opted
-// in above 48 KB.  Refuses
-// another block, or too little shared memory for the float32 tiles.
-// Returns cudaGetLastError() after the launch (0 on success); a grid past
-// the card's limits (heads or batch above 65535) is refused there.
+// (attn_kernel.launch_plan): float32, 128 threads a block and grid (query
+// tiles, heads, batch) with the k and v tiles (at d = 128 also the q rows)
+// in dynamic shared memory; bfloat16, 160 threads and grid (heads, batch,
+// query tiles) with Tile<d>::kSmem bytes; opted in above 48 KB.  Refuses
+// another block, too little shared memory, or a tensor map that
+// cuTensorMapEncodeTiled refuses (cudaErrorInvalidValue).  Returns cudaGetLastError() after the
+// launch (0 on success); a grid past the card's limits is refused there.
 extern "C" int flash_attn_launch(const plan::Plan* p, const void* q, const void* k,
                                  const void* v, void* o, int dtype, int d, int batch,
                                  int sq, int sk, int heads, int kv_heads, int causal,
                                  int window, const long long* st, void* stream) {
   if (batch == 0 || sq == 0 || heads == 0) return 0;
   const Launch fn = dtype == 0 || dtype == 1 ? pick(dtype, d) : nullptr;
-  if (fn == nullptr || sk < 1 || kv_heads < 1 || heads % kv_heads != 0 ||
-      p->block[0] != kThreads || p->block[1] != 1 || p->block[2] != 1)
+  if (fn == nullptr || sk < 1 || kv_heads < 1 || heads % kv_heads != 0 || p->block[1] != 1 ||
+      p->block[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fn(*p, q, k, v, o, sq, sk, heads, kv_heads, causal, window, st,
+  return fn(*p, q, k, v, o, batch, sq, sk, heads, kv_heads, causal, window, st,
             static_cast<cudaStream_t>(stream));
 }

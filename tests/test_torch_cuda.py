@@ -186,6 +186,9 @@ def _assert_attn_close(got, want):
     (1, 130, 130, 2, 1, 32, True, 7),
     (1, 129, 129, 4, 1, 128, True, 0),
     (1, 4, 4, 2, 1, 64, True, 0),
+    (1, 2048, 2048, 4, 1, 128, True, 0),  # the bf16 kernel's stage ring wraps 16 times
+    (2, 200, 257, 4, 2, 64, False, 0),    # Sk one past 4 key tiles
+    (2, 256, 256, 8, 2, 32, True, 0),     # GQA at d = 32
 ])
 def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, d, causal, window, dtype):
     q, k, v = _attn_inputs(Sq + Sk + d, B, Sq, Sk, H, Hkv, d, dtype, dev)
@@ -210,8 +213,9 @@ def test_flash_kernel_reads_strided_views_in_place(dev):
 
 
 def test_flash_kernel_takes_a_misaligned_bf16_view(dev):
-    """A bf16 view starting 2 bytes past a 4-byte boundary: the tensor-core
-    kernel reads bf16 pairs, so the wrapper hands it an aligned copy."""
+    """A bf16 view starting 2 bytes past a 4-byte boundary: the Hopper
+    kernel reads through TMA (16-byte aligned), so the wrapper hands it an
+    aligned copy."""
     B, S, H, d = 1, 128, 2, 64
     base = torch.randn(3 * B * S * H * d + 1, device=dev).to(torch.bfloat16)
     q, k, v = (base[1 + i * B * S * H * d:1 + (i + 1) * B * S * H * d].view(B, S, H, d)
@@ -219,6 +223,34 @@ def test_flash_kernel_takes_a_misaligned_bf16_view(dev):
     assert q.data_ptr() % 4 == 2
     got = attn_kernel.flash_attention(q, k, v, causal=True)
     _assert_attn_close(got, attn_kernel.flash_attention_plain(q, k, v, True, 0))
+
+
+def test_flash_kernel_copies_a_bf16_view_off_a_16_byte_boundary(dev):
+    """A bf16 view starting 8 bytes past a 16-byte boundary: TMA needs a
+    16-byte aligned start, so the wrapper hands the kernel an aligned copy,
+    and the result is the plain version's."""
+    B, S, H, d = 2, 192, 4, 64
+    n = B * S * H * d
+    base = torch.randn(3 * n + 4, device=dev).to(torch.bfloat16)
+    q, k, v = (base[4 + i * n:4 + (i + 1) * n].view(B, S, H, d) for i in range(3))
+    assert q.data_ptr() % 16 == 8
+    ops.reset_launches()
+    got = attn_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == 1
+    _assert_attn_close(got, attn_kernel.flash_attention_plain(q, k, v, True, 0))
+
+
+def test_flash_bf16_kernels_are_wgmma_and_tma_kernels(dev):
+    """The bf16 kernels' machine code issues wgmma (HGMMA), TMA loads and
+    stores (UTMALDG, UTMASTG) and no mma.sync (HMMA); the three-piece split
+    of p needs no conversion instruction (F2FP only in the epilogue's bf16
+    rounding of o)."""
+    counts = attn_kernel.sass_opcodes()
+    for d in attn_kernel.HEAD_DIMS:
+        c = counts[f"flash_fwd_wgmma_kernel<{d}>"]
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, c
+        assert c["HMMA"] == 0 and c["F2FP"] <= d // 4, c
 
 
 def test_flash_wrapper_raises_on_a_refused_launch(dev):

@@ -16,12 +16,16 @@ moved to Python, worked out by hand below:
   else a block a row, grid B;
 - distill: 256 threads, a block a row: grid B;
 - fused_round: 128 threads, a warp a row: grid ceil(m / 4);
-- flash_attn: 128 threads, grid (ceil(Sq / 64), H, B); float32 stages
-  64 keys of k (rows of d + 4 floats) and v: 4 * 64 * (2d + 4) bytes,
-  opted in above 48 KB; bfloat16 no dynamic shared memory.  At d = 128
-  the float32 kernel now also stages its 64 q rows (d + 4 floats each),
-  4 * 64 * 132 bytes more: the analyzer's first card run found that
-  kernel spilling 160 bytes a thread with q in registers.
+- flash_attn, float32: 128 threads, grid (ceil(Sq / 64), H, B); 64 keys
+  of k (rows of d + 4 floats) and v staged: 4 * 64 * (2d + 4) bytes,
+  opted in above 48 KB.  At d = 128 the kernel also stages its 64 q rows
+  (d + 4 floats each), 4 * 64 * 132 bytes more: the analyzer's first card
+  run found that kernel spilling 160 bytes a thread with q in registers.
+- flash_attn, bfloat16 (the Hopper kernel): a consumer warpgroup and
+  a producer warp, 160 threads, grid (H, B, ceil(Sq / 64)); 1024 bytes of
+  alignment, the q tile and 2 tiles a stage (2 * 64 * d bytes each) and 8
+  bytes an mbarrier, at 4 stages for d = 32 and 2 otherwise:
+  37960 / 42024 / 82984 bytes at d = 32 / 64 / 128.
 """
 import ctypes
 
@@ -61,9 +65,12 @@ WANT = {
     "attn/S128-gqa-d64": ("flash_fwd_kernel<64>", (2, 4, 2), 128, 33792, False),
     "attn/small-Sq4": ("flash_fwd_kernel<64>", (1, 2, 1), 128, 33792, False),
     "attn/odd-S100-window": ("flash_fwd_kernel<64>", (2, 2, 1), 128, 33792, False),
-    "attn/bf16-S64": ("flash_fwd_mma_kernel<64>", (1, 2, 1), 128, 0, False),
-    "attn/whisper-B4-S384-H20-d64-bf16": ("flash_fwd_mma_kernel<64>", (6, 20, 4), 128, 0, False),
+    "attn/bf16-S64": ("flash_fwd_wgmma_kernel<64>", (2, 1, 1), 160, 42024, False),
+    "attn/whisper-B4-S384-H20-d64-bf16": ("flash_fwd_wgmma_kernel<64>", (20, 4, 6), 160, 42024,
+                                          False),
     "attn/S256-d128-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
+    "attn/bf16-gqa-d32": ("flash_fwd_wgmma_kernel<32>", (4, 2, 3), 160, 37960, False),
+    "attn/bf16-S2048-d128": ("flash_fwd_wgmma_kernel<128>", (4, 1, 32), 160, 82984, True),
 }
 
 CASES = {label: (fn, args, expect) for label, fn, args, expect in launch_checks.iter_cases()}
@@ -121,8 +128,9 @@ def test_flash_opts_in_exactly_above_48kb():
 
 
 def test_flash_bf16_plan_reads_pairs_and_copies_a_misaligned_view():
-    """A bf16 view 2 bytes off a 4-byte boundary is copied by the wrapper
-    (``_readable``), so the plan the kernel gets is aligned."""
+    """A bf16 view 2 bytes off a 16-byte boundary is copied by the wrapper
+    (``_readable``), so the plan the kernel gets is aligned for TMA's
+    16-byte accesses."""
     def fn(base):
         n = 1 * 128 * 2 * 64
         q = base.narrow(0, 1, n).view(1, 128, 2, 64)
@@ -131,8 +139,51 @@ def test_flash_bf16_plan_reads_pairs_and_copies_a_misaligned_view():
     tr = trace(fn, tensor_spec((1 + 1 * 128 * 2 * 64,), BF16))
     plan = tr.launches[0].plan
     q_op = plan.operands[0]
-    assert (q_op.vector_bytes, q_op.storage_offset) == (4, 0)
+    assert (q_op.vector_bytes, q_op.storage_offset) == (16, 0)
     assert launch_checks.check_plan("bf16", plan) == []
+
+
+@pytest.mark.parametrize("d,optin", [(32, False), (64, False), (128, True)])
+def test_flash_bf16_plan_shared_memory_fits_hopper(d, optin):
+    """The Hopper kernel's q tile, stage ring and barriers fit a block's
+    opt-in limit and leave room for a second block on a multiprocessor (no
+    lint warning); the plan opts in exactly above 48 KB."""
+    tr = trace(lambda q: attn_kernel.flash_attention(q, q, q), tensor_spec((1, 64, 2, d), BF16))
+    plan = tr.launches[0].plan
+    stages = attn_kernel.STAGES[d]
+    assert plan.dyn_smem == attn_kernel.smem_bytes(BF16, d) == (
+        1024 + 2 * 64 * d * (1 + 2 * stages) + 8 * (1 + 2 * stages))
+    assert plan.dyn_smem <= runtime.HOPPER.smem_per_sm // 2
+    assert plan.smem_optin is optin is (plan.dyn_smem > runtime.HOPPER.smem_per_block)
+    assert launch_checks.check_plan(f"d{d}", plan) == []
+
+
+@pytest.mark.parametrize("row,offset,in_place", [
+    (64, 0, True),    # contiguous
+    (72, 0, True),    # head stride 144 bytes: a multiple of 16
+    (68, 0, False),   # head stride 136 bytes
+    (64, 4, False),   # 8 bytes off a 16-byte boundary
+    (64, 8, True),    # 16 bytes off: aligned
+    (0, 0, False),    # batch and sequence expanded from one row (stride 0)
+])
+def test_flash_bf16_reads_only_tma_aligned_views_in_place(row, offset, in_place):
+    """TMA needs a 16-byte aligned start and strides that are multiples of
+    16 bytes: a bf16 view that breaks either is copied to a contiguous
+    tensor before the launch, any other is read in place."""
+    n = 2 * 64 * 2 * max(row, 64)
+
+    def fn(base):
+        if row == 0:
+            q = base.narrow(0, 0, 2 * 64).view(1, 1, 2, 64).expand(2, 64, 2, 64)
+        else:
+            q = base.narrow(0, offset, n).view(2, 64, 2, row)[..., :64]
+        return attn_kernel.flash_attention(q, q, q)
+
+    tr = trace(fn, tensor_spec((n + offset,), BF16))
+    q_op = tr.launches[0].plan.operands[0]
+    want = ((64 * 2 * row, 2 * row, row), offset) if in_place else ((64 * 2 * 64, 2 * 64, 64), 0)
+    assert (q_op.strides[:3], q_op.storage_offset) == want
+    assert launch_checks.check_plan("bf16", tr.launches[0].plan) == []
 
 
 def test_quant_plan_reads_the_residual_view_in_place():
