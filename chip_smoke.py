@@ -133,9 +133,14 @@ WHISPER_SMALL_ATOL = 1e-4
 # kernel's result rounded once (the same float32 arithmetic on the
 # upcast input), and within one bfloat16 step of the plain version.
 # Shapes (B, N): N=1, the paper's 10, 100 (warp per row); 12289, one past
-# the fused kernel's limit, and whisper's padded vocabulary 51968 (block
-# per row).  The first and last row of each input are all zero.
-ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (48, 51968))
+# the fused kernel's limit (one block a row); 20001 (clusters of 2);
+# whisper's padded vocabulary 51968 and 51967, whose rows start off
+# 16-byte boundaries (clusters of 4); 100001 (clusters of 8); 300001, past
+# eight slices (the multi-pass layout).  The first and last row of each input are all zero.  Each
+# shape is also launched twice and split over two launches (rows [:k] and
+# [k:], k odd), in both dtypes: the results must be equal bit for bit.
+ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (9, 20001), (48, 51968),
+                   (7, 51967), (5, 100001), (3, 300001))
 ERA_ROWS_BETAS = (0.5, 1.0, 1.5, 4.0, 200.0)
 # The distillation loss, kernel vs plain version: both sum V float32
 # terms in other orders (the kernel per thread, then a shuffle tree), and
@@ -291,10 +296,18 @@ def check_qdq(device) -> float:
 ROUND_MODES = (("identity", None), ("quant", 8), ("quant", 1), ("quant", 4),
                ("delta", None), ("delta", 8))
 # (K, m, N): one client; odd row counts; N=2 and N=130 beside the slice's
-# 10 (130 spans more than one 16-class register chunk and 32 lanes);
-# N=1 only where no class is implied (identity, quant)
+# 10 (130 spans more than one 16-class register chunk and 32 lanes, and
+# holds the pair's row in the slab); all K clients in one chunk, and 300
+# at N=130 (five chunks of 64) and 1000 (four of 256); one row (m=1);
+# N=400 (7 clients, two rows a tile); N=700 at 40 clients, past the tile
+# layout (a warp a row); N=1 only where no class is implied (identity,
+# quant)
 ROUND_SHAPES = ((1, 1, 2), (7, 1000, 10), (100, 1001, 130), (1, 1001, 10),
-                (7, 1, 130), (100, 1000, 10))
+                (7, 1, 130), (100, 1000, 10), (1000, 64, 10), (150, 1, 10),
+                (300, 7, 130), (7, 5, 400), (40, 3, 700))
+# fused_round's determinism: two launches, and rows split over two launches
+ROUND_SPLIT_SHAPES = ((100, 1000, 10), (1000, 64, 10), (300, 7, 130), (7, 5, 400),
+                      (40, 3, 700))
 ROUND_BETAS = (0.5, 1.0, 1.5, 4.0)
 
 
@@ -367,6 +380,21 @@ def check_fused_round(device) -> float:
         f"max_abs_err={err!r} (atol {ROUND_ATOL})")
     if err > ROUND_ATOL:
         raise AssertionError(f"fused_round slice: {err} > {ROUND_ATOL}")
+    for K, m, N in ROUND_SPLIT_SHAPES:
+        z, base = _probs(rng, (K, m, N), device), _probs(rng, (m, N), device)
+        w = participant_weights(rng, K, device)
+        k = m // 3
+        for sharpen, beta in ((False, None), (True, BETA)):
+            kw = dict(mode="delta", bits=8, sharpen=sharpen)
+            one = round_kernel.fused_round(z, w, beta, base, **kw)
+            two = torch.cat([round_kernel.fused_round(z[:, :k], w, beta, base[:k], **kw),
+                             round_kernel.fused_round(z[:, k:], w, beta, base[k:], **kw)])
+            if not (torch.equal(one, round_kernel.fused_round(z, w, beta, base, **kw))
+                    and torch.equal(one, two)):
+                raise AssertionError(f"fused_round ({K},{m},{N}) sharpen={sharpen}: two "
+                                     "launches, or rows split over two, differ")
+    log(f"fused_round over (K,m,N) in {ROUND_SPLIT_SHAPES}: two launches equal bit for bit, "
+        f"rows [:m//3] and [m//3:] in two launches equal to one ok")
     return max(worst, err)
 
 
@@ -674,16 +702,30 @@ def check_era_rows(device) -> float:
                                      f"{err}, bfloat16 {err_b}")
             errs.append((err, err_b))
             worst = max(worst, err)
-        log(f"era_rows ({B},{N}) beta in {ERA_ROWS_BETAS}, zero first/last rows: float32 "
-            f"max_abs_err={max(e for e, _ in errs)!r} (atol {ERA_ATOL}); bfloat16 equal "
-            f"to the float32 kernel rounded, max_abs_err vs plain="
-            f"{max(e for _, e in errs)!r} (one bf16 step) ok")
-    # beta as a float32 tensor on the card, read by the kernel
-    z = _probs(rng, (1000, 10), device)
-    got = era_kernel.enhanced_era(z, torch.full((), BETA, device=device))
-    if not torch.equal(got, era_kernel.enhanced_era(z, BETA)):
-        raise AssertionError("era_rows: beta as a CUDA tensor differs from beta as a float")
-    log("era_rows beta as a CUDA 0-d tensor: equal to beta as a float ok")
+        k = (B // 2) | 1
+        for zz in (z, z.to(torch.bfloat16)):
+            one = era_kernel.enhanced_era(zz, BETA)
+            two = torch.cat([era_kernel.enhanced_era(zz[:k], BETA),
+                             era_kernel.enhanced_era(zz[k:], BETA)])
+            if not (torch.equal(one, era_kernel.enhanced_era(zz, BETA))
+                    and torch.equal(one, two)):
+                raise AssertionError(f"era_rows ({B},{N}) {zz.dtype}: two launches, or rows "
+                                     "split over two, differ")
+        log(f"era_rows ({B},{N}) {era_kernel.rows_layout(N)} beta in {ERA_ROWS_BETAS}, zero "
+            f"first/last rows: float32 max_abs_err={max(e for e, _ in errs)!r} (atol "
+            f"{ERA_ATOL}); bfloat16 equal to the float32 kernel rounded, max_abs_err vs plain="
+            f"{max(e for _, e in errs)!r} (one bf16 step); two launches and rows [:{k}], "
+            f"[{k}:] equal bit for bit ok")
+    # beta as a float32 tensor on the card, read by the kernel (a warp a
+    # row, and a cluster a row)
+    for shape in ((1000, 10), (48, 51968)):
+        z = _probs(rng, shape, device)
+        got = era_kernel.enhanced_era(z, torch.full((), BETA, device=device))
+        if not torch.equal(got, era_kernel.enhanced_era(z, BETA)):
+            raise AssertionError(f"era_rows {shape}: beta as a CUDA tensor differs from beta "
+                                 "as a float")
+    log("era_rows beta as a CUDA 0-d tensor at (1000, 10) and (48, 51968): equal to beta as "
+        "a float ok")
     return worst
 
 
@@ -1184,17 +1226,17 @@ def kernel_report(launches: dict, errs: dict) -> list:
         bound_ms=b, bound_by=why,
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))))
-    # per-row Enhanced ERA: the paper's aggregate (1000, 10), then
-    # whisper's vocabulary as soft-labels (1536, 51968), both float32;
-    # bytes: the input read once and the output written once; operations:
-    # clamp, log, *beta, max, -, exp, +, / per value.  The line reports the
-    # vocabulary shape.
+    # per-row Enhanced ERA: the paper's aggregate (1000, 10) float32, then
+    # whisper's vocabulary as soft-labels (1536, 51968) in bfloat16 and in
+    # float32; bytes: the input read once and the output written once;
+    # operations: clamp, log, *beta, max, -, exp, +, / per value.  The line
+    # reports the float32 vocabulary shape.
     gen = torch.Generator(device=dev).manual_seed(9)
     V, rows = 51968, WHISPER_B * WHISPER_S
     z_small = _probs(rng, (m, N), dev)
     z_vocab = torch.softmax(torch.randn(rows, V, device=dev, generator=gen), -1)
-    for zz in (z_small, z_vocab):
-        b, why = bound_ms(4.0 * 2 * zz.numel(), 8.0 * zz.numel())
+    for zz in (z_small, z_vocab.to(torch.bfloat16), z_vocab):
+        b, why = bound_ms(zz.element_size() * 2.0 * zz.numel(), 8.0 * zz.numel())
         row = dict(
             name="enhanced_era", route="cuda",
             source="src/repro_torch/kernels/csrc/era_rows.cu",
@@ -1203,7 +1245,7 @@ def kernel_report(launches: dict, errs: dict) -> list:
             ms=cuda_ms(lambda: era_kernel.enhanced_era(zz, BETA)),
             plain_ms=cuda_ms(lambda: era_kernel.enhanced_era_plain(zz, BETA)),
             bound_ms=b, bound_by=why, library_ms=None)
-        log(f"time enhanced_era {tuple(zz.shape)}: ms={row['ms']!r} "
+        log(f"time enhanced_era {tuple(zz.shape)} {zz.dtype}: ms={row['ms']!r} "
             f"plain_ms={row['plain_ms']!r} bound_ms={b!r} by {why}")
     out.append(row)
     del z_vocab

@@ -13,6 +13,9 @@ each plan the contract pass recorded) is held against
 - **block and grid** (error): more than 1024 threads a block, a block
   dimension past (1024, 1024, 64), a grid past (2^31 - 1, 65535, 65535);
   (warn) threads not a multiple of the 32-thread warp;
+- **clusters** (error): a thread-block cluster of more than the portable 8
+  blocks, a cluster dimension below 1, or a grid that is not whole
+  clusters along each axis (the card refuses such a launch);
 - **shared memory** (error): dynamic shared memory over 48 KB without
   opting in, or over 227 KB with it; (warn) over half a multiprocessor's
   228 KB, which leaves no room for a second resident block (the
@@ -112,6 +115,14 @@ def check_plan(label: str, plan: LaunchPlan,
             err(f"grid {axis} = {d} over the card's {cap}")
     if threads % limits.warp_size:
         warn(f"{threads} threads a block, not a multiple of the {limits.warp_size}-thread warp")
+    blocks = plan.cluster[0] * plan.cluster[1] * plan.cluster[2]
+    if any(c < 1 for c in plan.cluster):
+        err(f"cluster {plan.cluster} has a dimension below 1")
+    elif blocks > limits.max_cluster_blocks:
+        err(f"cluster {plan.cluster} of {blocks} blocks, over the portable "
+            f"{limits.max_cluster_blocks}")
+    elif any(g % c for g, c in zip(plan.grid, plan.cluster)):
+        err(f"grid {plan.grid} is not whole clusters of {plan.cluster}")
 
     static = attrs["sharedSizeBytes"] if attrs else 0
     smem = plan.dyn_smem + static
@@ -148,7 +159,8 @@ def check_plan(label: str, plan: LaunchPlan,
 
 def _summary(plan: LaunchPlan, attrs: Optional[Dict[str, int]]) -> str:
     s = (f"{plan.kernel} grid {plan.grid} block {plan.block} smem {plan.dyn_smem}"
-         f"{' (opt-in)' if plan.smem_optin else ''}")
+         f"{' (opt-in)' if plan.smem_optin else ''}"
+         f"{f' cluster {plan.cluster}' if plan.cluster != (1, 1, 1) else ''}")
     if attrs:
         s += (f"; {attrs['numRegs']} registers, {attrs['localSizeBytes']} B local, "
               f"{attrs['sharedSizeBytes']} B static shared")

@@ -26,7 +26,9 @@ from repro_torch.kernels import runtime
 
 __all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES",
            "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS",
-           "WARP_ROW_MAX_N", "fused_launch_plan", "rows_launch_plan", "analysis_cases"]
+           "WARP_ROW_MAX_N", "ROW_CLUSTERS", "ROW_SLICE_MAX", "ONEPASS_THREADS",
+           "fused_launch_plan", "row_slice", "onepass_threads", "rows_layout",
+           "rows_launch_plan", "launch_rows", "analysis_cases"]
 
 _EPS = 1e-12
 
@@ -38,10 +40,25 @@ MAX_CLASSES = 12288
 # covers about FUSED_THREADS values.
 FUSED_THREADS = 128
 
-# Threads a block of the per-row kernel (a multiple of 32): a warp a row,
-# 8 rows a block, for N <= WARP_ROW_MAX_N; one row a block above.
+# Threads a block of the per-row kernel's warp and multi-pass layouts (a
+# multiple of 32): a warp a row, 8 rows a block, for N <= WARP_ROW_MAX_N;
+# one row a block in the multi-pass layout.
 THREADS = 256
 WARP_ROW_MAX_N = 1024
+# The one-pass layout above WARP_ROW_MAX_N: one row a cluster of C blocks
+# (C in ROW_CLUSTERS, the smallest whose slice of the row fits
+# ROW_SLICE_MAX float32 values), a thread for every 16 values of a slice,
+# at least 128 and at most ONEPASS_THREADS / C threads a block, so that C
+# blocks of a full slice fill a multiprocessor's threads.  At whisper's
+# 51968 classes in float32, C = 4 (slices of 12992) measured fastest of 1,
+# 2, 4 and 8 (PERF.md, tools/kernel_variants.py).  A row longer than
+# ROW_CLUSTERS[-1] slices takes the multi-pass layout.
+ROW_CLUSTERS = (1, 2, 4, 8)
+ROW_SLICE_MAX = 13312
+ONEPASS_THREADS = 1024
+# Shared memory a block beside its slice: the float4 shift of the slice
+# (at most 7 values) and a margin over the kernel's 140 static bytes.
+_SLICE_PAD = 8
 _DTYPE_NAME = {torch.float32: "float", torch.bfloat16: "bf16"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -131,25 +148,76 @@ def _beta_arg(beta, z: torch.Tensor):
     return 0.0, beta.reshape(()).to(torch.float32)
 
 
-def _warp_per_row(n: int) -> bool:
-    return n <= WARP_ROW_MAX_N
+def row_slice(n: int, cluster: int) -> int:
+    """Values of a row that each of a cluster's blocks holds in the
+    one-pass layout: an equal share, rounded up to 8 (one bfloat16
+    vector)."""
+    return runtime.cdiv(runtime.cdiv(n, cluster), 8) * 8
 
 
-def rows_launch_plan(z: torch.Tensor, out: torch.Tensor,
-                     beta_t: Optional[torch.Tensor]) -> runtime.LaunchPlan:
-    """The launch of ``csrc/era_rows.cu`` over the contiguous (B, N) ``z``:
-    a warp a row (THREADS / 32 rows a block) for N <= WARP_ROW_MAX_N, a
-    block a row above; beta by pointer when ``beta_t`` is given."""
+def onepass_threads(n: int, cluster: int) -> int:
+    """Threads a block of the one-pass layout: a power of two near one for
+    every 16 values of the slice, from 128 to ONEPASS_THREADS / cluster."""
+    want = 1 << max(0, runtime.cdiv(row_slice(n, cluster), 16) - 1).bit_length()
+    return max(128, min(ONEPASS_THREADS // cluster, want))
+
+
+def rows_layout(n: int):
+    """(layout, cluster) of ``csrc/era_rows.cu`` for rows of ``n`` values,
+    from ``n`` alone: ("warp", 1) up to WARP_ROW_MAX_N; ("onepass", C)
+    with the smallest C of ROW_CLUSTERS whose slice fits ROW_SLICE_MAX;
+    else ("passes", 1)."""
+    if n <= WARP_ROW_MAX_N:
+        return "warp", 1
+    for c in ROW_CLUSTERS:
+        if row_slice(n, c) <= ROW_SLICE_MAX:
+            return "onepass", c
+    return "passes", 1
+
+
+_LAYOUT_CODE = {"warp": 0, "onepass": 1, "passes": 2}
+
+
+def rows_launch_plan(z: torch.Tensor, out: torch.Tensor, beta_t: Optional[torch.Tensor],
+                     layout=None) -> runtime.LaunchPlan:
+    """The launch of ``csrc/era_rows.cu`` over the contiguous (B, N) ``z``
+    in ``layout`` (default :func:`rows_layout` of N): a warp a row
+    (THREADS / 32 rows a block); a cluster of C blocks a row, each with
+    its slice of the row in dynamic shared memory, opted in above 48 KB;
+    or a block a row.  beta by pointer when ``beta_t`` is given."""
     B, N = z.shape
-    warp = _warp_per_row(N)
-    grid = runtime.cdiv(B, THREADS // 32) if warp else B
+    kind, c = layout or rows_layout(N)
+    dt = _DTYPE_NAME[z.dtype]
+    smem, cluster = 0, (1, 1, 1)
+    if kind == "warp":
+        name, grid, threads = f"era_rows_warp<{dt}>", runtime.cdiv(B, THREADS // 32), THREADS
+    elif kind == "onepass":
+        name, grid, threads = f"era_rows_onepass<{dt},{c}>", B * c, onepass_threads(N, c)
+        smem, cluster = 4 * (row_slice(N, c) + _SLICE_PAD), (c, 1, 1)
+    else:
+        name, grid, threads = f"era_rows_passes<{dt}>", B, THREADS
     return runtime.LaunchPlan(
-        f"era_rows_{'warp' if warp else 'block'}<{_DTYPE_NAME[z.dtype]}>",
-        grid=(grid, 1, 1), block=(THREADS, 1, 1),
+        name, grid=(grid, 1, 1), block=(threads, 1, 1), dyn_smem=smem,
+        smem_optin=smem > runtime.HOPPER.smem_per_block, cluster=cluster,
         operands=(runtime.ptr("z", z), runtime.ptr("out", out),
                   runtime.value("dtype", ctypes.c_int), runtime.value("layout", ctypes.c_int),
                   runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
-                  runtime.value("beta", ctypes.c_float), runtime.ptr("beta_ptr", beta_t)))
+                  runtime.value("slice", ctypes.c_int), runtime.value("beta", ctypes.c_float),
+                  runtime.ptr("beta_ptr", beta_t)))
+
+
+def launch_rows(z: torch.Tensor, out: torch.Tensor, beta_val: float,
+                beta_t: Optional[torch.Tensor], layout) -> None:
+    """One launch of ``csrc/era_rows.cu`` over contiguous (B >= 1, N) ``z``
+    into ``out`` in ``layout`` ((kind, cluster), as :func:`rows_layout`
+    gives it).  Counts no launch: :func:`enhanced_era` does."""
+    B, N = z.shape
+    kind, c = layout
+    runtime.launch("era_rows", "era_rows_launch", rows_launch_plan(z, out, beta_t, layout), z,
+                   out, ctypes.c_int(_DTYPE_CODE[z.dtype]), ctypes.c_int(_LAYOUT_CODE[kind]),
+                   ctypes.c_longlong(B), ctypes.c_int(N),
+                   ctypes.c_int(row_slice(N, c) if kind == "onepass" else 0),
+                   ctypes.c_float(beta_val), beta_t)
 
 
 def enhanced_era(z: torch.Tensor, beta) -> torch.Tensor:
@@ -175,9 +243,7 @@ def enhanced_era(z: torch.Tensor, beta) -> torch.Tensor:
     out = torch.empty((B, N), dtype=z.dtype, device=z.device)
     if B == 0:
         return out
-    runtime.launch("era_rows", "era_rows_launch", rows_launch_plan(z, out, beta_t), z, out,
-                   ctypes.c_int(_DTYPE_CODE[z.dtype]), ctypes.c_int(0 if _warp_per_row(N) else 1),
-                   ctypes.c_longlong(B), ctypes.c_int(N), ctypes.c_float(beta_val), beta_t)
+    launch_rows(z, out, beta_val, beta_t, rows_layout(N))
     enhanced_era.launches += 1
     return out
 
@@ -192,9 +258,12 @@ def analysis_cases():
     (``repro.kernels.era_kernel.analysis_cases``), then the shapes the
     main path launches (the slice's (100, 1000, 10) stack; whisper's
     (1536, 51968) vocabulary as soft-labels, in float32 and bfloat16; beta
-    on the card), and the fused kernel at its limit: N = MAX_CLASSES fills
-    48 KB exactly, and N = MAX_CLASSES + 1 is refused by the wrapper (a
-    fourth element names the exception the case must raise)."""
+    on the card), each layout of the per-row kernel (one block a row,
+    clusters of 2 and 8 with rows not a multiple of 4 values, the
+    multi-pass rows past eight slices), and the fused kernel at its limit: N =
+    MAX_CLASSES fills 48 KB exactly, and N = MAX_CLASSES + 1 is refused by
+    the wrapper (a fourth element names the exception the case must
+    raise)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("era/B1000-N10", lambda z: enhanced_era(z, 1.5), (((1000, 10), f32),)),
@@ -213,4 +282,8 @@ def analysis_cases():
         ("era/B1536-N51968-bf16", lambda z: enhanced_era(z, 1.5), (((1536, 51968), bf16),)),
         ("era/B1000-N10-beta-on-card", lambda z, b: enhanced_era(z, b),
          (((1000, 10), f32), ((), f32))),
+        ("era/B64-N12289", lambda z: enhanced_era(z, 1.5), (((64, 12289), f32),)),
+        ("era/B9-N20001", lambda z: enhanced_era(z, 1.5), (((9, 20001), f32),)),
+        ("era/B7-N100001-bf16", lambda z: enhanced_era(z, 1.5), (((7, 100001), bf16),)),
+        ("era/B3-N300001", lambda z: enhanced_era(z, 1.5), (((3, 300001), f32),)),
     ]

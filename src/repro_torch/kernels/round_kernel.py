@@ -34,7 +34,8 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels.quant_kernel import _levels, quantize_dequantize_plain
 
 __all__ = ["MODES", "fused_round", "fused_round_plain", "resolve_delta_base",
-           "codec_kernel_spec", "launch_plan", "analysis_cases", "THREADS"]
+           "codec_kernel_spec", "launch_plan", "launch_round", "tile_layout",
+           "analysis_cases", "THREADS", "TILE_THREADS", "CHUNK_CLIENTS_MAX"]
 
 # the reference's epsilons (round_kernel.py:66-68): one-step parity with
 # the per-op chain depends on using the same ones
@@ -44,7 +45,18 @@ _EPS_SIMPLEX = 1e-9
 MODES = ("identity", "quant", "delta")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 
-# Threads a block: a warp a row, 4 rows a block.
+# The tile layout: a block of at most TILE_THREADS threads, one a (client,
+# row) pair, over `tile` rows and a chunk of `kc` clients (K up to
+# CHUNK_CLIENTS_MAX: all K = 100 clients of the slice in one chunk); its
+# (kc, tile, N) slab, the base tile and the double sums within the 48 KB a
+# block gets without opting in.  At the slice two rows a tile (224
+# threads) and four (416) measured alike, eight and one slower (PERF.md,
+# tools/kernel_variants.py).
+TILE_THREADS = 256
+CHUNK_CLIENTS_MAX = 256
+_REG_CLASSES = 16  # the kernel's kChunk: classes of a pair held in registers
+# The rows layout, for N whose slab does not fit at one row and 32
+# clients: a warp a row, THREADS / 32 rows a block.
 THREADS = 128
 
 
@@ -112,20 +124,126 @@ def fused_round_plain(z: torch.Tensor, weights: torch.Tensor, beta=None,
     return e / _sum(e, -1)
 
 
+def _tile_threads(kc: int, tile: int) -> int:
+    """Threads a tile block: one a pair, rounded up to whole warps."""
+    return 32 * runtime.cdiv(kc * tile, 32)
+
+
+def _tile_smem(kc: int, tile: int, n: int, stride: int, table: int) -> int:
+    """Bytes of the tile layout's shared memory: the outputs' double sums
+    and the client subsets' double sums (``groups`` of each output),
+    rounded up to 16 bytes; the slab of ``kc`` clients' stretches of
+    ``stride`` floats; the base tile; the ``table`` of code quotients."""
+    outs = tile * n
+    groups = max(1, _tile_threads(kc, tile) // outs)
+    doubles = outs + groups * outs
+    return 8 * (doubles + doubles % 2) + 4 * kc * stride + 4 * outs + 4 * table
+
+
+def _vec(z: torch.Tensor, tile: int) -> int:
+    """Floats a staging copy moves: 4 (16 bytes) when every client's tile
+    of ``z`` starts and ends on a 16-byte boundary, else 1."""
+    K, m, N = z.shape
+    return 4 if (m * N) % 4 == 0 and (tile * N) % 4 == 0 and z.storage_offset() % 4 == 0 else 1
+
+
+def _stride(tile: int, n: int, vec: int) -> int:
+    """Floats of a client's stretch of the slab: its tile * n values,
+    rounded up to a multiple of 4 for 16-byte copies, else to an odd count
+    so consecutive clients hit distinct banks."""
+    return runtime.cdiv(tile * n, 4) * 4 if vec == 4 else tile * n | 1
+
+
+def _table(levels: float) -> int:
+    """Entries of the kernel's table of code quotients i / levels: levels + 1
+    for a code of 1 to 8 bits, else 0 (the kernel divides)."""
+    return int(levels) + 1 if 1 <= levels <= 255 else 0
+
+
+def tile_layout(K: int, N: int) -> Optional[tuple]:
+    """(kc, tile) of the tile layout for K clients and N classes, or None
+    when even one row and min(K, 32) clients do not fit a block's 48 KB
+    (the rows layout then).  kc is K up to CHUNK_CLIENTS_MAX; tile fills
+    TILE_THREADS; both are halved, tile first, until the block fits with
+    the widest stride and table."""
+    kc = min(CHUNK_CLIENTS_MAX, K)
+    tile = max(1, TILE_THREADS // kc)
+    while _tile_smem(kc, tile, N, tile * N + 3, 256) > runtime.HOPPER.smem_per_block:
+        if tile > 1:
+            tile //= 2
+        elif kc > min(K, 32):
+            kc = max(min(K, 32), runtime.cdiv(kc, 2))
+        else:
+            return None
+    return kc, tile
+
+
+def _resolve_layout(layout, K: int, N: int) -> Optional[tuple]:
+    """(kc, tile) of the tile layout, or None for the rows layout:
+    ``layout`` None is :func:`tile_layout` of K and N, ``"rows"`` the rows
+    layout, a (kc, tile) pair that tile."""
+    if layout is None:
+        return tile_layout(K, N)
+    return None if layout == "rows" else tuple(layout)
+
+
 def launch_plan(z: torch.Tensor, weights: torch.Tensor, base: Optional[torch.Tensor],
-                out: torch.Tensor, beta_source: str = "python") -> runtime.LaunchPlan:
+                out: torch.Tensor, beta_source: str = "python", layout=None,
+                levels: float = 0.0) -> runtime.LaunchPlan:
     """The launch of ``csrc/fused_round.cu`` over the contiguous (K, m, N)
-    ``z``: a warp an output row, THREADS / 32 rows a block."""
-    m = z.shape[1]
+    ``z`` in ``layout`` (default :func:`tile_layout`; ``"rows"`` or a (kc,
+    tile) pair): in the tile layout a block of ``kc * tile`` threads
+    (rounded up to whole warps) a tile of ``tile`` output rows, with the
+    class row of a pair in registers for N <= 16, in a kernel compiled for
+    that N; in
+    the rows layout a warp an output row,
+    THREADS / 32 rows a block.  Where every client's tile starts and ends
+    on a 16-byte boundary the slab is staged with 16-byte copies (``z`` is
+    then described to the lint as (K, m * N) rows of 16-byte accesses);
+    a 1- to 8-bit code (``levels``) gets its table of quotients."""
+    K, m, N = z.shape
+    tl = _resolve_layout(layout, K, N)
+    z_op = runtime.ptr("z", z)
+    if tl is None:
+        name, grid, threads, smem = "fused_round_rows", runtime.cdiv(m, THREADS // 32), THREADS, 0
+    else:
+        kc, tile = tl
+        vec = _vec(z, tile)
+        name = f"fused_round_tile<{N if N <= _REG_CLASSES else 'smem'}>"
+        grid, threads = runtime.cdiv(m, tile), _tile_threads(kc, tile)
+        smem = _tile_smem(kc, tile, N, _stride(tile, N, vec), _table(levels))
+        if vec == 4:
+            z_op = runtime.ptr("z", z.reshape(K, m * N), vector_bytes=16)
     return runtime.LaunchPlan(
-        "fused_round_kernel", grid=(runtime.cdiv(m, THREADS // 32), 1, 1),
-        block=(THREADS, 1, 1),
-        operands=(runtime.ptr("z", z), runtime.ptr("w", weights), runtime.ptr("base", base),
+        name, grid=(grid, 1, 1), block=(threads, 1, 1), dyn_smem=smem,
+        operands=(z_op, runtime.ptr("w", weights), runtime.ptr("base", base),
                   runtime.ptr("out", out), runtime.value("k_clients", ctypes.c_int),
                   runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
                   runtime.value("mode", ctypes.c_int), runtime.value("levels", ctypes.c_float),
                   runtime.value("sharpen", ctypes.c_int),
-                  runtime.value("beta", ctypes.c_float, beta_source)))
+                  runtime.value("beta", ctypes.c_float, beta_source),
+                  runtime.value("layout", ctypes.c_int), runtime.value("kc", ctypes.c_int),
+                  runtime.value("tile", ctypes.c_int), runtime.value("stride", ctypes.c_int),
+                  runtime.value("vec", ctypes.c_int), runtime.value("table", ctypes.c_int)))
+
+
+def launch_round(z, weights, base, out, *, mode, levels, sharpen, beta_val, beta_source,
+                 layout=None) -> None:
+    """One launch of ``csrc/fused_round.cu`` over contiguous operands in
+    ``layout`` (as :func:`launch_plan` takes it).  Counts no launch:
+    :func:`fused_round` does."""
+    K, m, N = z.shape
+    tl = _resolve_layout(layout, K, N)
+    kc, tile = tl or (0, 0)
+    vec = _vec(z, tile) if tl else 1
+    runtime.launch("fused_round", "fused_round_launch",
+                   launch_plan(z, weights, base, out, beta_source, layout, levels), z, weights,
+                   base, out, ctypes.c_int(K), ctypes.c_longlong(m), ctypes.c_int(N),
+                   ctypes.c_int(_MODE_ID[mode]), ctypes.c_float(levels),
+                   ctypes.c_int(int(sharpen)), ctypes.c_float(beta_val),
+                   ctypes.c_int(0 if tl else 1), ctypes.c_int(kc), ctypes.c_int(tile),
+                   ctypes.c_int(_stride(tile, N, vec) if tl else 0), ctypes.c_int(vec),
+                   ctypes.c_int(_table(levels) if tl else 0))
 
 
 def fused_round(z: torch.Tensor, weights: torch.Tensor, beta=None,
@@ -159,11 +277,8 @@ def fused_round(z: torch.Tensor, weights: torch.Tensor, beta=None,
         return out
     levels = _levels(bits) if bits is not None else 0.0
     beta_val, beta_source = runtime.host_value(beta if sharpen else 0.0)
-    runtime.launch("fused_round", "fused_round_launch",
-                   launch_plan(z, weights, base, out, beta_source), z, weights, base, out,
-                   ctypes.c_int(K), ctypes.c_longlong(m), ctypes.c_int(N),
-                   ctypes.c_int(_MODE_ID[mode]), ctypes.c_float(levels),
-                   ctypes.c_int(int(sharpen)), ctypes.c_float(beta_val))
+    launch_round(z, weights, base, out, mode=mode, levels=levels, sharpen=sharpen,
+                 beta_val=beta_val, beta_source=beta_source)
     fused_round.launches += 1
     return out
 
@@ -177,7 +292,9 @@ def analysis_cases():
     dtype) pairs made on the fake card: the reference's cases
     (``repro.kernels.round_kernel.analysis_cases``), then the slice's
     (100, 1000, 10) stack through delta+quant8 as the fused device engine
-    launches it."""
+    launches it, then each other layout: 130 classes (the pair's row in
+    the slab), K = 1000 in chunks with one row, and 700 classes (the rows
+    layout)."""
     f32 = torch.float32
     return [
         ("round/identity-sharpen-K200",
@@ -192,6 +309,15 @@ def analysis_cases():
         ("round/delta8-sharpen-K100-M1000-N10",
          lambda z, w, b: fused_round(z, w, 1.5, b, mode="delta", bits=8, sharpen=True),
          (((100, 1000, 10), f32), ((100,), f32), ((1000, 10), f32))),
+        ("round/quant8-sharpen-K100-M1001-N130",
+         lambda z, w: fused_round(z, w, 1.5, mode="quant", bits=8, sharpen=True),
+         (((100, 1001, 130), f32), ((100,), f32))),
+        ("round/delta8-sharpen-K1000-M1000-N10",
+         lambda z, w, b: fused_round(z, w, 1.5, b, mode="delta", bits=8, sharpen=True),
+         (((1000, 1000, 10), f32), ((1000,), f32), ((1000, 10), f32))),
+        ("round/identity-sharpen-K40-M3-N700",
+         lambda z, w: fused_round(z, w, 1.5, mode="identity", sharpen=True),
+         (((40, 3, 700), f32), ((40,), f32))),
     ]
 
 

@@ -222,7 +222,10 @@ class LaunchPlan:
     function (as its library's kernel table does), ``grid`` and ``block``
     are 3-tuples, ``dyn_smem`` the dynamic shared memory in bytes, raised
     past the 48 KB default first when ``smem_optin``; ``operands`` the C
-    launcher's arguments after the plan, in order."""
+    launcher's arguments after the plan, in order; ``cluster`` the blocks
+    of a thread-block cluster along each axis ((1, 1, 1): none), each
+    cluster's blocks scheduled together and reading each other's shared
+    memory."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -230,6 +233,7 @@ class LaunchPlan:
     dyn_smem: int = 0
     smem_optin: bool = False
     operands: Tuple[Operand, ...] = ()
+    cluster: Tuple[int, int, int] = (1, 1, 1)
 
     @property
     def threads(self) -> int:
@@ -271,12 +275,13 @@ class _CPlan(ctypes.Structure):
     """``plan::Plan`` of ``csrc/plan.cuh``, field for field."""
 
     _fields_ = [("grid", ctypes.c_longlong * 3), ("block", ctypes.c_longlong * 3),
-                ("smem", ctypes.c_longlong), ("smem_optin", ctypes.c_longlong)]
+                ("smem", ctypes.c_longlong), ("smem_optin", ctypes.c_longlong),
+                ("cluster", ctypes.c_longlong * 3)]
 
 
 def _c_plan(plan: LaunchPlan) -> _CPlan:
     return _CPlan((ctypes.c_longlong * 3)(*plan.grid), (ctypes.c_longlong * 3)(*plan.block),
-                  plan.dyn_smem, int(plan.smem_optin))
+                  plan.dyn_smem, int(plan.smem_optin), (ctypes.c_longlong * 3)(*plan.cluster))
 
 
 def check_operands(fn: str, plan: LaunchPlan, args) -> torch.device:
@@ -343,6 +348,7 @@ class Limits:
     regs_per_sm: int
     max_regs_per_thread: int
     warp_size: int
+    max_cluster_blocks: int = 8  # blocks a thread-block cluster (no device attribute)
 
 
 # sm_90 (H100), from the CUDA C++ Programming Guide's table of technical
@@ -350,12 +356,13 @@ class Limits:
 # block dimensions (1024, 1024, 64); grid x up to 2^31 - 1 and y, z up to
 # 65535; 48 KB of shared memory a block without opting in and 227 KB
 # (232448 bytes) with it; 228 KB a multiprocessor; 64K 32-bit registers a
-# block and a multiprocessor; 255 registers a thread.
+# block and a multiprocessor; 255 registers a thread.  Its section on
+# thread-block clusters: 8 blocks a cluster is the portable maximum.
 HOPPER = Limits(max_threads_per_block=1024, max_block=(1024, 1024, 64),
                 max_grid=(2 ** 31 - 1, 65535, 65535), smem_per_block=48 * 1024,
                 smem_per_block_optin=232448, smem_per_sm=228 * 1024,
                 regs_per_block=65536, regs_per_sm=65536, max_regs_per_thread=255,
-                warp_size=32)
+                warp_size=32, max_cluster_blocks=8)
 
 # The order in which fixtures_device_limits (csrc/fixtures.cu) writes the
 # card's cudaDeviceGetAttribute values.

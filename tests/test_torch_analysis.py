@@ -126,7 +126,7 @@ def test_repo_contract_pass_clean():
     got = contract_checks.run(plans=plans)
     assert [f for f in got if f.level in ("error", "warn")] == []
     assert {f.subject for f in got} >= {"strategy:scarlet", "strategy:dsfl", "codec:quant8"}
-    assert any(launch.plan.kernel == "fused_round_kernel" for _, launch in plans)
+    assert any(launch.plan.kernel == "fused_round_tile<10>" for _, launch in plans)
 
 
 def test_repo_launch_pass_clean():

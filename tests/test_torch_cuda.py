@@ -81,10 +81,17 @@ def test_kernels_reject_wrong_dtype(dev):
                                                     dtype=torch.float16), 8)
 
 
+# The tile layout with the class row in registers (N <= 16) and in the slab
+# (N = 130, 400), one chunk of all K clients and several (1000 clients:
+# four chunks of 256; 300 at N = 130: five of 64), one row (m = 1), and
+# the rows layout (N = 700).
+ROUND_SHAPES = [(1, 1, 2), (7, 1001, 10), (100, 1000, 10), (3, 40, 130), (1000, 64, 10),
+                (150, 1, 10), (300, 7, 130), (7, 5, 400), (40, 3, 700)]
+
+
 @pytest.mark.parametrize("mode,bits", [("identity", None), ("quant", 8), ("quant", 1),
                                        ("delta", None), ("delta", 8)])
-@pytest.mark.parametrize("K,m,N", [(1, 1, 2), (7, 1001, 10), (100, 1000, 10),
-                                   (3, 40, 130)])
+@pytest.mark.parametrize("K,m,N", ROUND_SHAPES)
 def test_fused_round_kernel_matches_plain(dev, mode, bits, K, m, N):
     rng = np.random.default_rng(K + m + N)
     z = _probs(K * m, (K, m, N), dev)
@@ -101,6 +108,25 @@ def test_fused_round_kernel_matches_plain(dev, mode, bits, K, m, N):
         want = round_kernel.fused_round_plain(z, w, beta, base, **kw)
         atol = ATOL if sharpen else 2e-6 * float(w.sum())
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("K,m,N", [(100, 1000, 10), (1000, 64, 10), (300, 7, 130),
+                                   (7, 5, 400), (40, 3, 700)])
+def test_fused_round_kernel_is_deterministic_and_row_split_invariant(dev, K, m, N):
+    """Two launches give the same bits, and rows computed in two launches
+    (the first k rows, then the rest) equal the same rows of one launch:
+    the client sum's order depends on K and N alone."""
+    z = _probs(K + m, (K, m, N), dev)
+    w = torch.from_numpy(np.linspace(0.0, 2.0, K, dtype=np.float32)).to(dev)
+    base = _probs(m + 1, (m, N), dev)
+    k = m // 3
+    for sharpen, beta in [(False, None), (True, 1.5)]:
+        kw = dict(mode="delta", bits=8, sharpen=sharpen)
+        one = round_kernel.fused_round(z, w, beta, base, **kw)
+        assert torch.equal(one, round_kernel.fused_round(z, w, beta, base, **kw))
+        two = torch.cat([round_kernel.fused_round(z[:, :k], w, beta, base[:k], **kw),
+                         round_kernel.fused_round(z[:, k:], w, beta, base[k:], **kw)])
+        assert torch.equal(one, two)
 
 
 def test_fused_round_kernel_rejects_wrong_dtype(dev):
@@ -303,7 +329,11 @@ def test_whisper_prefill_on_the_card_matches_the_cpu(dev):
 # plain version over chip_smoke.py's phase-3 cases.
 # ---------------------------------------------------------------------------
 
-ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (48, 51968))
+# warp a row (N <= 1024); one block a row (12289); clusters of 2 (20001),
+# of 4 (51968, and 51967, whose rows start off 16-byte boundaries) and of
+# 8 (100001); the multi-pass layout past eight slices (300001)
+ERA_ROWS_SHAPES = ((37, 1), (1000, 10), (333, 100), (64, 12289), (9, 20001), (48, 51968),
+                   (7, 51967), (5, 100001), (3, 300001))
 ERA_ROWS_BETAS = (0.5, 1.0, 1.5, 4.0, 200.0)
 DISTILL_SHAPES = ((8, 100), (3, 131), (64, 32000), (100, 163840))
 DISTILL_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -338,8 +368,24 @@ def test_era_rows_kernel_matches_plain(dev, B, N, beta):
     assert bool(((got_b.float() - want_b).abs() <= 2.0 ** -7 * want_b.abs() + ATOL).all())
 
 
-def test_era_rows_kernel_reads_beta_on_the_card_without_a_sync(dev):
-    z = _probs(7, (1000, 10), dev)
+@pytest.mark.parametrize("B,N", ERA_ROWS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_era_rows_kernel_is_deterministic_and_row_split_invariant(dev, B, N, dtype):
+    """Two launches give the same bits, and rows computed in two launches
+    equal the same rows of one: the second launch's rows start k * N
+    values into the input (off its 16-byte alignment for odd k and N) and
+    its output is a fresh tensor, aligned otherwise."""
+    z = _rows_with_zeros(B + N + 1, B, N, dev).to(dtype)
+    one = era_kernel.enhanced_era(z, 1.5)
+    assert torch.equal(one, era_kernel.enhanced_era(z, 1.5))
+    k = (B // 2) | 1
+    two = torch.cat([era_kernel.enhanced_era(z[:k], 1.5), era_kernel.enhanced_era(z[k:], 1.5)])
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("B,N", [(1000, 10), (48, 51968)])
+def test_era_rows_kernel_reads_beta_on_the_card_without_a_sync(dev, B, N):
+    z = _probs(7, (B, N), dev)
     beta = torch.full((), 2.5, device=dev)
     torch.cuda.set_sync_debug_mode("error")
     try:

@@ -12,10 +12,25 @@ moved to Python, worked out by hand below:
 - qdq: 256 threads, a thread a row: grid ceil(rows / 256);
 - era_fused: 128 threads, rpb = 1 if N >= 128 else 128 // N rows a block:
   grid ceil(B / rpb), rpb * N * 4 bytes of shared memory;
-- era_rows: 256 threads; N <= 1024: a warp a row, grid ceil(B / 8);
-  else a block a row, grid B;
+- era_rows: N <= 1024: 256 threads, a warp a row, grid ceil(B / 8);
+  up to eight slices of 13312 values: a cluster of C blocks a row, the
+  smallest C of 1, 2, 4, 8 whose slice (ceil(N / C) rounded up to 8) fits,
+  grid B * C, a power of two near slice / 16 threads from 128 to
+  1024 / C, 4 * (slice + 8) bytes of shared memory, opted in above 48 KB;
+  above: 256 threads, a block a row, grid B;
 - distill: 256 threads, a block a row: grid B;
-- fused_round: 128 threads, a warp a row: grid ceil(m / 4);
+- fused_round: a tile of rows a block, a thread a (client, row) pair:
+  kc = min(256, K) clients a chunk, tile = max(1, 256 // kc) rows, both
+  halved (tile first, kc down to min(K, 32)) until the block's shared
+  memory fits 48 KB at the widest stride and table; threads kc * tile
+  rounded up to 32, grid ceil(m / tile).  With outs = tile * N outputs
+  and groups = max(1, threads // outs), shared memory is 8 * (outs +
+  groups * outs) rounded up to 16 bytes (the sums) + 4 * kc * stride (the
+  slab) + 4 * outs (base) + 4 * (levels + 1) for a 1- to 8-bit code (the
+  table); stride is outs rounded up to 4 where every client's tile is
+  16-byte aligned (m * N and tile * N multiples of 4: 16-byte copies),
+  else outs | 1.  Where even one row and 32 clients do not fit (N > 331
+  at K >= 32): 128 threads, a warp a row: grid ceil(m / 4);
 - flash_attn, float32: 128 threads, grid (ceil(Sq / 64), H, B); 64 keys
   of k (rows of d + 4 floats) and v staged: 4 * 64 * (2d + 4) bytes,
   opted in above 48 KB.  At d = 128 the kernel also stages its 64 q rows
@@ -39,7 +54,7 @@ from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, quant_
 
 F32, BF16 = torch.float32, torch.bfloat16
 
-# label -> (kernel, grid, block threads, dynamic shared memory, opt-in)
+# label -> (kernel, grid, block threads, dynamic shared memory, opt-in[, cluster])
 WANT = {
     "era/B1000-N10": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
     "era/B10-N10": ("era_rows_warp<float>", (2, 1, 1), 256, 0, False),
@@ -47,16 +62,43 @@ WANT = {
     "era_fused/K1000-B1000-N100": ("era_fused_kernel", (1000, 1, 1), 128, 400, False),
     "era_fused/K100-B1000-N10": ("era_fused_kernel", (84, 1, 1), 128, 480, False),
     "era_fused/K2-B3-N12288": ("era_fused_kernel", (3, 1, 1), 128, 49152, False),
-    "era/B1536-N51968": ("era_rows_block<float>", (1536, 1, 1), 256, 0, False),
-    "era/B1536-N51968-bf16": ("era_rows_block<bf16>", (1536, 1, 1), 256, 0, False),
+    # 51968 classes: C = 4, slice 12992, 812 values / 16 -> 256 threads,
+    # 4 * 13000 bytes
+    "era/B1536-N51968": ("era_rows_onepass<float,4>", (6144, 1, 1), 256, 52000, True,
+                         (4, 1, 1)),
+    "era/B1536-N51968-bf16": ("era_rows_onepass<bf16,4>", (6144, 1, 1), 256, 52000, True,
+                              (4, 1, 1)),
+    # C = 1, slice 12296, 769 values / 16 -> 1024 threads, 4 * 12304 bytes
+    "era/B64-N12289": ("era_rows_onepass<float,1>", (64, 1, 1), 1024, 49216, True),
+    # C = 2, slice 10008, 512 threads, 4 * 10016 bytes
+    "era/B9-N20001": ("era_rows_onepass<float,2>", (18, 1, 1), 512, 40064, False, (2, 1, 1)),
+    # C = 8, slice 12504, 128 threads, 4 * 12512 bytes
+    "era/B7-N100001-bf16": ("era_rows_onepass<bf16,8>", (56, 1, 1), 128, 50048, True,
+                            (8, 1, 1)),
+    "era/B3-N300001": ("era_rows_passes<float>", (3, 1, 1), 256, 0, False),
     "era/B1000-N10-beta-on-card": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
     "quant/B1000-N10-bits8": ("qdq_kernel", (4, 1, 1), 256, 0, False),
     "quant/B10-N1-bits1": ("qdq_kernel", (1, 1, 1), 256, 0, False),
     "quant/residual-K100-M1000-N10-bits8": ("qdq_kernel", (391, 1, 1), 256, 0, False),
-    "round/identity-sharpen-K200": ("fused_round_kernel", (25, 1, 1), 128, 0, False),
-    "round/quant8-sharpen-K1000": ("fused_round_kernel", (16, 1, 1), 128, 0, False),
-    "round/delta8-linear-K50": ("fused_round_kernel", (6, 1, 1), 128, 0, False),
-    "round/delta8-sharpen-K100-M1000-N10": ("fused_round_kernel", (250, 1, 1), 128, 0, False),
+    # kc 200, tile 1, 224 threads, 22 groups, 1-float copies (stride 11):
+    # 8 * 230 + 4 * 200 * 11 + 40
+    "round/identity-sharpen-K200": ("fused_round_tile<10>", (100, 1, 1), 224, 10680, False),
+    # kc 256, tile 1, 25 groups: 8 * 260 + 4 * 256 * 11 + 40 + 4 * 256 (table)
+    "round/quant8-sharpen-K1000": ("fused_round_tile<10>", (64, 1, 1), 256, 14408, False),
+    # kc 50, tile 5, 5 groups: 8 * 300 + 4 * 50 * 51 + 200 + 4 * 256
+    "round/delta8-linear-K50": ("fused_round_tile<10>", (5, 1, 1), 256, 13824, False),
+    # kc 100, tile 2, 224 threads, 11 groups, 16-byte copies (stride 20):
+    # 8 * 240 + 4 * 100 * 20 + 80 + 4 * 256
+    "round/delta8-sharpen-K100-M1000-N10": ("fused_round_tile<10>", (500, 1, 1), 224, 11024,
+                                            False),
+    # kc 100 -> 50, tile 2 -> 1, 64 threads, 1 group: 8 * 260 + 4 * 50 * 131 + 520
+    # + 4 * 256
+    "round/quant8-sharpen-K100-M1001-N130": ("fused_round_tile<smem>", (1001, 1, 1), 64, 29824,
+                                             False),
+    "round/delta8-sharpen-K1000-M1000-N10": ("fused_round_tile<10>", (1000, 1, 1), 256, 14408,
+                                             False),
+    # 32 clients and one row of 700 classes need 92,608 bytes: the rows layout
+    "round/identity-sharpen-K40-M3-N700": ("fused_round_rows", (1, 1, 1), 128, 0, False),
     "distill/B100-V163840": ("distill_kernel<float,float>", (100, 1, 1), 256, 0, False),
     "distill/B13-V1000-oddblocks": ("distill_kernel<float,float>", (13, 1, 1), 256, 0, False),
     "distill/B1536-V51968": ("distill_kernel<float,float>", (1536, 1, 1), 256, 0, False),
@@ -87,9 +129,10 @@ def test_plan_is_what_the_launcher_derived(label):
     assert tr.ok, tr.error
     assert len(tr.launches) == 1
     plan = tr.launches[0].plan
-    kernel, grid, threads, smem, optin = WANT[label]
-    assert (plan.kernel, plan.grid, plan.block, plan.dyn_smem, plan.smem_optin) == (
-        kernel, grid, (threads, 1, 1), smem, optin)
+    kernel, grid, threads, smem, optin, *cluster = WANT[label]
+    assert (plan.kernel, plan.grid, plan.block, plan.dyn_smem, plan.smem_optin,
+            plan.cluster) == (kernel, grid, (threads, 1, 1), smem, optin,
+                              cluster[0] if cluster else (1, 1, 1))
     assert launch_checks.check_plan(label, plan) == []
 
 
@@ -251,6 +294,13 @@ def _ptr(shape, strides, offset=0, vb=4, itemsize=4):
     (_plan(operands=(runtime.value("s", ctypes.c_float),)), []),
     (_plan(operands=(runtime.value("s", ctypes.c_float, "cpu tensor"),)), []),
     (_plan(operands=(runtime.value("s", ctypes.c_float, "cuda tensor"),)), ["error"]),
+    (_plan(grid=(8, 1, 1), cluster=(2, 1, 1)), []),
+    (_plan(grid=(16, 2, 1), cluster=(4, 2, 1)), []),
+    (_plan(grid=(16, 1, 1), cluster=(16, 1, 1)), ["error"]),
+    (_plan(grid=(16, 4, 1), cluster=(4, 4, 1)), ["error"]),
+    (_plan(grid=(6, 1, 1), cluster=(4, 1, 1)), ["error"]),
+    (_plan(grid=(8, 3, 1), cluster=(2, 2, 1)), ["error"]),
+    (_plan(cluster=(0, 1, 1)), ["error"]),
 ])
 def test_check_plan_levels(plan, want):
     assert [f.level for f in launch_checks.check_plan("p", plan)] == want
@@ -295,6 +345,7 @@ def test_hopper_limits_are_the_compute_capability_9_table():
         49152, 232448, 233472)
     assert (h.regs_per_block, h.regs_per_sm, h.max_regs_per_thread, h.warp_size) == (
         65536, 65536, 255, 32)
+    assert h.max_cluster_blocks == 8
 
 
 def test_launch_checks_its_arguments_against_the_plan():

@@ -48,7 +48,7 @@ WARM, PROFILED = 2, 3
 # Device operations by class, matched on the kernel name in this order.
 CLASSES = (("port ERA kernel", ("era_fused_kernel",)),
            ("port qdq kernel", ("qdq_kernel",)),
-           ("port fused_round kernel", ("fused_round_kernel",)),
+           ("port fused_round kernel", ("fused_round_tile", "fused_round_rows")),
            ("matrix products", ("gemm", "xmma")),
            ("softmax", ("softmax",)),
            ("reductions", ("reduce_kernel",)),
