@@ -76,6 +76,12 @@ CODEC = "cache_delta+quant8"
 # without FMA contraction, so agreement is to 1e-6 with zero level flips.
 ERA_ATOL = 1e-6
 QDQ_ATOL = 1e-6
+# The fused ERA kernel past its row-block layout (N > 12288), (K, B, N): a
+# row over a cluster of 1, 2, 4 (twice) and 8 blocks, and the multi-pass
+# layout past eight slices.
+ERA_FUSED_WIDE = ((4, 33, 12289), (2, 9, 20001), (8, 16, 51968), (100, 3, 32000),
+                  (3, 5, 100001), (3, 5, 106497))
+ERA_FUSED_WIDE_BETAS = (0.5, 1.5, 4.0)
 # fused_round: probabilities (sharpen=True) to atol 1e-6, as ERA: the
 # kernel adds the clients lane-strided then by a shuffle tree, the plain
 # version in PyTorch's reduction order.  The linear moment
@@ -107,6 +113,11 @@ SMALL_TEACHER_ATOL = 1e-3
 # the flash kernel; inside Whisper's 448-token text context), over the
 # configuration's 1500 audio frames.
 WHISPER_B, WHISPER_S = 4, 384
+# Phase 6 also times flash attention at whisper's decoder shape with these
+# head dims (D = 128 on tiles zero past 96; column blocks at 256), and the
+# fused ERA kernel at 8 clients x 384 positions x whisper's vocabulary.
+FLASH_TIMED_DIMS = (96, 256)
+ERA_FUSED_VOCAB = (8, 384, 51968)
 WHISPER_SEED = 0
 WHISPER_TIMED = 3
 # Flash attention, kernel vs plain version on the card: float32 to atol
@@ -204,11 +215,12 @@ def check_flash_sass() -> None:
     counts = attn_kernel.sass_opcodes()
     for name, c in sorted(counts.items()):
         log(f"flash sass {name}: {c}")
-    bf16 = {n: c for n, c in counts.items() if n.startswith("flash_fwd_wgmma_kernel")}
-    if len(bf16) != len(attn_kernel.HEAD_DIMS) or any(
+    bf16 = {n: c for n, c in counts.items() if n.startswith("flash_fwd_wgmma")}
+    if set(bf16) != set(attn_kernel.BF16_KERNELS) or any(
             c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] for c in bf16.values()):
         raise AssertionError(f"the bf16 flash kernels are not wgmma/TMA kernels: {bf16}")
-    log("flash sass: every bf16 kernel has HGMMA and UTMALDG and no HMMA ok")
+    log(f"flash sass: every bf16 kernel ({len(bf16)}: {sorted(bf16)}) has HGMMA and UTMALDG "
+        "and no HMMA ok")
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +229,7 @@ def check_flash_sass() -> None:
 
 def check_era(device) -> float:
     from repro_torch.kernels import era_kernel
+    from repro_torch.kernels.era_kernel import fused_layout
 
     rng = np.random.default_rng(1)
     K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
@@ -229,6 +242,8 @@ def check_era(device) -> float:
         ("odd N=130", _probs(rng, (3, 33, 130), device), 4.0),
         ("constant rows", torch.full((7, 1001, N), 0.1, device=device), BETA),
     ]
+    cases += [(f"wide {fused_layout(n)}", _probs(rng, (k, b, n), device), beta)
+              for k, b, n in ERA_FUSED_WIDE for beta in ERA_FUSED_WIDE_BETAS]
     worst = 0.0
     for label, z, beta in cases:
         got = era_kernel.enhanced_era_fused(z, beta)
@@ -241,6 +256,19 @@ def check_era(device) -> float:
         if not ok:
             raise AssertionError(f"era_fused {label}: max_abs_err {err} > {ERA_ATOL}")
         worst = max(worst, err)
+    # each layout's result depends on N alone: two launches, and rows split
+    # over two launches, give the same bits
+    for k, b, n in ((K, m, N),) + ERA_FUSED_WIDE:
+        z = _probs(rng, (k, b, n), device)
+        one = era_kernel.enhanced_era_fused(z, BETA)
+        half = (b // 2) | 1
+        two = torch.cat([era_kernel.enhanced_era_fused(z[:, :half], BETA),
+                         era_kernel.enhanced_era_fused(z[:, half:], BETA)])
+        if not (torch.equal(one, era_kernel.enhanced_era_fused(z, BETA)) and torch.equal(one, two)):
+            raise AssertionError(f"era_fused ({k},{b},{n}): two launches, or rows split over two, "
+                                 "differ")
+    log(f"era_fused two launches and rows split over two equal bit for bit at "
+        f"{[(K, m, N)] + list(ERA_FUSED_WIDE)} ok")
     return worst
 
 
@@ -269,6 +297,8 @@ def check_qdq(device) -> float:
     N = SLICE["n_classes"]
     cases = [
         ("cache-delta residual view", residual_view(rng, device), 8),
+        ("residual view bits=1", residual_view(rng, device), 1),
+        ("residual view bits=4", residual_view(rng, device), 4),
         (f"({rows},{N - 1}) contiguous", _probs(rng, (rows, N - 1), device), 8),
         ("bits=1", _probs(rng, (rows, N - 1), device), 1),
         ("bits=4", _probs(rng, (rows, N - 1), device), 4),
@@ -276,6 +306,8 @@ def check_qdq(device) -> float:
         ("constant rows", torch.full((1001, N), 0.1, device=device), 8),
         ("negative residual rows",
          -torch.from_numpy(rng.random((4096, N - 1), dtype=np.float32)).to(device), 8),
+        ("N=130 (a warp a row)", _probs(rng, (4097, 130), device) - 1.0 / 130, 8),
+        ("N=2000 (a block a row)", _probs(rng, (65, 2000), device) - 1.0 / 2000, 8),
     ]
     worst = 0.0
     for label, z, bits in cases:
@@ -285,7 +317,9 @@ def check_qdq(device) -> float:
         err = float((got - want).abs().max())
         flips = _level_flips(got, want, z, bits)
         ok = bool(torch.isfinite(got).all()) and err <= QDQ_ATOL and flips == 0
-        log(f"qdq {label} {tuple(z.shape)} bits={bits}: max_abs_err={err!r} "
+        flat = z.reshape(-1, z.shape[-1])
+        log(f"qdq {label} {tuple(z.shape)} bits={bits} "
+            f"{quant_kernel.layout(flat.shape[1], flat.stride(0))}: max_abs_err={err!r} "
             f"(atol {QDQ_ATOL}) level_flips={flips} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"qdq {label}: max_abs_err {err}, {flips} flips")
@@ -621,7 +655,9 @@ def check_small_cuda_vs_cpu(engine: str) -> None:
 # bfloat16 kernel's pipeline edges: a key range that wraps its stage ring
 # 16 times (32 key tiles, 2 stages), Sk one past whole key tiles (TMA's
 # zero fill of the last tile), and GQA at d = 32 (64-byte swizzle, 4
-# stages).
+# stages); then head dims 8, 40, 80, 96, 112 (the instantiations 32, 64
+# and 128 on tiles zero past d) and 136, 192, 200, 256 (column blocks; at
+# 200 the last block's second 64 columns lie partly past d).
 FLASH_CASES = tuple(
     case + (dtype,)
     for case in (("GQA + window, ragged", 2, 200, 200, 8, 2, 64, True, 64),
@@ -632,7 +668,18 @@ FLASH_CASES = tuple(
                  ("tiny", 1, 4, 4, 2, 1, 64, True, 0),
                  ("stage ring wraps", 1, 2048, 2048, 4, 1, 128, True, 0),
                  ("Sk one past 4 key tiles", 2, 200, 257, 4, 2, 64, False, 0),
-                 ("GQA d=32", 2, 256, 256, 8, 2, 32, True, 0))
+                 ("GQA d=32", 2, 256, 256, 8, 2, 32, True, 0),
+                 # head dims between and past the instantiations
+                 ("d=8", 1, 130, 130, 2, 1, 8, True, 0),
+                 ("GQA d=40", 2, 200, 200, 8, 2, 40, True, 0),
+                 ("d=80", 1, 130, 130, 4, 4, 80, True, 0),
+                 ("d=96", 1, 300, 300, 4, 2, 96, True, 0),
+                 ("d=112 non-causal", 1, 200, 257, 2, 2, 112, False, 0),
+                 ("d=136 window 33", 1, 200, 200, 4, 1, 136, True, 33),
+                 ("d=192", 1, 130, 130, 2, 2, 192, True, 0),
+                 ("d=200 (last column block partly past d)", 1, 130, 130, 2, 1, 200, True, 0),
+                 ("d=256 rows left with no key", 1, 300, 100, 2, 1, 256, False, 16),
+                 ("GQA d=256", 2, 256, 256, 4, 2, 256, True, 0))
     for dtype in (torch.bfloat16, torch.float32)
 ) + (("whisper decoder", WHISPER_B, WHISPER_S, WHISPER_S, 20, 20, 64, True, 0,
       torch.bfloat16),)
@@ -1175,6 +1222,18 @@ def kernel_report(launches: dict, errs: dict) -> list:
         ms=cuda_ms(lambda: era_kernel.enhanced_era_fused(z, BETA)),
         plain_ms=cuda_ms(lambda: era_kernel.enhanced_era_fused_plain(z, BETA)),
         bound_ms=b, bound_by=why, library_ms=None))
+    # past the row-block layout: 8 clients' soft-labels over whisper's
+    # vocabulary for a prefill's 384 positions (clusters of 4); bytes: the
+    # stack read once, the teacher written once
+    kw, bw, nw = ERA_FUSED_VOCAB
+    zw = torch.softmax(torch.randn(kw, bw, nw, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(11)), -1)
+    b, why = bound_ms(4.0 * (kw + 1) * bw * nw, kw * bw * nw + 9.0 * bw * nw)
+    log(f"time enhanced_era_fused {ERA_FUSED_VOCAB} {era_kernel.fused_layout(nw)}: "
+        f"ms={cuda_ms(lambda: era_kernel.enhanced_era_fused(zw, BETA))!r} "
+        f"plain_ms={cuda_ms(lambda: era_kernel.enhanced_era_fused_plain(zw, BETA))!r} "
+        f"bound_ms={b!r} by {why}")
+    del zw
 
     r = residual_view(rng, dev)
     n_val = r.numel()
@@ -1226,6 +1285,22 @@ def kernel_report(launches: dict, errs: dict) -> list:
         bound_ms=b, bound_by=why,
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))))
+    # the same shape at head dims between and past the instantiations, in
+    # both dtypes, beside SDPA at the same shape and dtype
+    for dd in FLASH_TIMED_DIMS:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(rng, B, S, S, H, H, dd, dt, dev)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            pairs = B * H * S * (S + 1) // 2
+            b, why = bound_ms(q.element_size() * 4.0 * B * S * H * dd, 4.0 * dd * pairs,
+                              BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S)
+            ms = cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True))
+            sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            log(f"time flash_attention ({B},{S},{H},{dd}) {str(dt)[6:]} causal "
+                f"{attn_kernel.launch_plan(q, k, v, q).kernel}: ms={ms!r} sdpa_ms={sdpa_ms!r} "
+                f"bound_ms={b!r} by {why}")
+    del q, k, v, qt, kt, vt
     # per-row Enhanced ERA: the paper's aggregate (1000, 10) float32, then
     # whisper's vocabulary as soft-labels (1536, 51968) in bfloat16 and in
     # float32; bytes: the input read once and the output written once;

@@ -59,11 +59,9 @@ AttrsFn = Callable[[str, str], Dict[str, int]]
 
 
 def iter_cases(modules: Iterable[str] = KERNEL_MODULES):
-    """(label, fn, args, expected exception or None) of every case."""
+    """(label, fn, args) of every case."""
     for modname in modules:
-        for case in importlib.import_module(modname).analysis_cases():
-            label, fn, args, *rest = case
-            yield label, fn, args, (rest[0] if rest else None)
+        yield from importlib.import_module(modname).analysis_cases()
 
 
 def _alignment(op: runtime.Operand) -> Optional[str]:
@@ -181,18 +179,9 @@ def check_launches(launches: Iterable[Tuple[str, Launch]],
     return findings
 
 
-def check_case(label: str, fn, args, expect=None,
-               attrs: Optional[AttrsFn] = None) -> List[Finding]:
+def check_case(label: str, fn, args, attrs: Optional[AttrsFn] = None) -> List[Finding]:
     """Trace one case and lint every plan it records."""
     tr = trace(fn, *args)
-    if expect is not None:
-        if isinstance(tr.error, expect):
-            return [Finding("ok", "launch", label,
-                            f"refused by the wrapper as expected: {type(tr.error).__name__}: "
-                            f"{tr.error}")]
-        return [Finding("error", "launch", label,
-                        f"expected the wrapper to raise {expect.__name__}, got "
-                        f"{type(tr.error).__name__ if tr.error else 'a launch'}")]
     if not tr.ok:
         return [Finding("error", "launch", label,
                         f"case failed to trace: {type(tr.error).__name__}: {tr.error}")]
@@ -206,7 +195,7 @@ def check_case(label: str, fn, args, expect=None,
 def run(modules: Iterable[str] = KERNEL_MODULES,
         attrs: Optional[AttrsFn] = None) -> List[Finding]:
     findings: List[Finding] = []
-    for label, fn, args, expect in iter_cases(modules):
-        findings.extend(check_case(label, fn, args, expect, attrs))
+    for label, fn, args in iter_cases(modules):
+        findings.extend(check_case(label, fn, args, attrs))
     return findings
 

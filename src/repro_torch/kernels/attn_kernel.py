@@ -8,10 +8,14 @@ its header says what bounds it on the card and how the tiles are laid out.
 :func:`flash_attention` takes the plain version for a CPU tensor and
 launches the kernel for a CUDA tensor; there is no other path.
 
+- Head dims: every positive multiple of 8 (what the routing admits,
+  ``models/common.flash_eligible``): the instantiations of HEAD_DIMS on
+  tiles zero past d, and column blocks of COL_BLOCK output columns past
+  the largest (:func:`instantiation`).
 - bfloat16 (the model path: whisper's decoder self-attention): a Hopper
   kernel, a block of one consumer warpgroup (64 query rows) and one
   producer warp that keeps TMA loads of 64-key tiles of k and v in flight
-  in a ring of shared-memory stages (4 at d = 32, 2 at d = 64 and 128);
+  in a ring of shared-memory stages (4 at D = 32, 2 at D = 64 and 128);
   ``wgmma`` computes q.k and p.v.  The reference computes p.v in float32,
   so each probability is split exactly into three bf16 pieces and the
   three products accumulate in float32: the arithmetic stays float32 to
@@ -42,38 +46,65 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "launch_plan",
-           "smem_bytes", "sass_opcodes", "analysis_cases"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "COL_BLOCK",
+           "BF16_KERNELS", "instantiation", "launch_plan", "smem_bytes", "sass_opcodes",
+           "analysis_cases"]
 
-# Head dims the kernel is instantiated for (csrc/flash_attn.cu).
+# The kernels' head-dim instantiations (csrc/flash_attn.cu).  D in
+# HEAD_DIMS serves every d % 8 == 0 in (the previous D, D], on tiles zero
+# past d: 8-32 take D = 32, 40-64 take 64, 72-128 take 128.  Past 128 a
+# block owns COL_BLOCK output columns (column blocks on the grid) and takes
+# q.k over the whole d in chunks: the float32 kernel<128> and, in bfloat16,
+# flash_fwd_wgmma_cols_kernel<COL_BLOCK>.  No d % 8 == 0 is refused.
 HEAD_DIMS = (32, 64, 128)
+COL_BLOCK = 128
+# The bfloat16 (wgmma + TMA) kernels the library holds.
+BF16_KERNELS = tuple(f"flash_fwd_wgmma_kernel<{D}>" for D in HEAD_DIMS) + (
+    f"flash_fwd_wgmma_cols_kernel<{COL_BLOCK}>",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernels' tiling (csrc/flash_attn.cu), per dtype: the float32 kernel
 # runs 128 threads per 64 query rows and stages 64 keys of k (rows padded
-# to d + 4 floats) and of v in dynamic shared memory, at d = 128 also its
-# 64 rows of q (padded to d + 4), which in registers would spill; the
+# to D + 4 floats) and of v in dynamic shared memory, at D = 128 also its
+# 64 rows of q (padded to D + 4), which in registers would spill; the
 # bfloat16 kernel runs a consumer warpgroup and a producer warp (160
-# threads) per 64 query rows, its q tile and STAGES[d] stages of a k and a
-# v tile (128 * d bytes each) in dynamic shared memory, with 1 KB to align
-# them and 8 bytes per mbarrier.
+# threads) per 64 query rows, its q tile and STAGES[D] stages of a k and a
+# v tile (128 * D bytes each) in dynamic shared memory, with 1 KB to align
+# them and 8 bytes per mbarrier; its column-block kernel COL_STAGES stages
+# of two 64 x 64 boxes (16 KB), the same alignment and barriers.
 THREADS = {torch.float32: 128, torch.bfloat16: 160}
 BLOCK_Q = {torch.float32: 64, torch.bfloat16: 64}
 BLOCK_K = {torch.float32: 64, torch.bfloat16: 64}
 STAGES = {32: 4, 64: 2, 128: 2}
+COL_STAGES = 4
 # The widest access the kernels make to q, k, v and o: float32 one value
 # at a time; bfloat16 through TMA, which needs a 16-byte aligned start and
 # strides that are multiples of 16 bytes.
 _VECTOR_BYTES = {torch.float32: 4, torch.bfloat16: 16}
 
 
+def instantiation(d: int) -> int:
+    """The instantiation D that serves head dim ``d``: the smallest of
+    HEAD_DIMS at or above ``d``, or 0 past the largest (the column-block
+    layout)."""
+    return next((D for D in HEAD_DIMS if d <= D), 0)
+
+
+def _col_blocks(d: int) -> int:
+    """Column blocks of COL_BLOCK output columns: one up to HEAD_DIMS[-1]."""
+    return runtime.cdiv(d, COL_BLOCK) if instantiation(d) == 0 else 1
+
+
 def smem_bytes(dtype: torch.dtype, d: int) -> int:
     """The dynamic shared memory of the kernel for ``dtype`` at head dim
     ``d`` (the C launchers refuse a plan with less)."""
+    D = instantiation(d) or COL_BLOCK
     if dtype == torch.float32:
-        return 4 * (BLOCK_K[dtype] * (2 * d + 4) + (BLOCK_Q[dtype] * (d + 4) if d > 64 else 0))
-    tiles = 1 + 2 * STAGES[d]
-    return 1024 + 2 * BLOCK_Q[dtype] * d * tiles + 8 * tiles
+        return 4 * (BLOCK_K[dtype] * (2 * D + 4) + (BLOCK_Q[dtype] * (D + 4) if D > 64 else 0))
+    if instantiation(d) == 0:
+        return 1024 + 2 * (BLOCK_Q[dtype] * 128) * COL_STAGES + 8 * 2 * COL_STAGES
+    tiles = 1 + 2 * STAGES[D]
+    return 1024 + 2 * BLOCK_Q[dtype] * D * tiles + 8 * tiles
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,18 +175,24 @@ def _strides(t: torch.Tensor) -> tuple:
 def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> runtime.LaunchPlan:
     """The launch of ``csrc/flash_attn.cu``: a block per (query tile of
-    BLOCK_Q rows, head, batch row) with its dynamic shared memory
-    (:func:`smem_bytes`), opted in above 48 KB.  bfloat16 runs the Hopper
-    kernel on grid (heads, batch, query tiles), so the longest causal tiles
-    of every head start first; float32 the FMA kernel on grid (query tiles,
-    heads, batch)."""
+    BLOCK_Q rows, head, batch row) and, past HEAD_DIMS[-1], per column
+    block of COL_BLOCK output columns (folded into the head axis), with its
+    dynamic shared memory (:func:`smem_bytes`), opted in above 48 KB.
+    bfloat16 runs the Hopper kernel on grid (heads, batch, query tiles), so
+    the longest causal tiles of every head start first; float32 the FMA
+    kernel on grid (query tiles, heads, batch)."""
     B, Sq, H, d = q.shape
     f32 = q.dtype == torch.float32
     smem = smem_bytes(q.dtype, d)
     tiles = runtime.cdiv(Sq, BLOCK_Q[q.dtype])
+    D, nb = instantiation(d), _col_blocks(d)
+    if f32:
+        name = f"flash_fwd_kernel<{D or COL_BLOCK}>"
+    else:
+        name = f"flash_fwd_wgmma_kernel<{D}>" if D else BF16_KERNELS[-1]
     return runtime.LaunchPlan(
-        f"flash_fwd_{'' if f32 else 'wgmma_'}kernel<{d}>",
-        grid=(tiles, H, B) if f32 else (H, B, tiles), block=(THREADS[q.dtype], 1, 1),
+        name, grid=(tiles, H * nb, B) if f32 else (H * nb, B, tiles),
+        block=(THREADS[q.dtype], 1, 1),
         dyn_smem=smem, smem_optin=smem > runtime.HOPPER.smem_per_block,
         operands=tuple(runtime.ptr(n, t, _VECTOR_BYTES[q.dtype])
                        for n, t in (("q", q), ("k", k), ("v", v), ("o", out)))
@@ -180,8 +217,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     B, Sq, H, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of the kernel's {HEAD_DIMS}")
+    if d < 8 or d % 8:
+        raise ValueError(f"head dim {d} is not a positive multiple of 8 (the kernels take "
+                         "d % 8 == 0, as the routing admits)")
     q, k, v = (_readable(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
@@ -227,9 +265,11 @@ def analysis_cases():
     dtype) pairs made on the fake card: the reference's cases
     (``repro.kernels.attn_kernel.analysis_cases``), then whisper-large-v3's
     decoder self-attention as the prefill launches it, (4, 384, 20, 64)
-    bfloat16, causal, d = 128 in float32, and the bfloat16 kernel at d = 32
+    bfloat16, causal, d = 128 in float32, the bfloat16 kernel at d = 32
     (GQA) and d = 128 (a key range that wraps the stage ring 16 times);
-    both d = 128 plans opt in to more than 48 KB."""
+    both d = 128 plans opt in to more than 48 KB; then head dims between
+    and past the instantiations, d = 96 (D = 128 on zero-filled tiles) and
+    d = 256 (two column blocks), in both dtypes."""
     f32, bf16 = torch.float32, torch.bfloat16
 
     def case(B, Sq, Sk, H, Hkv, d, dtype=f32, **kw):
@@ -245,4 +285,8 @@ def analysis_cases():
         ("attn/S256-d128-f32", *case(1, 256, 256, 4, 4, 128)),
         ("attn/bf16-gqa-d32", *case(2, 130, 130, 4, 2, 32, dtype=bf16, window=7)),
         ("attn/bf16-S2048-d128", *case(1, 2048, 2048, 4, 1, 128, dtype=bf16)),
+        ("attn/d96-f32", *case(1, 130, 130, 4, 2, 96)),
+        ("attn/bf16-d96", *case(1, 130, 130, 4, 2, 96, dtype=bf16)),
+        ("attn/d256-f32", *case(1, 200, 200, 2, 1, 256, window=64)),
+        ("attn/bf16-d256", *case(1, 200, 200, 2, 1, 256, dtype=bf16, window=64)),
     ]

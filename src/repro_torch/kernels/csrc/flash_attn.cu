@@ -26,6 +26,26 @@
 // no valid key for a row adds nothing (the Pallas kernel lets such a tile
 // add exp(0) terms until a real tile rescales them away).
 //
+// Head dims: every positive multiple of 8, which is what the reference's
+// routing admits (src/repro/models/common.py:185-188) and its Pallas
+// kernel runs ((1, 1, block, d) BlockSpecs).  Both kernels are
+// instantiated at D = 32, 64 and 128, and D serves every d in (the
+// previous D, D] on tiles zero past d: the bf16 kernel's tensor maps span
+// the real d, so TMA's out-of-bounds fill gives zero columns of q, k and v
+// and its store clips o's columns past d; the float32 kernel masks its
+// column loads and stores.  Zero columns change neither q.k nor o's first
+// d columns, and the scale is 1/sqrt(d) of the real d, passed at run time.
+// Past d = 128 a block owns 128 output columns (column blocks on the
+// grid): it takes q.k over the whole d in chunks and then p.v over its
+// 128 columns of v, so d has no upper limit, at the cost of the scores
+// once a column block.  The float32 kernel<128> stages 128-column chunks
+// of q and k in turn; the bf16 flash_fwd_wgmma_cols_kernel streams
+// 64-column chunks of q and k through its TMA ring.  Not a D = 256 bf16
+// instantiation: its accumulator alone would be 128 registers a thread
+// beside the scores and the split of p (the D = 128 kernel already takes
+// 165), past the 255 a thread has without spilling, and its q tile and two
+// stages of k and v would fill 160 KB, one block a multiprocessor.
+//
 // bfloat16 (the model path), flash_fwd_wgmma_kernel: a block of 160
 // threads, one consumer warpgroup (warps 0-3, 64 query rows, 16 a warp)
 // and one producer warp (warp 4).
@@ -140,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int sq,
                  int sk, int heads, int rep, int causal, int window,
-                 Strides qs, Strides ks, Strides vs) {
+                 Strides qs, Strides ks, Strides vs, int d, int nb) {
   constexpr int kLd = D + 4;      // k tile row stride, floats
   constexpr int kCols = D / 2;    // output columns per thread
   constexpr int kChunks = D / 8;  // float4 chunks per thread
@@ -149,34 +169,38 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_tile = k_tile + kBK * kLd;               // kBK x D
 
   const int iq = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
+  const int h = blockIdx.y / nb, col0 = (blockIdx.y % nb) * D;  // the block's output columns
+  const int b = blockIdx.z, g = h / rep;
   const int tid = threadIdx.x, half = tid & 1;
   const int qi = iq * kBQ + (tid >> 1);
   const bool active = qi < sq;
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const float sqrt_d = sqrtf(static_cast<float>(d));
+  // q.k runs over d in chunks of D columns: one for every d <= D; more
+  // only in the D = 128 kernel, past the largest instantiation
+  const int nch = (d + D - 1) / D;
 
   const float* kb = k + b * ks.b + g * ks.h;
   const float* vb = v + b * vs.b + g * vs.h;
 
-  // the row of q (a row past Sq reads the last row, never written back):
-  // in registers for D <= 64; at D = 128 those 128 registers with the
-  // accumulator and the scores spill (255 registers and 160 bytes of
-  // local memory), so the row is staged in shared memory after the v tile,
-  // rows padded to kLd floats, each half of the pair writing every other
-  // value (the first tile's barrier publishes them), and the scores loop
-  // over d outside the keys
+  // the row of q (a row past Sq reads the last row, never written back),
+  // zero past d: in registers for D <= 64; at D = 128 those 128 registers
+  // with the accumulator and the scores spill (255 registers and 160
+  // bytes of local memory), so the row is staged in shared memory after
+  // the v tile, rows padded to kLd floats, each half of the pair writing
+  // every other value (the first tile's barrier publishes them), and the
+  // scores loop over d outside the keys.  With several chunks the row's
+  // chunk is staged with each chunk of k.
   constexpr bool kQShared = D > 64;
   float qr[kQShared ? 1 : D];
   float* q_row = v_tile + kBK * D + (tid >> 1) * kLd;
-  {
-    const float* qp = q + b * qs.b + static_cast<long long>(min(qi, sq - 1)) * qs.s
-                      + h * qs.h;
-    if constexpr (kQShared) {
-      for (int c = half; c < D; c += 2) q_row[c] = qp[c];
-    } else {
-#pragma unroll
-      for (int c = 0; c < D; ++c) qr[c] = qp[c];
+  const float* qp = q + b * qs.b + static_cast<long long>(min(qi, sq - 1)) * qs.s + h * qs.h;
+  if constexpr (kQShared) {
+    if (nch == 1) {
+      for (int c = half; c < D; c += 2) q_row[c] = c < d ? qp[c] : 0.0f;
     }
+  } else {
+#pragma unroll
+    for (int c = 0; c < D; ++c) qr[c] = c < d ? qp[c] : 0.0f;
   }
 
   const TileRange tr = tile_range(iq, sq, sk, causal, window);
@@ -187,60 +211,70 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t = tr.t_begin; t < tr.t_end; ++t) {
     const int j0 = t * kBK;
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int jr = e / D, c = e % D, j = j0 + jr;
-      const bool in = j < sk;
-      k_tile[jr * kLd + c] = in ? kb[static_cast<long long>(j) * ks.s + c] : 0.0f;
-      v_tile[jr * D + c] = in ? vb[static_cast<long long>(j) * vs.s + c] : 0.0f;
-    }
-    __syncthreads();
-
-    // scores of this thread's keys j0 + 2i + half
+    // raw scores q . k of this thread's keys j0 + 2i + half, summed over
+    // d in order (the zero columns past d add exact zeros)
     float s[kKeys];
-    float tmax = -INFINITY;
-    if constexpr (kQShared) {
-      // d outer, keys inner: each value of q is read once for all the keys,
-      // so no row of q is live in registers; each key's dot still adds its
-      // d products in order, as below
 #pragma unroll
-      for (int i = 0; i < kKeys; ++i) s[i] = 0.0f;
-      const float4* qv = reinterpret_cast<const float4*>(q_row);
+    for (int i = 0; i < kKeys; ++i) s[i] = 0.0f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cc = ch * D;  // the chunk's first column
+      __syncthreads();        // the previous tile (or chunk) is consumed
+      for (int e = tid; e < kBK * D; e += kThreads) {
+        const int jr = e / D, c = e % D, j = j0 + jr;
+        const bool in = j < sk;
+        k_tile[jr * kLd + c] =
+            in && cc + c < d ? kb[static_cast<long long>(j) * ks.s + cc + c] : 0.0f;
+        if (ch == 0) {
+          v_tile[jr * D + c] =
+              in && col0 + c < d ? vb[static_cast<long long>(j) * vs.s + col0 + c] : 0.0f;
+        }
+      }
+      if constexpr (kQShared) {
+        if (nch > 1) {
+          for (int c = half; c < D; c += 2) q_row[c] = cc + c < d ? qp[cc + c] : 0.0f;
+        }
+      }
+      __syncthreads();
+
+      if constexpr (kQShared) {
+        // d outer, keys inner: each value of q is read once for all the
+        // keys, so no row of q is live in registers; each key's dot still
+        // adds its d products in order, as below
+        const float4* qv = reinterpret_cast<const float4*>(q_row);
 #pragma unroll 2
-      for (int c4 = 0; c4 < D / 4; ++c4) {
-        const float4 qq = qv[c4];
+        for (int c4 = 0; c4 < D / 4; ++c4) {
+          const float4 qq = qv[c4];
+#pragma unroll
+          for (int i = 0; i < kKeys; ++i) {
+            const float4 kk = reinterpret_cast<const float4*>(k_tile + (2 * i + half) * kLd)[c4];
+            s[i] += qq.x * kk.x;
+            s[i] += qq.y * kk.y;
+            s[i] += qq.z * kk.z;
+            s[i] += qq.w * kk.w;
+          }
+        }
+      } else {
 #pragma unroll
         for (int i = 0; i < kKeys; ++i) {
-          const float4 kk = reinterpret_cast<const float4*>(k_tile + (2 * i + half) * kLd)[c4];
-          s[i] += qq.x * kk.x;
-          s[i] += qq.y * kk.y;
-          s[i] += qq.z * kk.z;
-          s[i] += qq.w * kk.w;
+          const float4* kr = reinterpret_cast<const float4*>(k_tile + (2 * i + half) * kLd);
+          float dot = 0.0f;
+#pragma unroll
+          for (int c4 = 0; c4 < D / 4; ++c4) {
+            const float4 kk = kr[c4];
+            dot += qr[4 * c4] * kk.x;
+            dot += qr[4 * c4 + 1] * kk.y;
+            dot += qr[4 * c4 + 2] * kk.z;
+            dot += qr[4 * c4 + 3] * kk.w;
+          }
+          s[i] = dot;
         }
       }
+    }
+    float tmax = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kKeys; ++i) {
-        s[i] = key_valid(j0 + 2 * i + half, qi, sk, causal, window) ? s[i] / sqrt_d
-                                                                     : -INFINITY;
-        tmax = fmaxf(tmax, s[i]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kKeys; ++i) {
-        const int jr = 2 * i + half;
-        const float4* kr = reinterpret_cast<const float4*>(k_tile + jr * kLd);
-        float dot = 0.0f;
-#pragma unroll
-        for (int c4 = 0; c4 < D / 4; ++c4) {
-          const float4 kk = kr[c4];
-          dot += qr[4 * c4] * kk.x;
-          dot += qr[4 * c4 + 1] * kk.y;
-          dot += qr[4 * c4 + 2] * kk.z;
-          dot += qr[4 * c4 + 3] * kk.w;
-        }
-        s[i] = key_valid(j0 + jr, qi, sk, causal, window) ? dot / sqrt_d : -INFINITY;
-        tmax = fmaxf(tmax, s[i]);
-      }
+    for (int i = 0; i < kKeys; ++i) {
+      s[i] = key_valid(j0 + 2 * i + half, qi, sk, causal, window) ? s[i] / sqrt_d : -INFINITY;
+      tmax = fmaxf(tmax, s[i]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
@@ -293,7 +327,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       for (int e = tid; e < kBK * D; e += kThreads) {
         const int jr = e / D, c = e % D, j = j0 + jr;
-        v_tile[jr * D + c] = j < sk ? vb[static_cast<long long>(j) * vs.s + c] : 0.0f;
+        v_tile[jr * D + c] =
+            j < sk && col0 + c < d ? vb[static_cast<long long>(j) * vs.s + col0 + c] : 0.0f;
       }
       __syncthreads();
       const int n = min(kBK, sk - j0);
@@ -317,12 +352,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (active) {
-    float* op = o + (static_cast<long long>(b) * sq + qi) * heads * D
-                + static_cast<long long>(h) * D;
+    float* op = o + (static_cast<long long>(b) * sq + qi) * heads * d
+                + static_cast<long long>(h) * d + col0;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) op[(2 * c + half) * 4 + e] = acc[4 * c + e] / l;
+      for (int e = 0; e < 4; ++e) {
+        const int col = (2 * c + half) * 4 + e;
+        if (col0 + col < d) op[col] = acc[4 * c + e] / l;
+      }
     }
   }
 }
@@ -560,7 +598,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const __grid_constant__ CUtensorMap o_map,
                        const __nv_bfloat16* __restrict__ v, Strides vs, int sq, int sk,
-                       int rep, int causal, int window) {
+                       int rep, int causal, int window, int d, float scale) {
   using T = Tile<D>;
   constexpr int kS = T::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -610,7 +648,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // the consumer warpgroup; this thread's rows: row0 and row0 + 8
   const int grp = lane >> 2, tg = lane & 3;
   const int row0 = q0 + warp * 16 + grp;
-  const float scale = static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
@@ -717,8 +754,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const __nv_bfloat16* vr = vb + static_cast<long long>(j) * vs.s + 2 * tg;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
-        sum[2 * c] += inv * __bfloat162float(vr[8 * c]);
-        sum[2 * c + 1] += inv * __bfloat162float(vr[8 * c + 1]);
+        if (8 * c < d) {  // d is a multiple of 8: the 8 columns are all in or all out
+          sum[2 * c] += inv * __bfloat162float(vr[8 * c]);
+          sum[2 * c + 1] += inv * __bfloat162float(vr[8 * c + 1]);
+        }
       }
     }
 #pragma unroll
@@ -760,6 +799,240 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// The column-block kernel (head dims past the largest Tile): a block owns
+// DV = 128 output columns of 64 query rows, and q.k runs over the whole d
+// in chunks of 64 columns streamed through the stage ring.  Every stage is
+// two 64 x 64 bf16 boxes in the 128-byte swizzle (8 KB each): a chunk of q
+// and the same chunk of k for a step of the scores, or the block's two
+// 64-column halves of v for p.v.  Per key tile the producer loads the
+// ceil(d / 64) score items, then the v item.
+constexpr int kChunkCols = 64;                      // columns of a q/k chunk and of a v half
+constexpr int kBoxBytes = kBQ * 2 * kChunkCols;     // one 64 x 64 bf16 box
+constexpr int kColStages = 4;
+constexpr long long kColSmem = 1024 + 2LL * kBoxBytes * kColStages + 8 * 2 * kColStages;
+
+// One block: 64 query rows of one (batch row, head) and DV output columns
+// of d; see the header.  Registers and barriers as flash_fwd_wgmma_kernel<128>.
+template <int DV>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_fwd_wgmma_cols_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap o_map,
+                            const __nv_bfloat16* __restrict__ v, Strides vs, int sq, int sk,
+                            int rep, int causal, int window, int d, int nb, float scale) {
+  static_assert(DV == 2 * kChunkCols, "a block's columns are two 64-column halves");
+  constexpr int kS = kColStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms' alignment
+  uint8_t* const stage0 = smem_raw + (base - raw);  // stage 0, later o's tile
+  auto stage = [&](int s) { return base + 2 * kBoxBytes * s; };
+  const uint32_t bars = base + 2 * kBoxBytes * kS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kS + s); };
+
+  const int h = blockIdx.x / nb, col0 = (blockIdx.x % nb) * DV;
+  const int b = blockIdx.y, iq = gridDim.z - 1 - blockIdx.z;
+  const int g = h / rep, q0 = iq * kBQ;
+  const int nkc = (d + kChunkCols - 1) / kChunkCols;  // score items a key tile
+  const bool upper = col0 + kChunkCols < d;  // the block's second half holds columns of d
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const TileRange tr = tile_range(iq, sq, sk, causal, window);
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer
+    if (lane == 0) {
+      int it = 0;
+      for (int t = tr.t_begin; t < tr.t_end; ++t) {
+        for (int c = 0; c <= nkc; ++c, ++it) {
+          const int s = it % kS;
+          if (it >= kS) mbar_wait(empty(s), (it / kS - 1) & 1);
+          if (c < nkc) {
+            mbar_expect_tx(full(s), 2 * kBoxBytes);
+            tma_load(&q_map, stage(s), full(s), c * kChunkCols, h, q0, b);
+            tma_load(&k_map, stage(s) + kBoxBytes, full(s), c * kChunkCols, g, t * kBK, b);
+          } else {
+            mbar_expect_tx(full(s), (upper ? 2 : 1) * kBoxBytes);
+            tma_load(&v_map, stage(s), full(s), col0, g, t * kBK, b);
+            if (upper)
+              tma_load(&v_map, stage(s) + kBoxBytes, full(s), col0 + kChunkCols, g, t * kBK, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup; this thread's rows: row0 and row0 + 8
+  const int grp = lane >> 2, tg = lane & 3;
+  const int row0 = q0 + warp * 16 + grp;
+  float o[2][32];  // the two 64-column halves of the block's output
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  int it = 0;
+  for (int t = tr.t_begin; t < tr.t_end; ++t) {
+    // scores over d, a 64-column chunk a stage
+    float p[32];
+    for (int c = 0; c < nkc; ++c, ++it) {
+      const int s = it % kS;
+      mbar_wait(full(s), (it / kS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunkCols / 16; ++kk) {
+        wgmma_ss(p, desc(stage(s) + kk * 32, 16, 8 * 128, 1),
+                 desc(stage(s) + kBoxBytes + kk * 32, 16, 8 * 128, 1), c > 0 || kk > 0);
+      }
+      wgmma_commit_and_wait();
+      fence_regs(p);
+      mbar_arrive(empty(s));
+    }
+
+    const int j0 = t * kBK;
+    const bool edge = j0 + kBK > sk || (causal && j0 + kBK - 1 > q0) ||
+                      (window != 0 && static_cast<long long>(j0) <=
+                                          static_cast<long long>(q0) + kBQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!key_valid(j0 + 8 * j + 2 * tg + (e & 1), row0 + 8 * (e >> 1), sk, causal,
+                         window))
+            p[4 * j + e] = -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], p[j]);
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = m_new == m[r] ? 1.0f : ex2((m[r] - m_new) * scale);
+      ms[r] = m_new == -INFINITY ? 0.0f : m_new * scale;
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      p[j] = ex2(fmaf(p[j], scale, -ms[(j >> 1) & 1]));
+      l[(j >> 1) & 1] += p[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      o[0][j] *= alpha[(j >> 1) & 1];
+      o[1][j] *= alpha[(j >> 1) & 1];
+    }
+
+    uint32_t hi[4][4], mid[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split3(p[8 * kk + 2 * f], p[8 * kk + 2 * f + 1], hi[kk][f], mid[kk][f], lo[kk][f]);
+    }
+    const int s = it % kS;
+    mbar_wait(full(s), (it / kS) & 1);
+    fence_regs(o[0]);
+    fence_regs(o[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf == 1 && !upper) continue;  // the same for the whole warpgroup
+        const uint64_t vd = desc(stage(s) + hf * kBoxBytes + kk * 16 * 128, kBoxBytes,
+                                 8 * 128, 1);
+        wgmma_rs(o[hf], lo[kk], vd);
+        wgmma_rs(o[hf], mid[kk], vd);
+        wgmma_rs(o[hf], hi[kk], vd);
+      }
+    }
+    wgmma_commit_and_wait();
+    fence_regs(o[0]);
+    fence_regs(o[1]);
+    mbar_arrive(empty(s));
+    ++it;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // rows left with no valid key: 1/Sk times the sum of v over all keys,
+  // this thread's columns of the block read from device memory
+  const bool empty_row[2] = {row0 < sq && l[0] == 0.0f, row0 + 8 < sq && l[1] == 0.0f};
+  if (empty_row[0] || empty_row[1]) {
+    const float inv = 1.0f / static_cast<float>(sk);
+    const __nv_bfloat16* vb = v + b * vs.b + g * vs.h + col0;
+    float sum[DV / 4];
+#pragma unroll
+    for (int c = 0; c < DV / 4; ++c) sum[c] = 0.0f;
+    for (int j = 0; j < sk; ++j) {
+      const __nv_bfloat16* vr = vb + static_cast<long long>(j) * vs.s + 2 * tg;
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c) {
+        if (col0 + 8 * c < d) {
+          sum[2 * c] += inv * __bfloat162float(vr[8 * c]);
+          sum[2 * c + 1] += inv * __bfloat162float(vr[8 * c + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!empty_row[r]) continue;
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c) {
+        o[c / 8][4 * (c % 8) + 2 * r] = sum[2 * c];
+        o[c / 8][4 * (c % 8) + 2 * r + 1] = sum[2 * c + 1];
+      }
+      l[r] = 1.0f;
+    }
+  }
+
+  // o / l in bf16 into stage 0 (every wgmma of the warpgroup has read the
+  // ring, and the producer has no load left) in the 128-byte swizzle, then
+  // a TMA store per half that holds columns of d
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + grp + 8 * r;
+    const float inv_l = 1.0f / l[r];
+#pragma unroll
+    for (int c = 0; c < DV / 8; ++c) {
+      const int col = 8 * c + 2 * tg;
+      const uint32_t off = row * 128 + (col % kChunkCols) * 2;
+      const uint32_t at = (col / kChunkCols) * kBoxBytes + (off ^ (((off >> 7) & 7) << 4));
+      *reinterpret_cast<__nv_bfloat162*>(stage0 + at) = __floats2bfloat162_rn(
+          o[c / 8][4 * (c % 8) + 2 * r] * inv_l, o[c / 8][4 * (c % 8) + 2 * r + 1] * inv_l);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  if (tid == 0) {
+    tma_store(&o_map, base, col0, h, q0, b);
+    if (upper) tma_store(&o_map, base + kBoxBytes, col0 + kChunkCols, h, q0, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
 // The float32 kernel's dynamic shared memory: the k tile (kBK rows of
 // D + 4 floats), the v tile (kBK rows of D) and, for D > 64, the block's
 // q rows (kBQ rows of D + 4).  The launcher refuses a plan with less
@@ -796,73 +1069,108 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (batch, seq, heads, D) bf16 operand at `ptr` with
+// The tensor map of a (batch, seq, heads, d) bf16 operand at `ptr` with
 // element strides st = (batch, seq, head) and d contiguous, as the 4-d
-// tensor (D, heads, seq, batch), in boxes of one column block of 64 rows
-// with the tile's swizzle; coordinates past seq read as zeros (and a store
-// there is dropped).  False if the encode fails.
-template <int D>
-bool encode(CUtensorMap* map, const void* ptr, long long batch, long long seq,
-            long long heads, const long long* st) {
-  using T = Tile<D>;
+// tensor (d, heads, seq, batch), in boxes of `box_cols` columns of 64 rows
+// in the swizzle of box_cols * 2-byte rows; coordinates past d or past seq
+// read as zeros (and a store there is dropped).  False if the encode
+// fails.
+bool encode(CUtensorMap* map, const void* ptr, int d, long long batch, long long seq,
+            long long heads, const long long* st, int box_cols) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(st[2]) * 2,
                                static_cast<cuuint64_t>(st[1]) * 2,
                                static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {T::kW, 1, kBQ, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, kBQ, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 
+// The four tensor maps (o contiguous) in boxes of box_cols columns.
+bool encode_all(CUtensorMap* maps, const void* q, const void* k, const void* v, void* o, int d,
+                int batch, int sq, int sk, int heads, int kv_heads, const long long* st,
+                int box_cols) {
+  const long long ost[3] = {static_cast<long long>(sq) * heads * d,
+                            static_cast<long long>(heads) * d, d};
+  return encode(&maps[0], q, d, batch, sq, heads, st, box_cols) &&
+         encode(&maps[1], k, d, batch, sk, kv_heads, st + 3, box_cols) &&
+         encode(&maps[2], v, d, batch, sk, kv_heads, st + 6, box_cols) &&
+         encode(&maps[3], o, d, batch, sq, heads, ost, box_cols);
+}
+
+// log2(e) / sqrt(d): the bf16 kernels' scale of the raw scores in exp2.
+float exp2_scale(int d) {
+  return static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(d)));
+}
+
+// Column blocks of the float32 kernel: more than one only past D = 128.
+int f32_col_blocks(int d) { return d > 128 ? (d + 127) / 128 : 1; }
+
 template <int D>
 int launch_f32(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
-               int batch, int sq, int sk, int heads, int kv_heads, int causal, int window,
-               const long long* st, cudaStream_t stream) {
+               int d, int batch, int sq, int sk, int heads, int kv_heads, int causal,
+               int window, const long long* st, cudaStream_t stream) {
+  (void)batch;
   if (p.block[0] != kThreads || p.smem < f32_smem<D>())
     return static_cast<int>(cudaErrorInvalidValue);
   return plan::launch(flash_fwd_kernel<D>, p, stream, static_cast<const float*>(q),
                       static_cast<const float*>(k), static_cast<const float*>(v),
                       static_cast<float*>(o), sq, sk, heads, heads / kv_heads, causal,
                       window, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
-                      Strides{st[6], st[7], st[8]});
+                      Strides{st[6], st[7], st[8]}, d, f32_col_blocks(d));
 }
 
-// The bf16 launch: the four tensor maps (o contiguous), then the kernel.
+// The bf16 launch at d <= D: the four tensor maps over the real d, then
+// the kernel.
 template <int D>
 int launch_bf16(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
-                int batch, int sq, int sk, int heads, int kv_heads, int causal, int window,
-                const long long* st, cudaStream_t stream) {
+                int d, int batch, int sq, int sk, int heads, int kv_heads, int causal,
+                int window, const long long* st, cudaStream_t stream) {
   if (p.block[0] != kWgThreads || p.smem < Tile<D>::kSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long ost[3] = {static_cast<long long>(sq) * heads * D,
-                            static_cast<long long>(heads) * D, D};
-  CUtensorMap qm, km, vm, om;
-  if (!encode<D>(&qm, q, batch, sq, heads, st) || !encode<D>(&km, k, batch, sk, kv_heads, st + 3) ||
-      !encode<D>(&vm, v, batch, sk, kv_heads, st + 6) || !encode<D>(&om, o, batch, sq, heads, ost))
+  CUtensorMap m[4];
+  if (!encode_all(m, q, k, v, o, d, batch, sq, sk, heads, kv_heads, st, Tile<D>::kW))
     return static_cast<int>(cudaErrorInvalidValue);
-  return plan::launch(flash_fwd_wgmma_kernel<D>, p, stream, qm, km, vm, om,
+  return plan::launch(flash_fwd_wgmma_kernel<D>, p, stream, m[0], m[1], m[2], m[3],
                       static_cast<const __nv_bfloat16*>(v), Strides{st[6], st[7], st[8]}, sq,
-                      sk, heads / kv_heads, causal, window);
+                      sk, heads / kv_heads, causal, window, d, exp2_scale(d));
+}
+
+// The bf16 launch past the largest Tile: column blocks of 128.
+int launch_bf16_cols(const plan::Plan& p, const void* q, const void* k, const void* v, void* o,
+                     int d, int batch, int sq, int sk, int heads, int kv_heads, int causal,
+                     int window, const long long* st, cudaStream_t stream) {
+  if (p.block[0] != kWgThreads || p.smem < kColSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  if (!encode_all(m, q, k, v, o, d, batch, sq, sk, heads, kv_heads, st, kChunkCols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return plan::launch(flash_fwd_wgmma_cols_kernel<128>, p, stream, m[0], m[1], m[2], m[3],
+                      static_cast<const __nv_bfloat16*>(v), Strides{st[6], st[7], st[8]}, sq,
+                      sk, heads / kv_heads, causal, window, d, (d + 127) / 128, exp2_scale(d));
 }
 
 using Launch = int (*)(const plan::Plan&, const void*, const void*, const void*, void*, int,
-                       int, int, int, int, int, int, const long long*, cudaStream_t);
+                       int, int, int, int, int, int, int, const long long*, cudaStream_t);
 
+// The kernel of head dim d (a positive multiple of 8): the instantiation D
+// of 32, 64, 128 next at or above d, its tiles zero past d; past 128 the
+// float32 kernel's D = 128 in column blocks and the bf16 column-block
+// kernel.
 Launch pick(int dtype, int d) {
+  if (d < 8 || d % 8 != 0) return nullptr;
   const bool f32 = dtype == 0;
-  switch (d) {
-    case 32: return f32 ? &launch_f32<32> : &launch_bf16<32>;
-    case 64: return f32 ? &launch_f32<64> : &launch_bf16<64>;
-    case 128: return f32 ? &launch_f32<128> : &launch_bf16<128>;
-    default: return nullptr;
-  }
+  if (d <= 32) return f32 ? &launch_f32<32> : &launch_bf16<32>;
+  if (d <= 64) return f32 ? &launch_f32<64> : &launch_bf16<64>;
+  if (d <= 128) return f32 ? &launch_f32<128> : &launch_bf16<128>;
+  return f32 ? &launch_f32<128> : &launch_bf16_cols;
 }
 
 const plan::Kernel kKernels[] = {
@@ -872,7 +1180,9 @@ const plan::Kernel kKernels[] = {
     {"flash_fwd_wgmma_kernel<32>", reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<32>)},
     {"flash_fwd_wgmma_kernel<64>", reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<64>)},
     {"flash_fwd_wgmma_kernel<128>",
-     reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<128>)}};
+     reinterpret_cast<const void*>(&flash_fwd_wgmma_kernel<128>)},
+    {"flash_fwd_wgmma_cols_kernel<128>",
+     reinterpret_cast<const void*>(&flash_fwd_wgmma_cols_kernel<128>)}};
 
 }  // namespace
 
@@ -883,14 +1193,16 @@ PLAN_KERNEL_TABLE(flash_attn, kKernels)
 // sequence and head axes and d contiguous; o: contiguous (batch, sq, heads,
 // d) of the same type.  dtype 0 is float32, 1 bfloat16 (then every pointer
 // 16-byte aligned and every stride a multiple of 8 elements: TMA's rule); d
-// is 32, 64 or 128; heads a multiple of kv_heads; sk >= 1.  The plan
-// (attn_kernel.launch_plan): float32, 128 threads a block and grid (query
-// tiles, heads, batch) with the k and v tiles (at d = 128 also the q rows)
-// in dynamic shared memory; bfloat16, 160 threads and grid (heads, batch,
-// query tiles) with Tile<d>::kSmem bytes; opted in above 48 KB.  Refuses
-// another block, too little shared memory, or a tensor map that
-// cuTensorMapEncodeTiled refuses (cudaErrorInvalidValue).  Returns cudaGetLastError() after the
-// launch (0 on success); a grid past the card's limits is refused there.
+// is a positive multiple of 8 (pick); heads a multiple of kv_heads; sk >=
+// 1.  The plan (attn_kernel.launch_plan): float32, 128 threads a block and
+// grid (query tiles, heads x column blocks, batch) with the k and v tiles
+// (at D = 128 also the q rows) in dynamic shared memory; bfloat16, 160
+// threads and grid (heads, batch, query tiles) with Tile<D>::kSmem bytes,
+// or past d = 128 grid (heads x column blocks, batch, query tiles) with
+// kColSmem bytes; opted in above 48 KB.  Refuses another block, too little
+// shared memory, or a tensor map that cuTensorMapEncodeTiled refuses
+// (cudaErrorInvalidValue).  Returns cudaGetLastError() after the launch (0
+// on success); a grid past the card's limits is refused there.
 extern "C" int flash_attn_launch(const plan::Plan* p, const void* q, const void* k,
                                  const void* v, void* o, int dtype, int d, int batch,
                                  int sq, int sk, int heads, int kv_heads, int causal,
@@ -900,6 +1212,6 @@ extern "C" int flash_attn_launch(const plan::Plan* p, const void* q, const void*
   if (fn == nullptr || sk < 1 || kv_heads < 1 || heads % kv_heads != 0 || p->block[1] != 1 ||
       p->block[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return fn(*p, q, k, v, o, batch, sq, sk, heads, kv_heads, causal, window, st,
+  return fn(*p, q, k, v, o, d, batch, sq, sk, heads, kv_heads, causal, window, st,
             static_cast<cudaStream_t>(stream));
 }

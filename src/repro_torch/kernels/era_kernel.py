@@ -24,21 +24,26 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES",
-           "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS",
+__all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES", "fused_layout",
+           "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS", "MEAN_PER_THREAD",
            "WARP_ROW_MAX_N", "ROW_CLUSTERS", "ROW_SLICE_MAX", "ONEPASS_THREADS",
            "fused_launch_plan", "row_slice", "onepass_threads", "rows_layout",
            "rows_launch_plan", "launch_rows", "analysis_cases"]
 
 _EPS = 1e-12
 
-# One row's N log values must fit the 48 KB of shared memory a block
-# gets without opting in to more.
+# The fused kernel's row-block layout holds a row's N log values in the
+# 48 KB of shared memory a block gets without opting in to more: N <=
+# MAX_CLASSES.  Wider rows take two launches (fused_layout): the client
+# mean into a (B, N) float32 workspace, then the per-row kernel's layout
+# for N.
 MAX_CLASSES = 12288
 
 # Threads a block of the fused kernel; rows a block: enough that one pass
-# covers about FUSED_THREADS values.
+# covers about FUSED_THREADS values.  The client-mean kernel of wider rows
+# sums MEAN_PER_THREAD elements a thread, THREADS threads a block.
 FUSED_THREADS = 128
+MEAN_PER_THREAD = 4
 
 # Threads a block of the per-row kernel's warp and multi-pass layouts (a
 # multiple of 32): a warp a row, 8 rows a block, for N <= WARP_ROW_MAX_N;
@@ -82,28 +87,57 @@ def _fused_rows_per_block(n: int) -> int:
     return 1 if n >= FUSED_THREADS else FUSED_THREADS // n
 
 
+def fused_layout(n: int):
+    """(layout, cluster) of the fused kernel for rows of ``n`` classes,
+    from ``n`` alone: ("rows", 1) up to MAX_CLASSES (a block of rows of
+    ``csrc/era_fused.cu``); above, the client mean into a workspace, then
+    :func:`rows_layout` of ``n`` (("onepass", C) or ("passes", 1))."""
+    return ("rows", 1) if n <= MAX_CLASSES else rows_layout(n)
+
+
 def fused_launch_plan(z: torch.Tensor, out: torch.Tensor,
                       beta_source: str = "python") -> runtime.LaunchPlan:
     """The launch of ``csrc/era_fused.cu`` over the contiguous (K, B, N)
-    ``z``: ``rows_per_block`` rows a block (one row when N >= 128), their
-    N log values each in dynamic shared memory.  At N = MAX_CLASSES one
-    row fills the 48 KB a block gets without opting in; the kernel never
-    opts in."""
+    ``z``: up to MAX_CLASSES, ``rows_per_block`` rows a block (one row
+    when N >= 128), their N log values each in dynamic shared memory,
+    never opted in (at N = MAX_CLASSES one row fills 48 KB), ``out`` the
+    sharpened rows; above, the client mean, a block of THREADS for every
+    THREADS * MEAN_PER_THREAD elements, ``out`` the (B, N) workspace."""
     _K, B, N = z.shape
-    rpb = _fused_rows_per_block(N)
+    smem = 0
+    if fused_layout(N)[0] == "rows":
+        rpb = _fused_rows_per_block(N)
+        name, grid, threads, smem = "era_fused_kernel", runtime.cdiv(B, rpb), FUSED_THREADS, \
+            rpb * N * 4
+    else:
+        name, grid, threads = "era_fused_mean", runtime.cdiv(B * N, THREADS * MEAN_PER_THREAD), \
+            THREADS
     return runtime.LaunchPlan(
-        "era_fused_kernel", grid=(runtime.cdiv(B, rpb), 1, 1), block=(FUSED_THREADS, 1, 1),
-        dyn_smem=rpb * N * 4,
+        name, grid=(grid, 1, 1), block=(threads, 1, 1), dyn_smem=smem,
         operands=(runtime.ptr("z", z), runtime.ptr("out", out),
+                  runtime.value("layout", ctypes.c_int),
                   runtime.value("k_clients", ctypes.c_int),
                   runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
                   runtime.value("rows_per_block", ctypes.c_int),
                   runtime.value("beta", ctypes.c_float, beta_source)))
 
 
+def _launch_fused(z: torch.Tensor, out: torch.Tensor, layout: int, beta_val: float,
+                  beta_source: str) -> None:
+    K, B, N = z.shape
+    runtime.launch("era_fused", "era_fused_launch", fused_launch_plan(z, out, beta_source), z,
+                   out, ctypes.c_int(layout), ctypes.c_int(K), ctypes.c_longlong(B),
+                   ctypes.c_int(N), ctypes.c_int(_fused_rows_per_block(N)),
+                   ctypes.c_float(beta_val))
+
+
 def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
     """(K, B, N) float32 client soft-labels -> aggregated + sharpened
-    (B, N).  ``beta`` is a runtime scalar."""
+    (B, N), any N: one launch up to MAX_CLASSES, above it the client mean
+    into a workspace and the per-row kernel.  ``beta`` is a number or a
+    one-element tensor; the per-row kernel reads a card tensor on the
+    card, the row-block kernel reads it to the host (a sync, which the
+    lint reports)."""
     if z.dim() != 3:
         raise ValueError(f"expected (K, B, N), got shape {tuple(z.shape)}")
     K, B, N = z.shape
@@ -115,17 +149,21 @@ def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
         raise ValueError(f"unsupported device {z.device}")
     if z.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32, got {z.dtype}")
-    if N > MAX_CLASSES:
-        raise ValueError(f"N={N} exceeds the kernel's {MAX_CLASSES} classes")
     z = z.contiguous()
     out = torch.empty((B, N), dtype=z.dtype, device=z.device)
     if B == 0:
         return out
-    beta_val, beta_source = runtime.host_value(beta)
-    plan = fused_launch_plan(z, out, beta_source)
-    runtime.launch("era_fused", "era_fused_launch", plan, z, out, ctypes.c_int(K),
-                   ctypes.c_longlong(B), ctypes.c_int(N),
-                   ctypes.c_int(_fused_rows_per_block(N)), ctypes.c_float(beta_val))
+    layout = fused_layout(N)
+    if layout[0] == "rows":
+        beta_val, beta_source = runtime.host_value(beta)
+        _launch_fused(z, out, 0, beta_val, beta_source)
+    else:
+        # the mean takes no beta; a card tensor's beta goes to the per-row
+        # kernel by pointer
+        beta_val, beta_t = _beta_arg(beta, z)
+        zbar = torch.empty((B, N), dtype=z.dtype, device=z.device)
+        _launch_fused(z, zbar, 1, 0.0, "python")
+        launch_rows(zbar, out, beta_val, beta_t, layout)
     enhanced_era_fused.launches += 1
     return out
 
@@ -260,10 +298,12 @@ def analysis_cases():
     (1536, 51968) vocabulary as soft-labels, in float32 and bfloat16; beta
     on the card), each layout of the per-row kernel (one block a row,
     clusters of 2 and 8 with rows not a multiple of 4 values, the
-    multi-pass rows past eight slices), and the fused kernel at its limit: N =
-    MAX_CLASSES fills 48 KB exactly, and N = MAX_CLASSES + 1 is refused by
-    the wrapper (a fourth element names the exception the case must
-    raise)."""
+    multi-pass rows past eight slices), and the fused kernel at the edge
+    of its row-block layout, N = MAX_CLASSES, which fills 48 KB exactly,
+    and past it (the client mean, then the per-row kernel): one class
+    past it (a cluster of one block a row), at whisper's vocabulary
+    (clusters of 4) and one class past eight slices (the multi-pass
+    layout)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("era/B1000-N10", lambda z: enhanced_era(z, 1.5), (((1000, 10), f32),)),
@@ -277,7 +317,11 @@ def analysis_cases():
         ("era_fused/K2-B3-N12288", lambda z: enhanced_era_fused(z, 1.5),
          (((2, 3, MAX_CLASSES), f32),)),
         ("era_fused/K2-B3-N12289", lambda z: enhanced_era_fused(z, 1.5),
-         (((2, 3, MAX_CLASSES + 1), f32),), ValueError),
+         (((2, 3, MAX_CLASSES + 1), f32),)),
+        ("era_fused/K8-B384-N51968", lambda z: enhanced_era_fused(z, 1.5),
+         (((8, 384, 51968), f32),)),
+        ("era_fused/K3-B5-N106497", lambda z: enhanced_era_fused(z, 1.5),
+         (((3, 5, 106497), f32),)),
         ("era/B1536-N51968", lambda z: enhanced_era(z, 1.5), (((1536, 51968), f32),)),
         ("era/B1536-N51968-bf16", lambda z: enhanced_era(z, 1.5), (((1536, 51968), bf16),)),
         ("era/B1000-N10-beta-on-card", lambda z, b: enhanced_era(z, b),

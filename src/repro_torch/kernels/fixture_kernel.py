@@ -12,9 +12,9 @@ each body is correct, and each has a valid plan and a broken one:
   with ``s`` read by the kernel through a pointer; broken with
   ``sync=True``, ``s`` read to the host first (a host sync a launch).
 - :func:`copy_smem`: a copy staged through a (rows, cols) tile of shared
-  memory in and one out.  Valid with (32, 128) tiles; broken with a
-  (4096, 1024) tile, 32 MiB where a block gets 227 KB (the card refuses
-  the launch).
+  memory in and one out, by 16-byte copies where they are aligned.  Valid
+  with (32, 128) tiles; broken with a (4096, 1024) tile, 32 MiB where a
+  block gets 227 KB (the card refuses the launch).
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor.  The analyzer's selftest lints the broken plans
@@ -31,7 +31,8 @@ import torch
 from repro_torch.kernels import runtime
 
 __all__ = ["copy_vec4", "scale", "copy_smem", "copy_plain", "scale_plain",
-           "copy_vec4_plan", "scale_plan", "copy_smem_plan", "VALID_TILE", "HOG_TILE"]
+           "copy_vec4_plan", "scale_plan", "copy_smem_plan", "copy_smem_vec", "VALID_TILE",
+           "HOG_TILE"]
 
 THREADS = 256
 VALID_TILE = (32, 128)
@@ -122,21 +123,31 @@ def scale(x: torch.Tensor, s: torch.Tensor, sync: bool = False) -> torch.Tensor:
 scale.launches = 0
 
 
+def copy_smem_vec(x: torch.Tensor, tile: Tuple[int, int]) -> int:
+    """Floats a copy of ``copy_smem`` moves: 4 (16 bytes) where the
+    columns, the tile's columns and ``x``'s start are whole 16 bytes, else
+    1."""
+    return 4 if x.shape[1] % 4 == 0 and tile[1] % 4 == 0 and x.storage_offset() % 4 == 0 \
+        else 1
+
+
 def copy_smem_plan(x: torch.Tensor, out: torch.Tensor,
                    tile: Tuple[int, int]) -> runtime.LaunchPlan:
     """A block per (tile rows, tile cols) tile of the (rows, cols) ``x``,
-    its tile in shared memory twice (in and out), opted in above 48 KB."""
+    its tile in shared memory twice (in and out), opted in above 48 KB;
+    16-byte copies where :func:`copy_smem_vec` finds them aligned."""
     rows, cols = x.shape
     tr, tc = tile
     smem = 2 * tr * tc * 4
+    vb = 4 * copy_smem_vec(x, tile)
     return runtime.LaunchPlan(
-        "copy_smem_kernel", grid=(runtime.cdiv(cols, tc), runtime.cdiv(rows, tr), 1),
+        f"copy_smem_kernel<{vb // 4}>", grid=(runtime.cdiv(cols, tc), runtime.cdiv(rows, tr), 1),
         block=(THREADS, 1, 1), dyn_smem=smem, smem_optin=smem > runtime.HOPPER.smem_per_block,
-        operands=(runtime.ptr("x", x), runtime.ptr("out", out),
+        operands=(runtime.ptr("x", x, vb), runtime.ptr("out", out, vb),
                   runtime.value("rows", ctypes.c_longlong),
                   runtime.value("cols", ctypes.c_longlong),
                   runtime.value("tile_rows", ctypes.c_int),
-                  runtime.value("tile_cols", ctypes.c_int)))
+                  runtime.value("tile_cols", ctypes.c_int), runtime.value("vec", ctypes.c_int)))
 
 
 def copy_smem(x: torch.Tensor, tile: Tuple[int, int] = VALID_TILE) -> torch.Tensor:
@@ -156,7 +167,7 @@ def copy_smem(x: torch.Tensor, tile: Tuple[int, int] = VALID_TILE) -> torch.Tens
     rows, cols = x.shape
     runtime.launch("fixtures", "copy_smem_launch", copy_smem_plan(x, out, tile), x, out,
                    ctypes.c_longlong(rows), ctypes.c_longlong(cols), ctypes.c_int(tile[0]),
-                   ctypes.c_int(tile[1]))
+                   ctypes.c_int(tile[1]), ctypes.c_int(copy_smem_vec(x, tile)))
     copy_smem.launches += 1
     return out
 

@@ -35,7 +35,9 @@ BF16_STEP = 2.0 ** -7
 
 # (B, Sq, Sk, H, Hkv, d, causal, window, dtype): the reference's
 # block-alignment regression shapes (tests/test_kernels.py), a GQA case
-# and a bfloat16 case
+# and a bfloat16 case; then head dims between the port's kernel
+# instantiations (96: D = 128 on tiles zero past d) and past them (136:
+# column blocks), which the reference's kernel takes as any other d
 CASES = [
     (1, 4, 4, 2, 1, 64, True, 0, "float32"),
     (1, 100, 100, 2, 1, 64, True, 7, "float32"),
@@ -43,6 +45,9 @@ CASES = [
     (1, 8, 20, 2, 1, 64, False, 0, "float32"),
     (2, 128, 128, 4, 2, 64, True, 0, "float32"),
     (1, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+    (1, 130, 130, 4, 2, 96, True, 0, "float32"),
+    (1, 100, 100, 2, 1, 136, True, 7, "float32"),
+    (1, 64, 80, 2, 2, 136, False, 0, "bfloat16"),
 ]
 
 

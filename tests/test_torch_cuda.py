@@ -43,8 +43,16 @@ def _probs(seed, shape, dev):
     return torch.from_numpy(z.astype(np.float32).reshape(shape)).to(dev)
 
 
-@pytest.mark.parametrize("K,B,N", [(1, 9, 10), (100, 1000, 10), (3, 33, 130),
-                                   (5, 7, 1), (2, 3, 4000)])
+# The fused ERA kernel's layouts: rows of a block (N <= 12288); past it
+# the client mean, then the per-row kernel's row over a cluster of 1
+# (12289), 2 (20001), 4 (32000, 51968) and 8 (100001) blocks, and its
+# multi-pass layout past eight slices (106497).
+ERA_FUSED_SHAPES = [(1, 9, 10), (100, 1000, 10), (3, 33, 130), (5, 7, 1), (2, 3, 4000),
+                    (4, 33, 12289), (2, 9, 20001), (100, 3, 32000), (8, 16, 51968),
+                    (3, 5, 100001), (3, 5, 106497)]
+
+
+@pytest.mark.parametrize("K,B,N", ERA_FUSED_SHAPES)
 @pytest.mark.parametrize("beta", [0.5, 1.5, 4.0])
 def test_era_kernel_matches_plain(dev, K, B, N, beta):
     z = _probs(K + B + N, (K, B, N), dev)
@@ -54,6 +62,20 @@ def test_era_kernel_matches_plain(dev, K, B, N, beta):
     assert ops.launches()["enhanced_era_fused"] == 1
     want = era_kernel.enhanced_era_fused_plain(z, beta)
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("K,B,N", [(100, 1000, 10), (4, 33, 12289), (2, 9, 20001),
+                                   (8, 16, 51968), (3, 5, 100001), (3, 5, 106497)])
+def test_era_kernel_is_deterministic_and_row_split_invariant(dev, K, B, N):
+    """Two launches give the same bits, and rows computed in two launches
+    equal the same rows of one: the layout depends on N alone."""
+    z = _probs(K * B + N, (K, B, N), dev)
+    one = era_kernel.enhanced_era_fused(z, 1.5)
+    assert torch.equal(one, era_kernel.enhanced_era_fused(z, 1.5))
+    k = (B // 2) | 1
+    two = torch.cat([era_kernel.enhanced_era_fused(z[:, :k], 1.5),
+                     era_kernel.enhanced_era_fused(z[:, k:], 1.5)])
+    assert torch.equal(one, two)
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8])
@@ -70,6 +92,41 @@ def test_qdq_kernel_matches_plain_on_residual_view(dev, bits):
     levels = 2 ** bits - 1
     scale = torch.clamp_min(r.amax(-1, keepdim=True) - r.amin(-1, keepdim=True), 1e-9)
     assert int(((got - want).abs() >= 0.5 * scale / levels).sum()) == 0
+
+
+# The qdq kernel's layouts: a thread a row on staged tiles (N <= 32 at row
+# strides up to 2N), a warp a row (N = 130), a block a row (N = 2000).
+@pytest.mark.parametrize("rows,N", [(100000, 9), (1001, 10), (37, 1), (4097, 32), (513, 130),
+                                    (33, 2000)])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_qdq_kernel_matches_plain_in_every_layout(dev, rows, N, bits):
+    z = _probs(rows + N + bits, (rows, N), dev) - 0.5 / N
+    ops.reset_launches()
+    got = quant_kernel.quantize_dequantize(z, bits)
+    torch.cuda.synchronize()
+    assert ops.launches()["quantize_dequantize"] == 1
+    want = quant_kernel.quantize_dequantize_plain(z, bits)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    levels = 2 ** bits - 1
+    scale = torch.clamp_min(z.amax(-1, keepdim=True) - z.amin(-1, keepdim=True), 1e-9)
+    assert int(((got - want).abs() >= 0.5 * scale / levels).sum()) == 0
+
+
+@pytest.mark.parametrize("rows,N", [(100000, 9), (513, 130), (33, 2000)])
+def test_qdq_kernel_is_deterministic_row_split_and_layout_invariant(dev, rows, N):
+    """Two launches, rows split over two launches (the second tile starting
+    off a 16-byte boundary), and the same rows read through a sparse row
+    stride (another layout) give the same bits."""
+    z = _probs(rows * N, (rows, N), dev)
+    one = quant_kernel.quantize_dequantize(z, 8)
+    assert torch.equal(one, quant_kernel.quantize_dequantize(z, 8))
+    k = (rows // 2) | 1
+    two = torch.cat([quant_kernel.quantize_dequantize(z[:k], 8),
+                     quant_kernel.quantize_dequantize(z[k:], 8)])
+    assert torch.equal(one, two)
+    sparse = torch.zeros(rows, 3 * N + 1, device=dev)
+    sparse[:, 1:N + 1] = z
+    assert torch.equal(one, quant_kernel.quantize_dequantize(sparse[:, 1:N + 1], 8))
 
 
 def test_kernels_reject_wrong_dtype(dev):
@@ -215,6 +272,18 @@ def _assert_attn_close(got, want):
     (1, 2048, 2048, 4, 1, 128, True, 0),  # the bf16 kernel's stage ring wraps 16 times
     (2, 200, 257, 4, 2, 64, False, 0),    # Sk one past 4 key tiles
     (2, 256, 256, 8, 2, 32, True, 0),     # GQA at d = 32
+    # head dims between and past the instantiations (D = 32, 64, 128 on
+    # tiles zero past d; column blocks past 128)
+    (1, 130, 130, 2, 1, 8, True, 0),
+    (2, 200, 200, 8, 2, 40, True, 0),     # GQA
+    (1, 130, 130, 4, 4, 80, True, 0),
+    (1, 300, 300, 4, 2, 96, True, 0),
+    (1, 200, 257, 2, 2, 112, False, 0),
+    (1, 200, 200, 4, 1, 136, True, 33),   # windowed
+    (1, 130, 130, 2, 2, 192, True, 0),
+    (1, 130, 130, 2, 1, 200, True, 0),    # the last column block's second half partly past d
+    (1, 300, 100, 2, 1, 256, False, 16),  # rows left with no key
+    (2, 256, 256, 4, 2, 256, True, 0),
 ])
 def test_flash_kernel_matches_plain(dev, B, Sq, Sk, H, Hkv, d, causal, window, dtype):
     q, k, v = _attn_inputs(Sq + Sk + d, B, Sq, Sk, H, Hkv, d, dtype, dev)
@@ -273,10 +342,11 @@ def test_flash_bf16_kernels_are_wgmma_and_tma_kernels(dev):
     of p needs no conversion instruction (F2FP only in the epilogue's bf16
     rounding of o)."""
     counts = attn_kernel.sass_opcodes()
-    for d in attn_kernel.HEAD_DIMS:
-        c = counts[f"flash_fwd_wgmma_kernel<{d}>"]
+    assert {n for n in counts if "wgmma" in n} == set(attn_kernel.BF16_KERNELS)
+    for name in attn_kernel.BF16_KERNELS:
+        c, width = counts[name], int(name.split("<")[1].rstrip(">"))
         assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, c
-        assert c["HMMA"] == 0 and c["F2FP"] <= d // 4, c
+        assert c["HMMA"] == 0 and c["F2FP"] <= width // 4, c
 
 
 def test_flash_wrapper_raises_on_a_refused_launch(dev):
@@ -296,7 +366,7 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
         attn_kernel.flash_attention(*(torch.zeros(1, 8, 2, 64, device=dev,
                                                   dtype=torch.float16),) * 3)
     with pytest.raises(ValueError):
-        attn_kernel.flash_attention(*(torch.zeros(1, 8, 2, 48, device=dev),) * 3)
+        attn_kernel.flash_attention(*(torch.zeros(1, 8, 2, 44, device=dev),) * 3)
 
 
 def test_whisper_prefill_on_the_card_matches_the_cpu(dev):
@@ -463,6 +533,19 @@ def test_fixture_copies_match_plain(dev, shape):
     assert torch.equal(fixture_kernel.copy_vec4(x), fixture_kernel.copy_plain(x))
     assert torch.equal(fixture_kernel.copy_smem(x), fixture_kernel.copy_plain(x))
     assert ops.launches()["copy_vec4"] == 1 and ops.launches()["copy_smem"] == 1
+
+
+@pytest.mark.parametrize("shape,offset,tile", [
+    ((33, 130), 0, (32, 128)),   # columns not whole 16 bytes: 4-byte copies
+    ((65, 256), 1, (32, 128)),   # a start 4 bytes into its storage: 4-byte copies
+    ((70, 300), 0, (16, 64)),    # ragged tiles on both axes, 16-byte copies
+])
+def test_fixture_copy_smem_takes_every_layout(dev, shape, offset, tile):
+    base = _card_normal(7, (shape[0] * shape[1] + offset,), dev)
+    x = base[offset:].view(shape)
+    assert fixture_kernel.copy_smem_vec(x, tile) == (4 if shape[1] % 4 == 0 and not offset
+                                                     else 1)
+    assert torch.equal(fixture_kernel.copy_smem(x, tile), fixture_kernel.copy_plain(x))
 
 
 @pytest.mark.parametrize("sync", [False, True])

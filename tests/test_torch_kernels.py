@@ -81,6 +81,15 @@ def test_era_fused_plain_matches_pallas(K, B, N, beta):
     _check_era(_probs(K * 1000 + B * 10 + N, (K, B, N)), beta)
 
 
+@pytest.mark.parametrize("beta", [1.0, 1.5, 4.0])
+def test_era_fused_plain_matches_pallas_past_the_row_block_limit(beta):
+    """N = 12289, one class past what the port's row-block layout holds
+    (the card takes a cluster layout there): the reference's kernel takes
+    it as any N.  At beta >= 1 its pad lanes carry no mass, so the plain
+    version matches it directly."""
+    _check_era(_probs(12289, (2, 3, 12289)), beta)
+
+
 @pytest.mark.parametrize("beta", [0.5, 1.5, 4.0])
 def test_era_fused_constant_rows(beta):
     got = _check_era(np.full((5, 17, 10), 0.1, np.float32), beta)

@@ -9,9 +9,17 @@ reference's ``analysis_cases`` shapes and at the full-width shapes
 memory that the C launchers derived for themselves before the plans
 moved to Python, worked out by hand below:
 
-- qdq: 256 threads, a thread a row: grid ceil(rows / 256);
-- era_fused: 128 threads, rpb = 1 if N >= 128 else 128 // N rows a block:
-  grid ceil(B / rpb), rpb * N * 4 bytes of shared memory;
+- qdq: rows of n <= 32 values at a row stride ld <= 2n: a tile of 128
+  rows a block (halved until it fits 48 KB), 128 threads, qdq_tile, grid
+  ceil(rows / tile), shared memory 4 * (((tile - 1) * ld + n) rounded up
+  to 4, + 4, + tile * n rounded up to 4, + 4) bytes; n <= 1024: a warp a
+  row, 256 threads, grid ceil(rows / 8), kernel qdq_warp<V> with V the
+  power of two of values a lane covering n; wider: 256 threads, a block a
+  row, grid rows;
+- era_fused: N <= 12288: 128 threads, rpb = 1 if N >= 128 else 128 // N
+  rows a block: grid ceil(B / rpb), rpb * N * 4 bytes of shared memory;
+  above: the client mean, 256 threads with 4 elements each, grid
+  ceil(B * N / 1024), then era_rows (below) over the (B, N) mean;
 - era_rows: N <= 1024: 256 threads, a warp a row, grid ceil(B / 8);
   up to eight slices of 13312 values: a cluster of C blocks a row, the
   smallest C of 1, 2, 4, 8 whose slice (ceil(N / C) rounded up to 8) fits,
@@ -41,6 +49,15 @@ moved to Python, worked out by hand below:
   alignment, the q tile and 2 tiles a stage (2 * 64 * d bytes each) and 8
   bytes an mbarrier, at 4 stages for d = 32 and 2 otherwise:
   37960 / 42024 / 82984 bytes at d = 32 / 64 / 128.
+- flash_attn at other head dims d % 8 == 0: the instantiation D of 32,
+  64, 128 next at or above d, as above with D for d; past 128, nb =
+  ceil(d / 128) column blocks: float32 the D = 128 kernel on grid
+  (ceil(Sq / 64), H * nb, B); bfloat16 the column-block kernel, 160
+  threads, grid (H * nb, B, ceil(Sq / 64)), 1024 + 4 stages of two 8 KB
+  boxes + 8 mbarriers of 8 bytes = 66624 bytes.
+- fixtures copy_smem: a block a (32, 128) tile, 256 threads, two tiles of
+  shared memory; 16-byte copies (copy_smem_kernel<4>) where the columns,
+  the tile's columns and the start are whole 16 bytes, else 4-byte ones.
 """
 import ctypes
 
@@ -54,7 +71,8 @@ from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, quant_
 
 F32, BF16 = torch.float32, torch.bfloat16
 
-# label -> (kernel, grid, block threads, dynamic shared memory, opt-in[, cluster])
+# label -> (kernel, grid, block threads, dynamic shared memory, opt-in[, cluster]),
+# or a list of them for a case of several launches
 WANT = {
     "era/B1000-N10": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
     "era/B10-N10": ("era_rows_warp<float>", (2, 1, 1), 256, 0, False),
@@ -62,6 +80,15 @@ WANT = {
     "era_fused/K1000-B1000-N100": ("era_fused_kernel", (1000, 1, 1), 128, 400, False),
     "era_fused/K100-B1000-N10": ("era_fused_kernel", (84, 1, 1), 128, 480, False),
     "era_fused/K2-B3-N12288": ("era_fused_kernel", (3, 1, 1), 128, 49152, False),
+    # past 12288: the client mean (ceil(B * N / 1024) blocks of 256), then
+    # era_rows at N (below)
+    "era_fused/K2-B3-N12289": [("era_fused_mean", (37, 1, 1), 256, 0, False),
+                               ("era_rows_onepass<float,1>", (3, 1, 1), 1024, 49216, True)],
+    "era_fused/K8-B384-N51968": [("era_fused_mean", (19488, 1, 1), 256, 0, False),
+                                 ("era_rows_onepass<float,4>", (1536, 1, 1), 256, 52000, True,
+                                  (4, 1, 1))],
+    "era_fused/K3-B5-N106497": [("era_fused_mean", (521, 1, 1), 256, 0, False),
+                                ("era_rows_passes<float>", (5, 1, 1), 256, 0, False)],
     # 51968 classes: C = 4, slice 12992, 812 values / 16 -> 256 threads,
     # 4 * 13000 bytes
     "era/B1536-N51968": ("era_rows_onepass<float,4>", (6144, 1, 1), 256, 52000, True,
@@ -77,9 +104,14 @@ WANT = {
                             (8, 1, 1)),
     "era/B3-N300001": ("era_rows_passes<float>", (3, 1, 1), 256, 0, False),
     "era/B1000-N10-beta-on-card": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
-    "quant/B1000-N10-bits8": ("qdq_kernel", (4, 1, 1), 256, 0, False),
-    "quant/B10-N1-bits1": ("qdq_kernel", (1, 1, 1), 256, 0, False),
-    "quant/residual-K100-M1000-N10-bits8": ("qdq_kernel", (391, 1, 1), 256, 0, False),
+    # 4 * (1280 + 4 + 1280 + 4)
+    "quant/B1000-N10-bits8": ("qdq_tile", (8, 1, 1), 128, 10272, False),
+    # 4 * (128 + 4 + 128 + 4)
+    "quant/B10-N1-bits1": ("qdq_tile", (1, 1, 1), 128, 1056, False),
+    # n 9 at ld 10: 4 * ((127 * 10 + 9 -> 1280) + 4 + 1152 + 4)
+    "quant/residual-K100-M1000-N10-bits8": ("qdq_tile", (782, 1, 1), 128, 9760, False),
+    "quant/B64-N130-bits8": ("qdq_warp<8>", (8, 1, 1), 256, 0, False),
+    "quant/B16-N2000-bits8": ("qdq_block", (16, 1, 1), 256, 0, False),
     # kc 200, tile 1, 224 threads, 22 groups, 1-float copies (stride 11):
     # 8 * 230 + 4 * 200 * 11 + 40
     "round/identity-sharpen-K200": ("fused_round_tile<10>", (100, 1, 1), 224, 10680, False),
@@ -113,52 +145,99 @@ WANT = {
     "attn/S256-d128-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
     "attn/bf16-gqa-d32": ("flash_fwd_wgmma_kernel<32>", (4, 2, 3), 160, 37960, False),
     "attn/bf16-S2048-d128": ("flash_fwd_wgmma_kernel<128>", (4, 1, 32), 160, 82984, True),
+    "attn/d96-f32": ("flash_fwd_kernel<128>", (3, 4, 1), 128, 100352, True),
+    "attn/bf16-d96": ("flash_fwd_wgmma_kernel<128>", (4, 1, 3), 160, 82984, True),
+    # two column blocks: H * 2 on the head axis
+    "attn/d256-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
+    "attn/bf16-d256": ("flash_fwd_wgmma_cols_kernel<128>", (4, 1, 4), 160, 66624, True),
 }
 
-CASES = {label: (fn, args, expect) for label, fn, args, expect in launch_checks.iter_cases()}
+CASES = {label: (fn, args) for label, fn, args in launch_checks.iter_cases()}
 
 
 def test_every_module_case_has_a_worked_plan():
-    assert set(CASES) == set(WANT) | {"era_fused/K2-B3-N12289"}
+    assert set(CASES) == set(WANT)
+
+
+def _want(label):
+    want = WANT[label]
+    return want if isinstance(want, list) else [want]
 
 
 @pytest.mark.parametrize("label", sorted(WANT))
 def test_plan_is_what_the_launcher_derived(label):
-    fn, args, _ = CASES[label]
+    fn, args = CASES[label]
     tr = trace(fn, *args)
     assert tr.ok, tr.error
-    assert len(tr.launches) == 1
-    plan = tr.launches[0].plan
-    kernel, grid, threads, smem, optin, *cluster = WANT[label]
-    assert (plan.kernel, plan.grid, plan.block, plan.dyn_smem, plan.smem_optin,
-            plan.cluster) == (kernel, grid, (threads, 1, 1), smem, optin,
-                              cluster[0] if cluster else (1, 1, 1))
-    assert launch_checks.check_plan(label, plan) == []
+    assert len(tr.launches) == len(_want(label))
+    for launch, (kernel, grid, threads, smem, optin, *cluster) in zip(tr.launches, _want(label)):
+        plan = launch.plan
+        assert (plan.kernel, plan.grid, plan.block, plan.dyn_smem, plan.smem_optin,
+                plan.cluster) == (kernel, grid, (threads, 1, 1), smem, optin,
+                                  cluster[0] if cluster else (1, 1, 1))
+        assert launch_checks.check_plan(label, plan) == []
 
 
 @pytest.mark.parametrize("label", sorted(WANT))
 def test_plan_operands_match_the_launch_arguments(label):
     """Each recorded launch passed one argument per operand of its plan,
     pointers for tensors: the recorder checks as ``runtime.launch`` does."""
-    fn, args, _ = CASES[label]
+    fn, args = CASES[label]
     tr = trace(fn, *args)
-    (launch,) = tr.launches
-    ptrs = [op for op in launch.plan.operands if op.kind == "ptr"]
-    assert ptrs and all(op.source in ("cuda tensor", "null") for op in ptrs)
-    assert all(op.source == "python" for op in launch.plan.operands if op.kind == "value")
+    assert len(tr.launches) == len(_want(label))
+    for launch in tr.launches:
+        ptrs = [op for op in launch.plan.operands if op.kind == "ptr"]
+        assert ptrs and all(op.source in ("cuda tensor", "null") for op in ptrs)
+        assert all(op.source == "python" for op in launch.plan.operands if op.kind == "value")
 
 
 def test_era_fused_past_its_limit_is_refused_by_the_wrapper_and_the_lint():
-    fn, args, expect = CASES["era_fused/K2-B3-N12289"]
-    assert expect is ValueError
-    assert isinstance(trace(fn, *args).error, ValueError)
-    # the plan itself, had the wrapper let it through: 4 bytes over 48 KB
+    """One class past the row-block layout's limit: the row-block plan
+    would be 4 bytes over 48 KB without opting in, and the lint refuses
+    it; the wrapper takes the wide layout there instead (the client mean,
+    then a cluster of one block a row of the per-row kernel, its slice
+    opted in above 48 KB), whose plans the lint accepts."""
+    fn, args = CASES["era_fused/K2-B3-N12289"]
+    tr = trace(fn, *args)
+    assert tr.ok, tr.error
+    mean, rows = tr.launches
+    assert (mean.lib, mean.plan.kernel) == ("era_fused", "era_fused_mean")
+    assert (rows.lib, rows.plan.kernel) == ("era_rows", "era_rows_onepass<float,1>")
+    assert rows.plan.smem_optin
+    assert all(launch_checks.check_plan("N12289", x.plan) == [] for x in (mean, rows))
+    # the row-block layout's own plan at that N
     n = era_kernel.MAX_CLASSES + 1
-    tr = trace(lambda z, o: era_kernel.fused_launch_plan(z, o),
-               tensor_spec((2, 3, n)), tensor_spec((3, n)))
-    plan = tr.output
+    rpb = era_kernel._fused_rows_per_block(n)
+    plan = runtime.LaunchPlan("era_fused_kernel", grid=(3, 1, 1),
+                              block=(era_kernel.FUSED_THREADS, 1, 1), dyn_smem=rpb * n * 4)
     assert plan.dyn_smem == 49156 and not plan.smem_optin
     assert [f.level for f in launch_checks.check_plan("N12289", plan)] == ["error"]
+
+
+@pytest.mark.parametrize("n,layout", [
+    (1, ("rows", 1)), (10, ("rows", 1)), (12288, ("rows", 1)), (12289, ("onepass", 1)),
+    (26624, ("onepass", 2)), (26625, ("onepass", 4)), (51968, ("onepass", 4)),
+    (106496, ("onepass", 8)), (106497, ("passes", 1)), (10 ** 6, ("passes", 1)),
+])
+def test_era_fused_layout_takes_every_class_count(n, layout):
+    """No N >= 1 is refused: each takes a layout chosen from N alone."""
+    assert era_kernel.fused_layout(n) == layout
+    tr = trace(lambda z: era_kernel.enhanced_era_fused(z, 1.5), tensor_spec((2, 3, n)))
+    assert tr.ok, tr.error
+    assert [x.lib for x in tr.launches] == (["era_fused"] if layout[0] == "rows"
+                                             else ["era_fused", "era_rows"])
+    assert all(launch_checks.check_plan(f"N{n}", x.plan) == [] for x in tr.launches)
+
+
+@pytest.mark.parametrize("n,ld,want", [
+    (9, 10, ("tile", 128, 0)), (1, 1, ("tile", 128, 0)), (32, 64, ("tile", 128, 0)),
+    (9, 19, ("warp", 0, 1)), (33, 33, ("warp", 0, 2)), (130, 130, ("warp", 0, 8)),
+    (1024, 1024, ("warp", 0, 32)), (1025, 1025, ("block", 0, 0)),
+])
+def test_quant_layout_from_n_and_row_stride(n, ld, want):
+    assert quant_kernel.layout(n, ld) == want
+    if want[0] == "tile":
+        assert quant_kernel.tile_smem(want[1], n, ld) <= runtime.HOPPER.smem_per_block
 
 
 def test_flash_opts_in_exactly_above_48kb():
@@ -201,6 +280,34 @@ def test_flash_bf16_plan_shared_memory_fits_hopper(d, optin):
     assert launch_checks.check_plan(f"d{d}", plan) == []
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 48, 56, 72, 96, 120, 136, 192, 256, 384, 520])
+def test_flash_plans_for_every_head_dim_pass_the_lint(d, dtype):
+    """Every d % 8 == 0 gets a plan (no head dim the routing admits is
+    refused): the instantiation next at or above d, or past 128 column
+    blocks of 128 on the head axis; each fits the card."""
+    tr = trace(lambda q: attn_kernel.flash_attention(q, q, q), tensor_spec((2, 130, 3, d), dtype))
+    assert tr.ok, tr.error
+    plan = tr.launches[0].plan
+    D = attn_kernel.instantiation(d)
+    nb = -(-d // 128) if d > 128 else 1
+    assert D == next((x for x in (32, 64, 128) if d <= x), 0)
+    if dtype == F32:
+        assert plan.kernel == f"flash_fwd_kernel<{D or 128}>" and plan.grid == (3, 3 * nb, 2)
+    else:
+        assert plan.kernel == (f"flash_fwd_wgmma_kernel<{D}>" if D else
+                               "flash_fwd_wgmma_cols_kernel<128>")
+        assert plan.grid == (3 * nb, 2, 3)
+    assert plan.dyn_smem == attn_kernel.smem_bytes(dtype, d)
+    assert launch_checks.check_plan(f"d{d}", plan) == []
+
+
+@pytest.mark.parametrize("d", [0, 4, 44, 100])
+def test_flash_refuses_head_dims_off_multiples_of_8(d):
+    tr = trace(lambda q: attn_kernel.flash_attention(q, q, q), tensor_spec((1, 64, 2, d)))
+    assert isinstance(tr.error, ValueError) and not tr.launches
+
+
 @pytest.mark.parametrize("row,offset,in_place", [
     (64, 0, True),    # contiguous
     (72, 0, True),    # head stride 144 bytes: a multiple of 16
@@ -240,6 +347,16 @@ def test_era_rows_beta_on_the_card_goes_by_pointer():
     tr = trace(lambda z, b: era_kernel.enhanced_era(z, b), tensor_spec((10, 10)),
                tensor_spec(()))
     ops = {op.name: op for op in tr.launches[0].plan.operands}
+    assert ops["beta_ptr"].source == "cuda tensor" and ops["beta"].source == "python"
+    assert tr.host_reads == []
+
+
+def test_era_fused_wide_beta_on_the_card_goes_by_pointer():
+    """Past the row-block layout the per-row kernel sharpens, and reads a
+    card tensor's beta on the card: no host read."""
+    tr = trace(lambda z, b: era_kernel.enhanced_era_fused(z, b), tensor_spec((2, 3, 12289)),
+               tensor_spec(()))
+    ops = {op.name: op for op in tr.launches[1].plan.operands}
     assert ops["beta_ptr"].source == "cuda tensor" and ops["beta"].source == "python"
     assert tr.host_reads == []
 
@@ -332,8 +449,9 @@ def test_check_launches_reads_attributes_by_library_and_kernel():
         return dict(numRegs=30, localSizeBytes=0, sharedSizeBytes=0, maxThreadsPerBlock=1024)
 
     got = launch_checks.run(modules=("repro_torch.kernels.quant_kernel",), attrs=attrs)
-    assert [f.level for f in got] == ["ok"] * 3
-    assert seen == [("qdq", "qdq_kernel")] * 3
+    assert [f.level for f in got] == ["ok"] * 5
+    assert seen == [("qdq", "qdq_tile"), ("qdq", "qdq_tile"), ("qdq", "qdq_tile"),
+                    ("qdq", "qdq_warp<8>"), ("qdq", "qdq_block")]
     assert "30 registers" in got[0].message
 
 
