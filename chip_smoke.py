@@ -57,9 +57,13 @@ import torch  # noqa: E402
 # larger of bytes / HBM rate and operations / float32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# ... and the dense bfloat16 tensor-core rate, the peak for attention's
-# products on bfloat16 inputs.
+# ... and the dense tensor-core rates, the peaks for attention's products:
+# bfloat16 for bfloat16 inputs; tf32 for float32 inputs, whose kernel
+# takes each product as three tf32 products (3xTF32), so its bound counts
+# all three passes at the tf32 rate and no share of it reads over 100 %.
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.7e12
+TF32_PASSES = 3
 
 # The slice at full width: the paper's population on the repo's MLP client.
 SLICE = dict(n_clients=100, n_classes=10, public_per_round=1000,
@@ -114,15 +118,19 @@ SMALL_TEACHER_ATOL = 1e-3
 # configuration's 1500 audio frames.
 WHISPER_B, WHISPER_S = 4, 384
 # Phase 6 also times flash attention at whisper's decoder shape with these
-# head dims (D = 128 on tiles zero past 96; column blocks at 256), and the
-# fused ERA kernel at 8 clients x 384 positions x whisper's vocabulary.
-FLASH_TIMED_DIMS = (96, 256)
+# head dims per dtype, beside SDPA at the same shape and dtype (bfloat16:
+# D = 128 on tiles zero past 96, column blocks at 256; float32: whisper's
+# d = 64, the reduced whisper's, then column blocks of 64 at 96 and 256),
+# and the fused ERA kernel at 8 clients x 384 positions x whisper's
+# vocabulary.
+FLASH_TIMED_DIMS = {torch.bfloat16: (96, 256), torch.float32: (64, 96, 256)}
 ERA_FUSED_VOCAB = (8, 384, 51968)
 WHISPER_SEED = 0
 WHISPER_TIMED = 3
 # Flash attention, kernel vs plain version on the card: float32 to atol
-# 1e-5 (the FMA kernel sums in its own order and runs an online softmax;
-# the plain version is the oracle's order; they agree to ~1e-6); bfloat16
+# 1e-5 (the kernel takes each product as three tf32 products, about 2^-22
+# of the product from float32's, sums in its own order and runs an online
+# softmax; the plain version is the oracle's order); bfloat16
 # compared in bfloat16: both sides compute in float32 (the tensor-core
 # kernel with p split exactly into three bf16 pieces) and round once, so
 # to one bfloat16 step: |got - want| <= 2**-7 * max(|want|, 1).
@@ -207,20 +215,23 @@ def build_kernels() -> None:
 
 
 def check_flash_sass() -> None:
-    """Phase 2b: the bf16 flash kernels are Hopper kernels: their machine
-    code (``cuobjdump -sass``) holds wgmma (HGMMA) and TMA loads (UTMALDG)
-    and no mma.sync (HMMA)."""
+    """Phase 2b: the flash kernels, bfloat16 and float32, are Hopper
+    kernels: their machine code (``cuobjdump -sass``) holds wgmma (HGMMA)
+    and TMA loads (UTMALDG) and no mma.sync (HMMA)."""
     from repro_torch.kernels import attn_kernel
 
     counts = attn_kernel.sass_opcodes()
     for name, c in sorted(counts.items()):
         log(f"flash sass {name}: {c}")
-    bf16 = {n: c for n, c in counts.items() if n.startswith("flash_fwd_wgmma")}
-    if set(bf16) != set(attn_kernel.BF16_KERNELS) or any(
-            c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] for c in bf16.values()):
-        raise AssertionError(f"the bf16 flash kernels are not wgmma/TMA kernels: {bf16}")
-    log(f"flash sass: every bf16 kernel ({len(bf16)}: {sorted(bf16)}) has HGMMA and UTMALDG "
-        "and no HMMA ok")
+    for what, names in (("bf16", attn_kernel.BF16_KERNELS), ("float32", attn_kernel.F32_KERNELS)):
+        got = {n: counts.get(n) for n in names}
+        if any(c is None or c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]
+               for c in got.values()):
+            raise AssertionError(f"the {what} flash kernels are not wgmma/TMA kernels: {got}")
+        log(f"flash sass: every {what} kernel ({len(got)}: {sorted(got)}) has HGMMA and "
+            "UTMALDG and no HMMA ok")
+    if set(counts) != set(attn_kernel.BF16_KERNELS + attn_kernel.F32_KERNELS):
+        raise AssertionError(f"flash kernels in the library: {sorted(counts)}")
 
 
 # ---------------------------------------------------------------------------
@@ -650,14 +661,15 @@ def check_small_cuda_vs_cpu(engine: str) -> None:
 
 
 # flash attention cases on the card: (label, B, Sq, Sk, H, Hkv, d, causal,
-# window), each in bfloat16 (the Hopper kernel) and float32 (the FMA
-# kernel), whisper's shape in bfloat16 only, as the path gives it.  The
-# bfloat16 kernel's pipeline edges: a key range that wraps its stage ring
-# 16 times (32 key tiles, 2 stages), Sk one past whole key tiles (TMA's
-# zero fill of the last tile), and GQA at d = 32 (64-byte swizzle, 4
-# stages); then head dims 8, 40, 80, 96, 112 (the instantiations 32, 64
-# and 128 on tiles zero past d) and 136, 192, 200, 256 (column blocks; at
-# 200 the last block's second 64 columns lie partly past d).
+# window), each in bfloat16 and float32 (both Hopper kernels), whisper's
+# shape in bfloat16 only, as the path gives it.  The kernels' pipeline
+# edges: a key range that wraps the stage rings many times (32 key
+# tiles), Sk one past whole key tiles (TMA's zero fill of the last tile),
+# and GQA at d = 32 (bf16: 64-byte swizzle, 4 stages; f32: DV = 32); then
+# head dims 8, 40, 80, 96, 112 (bf16: the instantiations 32, 64 and 128 on
+# tiles zero past d; f32: a partial last 32-column chunk, column blocks of
+# 64 past 64) and 136, 192, 200, 256 (column blocks; at 200 the last
+# block's second half lies partly past d, in f32 wholly).
 FLASH_CASES = tuple(
     case + (dtype,)
     for case in (("GQA + window, ragged", 2, 200, 200, 8, 2, 64, True, 64),
@@ -1285,15 +1297,18 @@ def kernel_report(launches: dict, errs: dict) -> list:
         bound_ms=b, bound_by=why,
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))))
-    # the same shape at head dims between and past the instantiations, in
-    # both dtypes, beside SDPA at the same shape and dtype
-    for dd in FLASH_TIMED_DIMS:
-        for dt in (torch.bfloat16, torch.float32):
+    # the same shape at other head dims, beside SDPA at the same shape and
+    # dtype; the float32 bound counts the kernel's three tf32 passes
+    for dt, dims in FLASH_TIMED_DIMS.items():
+        for dd in dims:
             q, k, v = attn_inputs(rng, B, S, S, H, H, dd, dt, dev)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             pairs = B * H * S * (S + 1) // 2
-            b, why = bound_ms(q.element_size() * 4.0 * B * S * H * dd, 4.0 * dd * pairs,
-                              BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S)
+            if dt == torch.bfloat16:
+                b, why = bound_ms(2.0 * 4 * B * S * H * dd, 4.0 * dd * pairs, BF16_OPS_PER_S)
+            else:
+                b, why = bound_ms(4.0 * 4 * B * S * H * dd, TF32_PASSES * 4.0 * dd * pairs,
+                                  TF32_OPS_PER_S)
             ms = cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True))
             sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
@@ -1381,7 +1396,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    # 2. build; 2b. what the bf16 flash kernel compiled to
+    # 2. build; 2b. what the flash kernels compiled to
     build_kernels()
     check_flash_sass()
     # 3. kernels against their plain versions

@@ -9,9 +9,10 @@ its header says what bounds it on the card and how the tiles are laid out.
 launches the kernel for a CUDA tensor; there is no other path.
 
 - Head dims: every positive multiple of 8 (what the routing admits,
-  ``models/common.flash_eligible``): the instantiations of HEAD_DIMS on
-  tiles zero past d, and column blocks of COL_BLOCK output columns past
-  the largest (:func:`instantiation`).
+  ``models/common.flash_eligible``): the instantiations of HEAD_DIMS
+  (F32_HEAD_DIMS in float32) on tiles zero past d, and column blocks of
+  COL_BLOCK (F32_COL_BLOCK) output columns past the largest
+  (:func:`instantiation`).
 - bfloat16 (the model path: whisper's decoder self-attention): a Hopper
   kernel, a block of one consumer warpgroup (64 query rows) and one
   producer warp that keeps TMA loads of 64-key tiles of k and v in flight
@@ -20,20 +21,30 @@ launches the kernel for a CUDA tensor; there is no other path.
   so each probability is split exactly into three bf16 pieces and the
   three products accumulate in float32: the arithmetic stays float32 to
   rounding at three times p.v's tensor work, which stays under the
-  function's byte bound.  TMA reads a view in place only if it starts on a 16-byte
-  boundary and its strides are multiples of 16 bytes; :func:`_readable`
-  copies any other.
-- float32: an FMA kernel, 128 threads per 64 query rows, k and v staged
-  in shared memory by all threads.
+  function's byte bound.
+- float32 (the reduced whisper; no model path at full width): a Hopper
+  kernel of the same block shape, D = 32 or 64 output columns a block
+  (column blocks of 64 past 64), that does both products on the tensor
+  cores in tf32, each factor split into
+  a tf32 high part and a tf32 low part (truncations) and each product
+  taken as lo.hi + hi.lo + hi.hi (3xTF32), so the arithmetic stays float32
+  to about 2^-21 of each product.  TMA loads 64 x 32-float boxes (one
+  128-byte swizzled row each): per key tile the chunks of q and k that
+  q.k runs over, 32 columns an item, then v's block columns; the
+  consumers split each chunk in shared memory, and write each v tile
+  transposed (wgmma's tf32 form reads its operands K-major only), its
+  keys permuted so that p stays in registers as the A operand.
+- TMA reads a view in place only if it starts on a 16-byte boundary and
+  its strides are multiples of 16 bytes: :func:`_readable` copies any
+  other view, in both dtypes.
 
 Both follow the oracle ``repro.kernels.ref.flash_attention``: scores
 ``q . k`` in float32 scaled by ``1/sqrt(d)`` (the Pallas kernel scales q
-before the product, the oracle and the float32 kernel divide the scores,
-the bfloat16 kernel folds the scale into an exp2; they differ at float32
-rounding), masked keys excluded, softmax in float32, the output cast to
-q's type.  A query row that no key is left to (only possible with a
-window) gets the oracle's softmax of equal scores: the mean of v over all
-Sk keys.
+before the product, the oracle divides the scores, the kernels fold the
+scale into an exp2; they differ at float32 rounding), masked keys
+excluded, softmax in float32, the output cast to q's type.  A query row
+that no key is left to (only possible with a window) gets the oracle's
+softmax of equal scores: the mean of v over all Sk keys.
 """
 from __future__ import annotations
 
@@ -47,61 +58,76 @@ import torch
 from repro_torch.kernels import runtime
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "COL_BLOCK",
-           "BF16_KERNELS", "instantiation", "launch_plan", "smem_bytes", "sass_opcodes",
-           "analysis_cases"]
+           "F32_HEAD_DIMS", "F32_COL_BLOCK", "BF16_KERNELS", "F32_KERNELS", "instantiation",
+           "launch_plan", "smem_bytes", "sass_opcodes", "analysis_cases"]
 
-# The kernels' head-dim instantiations (csrc/flash_attn.cu).  D in
-# HEAD_DIMS serves every d % 8 == 0 in (the previous D, D], on tiles zero
-# past d: 8-32 take D = 32, 40-64 take 64, 72-128 take 128.  Past 128 a
-# block owns COL_BLOCK output columns (column blocks on the grid) and takes
-# q.k over the whole d in chunks: the float32 kernel<128> and, in bfloat16,
-# flash_fwd_wgmma_cols_kernel<COL_BLOCK>.  No d % 8 == 0 is refused.
+# The kernels' head-dim instantiations (csrc/flash_attn.cu).  bfloat16: D
+# in HEAD_DIMS serves every d % 8 == 0 in (the previous D, D], on tiles
+# zero past d: 8-32 take D = 32, 40-64 take 64, 72-128 take 128.  Past 128
+# a block owns COL_BLOCK output columns (column blocks on the grid) and
+# takes q.k over the whole d in chunks: flash_fwd_wgmma_cols_kernel<COL_BLOCK>.
+# float32: q.k runs over d in 32-column chunks for every d, and a block
+# owns D of F32_HEAD_DIMS output columns, D = 32 up to d = 32, else
+# F32_COL_BLOCK = 64 in column blocks past 64 (measured faster at d = 96
+# than D = 128, which fits one block a multiprocessor: PERF.md).  No d %
+# 8 == 0 is refused.
 HEAD_DIMS = (32, 64, 128)
 COL_BLOCK = 128
-# The bfloat16 (wgmma + TMA) kernels the library holds.
+F32_HEAD_DIMS = (32, 64)
+F32_COL_BLOCK = 64
+# The kernels the library holds, all wgmma + TMA kernels.
 BF16_KERNELS = tuple(f"flash_fwd_wgmma_kernel<{D}>" for D in HEAD_DIMS) + (
     f"flash_fwd_wgmma_cols_kernel<{COL_BLOCK}>",)
+F32_KERNELS = tuple(f"flash_fwd_tf32_kernel<{D}>" for D in F32_HEAD_DIMS)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# The kernels' tiling (csrc/flash_attn.cu), per dtype: the float32 kernel
-# runs 128 threads per 64 query rows and stages 64 keys of k (rows padded
-# to D + 4 floats) and of v in dynamic shared memory, at D = 128 also its
-# 64 rows of q (padded to D + 4), which in registers would spill; the
-# bfloat16 kernel runs a consumer warpgroup and a producer warp (160
-# threads) per 64 query rows, its q tile and STAGES[D] stages of a k and a
-# v tile (128 * D bytes each) in dynamic shared memory, with 1 KB to align
-# them and 8 bytes per mbarrier; its column-block kernel COL_STAGES stages
-# of two 64 x 64 boxes (16 KB), the same alignment and barriers.
-THREADS = {torch.float32: 128, torch.bfloat16: 160}
+# The kernels' tiling (csrc/flash_attn.cu): a consumer warpgroup and a
+# producer warp (160 threads) per 64 query rows and 64-key tiles in both
+# dtypes.  bfloat16: its q tile and STAGES[D] stages of a k and a v tile
+# (128 * D bytes each) in dynamic shared memory, with 1 KB to align them
+# and 8 bytes per mbarrier; its column-block kernel COL_STAGES stages of
+# two 64 x 64 boxes (16 KB), the same alignment and barriers.  float32:
+# F32_STAGES[D] stages of two 64 x 32-float boxes (16 KB: a q and a k
+# chunk, or v's D columns), 16 KB for the low parts of a q and a k chunk,
+# v^T's high and low parts (64 keys x D floats each), 16 bytes a stage for
+# its two mbarriers and the same 1 KB.
+THREADS = {torch.float32: 160, torch.bfloat16: 160}
 BLOCK_Q = {torch.float32: 64, torch.bfloat16: 64}
 BLOCK_K = {torch.float32: 64, torch.bfloat16: 64}
 STAGES = {32: 4, 64: 2, 128: 2}
 COL_STAGES = 4
-# The widest access the kernels make to q, k, v and o: float32 one value
-# at a time; bfloat16 through TMA, which needs a 16-byte aligned start and
-# strides that are multiples of 16 bytes.
-_VECTOR_BYTES = {torch.float32: 4, torch.bfloat16: 16}
+F32_STAGES = {32: 4, 64: 3}
+_F32_STAGE_BYTES = 2 * 64 * 32 * 4
+# The widest access the kernels make to q, k, v and o: TMA's, which needs
+# a 16-byte aligned start and strides that are multiples of 16 bytes.
+_VECTOR_BYTES = {torch.float32: 16, torch.bfloat16: 16}
 
 
-def instantiation(d: int) -> int:
-    """The instantiation D that serves head dim ``d``: the smallest of
-    HEAD_DIMS at or above ``d``, or 0 past the largest (the column-block
-    layout)."""
-    return next((D for D in HEAD_DIMS if d <= D), 0)
+def instantiation(d: int, dtype: torch.dtype) -> int:
+    """The instantiation that serves head dim ``d`` in ``dtype``: the
+    smallest of HEAD_DIMS (F32_HEAD_DIMS in float32) at or above ``d``, or
+    0 past the largest (column blocks of COL_BLOCK, F32_COL_BLOCK)."""
+    dims = F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+    return next((D for D in dims if d <= D), 0)
 
 
-def _col_blocks(d: int) -> int:
-    """Column blocks of COL_BLOCK output columns: one up to HEAD_DIMS[-1]."""
-    return runtime.cdiv(d, COL_BLOCK) if instantiation(d) == 0 else 1
+def _col_block(dtype: torch.dtype) -> int:
+    return F32_COL_BLOCK if dtype == torch.float32 else COL_BLOCK
+
+
+def _col_blocks(d: int, dtype: torch.dtype) -> int:
+    """Column blocks on the grid: one up to the largest instantiation."""
+    return runtime.cdiv(d, _col_block(dtype)) if instantiation(d, dtype) == 0 else 1
 
 
 def smem_bytes(dtype: torch.dtype, d: int) -> int:
     """The dynamic shared memory of the kernel for ``dtype`` at head dim
     ``d`` (the C launchers refuse a plan with less)."""
-    D = instantiation(d) or COL_BLOCK
+    D = instantiation(d, dtype) or _col_block(dtype)
     if dtype == torch.float32:
-        return 4 * (BLOCK_K[dtype] * (2 * D + 4) + (BLOCK_Q[dtype] * (D + 4) if D > 64 else 0))
-    if instantiation(d) == 0:
+        stages = F32_STAGES[D]
+        return 1024 + _F32_STAGE_BYTES * (stages + 1) + 2 * 4 * BLOCK_K[dtype] * D + 16 * stages
+    if instantiation(d, dtype) == 0:
         return 1024 + 2 * (BLOCK_Q[dtype] * 128) * COL_STAGES + 8 * 2 * COL_STAGES
     tiles = 1 + 2 * STAGES[D]
     return 1024 + 2 * BLOCK_Q[dtype] * D * tiles + 8 * tiles
@@ -147,18 +173,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel can read it in place (d contiguous; for
-    bfloat16, which TMA reads, a 16-byte aligned start and the strides of
-    every axis longer than 1 positive multiples of 16 bytes: an expanded
-    axis is copied too), else a contiguous copy.  The start's alignment is
-    ``storage_offset() * 2`` bytes past the storage's, which PyTorch's
+    """``t`` if the kernels, which read through TMA, can read it in place
+    (d contiguous, a 16-byte aligned start and the strides of every axis
+    longer than 1 positive multiples of 16 bytes: an expanded axis is
+    copied too), else a contiguous copy.  The start's alignment is
+    ``storage_offset()`` elements past the storage's, which PyTorch's
     caching allocator places on a boundary of at least 256 bytes."""
-    ok = t.stride(-1) == 1
-    if t.dtype == torch.bfloat16:
-        vb, isz = _VECTOR_BYTES[t.dtype], t.element_size()
-        ok = (ok and t.storage_offset() * isz % vb == 0
-              and all(st > 0 and st * isz % vb == 0
-                      for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
+    vb, isz = _VECTOR_BYTES[t.dtype], t.element_size()
+    ok = (t.stride(-1) == 1 and t.storage_offset() * isz % vb == 0
+          and all(st > 0 and st * isz % vb == 0
+                  for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -174,24 +198,21 @@ def _strides(t: torch.Tensor) -> tuple:
 
 def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> runtime.LaunchPlan:
-    """The launch of ``csrc/flash_attn.cu``: a block per (query tile of
-    BLOCK_Q rows, head, batch row) and, past HEAD_DIMS[-1], per column
-    block of COL_BLOCK output columns (folded into the head axis), with its
-    dynamic shared memory (:func:`smem_bytes`), opted in above 48 KB.
-    bfloat16 runs the Hopper kernel on grid (heads, batch, query tiles), so
-    the longest causal tiles of every head start first; float32 the FMA
-    kernel on grid (query tiles, heads, batch)."""
+    """The launch of ``csrc/flash_attn.cu``: a block per (head, batch row,
+    query tile of BLOCK_Q rows), the tiles walked from the last so the
+    longest causal tiles of every head start first, and past the largest
+    instantiation per column block (folded into the head axis), with its
+    dynamic shared memory (:func:`smem_bytes`), opted in above 48 KB."""
     B, Sq, H, d = q.shape
-    f32 = q.dtype == torch.float32
     smem = smem_bytes(q.dtype, d)
     tiles = runtime.cdiv(Sq, BLOCK_Q[q.dtype])
-    D, nb = instantiation(d), _col_blocks(d)
-    if f32:
-        name = f"flash_fwd_kernel<{D or COL_BLOCK}>"
+    D, nb = instantiation(d, q.dtype), _col_blocks(d, q.dtype)
+    if q.dtype == torch.float32:
+        name = f"flash_fwd_tf32_kernel<{D or F32_COL_BLOCK}>"
     else:
         name = f"flash_fwd_wgmma_kernel<{D}>" if D else BF16_KERNELS[-1]
     return runtime.LaunchPlan(
-        name, grid=(tiles, H * nb, B) if f32 else (H * nb, B, tiles),
+        name, grid=(H * nb, B, tiles),
         block=(THREADS[q.dtype], 1, 1),
         dyn_smem=smem, smem_optin=smem > runtime.HOPPER.smem_per_block,
         operands=tuple(runtime.ptr(n, t, _VECTOR_BYTES[q.dtype])
@@ -267,9 +288,14 @@ def analysis_cases():
     decoder self-attention as the prefill launches it, (4, 384, 20, 64)
     bfloat16, causal, d = 128 in float32, the bfloat16 kernel at d = 32
     (GQA) and d = 128 (a key range that wraps the stage ring 16 times);
-    both d = 128 plans opt in to more than 48 KB; then head dims between
-    and past the instantiations, d = 96 (D = 128 on zero-filled tiles) and
-    d = 256 (two column blocks), in both dtypes."""
+    then head dims between and past the instantiations, d = 96 (bf16: D =
+    128 on zero-filled tiles; float32: two column blocks of 64) and d =
+    256 (two column blocks of 128 in bf16, four of 64 in float32), in both
+    dtypes; then the float32 kernel's edges: d = 8 (D = 32 on one partial
+    chunk), d = 64 at whisper's decoder shape (the reduced whisper's and
+    phase 6's float32 shape), d = 136 (three column blocks, the last with
+    one of its two 32-column boxes of v in d).  Every float32 plan opts in
+    above 48 KB."""
     f32, bf16 = torch.float32, torch.bfloat16
 
     def case(B, Sq, Sk, H, Hkv, d, dtype=f32, **kw):
@@ -289,4 +315,7 @@ def analysis_cases():
         ("attn/bf16-d96", *case(1, 130, 130, 4, 2, 96, dtype=bf16)),
         ("attn/d256-f32", *case(1, 200, 200, 2, 1, 256, window=64)),
         ("attn/bf16-d256", *case(1, 200, 200, 2, 1, 256, dtype=bf16, window=64)),
+        ("attn/f32-d8", *case(1, 130, 130, 2, 1, 8)),
+        ("attn/f32-B4-S384-H20-d64", *case(4, 384, 384, 20, 20, 64)),
+        ("attn/f32-d136-window", *case(1, 200, 200, 4, 1, 136, window=33)),
     ]

@@ -24,24 +24,36 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES", "fused_layout",
-           "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS", "MEAN_PER_THREAD",
+__all__ = ["enhanced_era_fused", "enhanced_era_fused_plain", "MAX_CLASSES", "TILE_MAX_N",
+           "CLIENT_SPLIT", "client_subsets", "fused_layout", "fused_tile_rows",
+           "enhanced_era", "enhanced_era_plain", "THREADS", "FUSED_THREADS", "TILE_THREADS",
+           "TILE_VALUES", "MEAN_PER_THREAD",
            "WARP_ROW_MAX_N", "ROW_CLUSTERS", "ROW_SLICE_MAX", "ONEPASS_THREADS",
            "fused_launch_plan", "row_slice", "onepass_threads", "rows_layout",
            "rows_launch_plan", "launch_rows", "analysis_cases"]
 
 _EPS = 1e-12
 
-# The fused kernel's row-block layout holds a row's N log values in the
-# 48 KB of shared memory a block gets without opting in to more: N <=
-# MAX_CLASSES.  Wider rows take two launches (fused_layout): the client
-# mean into a (B, N) float32 workspace, then the per-row kernel's layout
-# for N.
+# The fused kernel's layouts (fused_layout, from N alone): up to
+# TILE_MAX_N classes a tile of rows a block, each value's clients summed by
+# several threads (a warp a row sharpens, a lane a class); up to MAX_CLASSES
+# a chunk of rows a block whose N log values fit the 48 KB a block gets
+# without opting in; wider rows take two launches: the client mean into a
+# (B, N) float32 workspace, then the per-row kernel's layout for N.
+TILE_MAX_N = 32
 MAX_CLASSES = 12288
+# Every layout sums the K clients in client_subsets(K) fixed subsets of
+# clients s, s + G, s + 2G, ..., then the subsets' sums in order: at most
+# CLIENT_SPLIT (csrc/era_fused.cu's kSplit).
+CLIENT_SPLIT = 8
 
-# Threads a block of the fused kernel; rows a block: enough that one pass
+# The fused kernel's tile layout: TILE_THREADS threads a block of the
+# largest power of two of rows with at most TILE_VALUES values.  Rows
+# layout: FUSED_THREADS threads a block of enough rows that one pass
 # covers about FUSED_THREADS values.  The client-mean kernel of wider rows
 # sums MEAN_PER_THREAD elements a thread, THREADS threads a block.
+TILE_THREADS = 512
+TILE_VALUES = 64
 FUSED_THREADS = 128
 MEAN_PER_THREAD = 4
 
@@ -83,52 +95,88 @@ def enhanced_era_fused_plain(z: torch.Tensor, beta) -> torch.Tensor:
     return enhanced_era_plain(runtime.divide(z.sum(0), float(z.shape[0])), beta)
 
 
+def client_subsets(K: int) -> int:
+    """The fixed subsets G of the client axis every layout of the fused
+    kernel sums in (clients s, s + G, ... in order, then the subsets in
+    order): min(K, CLIENT_SPLIT), from K alone, so zbar's bits never depend
+    on N's layout, on B or on the rows of a launch."""
+    return min(K, CLIENT_SPLIT)
+
+
 def _fused_rows_per_block(n: int) -> int:
     return 1 if n >= FUSED_THREADS else FUSED_THREADS // n
 
 
 def fused_layout(n: int):
     """(layout, cluster) of the fused kernel for rows of ``n`` classes,
-    from ``n`` alone: ("rows", 1) up to MAX_CLASSES (a block of rows of
-    ``csrc/era_fused.cu``); above, the client mean into a workspace, then
-    :func:`rows_layout` of ``n`` (("onepass", C) or ("passes", 1))."""
+    from ``n`` alone: ("tile", 1) up to TILE_MAX_N and ("rows", 1) up to
+    MAX_CLASSES (one launch of ``csrc/era_fused.cu``); above, the client
+    mean into a workspace, then :func:`rows_layout` of ``n`` (("onepass",
+    C) or ("passes", 1))."""
+    if n <= TILE_MAX_N:
+        return "tile", 1
     return ("rows", 1) if n <= MAX_CLASSES else rows_layout(n)
+
+
+def fused_tile_rows(n: int) -> int:
+    """Rows a block of the tile layout: the largest power of two with at
+    most TILE_VALUES values of ``n`` classes."""
+    return 1 << (max(1, TILE_VALUES // n).bit_length() - 1)
+
+
+_FUSED_CODE = {"tile": 0, "rows": 1, "mean": 2}
+
+
+def _fused_args(N: int):
+    """(layout, rows a block) of ``csrc/era_fused.cu``'s launcher for rows
+    of N classes (0 rows for the client mean)."""
+    kind = fused_layout(N)[0]
+    if kind == "tile":
+        return "tile", fused_tile_rows(N)
+    if kind == "rows":
+        return "rows", _fused_rows_per_block(N)
+    return "mean", 0
 
 
 def fused_launch_plan(z: torch.Tensor, out: torch.Tensor,
                       beta_source: str = "python") -> runtime.LaunchPlan:
     """The launch of ``csrc/era_fused.cu`` over the contiguous (K, B, N)
-    ``z``: up to MAX_CLASSES, ``rows_per_block`` rows a block (one row
-    when N >= 128), their N log values each in dynamic shared memory,
-    never opted in (at N = MAX_CLASSES one row fills 48 KB), ``out`` the
-    sharpened rows; above, the client mean, a block of THREADS for every
-    THREADS * MEAN_PER_THREAD elements, ``out`` the (B, N) workspace."""
-    _K, B, N = z.shape
-    smem = 0
-    if fused_layout(N)[0] == "rows":
-        rpb = _fused_rows_per_block(N)
-        name, grid, threads, smem = "era_fused_kernel", runtime.cdiv(B, rpb), FUSED_THREADS, \
-            rpb * N * 4
+    ``z``.  Tile layout (N <= TILE_MAX_N): TILE_THREADS threads a block of
+    :func:`fused_tile_rows` rows, the G subsets' sums of its values in
+    dynamic shared memory.  Rows layout (N <= MAX_CLASSES):
+    ``rows_per_block`` rows a block (one row when N >= 128), their N log
+    values each in dynamic shared memory, never opted in (at N =
+    MAX_CLASSES one row fills 48 KB).  Both write the sharpened rows.
+    Above: the client mean, a block of THREADS for every THREADS *
+    MEAN_PER_THREAD elements, ``out`` the (B, N) workspace."""
+    K, B, N = z.shape
+    kind, tile = _fused_args(N)
+    if kind == "tile":
+        name, grid, threads = "era_fused_kernel", runtime.cdiv(B, tile), TILE_THREADS
+        smem = 4 * client_subsets(K) * tile * N
+    elif kind == "rows":
+        name, grid, threads, smem = "era_fused_rows", runtime.cdiv(B, tile), FUSED_THREADS, \
+            tile * N * 4
     else:
-        name, grid, threads = "era_fused_mean", runtime.cdiv(B * N, THREADS * MEAN_PER_THREAD), \
-            THREADS
+        name, grid, threads, smem = "era_fused_mean", \
+            runtime.cdiv(B * N, THREADS * MEAN_PER_THREAD), THREADS, 0
     return runtime.LaunchPlan(
         name, grid=(grid, 1, 1), block=(threads, 1, 1), dyn_smem=smem,
         operands=(runtime.ptr("z", z), runtime.ptr("out", out),
                   runtime.value("layout", ctypes.c_int),
                   runtime.value("k_clients", ctypes.c_int),
                   runtime.value("rows", ctypes.c_longlong), runtime.value("n", ctypes.c_int),
-                  runtime.value("rows_per_block", ctypes.c_int),
+                  runtime.value("tile", ctypes.c_int),
                   runtime.value("beta", ctypes.c_float, beta_source)))
 
 
-def _launch_fused(z: torch.Tensor, out: torch.Tensor, layout: int, beta_val: float,
+def _launch_fused(z: torch.Tensor, out: torch.Tensor, beta_val: float,
                   beta_source: str) -> None:
     K, B, N = z.shape
+    kind, tile = _fused_args(N)
     runtime.launch("era_fused", "era_fused_launch", fused_launch_plan(z, out, beta_source), z,
-                   out, ctypes.c_int(layout), ctypes.c_int(K), ctypes.c_longlong(B),
-                   ctypes.c_int(N), ctypes.c_int(_fused_rows_per_block(N)),
-                   ctypes.c_float(beta_val))
+                   out, ctypes.c_int(_FUSED_CODE[kind]), ctypes.c_int(K), ctypes.c_longlong(B),
+                   ctypes.c_int(N), ctypes.c_int(tile), ctypes.c_float(beta_val))
 
 
 def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
@@ -154,15 +202,15 @@ def enhanced_era_fused(z: torch.Tensor, beta) -> torch.Tensor:
     if B == 0:
         return out
     layout = fused_layout(N)
-    if layout[0] == "rows":
+    if N <= MAX_CLASSES:
         beta_val, beta_source = runtime.host_value(beta)
-        _launch_fused(z, out, 0, beta_val, beta_source)
+        _launch_fused(z, out, beta_val, beta_source)
     else:
         # the mean takes no beta; a card tensor's beta goes to the per-row
         # kernel by pointer
         beta_val, beta_t = _beta_arg(beta, z)
         zbar = torch.empty((B, N), dtype=z.dtype, device=z.device)
-        _launch_fused(z, zbar, 1, 0.0, "python")
+        _launch_fused(z, zbar, 0.0, "python")
         launch_rows(zbar, out, beta_val, beta_t, layout)
     enhanced_era_fused.launches += 1
     return out
@@ -298,12 +346,14 @@ def analysis_cases():
     (1536, 51968) vocabulary as soft-labels, in float32 and bfloat16; beta
     on the card), each layout of the per-row kernel (one block a row,
     clusters of 2 and 8 with rows not a multiple of 4 values, the
-    multi-pass rows past eight slices), and the fused kernel at the edge
-    of its row-block layout, N = MAX_CLASSES, which fills 48 KB exactly,
-    and past it (the client mean, then the per-row kernel): one class
-    past it (a cluster of one block a row), at whisper's vocabulary
-    (clusters of 4) and one class past eight slices (the multi-pass
-    layout)."""
+    multi-pass rows past eight slices), and the fused kernel's layouts
+    at their edges: the tile layout at K = 1, at N = 1 with a K that is
+    not a multiple of CLIENT_SPLIT, at N = 3 with fewer clients than
+    CLIENT_SPLIT (a subset a client); the rows layout at N = 130 and at N =
+    MAX_CLASSES, which fills 48 KB exactly; and past it (the client mean,
+    then the per-row kernel): one class past it (a cluster of one block a
+    row), at whisper's vocabulary (clusters of 4) and one class past eight
+    slices (the multi-pass layout)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("era/B1000-N10", lambda z: enhanced_era(z, 1.5), (((1000, 10), f32),)),
@@ -314,6 +364,11 @@ def analysis_cases():
          (((1000, 1000, 100), f32),)),
         ("era_fused/K100-B1000-N10", lambda z: enhanced_era_fused(z, 1.5),
          (((100, 1000, 10), f32),)),
+        ("era_fused/K1-B9-N10", lambda z: enhanced_era_fused(z, 1.5), (((1, 9, 10), f32),)),
+        ("era_fused/K13-B37-N1", lambda z: enhanced_era_fused(z, 1.5), (((13, 37, 1), f32),)),
+        ("era_fused/K7-B33-N3", lambda z: enhanced_era_fused(z, 1.5), (((7, 33, 3), f32),)),
+        ("era_fused/K3-B33-N130", lambda z: enhanced_era_fused(z, 1.5),
+         (((3, 33, 130), f32),)),
         ("era_fused/K2-B3-N12288", lambda z: enhanced_era_fused(z, 1.5),
          (((2, 3, MAX_CLASSES), f32),)),
         ("era_fused/K2-B3-N12289", lambda z: enhanced_era_fused(z, 1.5),

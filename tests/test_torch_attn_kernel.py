@@ -91,6 +91,90 @@ def test_plain_matches_pallas_kernel(B, Sq, Sk, H, Hkv, d, causal, window, dtype
     _assert_close(got, want, dtype)
 
 
+# The float32 kernel's arithmetic (csrc/flash_attn.cu, flash_fwd_tf32_kernel)
+# emulated on the CPU: each factor split into tf32 parts, hi = tf32(x) and
+# lo = tf32(x - hi) (tf32: x rounded to 10 explicit significand bits,
+# ties away from zero, by an add and a mask on the bit pattern),
+# each product taken as lo.hi + hi.lo + hi.hi with float32 sums, the scale
+# folded into exp2.  Shapes: chip_smoke.py's
+# FLASH_CASES at d = 64, 96 and 256.
+SPLIT_CASES = [
+    (2, 200, 200, 8, 2, 64, True, 64),   # GQA + window, ragged
+    (2, 100, 300, 4, 4, 64, False, 0),   # non-causal Sq != Sk
+    (1, 300, 100, 4, 2, 64, False, 16),  # rows left with no key
+    (1, 4, 4, 2, 1, 64, True, 0),        # tiny
+    (2, 200, 257, 4, 2, 64, False, 0),   # Sk one past 4 key tiles
+    (1, 300, 300, 4, 2, 96, True, 0),
+    (1, 300, 100, 2, 1, 256, False, 16),  # rows left with no key
+    (2, 256, 256, 4, 2, 256, True, 0),   # GQA
+]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest tf32 value, ties away from zero, as the
+    kernel rounds: 0x1000 added to the sign-magnitude pattern, the low 13
+    bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulated_flash(q, k, v, causal, window, passes):
+    """The kernel's products with ``passes`` = 3 (3xTF32) or 1 (one tf32
+    pass), its exp2 softmax, and the oracle's mean of v for rows with no
+    valid key."""
+    def split(x):
+        hi = _tf32(x)
+        return hi, _tf32(x - hi)
+
+    def product(eq, a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        if passes == 1:
+            return torch.einsum(eq, ah, bh)
+        return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+    _B, Sq, H, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(H // Hkv, dim=2)
+    vr = v.repeat_interleave(H // Hkv, dim=2)
+    s = product("bqhd,bkhd->bhqk", q, kr)
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, -float("inf"))
+    scale = torch.tensor(1.4426950408889634 / float(d) ** 0.5, dtype=torch.float32)
+    m = s.amax(-1, keepdim=True)
+    empty = m == -float("inf")
+    p = torch.exp2(s * scale - torch.where(empty, 0.0, m) * scale)
+    o = product("bhqk,bkhd->bqhd", p, vr) / p.sum(-1).permute(0, 2, 1)[..., None]
+    mean_v = vr.mean(dim=1, keepdim=True).expand_as(o)
+    return torch.where(empty.permute(0, 2, 1, 3), mean_v, o)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal,window", SPLIT_CASES)
+def test_3xtf32_split_keeps_float32_tolerance(B, Sq, Sk, H, Hkv, d, causal, window):
+    """The error budget of the float32 kernel's split, known before the
+    card: within F32_ATOL of the plain version at every shape."""
+    (q, k, v), _ = _qkv(Sq + 3 * Sk + d, B, Sq, Sk, H, Hkv, d)
+    got = _emulated_flash(q, k, v, causal, window, passes=3)
+    want = attn_kernel.flash_attention_plain(q, k, v, causal, window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_one_tf32_pass_misses_float32_tolerance(d):
+    """Why the kernel splits: one tf32 pass (11 significant bits a factor)
+    is off the plain version by far more than F32_ATOL."""
+    (q, k, v), _ = _qkv(d, 1, 128, 128, 2, 1, d)
+    want = attn_kernel.flash_attention_plain(q, k, v, True, 0)
+    err = float((_emulated_flash(q, k, v, True, 0, passes=1) - want).abs().max())
+    assert err > 10 * F32_ATOL
+
+
 def test_fully_masked_rows_take_the_oracles_mean_of_v():
     """Non-causal with a window and Sq > Sk + window: rows i >= Sk + w - 1
     have no key left.  The oracle's softmax of equal scores gives them the

@@ -9,7 +9,8 @@ Tolerances: as ``chip_smoke.py`` states them, atol 1e-6 for the ERA and
 qdq kernels and zero quantization level flips; the fused round atol 1e-6
 on probabilities and 2e-6 * sum|w| on its linear moment (a weighted sum
 of up to K values in [0, 1], rounded in other orders on the two sides);
-flash attention atol 1e-5 in float32 and one bfloat16 step in bfloat16;
+flash attention atol 1e-5 in float32 (three tf32 products a product) and
+one bfloat16 step in bfloat16;
 per-row Enhanced ERA atol 1e-6 in float32, and in bfloat16 bit for bit the
 float32 kernel's result rounded once; the distillation loss 1e-5 of each
 row's magnitude ``|lse| * |sum t| + sum |t * l|`` (float32 sums of V terms
@@ -43,13 +44,16 @@ def _probs(seed, shape, dev):
     return torch.from_numpy(z.astype(np.float32).reshape(shape)).to(dev)
 
 
-# The fused ERA kernel's layouts: rows of a block (N <= 12288); past it
-# the client mean, then the per-row kernel's row over a cluster of 1
-# (12289), 2 (20001), 4 (32000, 51968) and 8 (100001) blocks, and its
-# multi-pass layout past eight slices (106497).
-ERA_FUSED_SHAPES = [(1, 9, 10), (100, 1000, 10), (3, 33, 130), (5, 7, 1), (2, 3, 4000),
-                    (4, 33, 12289), (2, 9, 20001), (100, 3, 32000), (8, 16, 51968),
-                    (3, 5, 100001), (3, 5, 106497)]
+# The fused ERA kernel's layouts: a tile of rows a block with the clients
+# staged in shared memory (N <= 32: the slice's 10; K = 7 and 1000, whose
+# client subsets of 8 have a remainder, K = 1000 also over three chunks of
+# the slab; N = 1), rows of a block (N <= 12288); past it the client mean,
+# then the per-row kernel's row over a cluster of 1 (12289), 2 (20001), 4
+# (32000, 51968) and 8 (100001) blocks, and its multi-pass layout past
+# eight slices (106497).
+ERA_FUSED_SHAPES = [(1, 9, 10), (100, 1000, 10), (7, 333, 10), (1000, 1000, 10), (3, 33, 130),
+                    (5, 7, 1), (2, 3, 4000), (4, 33, 12289), (2, 9, 20001), (100, 3, 32000),
+                    (8, 16, 51968), (3, 5, 100001), (3, 5, 106497)]
 
 
 @pytest.mark.parametrize("K,B,N", ERA_FUSED_SHAPES)
@@ -64,7 +68,8 @@ def test_era_kernel_matches_plain(dev, K, B, N, beta):
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("K,B,N", [(100, 1000, 10), (4, 33, 12289), (2, 9, 20001),
+@pytest.mark.parametrize("K,B,N", [(100, 1000, 10), (7, 333, 10), (1000, 1000, 10),
+                                   (3, 33, 130), (4, 33, 12289), (2, 9, 20001),
                                    (8, 16, 51968), (3, 5, 100001), (3, 5, 106497)])
 def test_era_kernel_is_deterministic_and_row_split_invariant(dev, K, B, N):
     """Two launches give the same bits, and rows computed in two launches
@@ -272,8 +277,9 @@ def _assert_attn_close(got, want):
     (1, 2048, 2048, 4, 1, 128, True, 0),  # the bf16 kernel's stage ring wraps 16 times
     (2, 200, 257, 4, 2, 64, False, 0),    # Sk one past 4 key tiles
     (2, 256, 256, 8, 2, 32, True, 0),     # GQA at d = 32
-    # head dims between and past the instantiations (D = 32, 64, 128 on
-    # tiles zero past d; column blocks past 128)
+    # head dims between and past the instantiations (bf16: D = 32, 64, 128
+    # on tiles zero past d, column blocks of 128 past 128; float32: D = 32,
+    # 64, column blocks of 64 past 64)
     (1, 130, 130, 2, 1, 8, True, 0),
     (2, 200, 200, 8, 2, 40, True, 0),     # GQA
     (1, 130, 130, 4, 4, 80, True, 0),
@@ -347,6 +353,18 @@ def test_flash_bf16_kernels_are_wgmma_and_tma_kernels(dev):
         c, width = counts[name], int(name.split("<")[1].rstrip(">"))
         assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, c
         assert c["HMMA"] == 0 and c["F2FP"] <= width // 4, c
+
+
+def test_flash_f32_kernels_are_wgmma_and_tma_kernels(dev):
+    """The float32 kernels' machine code issues wgmma (HGMMA) and TMA
+    loads and stores (UTMALDG, UTMASTG), and no mma.sync (HMMA): both
+    products run on the tensor cores in tf32."""
+    counts = attn_kernel.sass_opcodes()
+    assert {n for n in counts if "tf32" in n} == set(attn_kernel.F32_KERNELS)
+    for name in attn_kernel.F32_KERNELS:
+        c = counts[name]
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, c
+        assert c["HMMA"] == 0, c
 
 
 def test_flash_wrapper_raises_on_a_refused_launch(dev):

@@ -108,6 +108,45 @@ def test_pallas_era_pad_lanes_leak_mass_below_beta_one():
     np.testing.assert_array_equal(got, 1.0)
 
 
+def _subset_client_mean(z, groups):
+    """``csrc/era_fused.cu``'s client mean in numpy float32: the clients s,
+    s + G, ... of each subset s summed in k order from 0.0, the subsets'
+    sums added in order s = 0..G-1, the total divided by K."""
+    total = np.zeros(z.shape[1:], np.float32)
+    for s in range(groups):
+        acc = np.zeros(z.shape[1:], np.float32)
+        for k in range(s, z.shape[0], groups):
+            acc = acc + z[k]
+        total = total + acc
+    return total / np.float32(z.shape[0])
+
+
+@pytest.mark.parametrize("K", [1, 7, 8, 100, 1000])
+@pytest.mark.parametrize("N", [1, 10, 130, 12289])
+def test_era_fused_client_split_depends_on_k_and_n_alone(K, N):
+    """The kernel's client subsets and their order come from K alone, its
+    layout from N alone: the plan function gives the same G whatever B,
+    each B's launches take the same kernels, and the subset sum is the
+    client mean to float32 rounding (so the kernel stays within ERA's atol
+    of the plain version's other order), bit for bit the same on any split
+    of rows."""
+    from repro_torch.analysis.traceutil import tensor_spec, trace
+
+    G = era_kernel.client_subsets(K)
+    assert G == min(K, era_kernel.CLIENT_SPLIT)
+    kernels = {tuple(x.plan.kernel for x in trace(lambda z: era_kernel.enhanced_era_fused(z, 1.5),
+                                                  tensor_spec((K, B, N))).launches)
+               for B in (1, 37, 1000)}
+    assert len(kernels) == 1
+    if N <= 130:
+        z = _probs(K + N, (K, 4, N))
+        mean = _subset_client_mean(z, G)
+        np.testing.assert_allclose(mean, z.astype(np.float64).mean(0), rtol=1e-6, atol=0)
+        halves = np.concatenate([_subset_client_mean(z[:, :1], G),
+                                 _subset_client_mean(z[:, 1:], G)])
+        assert np.array_equal(mean, halves)
+
+
 def test_era_fused_wrapper_checks_shapes():
     with pytest.raises(ValueError):
         era_kernel.enhanced_era_fused(torch.zeros(4, 10), 1.5)

@@ -16,10 +16,14 @@ moved to Python, worked out by hand below:
   row, 256 threads, grid ceil(rows / 8), kernel qdq_warp<V> with V the
   power of two of values a lane covering n; wider: 256 threads, a block a
   row, grid rows;
-- era_fused: N <= 12288: 128 threads, rpb = 1 if N >= 128 else 128 // N
-  rows a block: grid ceil(B / rpb), rpb * N * 4 bytes of shared memory;
-  above: the client mean, 256 threads with 4 elements each, grid
-  ceil(B * N / 1024), then era_rows (below) over the (B, N) mean;
+- era_fused: N <= 32 (the tile layout): 512 threads, a tile of the
+  largest power of two of rows with at most 64 values, grid ceil(B /
+  tile), G = min(K, 8) client subsets' sums of the tile's values in
+  shared memory, 4 * G * tile * N bytes; N <= 12288 (the rows layout):
+  128 threads, rpb = 1 if N >= 128 else 128 // N rows a block: grid
+  ceil(B / rpb), rpb * N * 4 bytes of shared memory; above: the client
+  mean, 256 threads with 4 elements each, grid ceil(B * N / 1024), then
+  era_rows (below) over the (B, N) mean;
 - era_rows: N <= 1024: 256 threads, a warp a row, grid ceil(B / 8);
   up to eight slices of 13312 values: a cluster of C blocks a row, the
   smallest C of 1, 2, 4, 8 whose slice (ceil(N / C) rounded up to 8) fits,
@@ -39,22 +43,23 @@ moved to Python, worked out by hand below:
   16-byte aligned (m * N and tile * N multiples of 4: 16-byte copies),
   else outs | 1.  Where even one row and 32 clients do not fit (N > 331
   at K >= 32): 128 threads, a warp a row: grid ceil(m / 4);
-- flash_attn, float32: 128 threads, grid (ceil(Sq / 64), H, B); 64 keys
-  of k (rows of d + 4 floats) and v staged: 4 * 64 * (2d + 4) bytes,
-  opted in above 48 KB.  At d = 128 the kernel also stages its 64 q rows
-  (d + 4 floats each), 4 * 64 * 132 bytes more: the analyzer's first card
-  run found that kernel spilling 160 bytes a thread with q in registers.
+- flash_attn, float32 (the tf32 Hopper kernel): a consumer warpgroup and
+  a producer warp, 160 threads, grid (H * nb, B, ceil(Sq / 64)), D = 32
+  output columns a block up to d = 32, else 64, nb = ceil(d / 64) column
+  blocks past 64; 1024 bytes of alignment, S stages of 16 KB (S = 4 at D
+  = 32, 3 at 64), 16 KB of low parts, v^T's two parts of 64 * D floats
+  and 16 bytes a stage of mbarriers: 99392 / 99376 bytes at D = 32 / 64,
+  opted in, two blocks a multiprocessor.
 - flash_attn, bfloat16 (the Hopper kernel): a consumer warpgroup and
   a producer warp, 160 threads, grid (H, B, ceil(Sq / 64)); 1024 bytes of
   alignment, the q tile and 2 tiles a stage (2 * 64 * d bytes each) and 8
   bytes an mbarrier, at 4 stages for d = 32 and 2 otherwise:
   37960 / 42024 / 82984 bytes at d = 32 / 64 / 128.
-- flash_attn at other head dims d % 8 == 0: the instantiation D of 32,
-  64, 128 next at or above d, as above with D for d; past 128, nb =
-  ceil(d / 128) column blocks: float32 the D = 128 kernel on grid
-  (ceil(Sq / 64), H * nb, B); bfloat16 the column-block kernel, 160
-  threads, grid (H * nb, B, ceil(Sq / 64)), 1024 + 4 stages of two 8 KB
-  boxes + 8 mbarriers of 8 bytes = 66624 bytes.
+- flash_attn, bfloat16, at other head dims d % 8 == 0: the instantiation
+  D of 32, 64, 128 next at or above d, as above with D for d; past 128,
+  nb = ceil(d / 128) column blocks: the column-block kernel, 160 threads,
+  grid (H * nb, B, ceil(Sq / 64)), 1024 + 4 stages of two 8 KB boxes + 8
+  mbarriers of 8 bytes = 66624 bytes.
 - fixtures copy_smem: a block a (32, 128) tile, 256 threads, two tiles of
   shared memory; 16-byte copies (copy_smem_kernel<4>) where the columns,
   the tile's columns and the start are whole 16 bytes, else 4-byte ones.
@@ -76,10 +81,18 @@ F32, BF16 = torch.float32, torch.bfloat16
 WANT = {
     "era/B1000-N10": ("era_rows_warp<float>", (125, 1, 1), 256, 0, False),
     "era/B10-N10": ("era_rows_warp<float>", (2, 1, 1), 256, 0, False),
-    "era_fused/K200-B100-N10": ("era_fused_kernel", (9, 1, 1), 128, 480, False),
-    "era_fused/K1000-B1000-N100": ("era_fused_kernel", (1000, 1, 1), 128, 400, False),
-    "era_fused/K100-B1000-N10": ("era_fused_kernel", (84, 1, 1), 128, 480, False),
-    "era_fused/K2-B3-N12288": ("era_fused_kernel", (3, 1, 1), 128, 49152, False),
+    # tile 4, G 8: 4 * 8 * 40
+    "era_fused/K200-B100-N10": ("era_fused_kernel", (25, 1, 1), 512, 1280, False),
+    "era_fused/K1000-B1000-N100": ("era_fused_rows", (1000, 1, 1), 128, 400, False),
+    "era_fused/K100-B1000-N10": ("era_fused_kernel", (250, 1, 1), 512, 1280, False),
+    # G 1: 4 * 40
+    "era_fused/K1-B9-N10": ("era_fused_kernel", (3, 1, 1), 512, 160, False),
+    # tile 64, G 8 (a remainder of 5): 4 * 8 * 64
+    "era_fused/K13-B37-N1": ("era_fused_kernel", (1, 1, 1), 512, 2048, False),
+    # tile 16, G 7: 4 * 7 * 48
+    "era_fused/K7-B33-N3": ("era_fused_kernel", (3, 1, 1), 512, 1344, False),
+    "era_fused/K3-B33-N130": ("era_fused_rows", (33, 1, 1), 128, 520, False),
+    "era_fused/K2-B3-N12288": ("era_fused_rows", (3, 1, 1), 128, 49152, False),
     # past 12288: the client mean (ceil(B * N / 1024) blocks of 256), then
     # era_rows at N (below)
     "era_fused/K2-B3-N12289": [("era_fused_mean", (37, 1, 1), 256, 0, False),
@@ -136,20 +149,25 @@ WANT = {
     "distill/B1536-V51968": ("distill_kernel<float,float>", (1536, 1, 1), 256, 0, False),
     "distill/B1536-V51968-bf16-teacher": ("distill_kernel<float,bf16>", (1536, 1, 1), 256, 0,
                                           False),
-    "attn/S128-gqa-d64": ("flash_fwd_kernel<64>", (2, 4, 2), 128, 33792, False),
-    "attn/small-Sq4": ("flash_fwd_kernel<64>", (1, 2, 1), 128, 33792, False),
-    "attn/odd-S100-window": ("flash_fwd_kernel<64>", (2, 2, 1), 128, 33792, False),
+    "attn/S128-gqa-d64": ("flash_fwd_tf32_kernel<64>", (4, 2, 2), 160, 99376, True),
+    "attn/small-Sq4": ("flash_fwd_tf32_kernel<64>", (2, 1, 1), 160, 99376, True),
+    "attn/odd-S100-window": ("flash_fwd_tf32_kernel<64>", (2, 1, 2), 160, 99376, True),
     "attn/bf16-S64": ("flash_fwd_wgmma_kernel<64>", (2, 1, 1), 160, 42024, False),
     "attn/whisper-B4-S384-H20-d64-bf16": ("flash_fwd_wgmma_kernel<64>", (20, 4, 6), 160, 42024,
                                           False),
-    "attn/S256-d128-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
+    # d = 128 in float32: two column blocks of 64
+    "attn/S256-d128-f32": ("flash_fwd_tf32_kernel<64>", (8, 1, 4), 160, 99376, True),
     "attn/bf16-gqa-d32": ("flash_fwd_wgmma_kernel<32>", (4, 2, 3), 160, 37960, False),
     "attn/bf16-S2048-d128": ("flash_fwd_wgmma_kernel<128>", (4, 1, 32), 160, 82984, True),
-    "attn/d96-f32": ("flash_fwd_kernel<128>", (3, 4, 1), 128, 100352, True),
+    "attn/d96-f32": ("flash_fwd_tf32_kernel<64>", (8, 1, 3), 160, 99376, True),
     "attn/bf16-d96": ("flash_fwd_wgmma_kernel<128>", (4, 1, 3), 160, 82984, True),
-    # two column blocks: H * 2 on the head axis
-    "attn/d256-f32": ("flash_fwd_kernel<128>", (4, 4, 1), 128, 100352, True),
+    # column blocks on the head axis: H * 4 of 64 columns (f32), H * 2 of 128 (bf16)
+    "attn/d256-f32": ("flash_fwd_tf32_kernel<64>", (8, 1, 4), 160, 99376, True),
     "attn/bf16-d256": ("flash_fwd_wgmma_cols_kernel<128>", (4, 1, 4), 160, 66624, True),
+    "attn/f32-d8": ("flash_fwd_tf32_kernel<32>", (2, 1, 3), 160, 99392, True),
+    "attn/f32-B4-S384-H20-d64": ("flash_fwd_tf32_kernel<64>", (20, 4, 6), 160, 99376, True),
+    # three column blocks, the last's second box of v past d
+    "attn/f32-d136-window": ("flash_fwd_tf32_kernel<64>", (12, 1, 4), 160, 99376, True),
 }
 
 CASES = {label: (fn, args) for label, fn, args in launch_checks.iter_cases()}
@@ -208,14 +226,15 @@ def test_era_fused_past_its_limit_is_refused_by_the_wrapper_and_the_lint():
     # the row-block layout's own plan at that N
     n = era_kernel.MAX_CLASSES + 1
     rpb = era_kernel._fused_rows_per_block(n)
-    plan = runtime.LaunchPlan("era_fused_kernel", grid=(3, 1, 1),
+    plan = runtime.LaunchPlan("era_fused_rows", grid=(3, 1, 1),
                               block=(era_kernel.FUSED_THREADS, 1, 1), dyn_smem=rpb * n * 4)
     assert plan.dyn_smem == 49156 and not plan.smem_optin
     assert [f.level for f in launch_checks.check_plan("N12289", plan)] == ["error"]
 
 
 @pytest.mark.parametrize("n,layout", [
-    (1, ("rows", 1)), (10, ("rows", 1)), (12288, ("rows", 1)), (12289, ("onepass", 1)),
+    (1, ("tile", 1)), (10, ("tile", 1)), (32, ("tile", 1)), (33, ("rows", 1)),
+    (12288, ("rows", 1)), (12289, ("onepass", 1)),
     (26624, ("onepass", 2)), (26625, ("onepass", 4)), (51968, ("onepass", 4)),
     (106496, ("onepass", 8)), (106497, ("passes", 1)), (10 ** 6, ("passes", 1)),
 ])
@@ -224,7 +243,7 @@ def test_era_fused_layout_takes_every_class_count(n, layout):
     assert era_kernel.fused_layout(n) == layout
     tr = trace(lambda z: era_kernel.enhanced_era_fused(z, 1.5), tensor_spec((2, 3, n)))
     assert tr.ok, tr.error
-    assert [x.lib for x in tr.launches] == (["era_fused"] if layout[0] == "rows"
+    assert [x.lib for x in tr.launches] == (["era_fused"] if layout[0] in ("tile", "rows")
                                              else ["era_fused", "era_rows"])
     assert all(launch_checks.check_plan(f"N{n}", x.plan) == [] for x in tr.launches)
 
@@ -241,12 +260,18 @@ def test_quant_layout_from_n_and_row_stride(n, ld, want):
 
 
 def test_flash_opts_in_exactly_above_48kb():
-    for d, optin in ((32, False), (64, False), (128, True)):
+    """float32: every plan opts in (its stages, low parts and v^T take
+    about 97 KB at every d) and leaves room for a second block on a
+    multiprocessor (no lint warning)."""
+    for d, dv in ((32, 32), (64, 64), (128, 64)):
         tr = trace(lambda q: attn_kernel.flash_attention(q, q, q),
                    tensor_spec((1, 64, 2, d)))
         plan = tr.launches[0].plan
-        assert plan.dyn_smem == 4 * 64 * (2 * d + 4) + (4 * 64 * (d + 4) if d > 64 else 0)
-        assert plan.smem_optin is optin is (plan.dyn_smem > 48 * 1024)
+        stages = attn_kernel.F32_STAGES[dv]
+        assert plan.dyn_smem == 1024 + 16384 * (stages + 1) + 2 * 4 * 64 * dv + 16 * stages
+        assert plan.smem_optin is (plan.dyn_smem > 48 * 1024) is True
+        assert plan.dyn_smem <= runtime.HOPPER.smem_per_sm // 2
+        assert launch_checks.check_plan(f"d{d}", plan) == []
 
 
 def test_flash_bf16_plan_reads_pairs_and_copies_a_misaligned_view():
@@ -284,20 +309,23 @@ def test_flash_bf16_plan_shared_memory_fits_hopper(d, optin):
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 48, 56, 72, 96, 120, 136, 192, 256, 384, 520])
 def test_flash_plans_for_every_head_dim_pass_the_lint(d, dtype):
     """Every d % 8 == 0 gets a plan (no head dim the routing admits is
-    refused): the instantiation next at or above d, or past 128 column
-    blocks of 128 on the head axis; each fits the card."""
+    refused): the instantiation next at or above d, or past the largest
+    column blocks on the head axis (bf16: 128 columns past 128; float32:
+    64 past 64); each fits the card."""
     tr = trace(lambda q: attn_kernel.flash_attention(q, q, q), tensor_spec((2, 130, 3, d), dtype))
     assert tr.ok, tr.error
     plan = tr.launches[0].plan
-    D = attn_kernel.instantiation(d)
-    nb = -(-d // 128) if d > 128 else 1
-    assert D == next((x for x in (32, 64, 128) if d <= x), 0)
+    D = attn_kernel.instantiation(d, dtype)
     if dtype == F32:
-        assert plan.kernel == f"flash_fwd_kernel<{D or 128}>" and plan.grid == (3, 3 * nb, 2)
+        nb = -(-d // 64) if d > 64 else 1
+        assert D == next((x for x in (32, 64) if d <= x), 0)
+        assert plan.kernel == f"flash_fwd_tf32_kernel<{D or 64}>"
     else:
+        nb = -(-d // 128) if d > 128 else 1
+        assert D == next((x for x in (32, 64, 128) if d <= x), 0)
         assert plan.kernel == (f"flash_fwd_wgmma_kernel<{D}>" if D else
                                "flash_fwd_wgmma_cols_kernel<128>")
-        assert plan.grid == (3 * nb, 2, 3)
+    assert plan.grid == (3 * nb, 2, 3)
     assert plan.dyn_smem == attn_kernel.smem_bytes(dtype, d)
     assert launch_checks.check_plan(f"d{d}", plan) == []
 
@@ -334,6 +362,31 @@ def test_flash_bf16_reads_only_tma_aligned_views_in_place(row, offset, in_place)
     want = ((64 * 2 * row, 2 * row, row), offset) if in_place else ((64 * 2 * 64, 2 * 64, 64), 0)
     assert (q_op.strides[:3], q_op.storage_offset) == want
     assert launch_checks.check_plan("bf16", tr.launches[0].plan) == []
+
+
+@pytest.mark.parametrize("row,offset,in_place", [
+    (64, 0, True),    # contiguous
+    (68, 0, True),    # head stride 272 bytes: a multiple of 16
+    (66, 0, False),   # head stride 264 bytes
+    (64, 2, False),   # 8 bytes off a 16-byte boundary
+    (64, 4, True),    # 16 bytes off: aligned
+])
+def test_flash_f32_reads_only_tma_aligned_views_in_place(row, offset, in_place):
+    """The float32 kernel reads through TMA too: a view off a 16-byte start
+    or with a stride that is not a multiple of 16 bytes is copied, any
+    other read in place."""
+    n = 2 * 64 * 2 * row
+
+    def fn(base):
+        q = base.narrow(0, offset, n).view(2, 64, 2, row)[..., :64]
+        return attn_kernel.flash_attention(q, q, q)
+
+    tr = trace(fn, tensor_spec((n + offset,)))
+    plan = tr.launches[0].plan
+    q_op = plan.operands[0]
+    want = ((64 * 2 * row, 2 * row, row), offset) if in_place else ((64 * 2 * 64, 2 * 64, 64), 0)
+    assert (q_op.strides[:3], q_op.storage_offset, q_op.vector_bytes) == want + (16,)
+    assert launch_checks.check_plan("f32", plan) == []
 
 
 def test_quant_plan_reads_the_residual_view_in_place():
