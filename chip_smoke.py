@@ -11,7 +11,11 @@ PyTorch version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
 ``cache_delta+quant8`` uplink): the SCARLET host round loop, then the
 device-resident engine (``engine="scan"``) with and without its fused
-round kernel, each with launch counts that show its kernels on the path.
+round kernel, each with launch counts that show its kernels on the path,
+then the paper's comparison methods at the same population: CFD (its
+1-bit uplink through the quantize-dequantize kernel once a round) and
+Selective-FD (confidence-gated uploads, without and with the cache) on
+both engines, and mean on the device engine.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -41,11 +45,13 @@ at once.  It imports neither ``jax`` nor ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -98,6 +104,24 @@ ROUND_LINEAR_RTOL = 2e-6
 # so a cached value may move by one 8-bit level of its residual's range
 # (the band the reference's own conformance suite uses)
 QUANT_STEP_ATOL = 5e-3
+
+# Phase 4f: the comparison methods at the slice's population, identity
+# uplink codec.  CFD's 1-bit uplink (b_up=1) is charged at 1 bit a value
+# and the fp32 downlink with the request list: 100 x 1000 x 10 x 1 / 8 up,
+# 100 x (1000 x 10 x 4 + 1000 x 4 + 1000 x 4) down.  Selective-FD plugs in
+# the cache (Fig. 11) at CACHE_DURATION.  The device engine against the
+# host loop: ledgers to rtol 1e-7 (float32 on the card), cache values to
+# ERA_ATOL (the two engines average the uploads in other orders).
+CFD_ROUND1 = (125000.0, 4800000.0)
+# Selective-FD charges each client's mean count of uploaded samples, a
+# fraction: the device's float32 ledger rounds it three times (the mean,
+# times N, times the clients), so it lies within 2^-22 of the host's
+# float64 value (1e-7 is under that: 3.2 % of the totals from 50000 to
+# 100000 uploads over 100 clients differ by more).  Each engine's bytes
+# are also checked exactly against its own arithmetic on the recorded
+# masks (check_selective_fd_ledger).
+SFD_LEDGER_RTOL = 2.0 ** -22
+COMPARISON_ROUNDS = SLICE_ROUNDS
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -319,6 +343,9 @@ def check_qdq(device) -> float:
          -torch.from_numpy(rng.random((4096, N - 1), dtype=np.float32)).to(device), 8),
         ("N=130 (a warp a row)", _probs(rng, (4097, 130), device) - 1.0 / 130, 8),
         ("N=2000 (a block a row)", _probs(rng, (65, 2000), device) - 1.0 / 2000, 8),
+        # CFD's uplink: the whole client stack at b_up = 1, once a round
+        ("CFD uplink", _probs(rng, (SLICE["n_clients"], SLICE["public_per_round"], N), device),
+         1),
     ]
     worst = 0.0
     for label, z, bits in cases:
@@ -447,15 +474,40 @@ def check_fused_round(device) -> float:
 # phase 4: the full-width slice
 # ---------------------------------------------------------------------------
 
-def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
+def run_engine(device, label: str, method: str, engine: str, *, fused: bool = False,
+               codec: str = "identity", cache_duration: int = 0,
+               use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
+               **strategy_kw) -> dict:
+    """``method`` at the slice's population through the host loop
+    (``engine="host"``) or the device engine (``"scan"``): round 1, then
+    the other rounds in one leg (on the device engine its only host sync
+    is the read-back at its end), the launch counts set to 0 just before
+    and read just after.  Selective-FD's upload masks are recorded with
+    the normalized entropies they gate on, for the engines' comparison."""
+    from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
-    from repro_torch.fl import FederatedDistillation, FLConfig, STRATEGIES
+    from repro_torch.fl import (FederatedDistillation, FLConfig, STRATEGIES,
+                                ScannedFederatedDistillation)
     from repro_torch.kernels import ops
+    from repro_torch.kernels.runtime import divide
 
-    cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=CODEC)
+    cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=codec,
+                   fused_round=fused)
+    strat = STRATEGIES[method](**strategy_kw)
+    masks = []
+    if method == "selective_fd":
+        gate = strat.upload_mask
+
+        def recorded(z):
+            um = gate(z)
+            masks.append((um, divide(era.entropy(z), math.log(z.shape[-1]))))
+            return um
+
+        strat.upload_mask = recorded
+    Engine = FederatedDistillation if engine == "host" else ScannedFederatedDistillation
     t0 = time.perf_counter()
-    eng = FederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA),
-                                cache_duration=CACHE_DURATION, device=device)
+    eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
+                 device=device)
     _sync(device)
     t_setup = time.perf_counter() - t0
     ops.reset_launches()
@@ -467,26 +519,50 @@ def run_slice(device, rounds: int = SLICE_ROUNDS) -> dict:
     _sync(device)
     t2 = time.perf_counter()
     launches = ops.launches()
+    if device.type == "cuda" and torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the engine left the sync debug mode set")
 
     per_round = (t2 - t1) / (rounds - 1)
     ledger = first.ledger.rounds + rest.ledger.rounds
-    log(f"slice: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, "
-        f"then {per_round * 1e3:.3f} ms/round over {rounds - 1} rounds "
-        f"(host clock, synchronized, one eval included)")
     summary = CommLedger(ledger).summary()
-    log(f"slice: ledger {json.dumps(summary)}")
     sa, ca = rest.final_server_acc, rest.final_client_acc
-    log(f"slice: final server_acc={sa!r} client_acc={ca!r}")
-    log(f"slice: launches {launches}")
+    sync = ("synchronized" if engine == "host" else
+            "rounds under sync debug mode 'error', one read-back at the end")
+    log(f"{label}: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, then "
+        f"{per_round * 1e3:.3f} ms/round over {rounds - 1} rounds (host clock, {sync}; "
+        "one eval included)")
+    log(f"{label}: per-round ledger {[(r.uplink, r.downlink) for r in ledger]}")
+    log(f"{label}: ledger {json.dumps(summary)}")
+    log(f"{label}: final server_acc={sa!r} client_acc={ca!r}")
+    log(f"{label}: launches {launches}")
+    run = dict(eng=eng, ledger=ledger, launches=launches, per_round_ms=per_round * 1e3,
+               summary=summary, masks=masks, label=label)
+    check_outputs(run, sa, ca)
+    return run
 
-    # the path went through the ERA and qdq kernels, once per round each
-    # (no round here is an outage: participation is full)
-    check_launches(launches, {"enhanced_era_fused": rounds,
-                              "quantize_dequantize": rounds, "fused_round": 0,
-                              "flash_attention": 0})
-    check_slice_result(eng, ledger, sa, ca)
-    return dict(eng=eng, ledger=ledger, launches=launches,
-                per_round_ms=per_round * 1e3, summary=summary)
+
+def check_outputs(run: dict, sa: float, ca: float) -> None:
+    """Accuracies above chance; the last teacher and the cached teachers
+    finite probability rows."""
+    N = SLICE["n_classes"]
+    if not (np.isfinite(sa) and np.isfinite(ca) and sa > 1.0 / N and ca > 1.0 / N):
+        raise AssertionError(f"{run['label']}: accuracies not above chance: {sa}, {ca}")
+    eng = run["eng"]
+    for rows in (eng.prev_teacher[1], eng.cache_g.values[eng.cache_g.present]):
+        if not (torch.isfinite(rows).all()
+                and torch.allclose(rows.sum(-1), torch.ones_like(rows[:, 0]), atol=1e-5)):
+            raise AssertionError(f"{run['label']}: teachers are not finite probability rows")
+
+
+def run_slice(device) -> dict:
+    """Phase 4: SCARLET through the host loop; the ERA and qdq kernels
+    once a round each (no round here is an outage: participation is full)."""
+    sl = run_engine(device, "slice", "scarlet", "host", codec=CODEC,
+                    cache_duration=CACHE_DURATION, beta=BETA)
+    check_launches(sl["launches"], {"enhanced_era_fused": SLICE_ROUNDS,
+                                    "quantize_dequantize": SLICE_ROUNDS})
+    check_slice_round1(sl)
+    return sl
 
 
 def check_launches(got: dict, want: dict) -> None:
@@ -496,72 +572,34 @@ def check_launches(got: dict, want: dict) -> None:
         raise AssertionError(f"kernel launches {got}, expected {want}")
 
 
-def check_slice_result(eng, ledger, sa, ca) -> None:
-    """Round 1's analytic bytes, accuracies above chance, and a cache of
-    finite probability rows."""
-    # round 1: every sample misses; the uplink carries the 8-bit residual
-    # of N-1 classes, the downlink fp32 labels + request list + signals
+def check_slice_round1(run: dict) -> None:
+    """Round 1's analytic bytes: every sample misses; the uplink carries
+    the 8-bit residual of N-1 classes, the downlink fp32 labels + request
+    list + signals."""
     K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
     want_up = float(K * (m * (N - 1) * 8 / 8.0))
     want_down = float(K * (m * N * 4.0 + m * 4.0 + m * 4.0 + m * 0.25))
-    r1 = ledger[0]
+    r1 = run["ledger"][0]
     if (r1.uplink, r1.downlink) != (want_up, want_down):
         raise AssertionError(f"round-1 ledger {r1} != ({want_up}, {want_down})")
-    if not (np.isfinite(sa) and np.isfinite(ca) and sa > 1.0 / N and ca > 1.0 / N):
-        raise AssertionError(f"accuracies not above chance: {sa}, {ca}")
-    cache = eng.cache_g
-    vals = cache.values[cache.present]
-    if not (torch.isfinite(vals).all()
-            and torch.allclose(vals.sum(-1), torch.ones_like(vals[:, 0]), atol=1e-5)):
-        raise AssertionError("cached teachers are not finite probability rows")
 
 
 # ---------------------------------------------------------------------------
 # phase 4b: the device-resident engine at the same width
 # ---------------------------------------------------------------------------
 
-def run_device_slice(device, fused: bool, rounds: int = SLICE_ROUNDS) -> dict:
-    """The slice through ``engine="scan"``: round 1, then the other rounds
-    in one leg whose only host sync is the read-back at its end."""
-    from repro_torch.core.comm import CommLedger
-    from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
-    from repro_torch.kernels import ops
-
-    label = "device engine " + ("fused" if fused else "per-op")
-    cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=CODEC,
-                   fused_round=fused)
-    eng = ScannedFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA),
-                                       cache_duration=CACHE_DURATION, device=device)
-    _sync(device)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    first = eng.run(1)  # ends in the leg's read-back, a sync
-    t1 = time.perf_counter()
-    rest = eng.run(rounds - 1)
-    t2 = time.perf_counter()
-    launches = ops.launches()
-    if torch.cuda.get_sync_debug_mode() != 0:
-        raise AssertionError("the engine left the sync debug mode set")
-
-    per_round = (t2 - t1) / (rounds - 1)
-    ledger = first.ledger.rounds + rest.ledger.rounds
-    summary = CommLedger(ledger).summary()
-    sa, ca = rest.final_server_acc, rest.final_client_acc
-    log(f"{label}: first round {t1 - t0:.4f} s, then {per_round * 1e3:.3f} ms/round "
-        f"over {rounds - 1} rounds (host clock; rounds under sync debug mode "
-        f"'error', one read-back at the end; one eval included)")
-    log(f"{label}: ledger {json.dumps(summary)}")
-    log(f"{label}: final server_acc={sa!r} client_acc={ca!r}")
-    log(f"{label}: launches {launches}")
-    # fused: one fused_round a round and neither per-op kernel; per-op: the
-    # qdq and ERA kernels once a round each
-    want = ({"enhanced_era_fused": 0, "quantize_dequantize": 0, "fused_round": rounds}
-            if fused else
-            {"enhanced_era_fused": rounds, "quantize_dequantize": rounds, "fused_round": 0})
-    check_launches(launches, dict(want, flash_attention=0))
-    check_slice_result(eng, ledger, sa, ca)
-    return dict(eng=eng, ledger=ledger, launches=launches,
-                per_round_ms=per_round * 1e3, summary=summary)
+def run_device_slice(device, fused: bool) -> dict:
+    """Phase 4b: SCARLET through ``engine="scan"``; fused: one fused_round
+    a round and neither per-op kernel; per-op: the qdq and ERA kernels
+    once a round each."""
+    r = run_engine(device, "device engine " + ("fused" if fused else "per-op"), "scarlet",
+                   "scan", fused=fused, codec=CODEC, cache_duration=CACHE_DURATION, beta=BETA)
+    n = SLICE_ROUNDS
+    check_launches(r["launches"],
+                   {"fused_round": n} if fused else
+                   {"enhanced_era_fused": n, "quantize_dequantize": n})
+    check_slice_round1(r)
+    return r
 
 
 def compare_runs(label: str, a: dict, b: dict, ledger_rtol: float,
@@ -603,6 +641,122 @@ def check_sync_guard() -> None:
         raise AssertionError("a host sync inside a device round did not raise")
     if torch.cuda.get_sync_debug_mode() != 0:
         raise AssertionError("the engine left the sync debug mode set")
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the comparison methods (CFD, Selective-FD, mean) at full width
+# ---------------------------------------------------------------------------
+
+def request_masks(rounds: int, D: int, seed: int) -> list:
+    """Each round's requests (bool over sorted P^t), from the engines'
+    numpy P^t stream (Generator ``[seed, 17]``, as ``_draw_round`` draws
+    it) and Alg. 3's test at full participation: absent, or older than
+    ``D`` rounds."""
+    m, n_pub = SLICE["public_per_round"], SLICE["public_size"]
+    rng = np.random.default_rng([seed, 17])
+    ts = np.zeros(n_pub, np.int64)
+    present = np.zeros(n_pub, bool)
+    out = []
+    for t in range(1, rounds + 1):
+        idx = np.sort(rng.choice(n_pub, m, replace=False))
+        miss = ~(present[idx] & (t - ts[idx] <= D)) if D else np.ones(m, bool)
+        out.append(miss)
+        ts[idx[miss]], present[idx[miss]] = t, True
+    return out
+
+
+def check_selective_fd_ledger(run: dict, use_cache: bool, host: bool) -> None:
+    """Each round's bytes from its request count and its recorded upload
+    mask, exactly: the downlink carries every requested sample; the
+    uplink each client's mean count of uploaded requested samples, in the
+    engine's arithmetic (host float64, device float32, the reference's
+    order of operations).  The uplink never exceeds the full upload, and
+    the gate withholds in some round."""
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    misses = request_masks(len(run["ledger"]), CACHE_DURATION if use_cache else 0,
+                           run["eng"].cfg.seed)
+    n_req, below = [], []
+    for t, (r, miss, (um, _)) in enumerate(zip(run["ledger"], misses, run["masks"]), start=1):
+        n = int(miss.sum())
+        uploaded = int(um.cpu().numpy()[:, miss].sum())
+        down = float(K * (n * N * 4.0 + n * 4.0 + m * 4.0 + (m * 0.25 if use_cache else 0.0)))
+        if host:
+            up = K * (uploaded / K * N * 32.0 / 8.0)
+        else:
+            f = np.float32
+            up = float(f(K) * (f(uploaded) / f(K) * f(N) * f(32.0) / f(8.0)))
+        full_up = float(K * n * N * 4.0)
+        if (r.uplink, r.downlink) != (up, down) or r.uplink > full_up:
+            raise AssertionError(f"{run['label']} round {t}: ledger {r}, {n} requests, "
+                                 f"{uploaded} uploaded: want ({up!r}, {down!r}), uplink at "
+                                 f"most {full_up}")
+        n_req.append(n)
+        below.append(r.uplink < full_up)
+    log(f"{run['label']}: requests a round {n_req}; uplink below the full upload in rounds "
+        f"{[t for t, b in enumerate(below, start=1) if b]}; every round's bytes equal the "
+        "analytic value for its requests and uploads ok")
+    if not any(below):
+        raise AssertionError(f"{run['label']}: the confidence gate withheld nothing")
+
+
+def compare_masks(a: dict, b: dict, tau: float) -> None:
+    """The two engines' upload masks, round by round; where they differ,
+    each entry and its normalized entropy's distance from ``1 - tau``."""
+    differ = 0
+    for t, ((ma, ha), (mb, hb)) in enumerate(zip(a["masks"], b["masks"]), start=1):
+        bad = (ma != mb).nonzero()
+        differ += len(bad)
+        for k, i in bad.tolist()[:50]:
+            log(f"mask differs: round {t} client {k} sample {i}: host {bool(ma[k, i])} "
+                f"device {bool(mb[k, i])}; distance from the threshold "
+                f"{float(ha[k, i]) - (1.0 - tau)!r} / {float(hb[k, i]) - (1.0 - tau)!r}")
+    n = sum(int(m.numel()) for m, _ in a["masks"])
+    withheld = sum(int((~m).sum()) for m, _ in a["masks"])
+    log(f"{a['label']} vs {b['label']}: upload masks over {len(a['masks'])} rounds, "
+        f"{n} entries, {withheld} withheld; {differ} differ")
+    if len(a["masks"]) != len(b["masks"]) or differ:
+        raise AssertionError(f"{a['label']} vs {b['label']}: {differ} mask entries differ")
+
+
+def run_comparison_methods(device, card: str) -> None:
+    """Phase 4f: CFD on both engines (its 1-bit uplink through the qdq
+    kernel, once a round), Selective-FD on both engines without and with
+    the cache, and mean on the device engine."""
+    def run(method, engine, use_cache=False):
+        label = f"{method} {'host loop' if engine == 'host' else 'device engine per-op'}"
+        label += f" cache D={CACHE_DURATION}" if use_cache else ""
+        return run_engine(device, label, method, engine, use_cache=use_cache,
+                          cache_duration=CACHE_DURATION if use_cache else 0,
+                          rounds=COMPARISON_ROUNDS)
+
+    runs = {}
+    for engine in ("host", "scan"):
+        r = run("cfd", engine)
+        check_launches(r["launches"], {"quantize_dequantize": COMPARISON_ROUNDS})
+        r1 = (r["ledger"][0].uplink, r["ledger"][0].downlink)
+        if r1 != CFD_ROUND1:
+            raise AssertionError(f"{r['label']}: round-1 ledger {r1} != {CFD_ROUND1}")
+        log(f"{r['label']}: round-1 ledger {r1} ok; quantize_dequantize once a round ok")
+        runs[f"cfd {engine}"] = r
+    compare_runs("cfd device engine vs host loop", runs["cfd scan"], runs["cfd host"],
+                 1e-7, ERA_ATOL)
+    tau = 0.0625  # Selective-FD's default tau_client
+    for use_cache in (False, True):
+        pair = []
+        for engine in ("host", "scan"):
+            r = run("selective_fd", engine, use_cache)
+            check_launches(r["launches"], {})
+            check_selective_fd_ledger(r, use_cache, host=engine == "host")
+            pair.append(r)
+            runs[f"selective_fd {engine}" + (" cache" if use_cache else "")] = r
+        compare_masks(pair[0], pair[1], tau)
+        compare_runs(f"selective_fd{' cache' if use_cache else ''} device engine vs host loop",
+                     pair[1], pair[0], SFD_LEDGER_RTOL, ERA_ATOL)
+    r = run("mean", "scan")
+    check_launches(r["launches"], {})
+    runs["mean scan"] = r
+    log(f"comparison methods ({card}): " + ", ".join(
+        f"{k} {v['per_round_ms']:.3f} ms/round" for k, v in runs.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1005,21 +1159,29 @@ z = torch.from_numpy(rng.dirichlet(np.ones(N), size=K * M).astype(np.float32)
                      .reshape(K, M, N)).cuda()
 part = torch.ones(K, device="cuda")
 out = {}
-for name, s in (("scarlet", STRATEGIES["scarlet"](beta=1.5)), ("dsfl", STRATEGIES["dsfl"]()),
-                ("fixture_callback_smuggler", fixtures.CallbackSmugglerStrategy())):
+
+
+def hooks(s):
+    zt = s.transmit(z)
+    return s.aggregate_masked(zt, part, s.upload_mask(zt), 1)
+
+
+for name, s in [(n, STRATEGIES[n](**({"beta": 1.5} if n == "scarlet" else {})))
+                for n in ("scarlet", "dsfl", "cfd", "mean", "selective_fd")] + [
+        ("fixture_callback_smuggler", fixtures.CallbackSmugglerStrategy())]:
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        s.aggregate_masked(z, part, None, 1)
+        hooks(s)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(g):
-            t = s.aggregate_masked(z, part, None, 1)
+            t = hooks(s)
         g.replay()
         torch.cuda.synchronize()
-        ok = torch.equal(t, s.aggregate_masked(z, part, None, 1))
+        ok = torch.equal(t, hooks(s))
         out[name] = "captured" if ok else "captured, replay differs"
     except Exception as e:
         out[name] = type(e).__name__ + ": " + str(e).strip().splitlines()[0][:160]
@@ -1129,8 +1291,9 @@ def run_analysis(device) -> dict:
     if p.returncode != 0:
         raise AssertionError(f"graph capture child failed:\n{p.stderr[-3000:]}")
     cap = json.loads(p.stdout.strip().splitlines()[-1])
-    log(f"analysis: CUDA graph capture of aggregate_masked: {cap}")
-    if (cap["scarlet"], cap["dsfl"]) != ("captured", "captured") or \
+    log(f"analysis: CUDA graph capture of transmit, upload_mask and aggregate_masked: {cap}")
+    scan_safe = ("scarlet", "dsfl", "cfd", "mean", "selective_fd")
+    if any(cap[n] != "captured" for n in scan_safe) or \
             cap["fixture_callback_smuggler"].startswith("captured"):
         raise AssertionError("graph capture disagrees with the contract pass")
     return dict(launches=launches, errs=errs, attrs=attrs)
@@ -1260,6 +1423,16 @@ def kernel_report(launches: dict, errs: dict) -> list:
         ms=cuda_ms(lambda: quant_kernel.quantize_dequantize(r, 8)),
         plain_ms=cuda_ms(lambda: quant_kernel.quantize_dequantize_plain(r, 8)),
         bound_ms=b, bound_by=why, library_ms=None))
+    # CFD's uplink: the (K, m, N) stack at 1 bit, contiguous; bytes and
+    # operations as above
+    zc = _probs(np.random.default_rng(12), (K, m, N), dev)
+    b, why = bound_ms(4.0 * 2 * zc.numel(), 11.0 * zc.numel())
+    log(f"time quantize_dequantize {tuple(zc.shape)} bits=1 (CFD's uplink) "
+        f"{quant_kernel.layout(N, N)}: "
+        f"ms={cuda_ms(lambda: quant_kernel.quantize_dequantize(zc, 1))!r} "
+        f"plain_ms={cuda_ms(lambda: quant_kernel.quantize_dequantize_plain(zc, 1))!r} "
+        f"bound_ms={b!r} by {why}")
+    del zc
     z, w, base = slice_round_inputs(rng, dev)
     n_in = K * m * N
     # bytes: the stack, the weights and the base read once, the teacher
@@ -1412,6 +1585,8 @@ def main() -> int:
     compare_runs("fused vs per-op device engine", fused, perop, 0.0, QUANT_STEP_ATOL)
     compare_runs("fused device engine vs host loop", fused, sl, 1e-7, QUANT_STEP_ATOL)
     compare_runs("per-op device engine vs host loop", perop, sl, 1e-7, QUANT_STEP_ATOL)
+    # 4f. the comparison methods at the same width, both engines
+    run_comparison_methods(dev, card)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width

@@ -121,7 +121,7 @@ def _check_instance(subject, s, plans) -> List[Finding]:
     else:
         # a declared-unsafe strategy should have *something* unsafe: the
         # hooks above, or the host loop's dynamic-subset ``aggregate``
-        agg = trace(lambda z_: s.aggregate(z_, _T), z)
+        agg = trace(lambda z_: s.aggregate(z_, None, _T), z)
         agg_viol = agg.scan_safety_violations()
         if not agg_viol and isinstance(agg.output, tuple) and len(agg.output) > 1:
             per_client = agg.output[1]

@@ -42,7 +42,7 @@ class CallbackSmugglerStrategy(Strategy):
     name = "fixture_callback_smuggler"
     scan_safe = True  # LIE: aggregate_masked leaves the card
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         return torch.mean(z, dim=0), None
 
     def aggregate_masked(self, z, part, um, t):
@@ -60,7 +60,7 @@ class HostRNGStrategy(Strategy):
         noise = np.random.default_rng(0).normal(0.0, 1e-3, (1,))
         return z + float(noise[0])
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         return torch.mean(z, dim=0), None
 
 
@@ -68,7 +68,7 @@ class StaleFlagStrategy(Strategy):
     name = "fixture_stale_flag"
     scan_safe = False  # stale: everything below is plain tensor code
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         return torch.mean(z, dim=0), None
 
 
@@ -77,7 +77,7 @@ class FalseFusedStrategy(Strategy):
     scan_safe = True
     supports_fused_round = True  # LIE: the fused hooks are not implemented
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         return torch.mean(z, dim=0), None
 
 

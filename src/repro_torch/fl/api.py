@@ -17,8 +17,7 @@ __all__ = ["run_method"]
 _ENGINES = {"host": FederatedDistillation,
             "scan": ScannedFederatedDistillation}
 _NOT_PORTED_ENGINES = ("shard", "active", "async")
-_NOT_PORTED_METHODS = ("cfd", "comet", "selective_fd", "mean", "fedavg",
-                       "individual")
+_NOT_PORTED_METHODS = ("comet", "fedavg", "individual")
 
 
 def run_method(
@@ -44,14 +43,18 @@ def run_method(
 ) -> History:
     """Run one FL method end-to-end and return its History.
 
-    ``method`` in {scarlet, dsfl}; ``engine="host"`` (the round loop of
-    :mod:`repro_torch.fl.rounds`) or ``"scan"`` (the device-resident
-    engine of :mod:`repro_torch.fl.scan_engine`, which takes
-    ``fused_round``).  The keywords mean what they mean in
-    ``repro.fl.run_method``.  ``device`` is ``"cuda"`` by default and the
-    run raises when there is no CUDA device; pass ``device="cpu"`` to run
-    on the CPU.  Methods, engines and options of the reference that are
-    not ported yet raise ``NotImplementedError``.
+    ``method`` in {scarlet, dsfl, cfd, mean, selective_fd}, each on
+    ``engine="host"`` (the round loop of :mod:`repro_torch.fl.rounds`) or
+    ``"scan"`` (the device-resident engine of
+    :mod:`repro_torch.fl.scan_engine`, which takes ``fused_round``; only
+    scarlet with a static beta has a fused path, as in the reference, and
+    any other method raises ``ValueError`` under ``fused_round=True``).
+    CFD's 1-bit uplink runs the quantize-dequantize kernel once a round.
+    The keywords mean what they mean in ``repro.fl.run_method``.
+    ``device`` is ``"cuda"`` by default and the run raises when there is
+    no CUDA device; pass ``device="cpu"`` to run on the CPU.  Methods,
+    engines and options of the reference that are not ported yet (comet,
+    fedavg, individual) raise ``NotImplementedError``.
     """
     if engine in _NOT_PORTED_ENGINES:
         raise NotImplementedError(f"engine={engine!r} is not yet ported")

@@ -12,8 +12,10 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
      (bit-identical to the reference's ``rng_backend="numpy"`` stream);
   2. participating clients distill on the previous round's teacher, then
      train locally on their private shard;
-  3. clients emit soft-labels on P^t; the uplink codec's round trip gives
-     what the server sees;
+  3. clients emit soft-labels on P^t; the strategy's ``transmit`` (CFD:
+     the quantize-dequantize kernel) and the uplink codec's round trip
+     give what the server sees, and the strategy's upload mask what each
+     client sends (Selective-FD);
   4. the strategy aggregates the participants' stack (SCARLET: the fused
      ERA kernel); the teacher is assembled from fresh and cached entries,
      the global cache updated, the server model distilled;
@@ -173,7 +175,7 @@ class History:
 # ---------------------------------------------------------------------------
 
 class FederatedDistillation:
-    """Distillation-based FL run (DS-FL / SCARLET) with optional
+    """Distillation-based FL run (any ported strategy) with optional
     soft-label caching and participation/outage scenarios, on one
     device.
 
@@ -419,11 +421,15 @@ class FederatedDistillation:
         # --- uplink: soft-labels on requested samples ---------------------
         x_round = self.x_pub[idx_t]
         z_all = self._predict_all(self.client_params, x_round)  # (K, m, N)
+        z_all = s.transmit(z_all)  # the method's uplink transform (CFD)
         if not self.codec_up.is_identity:  # lossy wire: what the server sees
             z_all = self.codec_up.roundtrip(z_all, base=base,
                                             present=base_present)
-        zsel = z_all[part_t] if n_part < K else z_all  # participants only
-        fresh, per_client = s.aggregate(zsel, t)
+        um = s.upload_mask(z_all)  # (K, m) or None (Selective-FD)
+        # only participating clients contribute
+        zsel = z_all[part_t] if n_part < K else z_all
+        umsel = None if um is None else (um[part_t] if n_part < K else um)
+        fresh, per_client = s.aggregate(zsel, umsel, t)
         if per_client is not None:
             raise NotImplementedError(
                 "per-client teachers (COMET) are not yet ported")
@@ -459,10 +465,19 @@ class FederatedDistillation:
                     catch_up += cache_lib.catch_up_bytes(pkg)
 
         # --- communication accounting --------------------------------------
+        # an upload mask gates the uplink only: each participant sends its
+        # uploaded entries among the requested samples (a per-client mean,
+        # possibly fractional), while the downlink still carries every
+        # requested sample
+        n_up = float(n_req)
+        if umsel is not None:
+            uploaded = float((umsel.to(torch.float32)
+                              * miss.to(torch.float32)[None, :]).sum())
+            n_up = uploaded / max(n_part, 1)
         cost = comm_lib.distillation_round_cost(
             n_clients=n_part,
             n_selected=len(idx),
-            n_up_samples=float(n_req),
+            n_up_samples=n_up,
             n_down_samples=n_req,
             n_classes=c.n_classes,
             uplink_bits=s.uplink_bits,

@@ -189,7 +189,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
             miss = cache_lib.miss_mask(cache_prev, idx, t, self.D)
         else:
             miss = torch.ones(m, dtype=torch.bool, device=self.device)
-        n_req = miss.to(torch.float32).sum()
+        miss_f = miss.to(torch.float32)
+        n_req = miss_f.sum()
         # shared delta-coding base: the synchronized cache at P^t (pre-update)
         base, base_present = cache_lib.cached_at(cache_prev, idx)
 
@@ -208,9 +209,6 @@ class ScannedFederatedDistillation(FederatedDistillation):
                                                 present=base_present)
             um = s.upload_mask(z_all)
             fresh = s.aggregate_masked(z_all, part_f, um, t)
-        if um is not None:
-            raise NotImplementedError("upload masks (Selective-FD) are not "
-                                      "yet ported")
         if not self.codec_down.is_identity:  # decoded broadcast (see rounds.py)
             fresh = self.codec_down.roundtrip(fresh, base=base,
                                               present=base_present)
@@ -239,10 +237,15 @@ class ScannedFederatedDistillation(FederatedDistillation):
         if self.use_cache:
             catch_up = cache_lib.catch_up_bytes_device(
                 cache_prev, st["last_sync"], part, t)
+        n_up = n_req
+        if um is not None:  # Selective-FD: the mask gates the uplink only
+            uploaded = (um.to(torch.float32) * part_f[:, None]
+                        * miss_f[None, :]).sum()
+            n_up = uploaded / torch.clamp_min(n_part, 1.0)
         uplink, downlink = comm_lib.distillation_round_cost_device(
             n_clients=n_part,
             n_selected=float(m),
-            n_up_samples=n_req,
+            n_up_samples=n_up,
             n_down_samples=n_req,
             n_classes=N,
             uplink_bits=s.uplink_bits,

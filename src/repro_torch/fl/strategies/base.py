@@ -53,14 +53,17 @@ class Strategy:
             "uses_cache": bool(self.uses_cache),
         }
 
-    def aggregate(self, z_clients: torch.Tensor, t
+    def aggregate(self, z_clients: torch.Tensor,
+                  upload_mask: Optional[torch.Tensor], t
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Participants' ``(n_part, m, N)`` soft-labels -> the server's
-        ``(m, N)`` teacher, and per-client teachers for personalized
-        methods (None here)."""
+        """Participants' ``(n_part, m, N)`` soft-labels and their
+        ``(n_part, m)`` bool upload mask (None: all uploaded) -> the
+        server's ``(m, N)`` teacher, and per-client teachers for
+        personalized methods (None here)."""
         raise NotImplementedError
 
-    # uplink payload transform (the identity for every ported strategy)
+    # uplink payload transform, applied before the uplink codec: the
+    # soft-labels as the server sees them (CFD quantizes; identity here)
     def transmit(self, z_clients: torch.Tensor) -> torch.Tensor:
         return z_clients
 
@@ -76,8 +79,8 @@ class Strategy:
     # sum across client shards; ``finalize_aggregate`` applies the
     # method's nonlinearity once to the summed moments.
     # ``aggregate_masked`` composes the two on one device and must equal
-    # ``aggregate(z[part])`` up to float rounding.  The defaults give the
-    # participation-weighted mean.
+    # ``aggregate(z[part], um[part])`` up to float rounding.  The
+    # defaults give the participation-weighted mean.
 
     def partial_aggregate(self, z_clients: torch.Tensor, part: torch.Tensor,
                           upload_mask: Optional[torch.Tensor],

@@ -17,7 +17,7 @@ class ERAStrategy(Strategy):
     scan_safe = True
     analysis_variants = ({}, {"T": 0.5})
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         return era_lib.era(torch.mean(z, dim=0), self.opts.get("T", 0.1)), None
 
     # two-phase contract: the linear phase is inherited (weighted sum);

@@ -54,7 +54,7 @@ class EnhancedERAStrategy(Strategy):
         h_norm = divide(torch.mean(era_lib.entropy(zbar)), math.log(n))
         return 1.0 + (self.opts.get("beta_max", 2.5) - 1.0) * h_norm
 
-    def aggregate(self, z, t):
+    def aggregate(self, z, um, t):
         beta = self.opts.get("beta", 1.5)
         if beta == "adaptive":
             zbar = torch.mean(z, dim=0)

@@ -1,8 +1,8 @@
 """The port's static analyzer (``repro_torch.analysis``) on the CPU, and
 against the reference analyzer (``repro.analysis``).
 
-Parity: for every subject the port has (scarlet and dsfl with their
-analysis variants; the identity, quant8, quant4, quant1 and cache_delta
+Parity: for every subject the port has (scarlet, dsfl, cfd, mean and
+selective_fd with their analysis variants; the identity, quant8, quant4, quant1 and cache_delta
 codecs; the four broken strategies), the multiset of finding levels of the
 port's contract pass equals that of the reference's jaxpr pass, run live.
 Under jax releases where ``jax.core`` no longer exports ``ClosedJaxpr``
@@ -127,6 +127,15 @@ def test_repo_contract_pass_clean():
     assert [f for f in got if f.level in ("error", "warn")] == []
     assert {f.subject for f in got} >= {"strategy:scarlet", "strategy:dsfl", "codec:quant8"}
     assert any(launch.plan.kernel == "fused_round_tile<10>" for _, launch in plans)
+    # the comparison methods: scan-safe by trace, CFD's transmit a qdq launch
+    for name in ("cfd", "cfd{'b_up': 8}", "mean", "selective_fd",
+                 "selective_fd{'tau_client': 0.25}"):
+        assert [f.message for f in got if f.subject == f"strategy:{name}"] == [
+            "scan_safe=True verified by trace"]
+    assert {label: launch.plan.kernel for label, launch in plans
+            if label.startswith(("strategy:cfd", "strategy:mean", "strategy:selective_fd"))
+            } == {"strategy:cfd/transmit#0": "qdq_tile",
+                  "strategy:cfd{'b_up': 8}/transmit#0": "qdq_tile"}
 
 
 def test_repo_launch_pass_clean():
@@ -229,7 +238,7 @@ def _levels(findings):
     return Counter(f.level for f in findings)
 
 
-@pytest.mark.parametrize("name", ["scarlet", "dsfl"])
+@pytest.mark.parametrize("name", ["scarlet", "dsfl", "cfd", "mean", "selective_fd"])
 def test_strategy_levels_match_the_reference(jax_core_shim, name):
     from repro.analysis import jaxpr_checks
     from repro.fl.strategies import STRATEGIES as RSTRAT
@@ -268,7 +277,8 @@ def test_port_registries_are_the_references_subset():
     from repro_torch.compress.codecs import CODECS as PCOD
     from repro_torch.fl.strategies import STRATEGIES as PSTRAT
 
-    assert set(PSTRAT) == {"scarlet", "dsfl"} and set(PSTRAT) <= set(RSTRAT)
+    assert set(PSTRAT) == {"scarlet", "dsfl", "cfd", "mean", "selective_fd"}
+    assert set(PSTRAT) <= set(RSTRAT)
     assert set(PCOD) == set(RCOD) - {"topk"}
 
 

@@ -221,6 +221,33 @@ def test_device_engine_runs_without_host_sync(dev, fused):
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
 
+@pytest.mark.parametrize("method", ["cfd", "selective_fd", "mean"])
+def test_comparison_methods_run_on_the_card_without_host_sync(dev, method):
+    """CFD's uplink launches the qdq kernel once a round (identity codec);
+    Selective-FD and mean launch none.  The device engine agrees with the
+    card's host loop on the per-round ledger (rtol 2^-22: Selective-FD's
+    fractional per-client count, rounded three times in float32)."""
+    cfg = pfl.FLConfig(**dict(_SMALL, participation=1.0, uplink_codec="identity"))
+    runs = []
+    for engine in (pfl.FederatedDistillation, pfl.ScannedFederatedDistillation):
+        ops.reset_launches()
+        h = engine(cfg, pfl.STRATEGIES[method](), device=dev).run()
+        assert torch.cuda.get_sync_debug_mode() == 0
+        got = ops.launches()
+        assert got == dict(dict.fromkeys(got, 0),
+                           quantize_dequantize=_SMALL["rounds"] if method == "cfd" else 0)
+        runs.append(np.array([(r.uplink, r.downlink) for r in h.ledger.rounds]))
+    np.testing.assert_allclose(runs[1], runs[0], rtol=2.0 ** -22, atol=0)
+
+
+def test_cfd_transmit_on_the_card_matches_plain(dev):
+    z = _probs(11, (100, 1000, 10), dev)
+    got = pfl.STRATEGIES["cfd"]().transmit(z)
+    want = pfl.STRATEGIES["cfd"]().transmit(z.cpu())
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= ATOL
+
+
 def test_host_sync_inside_a_device_round_raises(dev):
     class Syncing(pfl.ScannedFederatedDistillation):
         def _round_device(self, st, t, part, idx, do_eval):

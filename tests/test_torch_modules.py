@@ -360,7 +360,7 @@ def test_two_phase_contract_equals_reference(method, kw):
     masked = ps.aggregate_masked(pz, pp, None, 1).numpy()
     np.testing.assert_allclose(masked, np.asarray(js.aggregate_masked(jz, jp, None, 1)),
                                rtol=0, atol=ATOL)
-    subset, _ = ps.aggregate(pz[pp > 0], 1)
+    subset, _ = ps.aggregate(pz[pp > 0], None, 1)
     np.testing.assert_allclose(masked, subset.numpy(), rtol=0, atol=ATOL)
     # total outage: the uniform teacher, as the two-phase path gives it
     zero = torch.zeros(6)
@@ -444,8 +444,9 @@ def test_unported_options_raise():
                dict(probabilistic_expiry=True, cache_duration=2)]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        pfl.run_method("cfd", cfg, device="cpu")
+    for method in ("comet", "fedavg", "individual"):
+        with pytest.raises(NotImplementedError, match=method):
+            pfl.run_method(method, cfg, device="cpu")
     with pytest.raises(ValueError):
         pfl.run_method("scarlet", cfg, engine="bogus", device="cpu")
 

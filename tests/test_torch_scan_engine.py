@@ -71,13 +71,29 @@ def _assert_cache_close(a, b_ts, b_present, b_values, atol):
 
 CELLS = ([("scarlet", codec, scen, fused) for codec in CODECS
           for scen in SCENARIOS for fused in (False, True)]
-         + [("dsfl", "identity", "full", False)])
+         + [("dsfl", "identity", "full", False)]
+         + [(method, "identity", scen, False)
+            for method in ("cfd", "mean", "selective_fd") for scen in SCENARIOS])
 
 
 @pytest.mark.parametrize("method,codec,scen,fused", CELLS)
 def test_device_engine_matches_reference_scan(method, codec, scen, fused):
+    _hold_device_engine(method, codec, scen, fused,
+                        {"beta": 1.5} if method == "scarlet" else {})
+
+
+@pytest.mark.parametrize("scen", ["half", "outage"])
+def test_selective_fd_mask_under_partial_participation(scen):
+    """At tau 0.25 the gate withholds uploads of the half that takes part
+    (at the default tau these clients upload everything), so the mask
+    meets the participation weights in the ledger and the aggregate."""
+    rh = _hold_device_engine("selective_fd", "identity", scen, False, {"tau_client": 0.25})
+    K, m, N = BASE["n_clients"], BASE["public_per_round"], BASE["n_classes"]
+    assert _ledger(rh)[0][0] < K // 2 * m * N * 4.0
+
+
+def _hold_device_engine(method, codec, scen, fused, skw):
     cfg = dict(BASE, uplink_codec=codec, fused_round=fused)
-    skw = {"beta": 1.5} if method == "scarlet" else {}
     D = 1 if method == "scarlet" else 0  # D=1: entries expire within 3 rounds
     ref = RScan(R.FLConfig(**cfg), R.STRATEGIES[method](**skw), cache_duration=D,
                 scenario=_scenario(R, scen))
@@ -118,11 +134,13 @@ def test_device_engine_matches_reference_scan(method, codec, scen, fused):
     assert len(ph.server_val_loss) == len(rh.server_val_loss)
     np.testing.assert_allclose(ph.server_val_loss, rh.server_val_loss, rtol=1e-4)
     np.testing.assert_allclose(ph.client_val_loss, rh.client_val_loss, rtol=1e-4)
+    return rh
 
 
 AGREE = [("scarlet", codec, scen, fused) for codec in CODECS
          for scen in ("half", "outage") for fused in (False, True)]
-AGREE += [("dsfl", "identity", "half", False)]
+AGREE += [("dsfl", "identity", "half", False), ("cfd", "identity", "half", False),
+          ("selective_fd", "identity", "half", False)]
 
 
 @pytest.mark.parametrize("method,codec,scen,fused", AGREE)

@@ -2,8 +2,10 @@
 
 Both run the same configuration with the reference's numpy draws
 (``rng_backend="numpy"``), and the port starts from the reference's
-initial parameters, handed over through ``params_from_numpy``.  Every
-cell holds the port to:
+initial parameters, handed over through ``params_from_numpy``.  The
+cells cover SCARLET and DS-FL, and the comparison methods CFD (its 1-bit
+``transmit``), mean and Selective-FD (its upload mask, which the ledger
+charges).  Every cell holds the port to:
 
 - a byte-identical ledger summary (it is a function of integer counts);
 - equal cache timestamps and presence, and cache values to atol 1e-5
@@ -33,15 +35,48 @@ def _params_np(params):
     return {k: np.array(v) for k, v in params.items()}
 
 
+# the comparison methods (D=1 with the cache on: Fig. 11's plug-in);
+# Selective-FD at its default tau, and at tau 0.25 where at half
+# participation the default withholds nothing from these clients
+METHOD_CELLS = [("cfd", "identity", 1.0, 0, None), ("cfd", "identity", 0.5, 0, None),
+                ("cfd", "identity", 1.0, 1, None), ("mean", "identity", 1.0, 0, None),
+                ("selective_fd", "identity", 1.0, 0, None),
+                ("selective_fd", "identity", 0.5, 0, None),
+                ("selective_fd", "identity", 0.5, 0, 0.25),
+                ("selective_fd", "quant8", 1.0, 0, None),
+                ("selective_fd", "identity", 1.0, 1, None)]
+
+
 @pytest.mark.parametrize("method,codec,part", CELLS)
 def test_host_loop_matches_reference(method, codec, part):
-    cfg = dict(BASE, participation=part, uplink_codec=codec)
     skw = {"beta": 1.5} if method == "scarlet" else {}
     D = 1 if method == "scarlet" else 0  # D=1: entries expire within 3 rounds
+    _hold_host_loop(method, codec, part, D, None, skw)
+
+
+@pytest.mark.parametrize("method,codec,part,D,tau", METHOD_CELLS)
+def test_comparison_method_matches_reference(method, codec, part, D, tau):
+    skw = {} if tau is None else {"tau_client": tau}
+    ref, _ = _hold_host_loop(method, codec, part, D, D > 0, skw)
+    if method == "selective_fd":
+        # no round uploads more than every requested sample; where the
+        # gate withholds, the mask reached the ledger
+        K, m, N = BASE["n_clients"], BASE["public_per_round"], BASE["n_classes"]
+        bits = 8 if codec == "quant8" else 32
+        full = K * part * m * N * bits / 8.0
+        ups = [r.uplink for r in ref.ledger.rounds]
+        assert max(ups) <= full
+        if (part, tau) != (0.5, None):
+            assert min(ups) < full
+
+
+def _hold_host_loop(method, codec, part, D, use_cache, skw):
+    cfg = dict(BASE, participation=part, uplink_codec=codec)
     ref = R.FederatedDistillation(R.FLConfig(**cfg), R.STRATEGIES[method](**skw),
-                                  cache_duration=D, rng_backend="numpy")
+                                  cache_duration=D, use_cache=use_cache,
+                                  rng_backend="numpy")
     port = P.FederatedDistillation(P.FLConfig(**cfg), P.STRATEGIES[method](**skw),
-                                   cache_duration=D, device="cpu")
+                                   cache_duration=D, use_cache=use_cache, device="cpu")
     port.load_params([_params_np(p) for p in ref.client_params],
                      _params_np(ref.server_params))
     rh, ph = ref.run(), port.run()
@@ -55,7 +90,7 @@ def test_host_loop_matches_reference(method, codec, part):
                                   np.asarray(ref.cache_g.present))
     np.testing.assert_allclose(port.cache_g.values.numpy(),
                                np.asarray(ref.cache_g.values), rtol=0, atol=1e-5)
-    if method == "scarlet":
+    if method == "scarlet" or use_cache:
         assert bool(np.asarray(ref.cache_g.present).any())
 
     for k, v in ref.server_params.items():
@@ -75,6 +110,7 @@ def test_host_loop_matches_reference(method, codec, part):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(port.last_sync),
                                   np.asarray(ref.last_sync))
+    return rh, ph
 
 
 def test_run_method_front_door_on_cpu():
