@@ -15,7 +15,10 @@ round kernel, each with launch counts that show its kernels on the path,
 then the paper's comparison methods at the same population: CFD (its
 1-bit uplink through the quantize-dequantize kernel once a round) and
 Selective-FD (confidence-gated uploads, without and with the cache) on
-both engines, and mean on the device engine.
+both engines, mean on the device engine, COMET on the host loop (host
+k-means, per-client teachers through a quant8 downlink), the FedAvg and
+Individual baselines, and SCARLET with a ``cache_delta+topk2`` uplink on
+both engines.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -36,8 +39,8 @@ Last come the reduced whisper configuration on the card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
 mode itself), so a host sync inside a round fails the run.  A small
-configuration runs on the card and on the CPU through both engines, and
-the script prints one JSON line for the kernels and, last,
+configuration runs on the card and on the CPU through both engines (and
+COMET and FedAvg through the front door), and the script prints one JSON line for the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero without the last line.  Without a CUDA device it exits 1
 at once.  It imports neither ``jax`` nor ``repro``.
@@ -122,6 +125,16 @@ CFD_ROUND1 = (125000.0, 4800000.0)
 # masks (check_selective_fd_ledger).
 SFD_LEDGER_RTOL = 2.0 ** -22
 COMPARISON_ROUNDS = SLICE_ROUNDS
+# COMET on the host loop: the cache plugged in at CACHE_DURATION, the
+# slice's uplink codec and a quant8 downlink, which round-trips the
+# shared teacher and the (100, 1000, 10) per-client stack: three qdq
+# launches a round.
+COMET_DOWNLINK = "quant8"
+COMET_QDQ_A_ROUND = 3
+# SCARLET with a top-k residual uplink: 2 values and 2 indices a row of
+# the N - 1 sent classes, indices at the run's FLConfig.index_bytes.
+TOPK_CODEC = "cache_delta+topk2"
+TOPK_INDEX_BYTES = 1.0
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -475,7 +488,8 @@ def check_fused_round(device) -> float:
 # ---------------------------------------------------------------------------
 
 def run_engine(device, label: str, method: str, engine: str, *, fused: bool = False,
-               codec: str = "identity", cache_duration: int = 0,
+               codec: str = "identity", downlink: str = "identity",
+               index_bytes: float = 4.0, cache_duration: int = 0,
                use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
                **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
@@ -492,7 +506,7 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     from repro_torch.kernels.runtime import divide
 
     cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=codec,
-                   fused_round=fused)
+                   downlink_codec=downlink, index_bytes=index_bytes, fused_round=fused)
     strat = STRATEGIES[method](**strategy_kw)
     masks = []
     if method == "selective_fd":
@@ -504,6 +518,19 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
             return um
 
         strat.upload_mask = recorded
+    agg_s = []
+    if method == "comet":  # the host k-means' share of the round
+        agg = strat.aggregate
+
+        def timed(z, um, t):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = agg(z, um, t)
+            _sync(device)
+            agg_s.append(time.perf_counter() - t0)
+            return out
+
+        strat.aggregate = timed
     Engine = FederatedDistillation if engine == "host" else ScannedFederatedDistillation
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
@@ -536,7 +563,7 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     log(f"{label}: final server_acc={sa!r} client_acc={ca!r}")
     log(f"{label}: launches {launches}")
     run = dict(eng=eng, ledger=ledger, launches=launches, per_round_ms=per_round * 1e3,
-               summary=summary, masks=masks, label=label)
+               summary=summary, masks=masks, aggregate_s=agg_s, label=label)
     check_outputs(run, sa, ca)
     return run
 
@@ -549,8 +576,9 @@ def check_outputs(run: dict, sa: float, ca: float) -> None:
         raise AssertionError(f"{run['label']}: accuracies not above chance: {sa}, {ca}")
     eng = run["eng"]
     for rows in (eng.prev_teacher[1], eng.cache_g.values[eng.cache_g.present]):
+        sums = rows.sum(-1)
         if not (torch.isfinite(rows).all()
-                and torch.allclose(rows.sum(-1), torch.ones_like(rows[:, 0]), atol=1e-5)):
+                and torch.allclose(sums, torch.ones_like(sums), atol=1e-5)):
             raise AssertionError(f"{run['label']}: teachers are not finite probability rows")
 
 
@@ -755,8 +783,124 @@ def run_comparison_methods(device, card: str) -> None:
     r = run("mean", "scan")
     check_launches(r["launches"], {})
     runs["mean scan"] = r
+    runs["comet host cache"] = run_comet(device)
+    for method in ("fedavg", "individual"):
+        runs[f"{method} host"] = run_baseline(device, method)
+    pair = [run_topk_scarlet(device, engine) for engine in ("host", "scan")]
+    runs["scarlet topk host"], runs["scarlet topk scan"] = pair
+    compare_runs("scarlet topk device engine vs host loop", pair[1], pair[0], 1e-7, ERA_ATOL)
     log(f"comparison methods ({card}): " + ", ".join(
         f"{k} {v['per_round_ms']:.3f} ms/round" for k, v in runs.items()))
+
+
+def check_codec_ledger(run: dict, up_bytes, down_bytes) -> None:
+    """Each round's bytes at full participation with the cache on:
+    ``up_bytes(n)`` and ``down_bytes(n)`` a client for ``n`` requested
+    samples (``request_masks``), the downlink with the request list and
+    the signals over all of P^t (indices at the run's ``index_bytes``)."""
+    K, m = SLICE["n_clients"], SLICE["public_per_round"]
+    cfg = run["eng"].cfg
+    ib = cfg.index_bytes
+    misses = request_masks(len(run["ledger"]), CACHE_DURATION, cfg.seed)
+    for t, (r, miss) in enumerate(zip(run["ledger"], misses), start=1):
+        n = int(miss.sum())
+        want = (float(K * up_bytes(n)),
+                float(K * (down_bytes(n) + n * ib + m * ib + m * 0.25)))
+        if (r.uplink, r.downlink) != want:
+            raise AssertionError(f"{run['label']} round {t}: ledger {r}, {n} requests: "
+                                 f"want {want}")
+    log(f"{run['label']}: requests a round {[int(x.sum()) for x in misses]}; every "
+        "round's bytes equal the analytic value ok")
+
+
+def run_comet(device) -> dict:
+    """COMET on the host loop: qdq three times a round (the uplink's
+    residual, the downlink's shared teacher and per-client stack), each
+    round's bytes analytic, and clients of different clusters distilling
+    on different teachers."""
+    N = SLICE["n_classes"]
+    r = run_engine(device, f"comet host loop cache D={CACHE_DURATION}", "comet", "host",
+                   codec=CODEC, downlink=COMET_DOWNLINK, use_cache=True,
+                   cache_duration=CACHE_DURATION, rounds=COMPARISON_ROUNDS)
+    check_launches(r["launches"],
+                   {"quantize_dequantize": COMET_QDQ_A_ROUND * COMPARISON_ROUNDS})
+    check_codec_ledger(r, lambda n: n * (N - 1) * 8 / 8.0, lambda n: n * N * 8 / 8.0)
+    teach = r["eng"].prev_teacher[1]
+    K = SLICE["n_clients"]
+    if tuple(teach.shape) != (K, SLICE["public_per_round"], N):
+        raise AssertionError(f"comet: per-client teachers of shape {tuple(teach.shape)}")
+    n_distinct = int(torch.unique(teach.reshape(K, -1), dim=0).shape[0])
+    agg_ms = statistics.mean(r["aggregate_s"][1:]) * 1e3
+    log(f"{r['label']}: quantize_dequantize {COMET_QDQ_A_ROUND} a round ok; "
+        f"{n_distinct} distinct per-client teachers among {K} clients; aggregate "
+        f"(host k-means and cluster teachers, synchronized) {agg_ms:.3f} ms a round "
+        f"after round 1, of {r['per_round_ms']:.3f}")
+    if n_distinct < 2:
+        raise AssertionError("comet: every client got the same teacher")
+    return r
+
+
+def run_baseline(device, method: str) -> dict:
+    """FedAvg or Individual at the slice's population: round 1, then the
+    other rounds (host clock), no kernel launched; round 1's bytes are
+    FedAvg's two copies of the model a client, Individual's none."""
+    from repro_torch.fl import FedAvg, FLConfig, Individual
+    from repro_torch.kernels import ops
+
+    rounds = COMPARISON_ROUNDS
+    cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds)
+    t0 = time.perf_counter()
+    b = (FedAvg if method == "fedavg" else Individual)(cfg, device=device)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    first = b.run(1)
+    _sync(device)
+    t1 = time.perf_counter()
+    rest = b.run(rounds - 1)
+    _sync(device)
+    t2 = time.perf_counter()
+    launches = ops.launches()
+    per_round = (t2 - t1) / (rounds - 1)
+    label = f"{method} host"
+    K, n_params = SLICE["n_clients"], b.fd.n_params
+    want = ((K * n_params * 4.0, K * n_params * 4.0) if method == "fedavg" else (0.0, 0.0))
+    r1 = first.ledger.rounds[0]
+    accs = first.server_acc + first.client_acc + rest.server_acc + rest.client_acc
+    log(f"{label}: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, then "
+        f"{per_round * 1e3:.3f} ms/round over {rounds - 1} rounds (host clock, synchronized; "
+        "one eval included)")
+    log(f"{label}: round-1 ledger {(r1.uplink, r1.downlink)} ({n_params} parameters); "
+        f"final server_acc={rest.final_server_acc!r} client_acc={rest.final_client_acc!r}; "
+        f"launches {launches}")
+    if (r1.uplink, r1.downlink) != want:
+        raise AssertionError(f"{label}: round-1 ledger {r1} != {want}")
+    check_launches(launches, {})
+    if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+        raise AssertionError(f"{label}: accuracies outside [0, 1]: {accs}")
+    if method == "individual" and rest.final_server_acc is not None:
+        raise AssertionError("individual: a server accuracy was reported")
+    return dict(per_round_ms=per_round * 1e3, launches=launches, label=label)
+
+
+def run_topk_scarlet(device, engine: str) -> dict:
+    """SCARLET with the top-k residual uplink on the host loop or the
+    per-op device engine: the ERA kernel once a round, no qdq; round 1
+    sends 2 values and 2 indices for each of the 1000 samples."""
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    label = f"scarlet {TOPK_CODEC} " + ("host loop" if engine == "host"
+                                        else "device engine per-op")
+    r = run_engine(device, label, "scarlet", engine, codec=TOPK_CODEC,
+                   index_bytes=TOPK_INDEX_BYTES, cache_duration=CACHE_DURATION,
+                   rounds=COMPARISON_ROUNDS, beta=BETA)
+    check_launches(r["launches"], {"enhanced_era_fused": COMPARISON_ROUNDS})
+    up1 = float(K * m * 2 * (4.0 + TOPK_INDEX_BYTES))
+    if r["ledger"][0].uplink != up1:
+        raise AssertionError(f"{label}: round-1 uplink {r['ledger'][0].uplink} != {up1}")
+    check_codec_ledger(r, lambda n: n * 2 * (4.0 + TOPK_INDEX_BYTES),
+                       lambda n: n * N * 4.0)
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +919,33 @@ def run_small(device, engine: str):
             FLConfig(**SMALL, fused_round=True), STRATEGIES["scarlet"](beta=BETA),
             cache_duration=2, device=device)
     return eng, eng.run()
+
+
+def check_small_methods_cuda_vs_cpu() -> None:
+    """COMET (its k-means on the host, from the card's or the CPU's
+    predictions) and FedAvg through the front door on the small
+    configuration, card against CPU: equal ledgers, accuracies within one
+    test sample."""
+    import dataclasses
+
+    from repro_torch.fl import FLConfig, run_method
+
+    n_test = max(SMALL["private_size"] // 5, 200)  # the synthetic test set
+    for method in ("comet", "fedavg"):
+        cfg = FLConfig(**SMALL)
+        if method == "fedavg":  # the baseline exchanges parameters: no codec
+            cfg = dataclasses.replace(cfg, uplink_codec="identity")
+        g, c = (run_method(method, cfg, device=d) for d in ("cuda", "cpu"))
+        equal = g.ledger.summary() == c.ledger.summary()
+        acc_err = max(abs(a - b) for a, b in zip(g.server_acc + g.client_acc,
+                                                 c.server_acc + c.client_acc))
+        log(f"small run ({method}) cuda vs cpu: ledger equal={equal} accuracy max "
+            f"diff={acc_err!r} (one test sample = {1.0 / n_test!r})")
+        if not equal:
+            raise AssertionError(f"{method}: ledgers differ: {g.ledger.summary()} vs "
+                                 f"{c.ledger.summary()}")
+        if acc_err > 1.0 / n_test + 1e-6:
+            raise AssertionError(f"{method}: accuracies differ by {acc_err}")
 
 
 def check_small_cuda_vs_cpu(engine: str) -> None:
@@ -1597,6 +1768,7 @@ def main() -> int:
     # 5. card vs CPU on a small configuration, both engines
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
+    check_small_methods_cuda_vs_cpu()
     # 5b. the reduced whisper prefill, card vs CPU
     check_whisper_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the

@@ -197,6 +197,8 @@ def check_codec(name: str, factory, plans: Optional[List] = None) -> List[Findin
     present = tensor_spec((_M,), torch.bool)
     viol = []
     for hook, fn, args in (
+            ("encode", lambda z_: codec.encode(z_), (z,)),
+            ("decode(encode)", lambda z_: codec.decode(codec.encode(z_)), (z,)),
             ("roundtrip", lambda z_: codec.roundtrip(z_), (z,)),
             ("roundtrip+base",
              lambda z_, b_, p_: codec.roundtrip(z_, base=b_, present=p_), (z, base, present)),
@@ -206,7 +208,7 @@ def check_codec(name: str, factory, plans: Optional[List] = None) -> List[Findin
         v = tr.scan_safety_violations()
         if v:
             viol.append(f"{hook}: " + "; ".join(v))
-        if tr.ok and tuple(tr.output.shape) != (_M, _N):
+        if tr.ok and hook != "encode" and tuple(tr.output.shape) != (_M, _N):
             findings.append(Finding(
                 "error", "contract", subject,
                 f"{hook} output shape {tuple(tr.output.shape)} != input {(_M, _N)} "
@@ -217,7 +219,7 @@ def check_codec(name: str, factory, plans: Optional[List] = None) -> List[Findin
                                 f"declared scan_safe=True but {v}") for v in viol)
     elif not codec.scan_safe and not viol:
         findings.append(Finding("warn", "contract", subject,
-                                "declared scan_safe=False but roundtrip traces clean — "
+                                "declared scan_safe=False but encode/decode trace clean — "
                                 "stale flag?"))
     else:
         findings.append(Finding("ok", "contract", subject,

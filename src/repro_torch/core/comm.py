@@ -17,7 +17,8 @@ import numpy as np
 
 __all__ = ["BYTES_F32", "BYTES_INDEX", "BYTES_SIGNAL", "index_bytes_for",
            "RoundCost", "CommLedger", "soft_label_bytes",
-           "distillation_round_cost", "distillation_round_cost_device"]
+           "distillation_round_cost", "distillation_round_cost_device",
+           "fedavg_round_cost"]
 
 BYTES_F32 = 4.0
 BYTES_INDEX = 4.0
@@ -181,3 +182,10 @@ def distillation_round_cost(
         downlink_codec=downlink_codec,
     )
     return RoundCost(uplink=float(up), downlink=float(down))
+
+
+def fedavg_round_cost(*, n_clients: int, n_params: int, bits: float = 32.0) -> RoundCost:
+    """Parameter sharing (FedAvg): each client downloads the server model
+    and uploads its own, ``n_params`` values of ``bits`` bits each way."""
+    per = n_params * bits / 8.0
+    return RoundCost(uplink=n_clients * per, downlink=n_clients * per)

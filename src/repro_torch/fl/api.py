@@ -5,6 +5,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+from repro_torch.fl.baselines import FedAvg, Individual
 from repro_torch.fl.cohorts import CohortSpec
 from repro_torch.fl.config import FLConfig
 from repro_torch.fl.rounds import FederatedDistillation, History
@@ -17,7 +18,6 @@ __all__ = ["run_method"]
 _ENGINES = {"host": FederatedDistillation,
             "scan": ScannedFederatedDistillation}
 _NOT_PORTED_ENGINES = ("shard", "active", "async")
-_NOT_PORTED_METHODS = ("comet", "fedavg", "individual")
 
 
 def run_method(
@@ -43,27 +43,27 @@ def run_method(
 ) -> History:
     """Run one FL method end-to-end and return its History.
 
-    ``method`` in {scarlet, dsfl, cfd, mean, selective_fd}, each on
-    ``engine="host"`` (the round loop of :mod:`repro_torch.fl.rounds`) or
-    ``"scan"`` (the device-resident engine of
-    :mod:`repro_torch.fl.scan_engine`, which takes ``fused_round``; only
-    scarlet with a static beta has a fused path, as in the reference, and
-    any other method raises ``ValueError`` under ``fused_round=True``).
-    CFD's 1-bit uplink runs the quantize-dequantize kernel once a round.
-    The keywords mean what they mean in ``repro.fl.run_method``.
-    ``device`` is ``"cuda"`` by default and the run raises when there is
-    no CUDA device; pass ``device="cpu"`` to run on the CPU.  Methods,
-    engines and options of the reference that are not ported yet (comet,
-    fedavg, individual) raise ``NotImplementedError``.
+    ``method`` in {scarlet, dsfl, cfd, comet, selective_fd, mean, fedavg,
+    individual}.  The distillation methods run on ``engine="host"`` (the
+    round loop of :mod:`repro_torch.fl.rounds`) or ``"scan"`` (the
+    device-resident engine of :mod:`repro_torch.fl.scan_engine`, which
+    takes ``fused_round``; only scarlet with a static beta has a fused
+    path, as in the reference, and any other method raises ``ValueError``
+    under ``fused_round=True``); comet (host numpy k-means, per-client
+    teachers) runs on the host loop only and raises ``ValueError`` on the
+    device engine, as in the reference.  The baselines fedavg and
+    individual (:mod:`repro_torch.fl.baselines`) run on the host and
+    refuse every option that does not apply to them with the reference's
+    ``ValueError``.  The keywords mean what they mean in
+    ``repro.fl.run_method``.  ``device`` is ``"cuda"`` by default and the
+    run raises when there is no CUDA device; pass ``device="cpu"`` to run
+    on the CPU.  Engines and options of the reference that are not ported
+    yet raise ``NotImplementedError``.
     """
-    if engine in _NOT_PORTED_ENGINES:
-        raise NotImplementedError(f"engine={engine!r} is not yet ported")
-    if engine not in _ENGINES:
+    if engine not in _ENGINES and engine not in _NOT_PORTED_ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")
-    if traffic is not None:
+    if traffic is not None and engine != "async":
         raise ValueError("traffic models apply to engine='async' only")
-    if method in _NOT_PORTED_METHODS:
-        raise NotImplementedError(f"method {method!r} is not yet ported")
     if codec is not None:
         cfg = dataclasses.replace(cfg, uplink_codec=codec)
     if downlink_codec is not None:
@@ -74,6 +74,29 @@ def run_method(
         cfg = dataclasses.replace(cfg, fused_round=fused_round)
     if telemetry is not None:
         cfg = dataclasses.replace(cfg, telemetry=telemetry)
+    if method in ("fedavg", "individual"):
+        if cfg.cohorts:
+            raise ValueError(
+                f"{method} assumes the homogeneous (hidden, mlp_depth) "
+                "model; client-model cohorts only apply to "
+                "distillation-based methods")
+        if engine != "host":
+            raise ValueError(f"{method} is a baseline with no scanned/sharded "
+                             "path; use engine='host'")
+        if rng_backend is not None:
+            raise ValueError(f"{method} has no rng_backend knob (baselines "
+                             "draw nothing from the round key stream)")
+        if cfg.uplink_codec != "identity" or cfg.downlink_codec != "identity":
+            raise ValueError(f"{method} exchanges parameters, not "
+                             "soft-labels; codecs do not apply")
+        if cfg.telemetry:
+            raise ValueError(f"{method} has no distillation round to "
+                             "instrument; telemetry applies to "
+                             "distillation-based methods only")
+        cls = FedAvg if method == "fedavg" else Individual
+        return cls(cfg, device=device).run(rounds)
+    if engine in _NOT_PORTED_ENGINES:
+        raise NotImplementedError(f"engine={engine!r} is not yet ported")
     strat = STRATEGIES[method](**strategy_kw)
     kw = dict(cache_duration=cache_duration,
               use_cache=use_cache,

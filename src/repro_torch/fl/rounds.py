@@ -17,8 +17,10 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
      give what the server sees, and the strategy's upload mask what each
      client sends (Selective-FD);
   4. the strategy aggregates the participants' stack (SCARLET: the fused
-     ERA kernel); the teacher is assembled from fresh and cached entries,
-     the global cache updated, the server model distilled;
+     ERA kernel; COMET: per-cluster teachers, which the clients distill on
+     next round, through the downlink codec like the shared teacher); the
+     teacher is assembled from fresh and cached entries, the global cache
+     updated, the server model distilled;
   5. the ledger records exact bytes, catch-up packages included.
 
 Entry points run on ``device="cuda"`` by default and raise when there is
@@ -212,8 +214,8 @@ class FederatedDistillation:
         if self.D == 0:
             self.use_cache = False
         self.scenario = scenario or Scenario.from_participation_rate(cfg.participation)
-        self.codec_up = get_codec(cfg.uplink_codec)
-        self.codec_down = get_codec(cfg.downlink_codec)
+        self.codec_up = get_codec(cfg.uplink_codec, index_bytes=cfg.index_bytes)
+        self.codec_down = get_codec(cfg.downlink_codec, index_bytes=cfg.index_bytes)
         self.rng_idx = np.random.default_rng([cfg.seed, 17])
         self.rng_part = np.random.default_rng([cfg.seed, 29])
         self._setup()
@@ -253,6 +255,7 @@ class FederatedDistillation:
         self.client_params = [{k: self._tensor(v) for k, v in p.items()}
                               for p in clients]
         self.server_params = {k: self._tensor(v) for k, v in server.items()}
+        self.n_params = sum(v.numel() for v in self.server_params.values())
 
         # Appendix-D validation splits: 10% of public for the server proxy,
         # the last 10% of each client's private shard for the client proxy
@@ -268,18 +271,22 @@ class FederatedDistillation:
         train_mask = mask & (pos < val_cut[:, None])
         m = self.models
         f32 = torch.float32
-        self.xs_c = m.split(self._tensor(xs))
-        self.ys_c = m.split(self._tensor(ys, torch.int64))
+        # the whole private shards and test shards (the baselines train
+        # and test on these), and their per-cohort views
+        self.xs, self.ys = self._tensor(xs), self._tensor(ys, torch.int64)
+        self.mask = self._tensor(mask, f32)
+        self.xts, self.yts = self._tensor(xts), self._tensor(yts, torch.int64)
+        self.tmask = self._tensor(tmask, f32)
+        self.xs_c, self.ys_c = m.split(self.xs), m.split(self.ys)
         self.train_mask_c = m.split(self._tensor(train_mask, f32))
         self.val_mask_c = m.split(self._tensor(val_mask, f32))
-        self.xts_c = m.split(self._tensor(xts))
-        self.yts_c = m.split(self._tensor(yts, torch.int64))
-        self.tmask_c = m.split(self._tensor(tmask, f32))
+        self.xts_c, self.yts_c = m.split(self.xts), m.split(self.yts)
+        self.tmask_c = m.split(self.tmask)
         self.last_teacher_val: Optional[torch.Tensor] = None
 
         self.cache_g = cache_lib.init_cache(c.public_size, c.n_classes,
                                             device=self.device)
-        self.prev_teacher = None  # (idx tensor, (m, N) teacher)
+        self.prev_teacher = None  # (idx tensor, (m, N) or per-client (K, m, N) teacher)
         self.last_sync = np.zeros(c.n_clients, np.int64)  # last participated round
         self.t_done = 0  # rounds completed so far (run() continues from here)
 
@@ -360,10 +367,13 @@ class FederatedDistillation:
     # engine.
     def _distill_all(self, params: List[Params], x_prev,
                      pteach) -> List[Params]:
-        """Every cohort distilled on the shared ``(m, N)`` teacher."""
+        """Every cohort distilled on the shared ``(m, N)`` teacher or on
+        its clients' rows of a per-client ``(K, m, N)`` stack (COMET)."""
         c = self.cfg
-        return [distill(p, x_prev, pteach, c.lr_dist, c.distill_steps)
-                for p in params]
+        teach_c = (self.models.split(pteach) if pteach.dim() == 3
+                   else [pteach] * len(params))
+        return [distill(p, x_prev, teach_c[i], c.lr_dist, c.distill_steps)
+                for i, p in enumerate(params)]
 
     def _local_train_all(self, params: List[Params]) -> List[Params]:
         """Every cohort's local training on its private shards."""
@@ -430,14 +440,14 @@ class FederatedDistillation:
         zsel = z_all[part_t] if n_part < K else z_all
         umsel = None if um is None else (um[part_t] if n_part < K else um)
         fresh, per_client = s.aggregate(zsel, umsel, t)
-        if per_client is not None:
-            raise NotImplementedError(
-                "per-client teachers (COMET) are not yet ported")
         if not self.codec_down.is_identity:
             # clients receive (and cache) the decoded broadcast; the server
             # uses the same decoded teacher so both caches stay identical
             fresh = self.codec_down.roundtrip(fresh, base=base,
                                               present=base_present)
+            if per_client is not None:
+                per_client = self.codec_down.roundtrip(
+                    per_client, base=base, present=base_present)
 
         # --- assemble teacher + cache update ------------------------------
         cache_prev = self.cache_g  # pre-round state: catch-up covers <= t-1
@@ -454,7 +464,14 @@ class FederatedDistillation:
         # App.-D proxy teacher on the public validation split
         zv = self._predict_all(self.client_params, self.x_pub[self.pub_val_idx])
         self.last_teacher_val = zv.mean(0)
-        self.prev_teacher = (idx_t, teacher)
+        teach_next = teacher
+        if per_client is not None:  # COMET: personalized teachers
+            teach_next = per_client
+            if per_client.shape[0] != K:  # partial participation: clients
+                # without a cluster this round fall back to the round's teacher
+                teach_next = teacher.expand((K,) + teacher.shape).clone()
+                teach_next[self._tensor(np.nonzero(part)[0])] = per_client
+        self.prev_teacher = (idx_t, teach_next)
 
         # --- catch-up packages for returning stragglers --------------------
         catch_up = 0.0

@@ -1,11 +1,12 @@
-"""Aggregation-strategy registry: one module per method (the ported
-subset of ``repro.fl.strategies``)."""
+"""Aggregation-strategy registry: one module per method (counterpart of
+``repro.fl.strategies``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from repro_torch.fl.strategies.base import Strategy
 from repro_torch.fl.strategies.cfd import CFDStrategy
+from repro_torch.fl.strategies.comet import COMETStrategy
 from repro_torch.fl.strategies.dsfl import ERAStrategy
 from repro_torch.fl.strategies.mean import MeanStrategy
 from repro_torch.fl.strategies.scarlet import EnhancedERAStrategy
@@ -16,8 +17,9 @@ STRATEGIES: Dict[str, Callable[..., Strategy]] = {
     "dsfl": ERAStrategy,
     "scarlet": EnhancedERAStrategy,
     "cfd": CFDStrategy,
+    "comet": COMETStrategy,
     "selective_fd": SelectiveFDStrategy,
 }
 
 __all__ = ["Strategy", "MeanStrategy", "ERAStrategy", "EnhancedERAStrategy",
-           "CFDStrategy", "SelectiveFDStrategy", "STRATEGIES"]
+           "CFDStrategy", "COMETStrategy", "SelectiveFDStrategy", "STRATEGIES"]

@@ -136,6 +136,30 @@ def test_repo_contract_pass_clean():
             if label.startswith(("strategy:cfd", "strategy:mean", "strategy:selective_fd"))
             } == {"strategy:cfd/transmit#0": "qdq_tile",
                   "strategy:cfd{'b_up': 8}/transmit#0": "qdq_tile"}
+    # COMET is host-only, justified by its aggregate; top-k is scan-safe,
+    # its wire forms traced as well
+    for name in ("comet", "comet{'n_clusters': 3}"):
+        msgs = [f.message for f in got if f.subject == f"strategy:{name}"]
+        assert len(msgs) == 1 and msgs[0].startswith("scan_safe=False justified: ")
+        assert "to the host" in msgs[0]
+    assert [f.message for f in got if f.subject == "codec:topk"] == [
+        "scan_safe=True verified"]
+
+
+@pytest.mark.parametrize("kw", [{}, {"n_clusters": 3}])
+def test_comet_aggregate_trace_records_the_host_copy_and_the_rng(kw):
+    """COMET's k-means copies the stack to the host and seeds a numpy
+    Generator: the trace records both (the copy's ``.numpy()`` then fails
+    on the fake tensor)."""
+    from repro_torch.analysis.traceutil import tensor_spec, trace
+    from repro_torch.fl.strategies import STRATEGIES
+
+    s = STRATEGIES["comet"](**kw)
+    tr = trace(lambda z_: s.aggregate(z_, None, 1), tensor_spec((8, 16, 10)))
+    assert not tr.ok
+    assert tr.to_host == ["(8, 160) to the host"]
+    assert tr.host_rng == ["np.random.default_rng"]
+    assert len(tr.scan_safety_violations()) == 3
 
 
 def test_repo_launch_pass_clean():
@@ -238,7 +262,7 @@ def _levels(findings):
     return Counter(f.level for f in findings)
 
 
-@pytest.mark.parametrize("name", ["scarlet", "dsfl", "cfd", "mean", "selective_fd"])
+@pytest.mark.parametrize("name", ["scarlet", "dsfl", "cfd", "mean", "selective_fd", "comet"])
 def test_strategy_levels_match_the_reference(jax_core_shim, name):
     from repro.analysis import jaxpr_checks
     from repro.fl.strategies import STRATEGIES as RSTRAT
@@ -252,7 +276,8 @@ def test_strategy_levels_match_the_reference(jax_core_shim, name):
             f for f in ref if f.subject == subject), subject
 
 
-@pytest.mark.parametrize("name", ["identity", "quant8", "quant4", "quant1", "cache_delta"])
+@pytest.mark.parametrize("name", ["identity", "quant8", "quant4", "quant1", "topk",
+                                  "cache_delta"])
 def test_codec_levels_match_the_reference(jax_core_shim, name):
     from repro.analysis import jaxpr_checks
     from repro.compress.codecs import CODECS as RCOD
@@ -277,9 +302,8 @@ def test_port_registries_are_the_references_subset():
     from repro_torch.compress.codecs import CODECS as PCOD
     from repro_torch.fl.strategies import STRATEGIES as PSTRAT
 
-    assert set(PSTRAT) == {"scarlet", "dsfl", "cfd", "mean", "selective_fd"}
-    assert set(PSTRAT) <= set(RSTRAT)
-    assert set(PCOD) == set(RCOD) - {"topk"}
+    assert set(PSTRAT) == set(RSTRAT)
+    assert set(PCOD) == set(RCOD)
 
 
 # the reference's kernel fixtures -> the port's, label for label

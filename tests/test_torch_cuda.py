@@ -14,7 +14,9 @@ one bfloat16 step in bfloat16;
 per-row Enhanced ERA atol 1e-6 in float32, and in bfloat16 bit for bit the
 float32 kernel's result rounded once; the distillation loss 1e-5 of each
 row's magnitude ``|lse| * |sum t| + sum |t * l|`` (float32 sums of V terms
-in two orders).
+in two orders); top-k's indices on the card equal the CPU's (a stable
+sort on both), its decoded rows to atol 1e-6 (the simplex projection's
+row sum runs in another order on the card).
 """
 import numpy as np
 import pytest
@@ -246,6 +248,65 @@ def test_cfd_transmit_on_the_card_matches_plain(dev):
     want = pfl.STRATEGIES["cfd"]().transmit(z.cpu())
     assert got.device.type == "cuda"
     assert float((got.cpu() - want).abs().max()) <= ATOL
+
+
+def test_topk_ties_on_the_card_select_the_cpu_indices(dev):
+    """Top-k selects by a stable descending sort on the card too, so tied
+    rows give the CPU's indices (the lower class index first) and keep
+    the same entries."""
+    from repro_torch.compress import get_codec
+
+    rng = np.random.default_rng(4)
+    # values on a coarse grid: most rows hold ties
+    z = torch.from_numpy((rng.integers(0, 4, size=(3000, 10)) / 4.0).astype(np.float32))
+    z[:3] = torch.tensor([[0.25] * 4 + [0.0] * 6, [0.1, 0.3, 0.3, 0.3] + [0.0] * 6,
+                          [0.0, 0.0, 0.5, 0.5] + [0.0] * 6])
+    for spec in ("topk2", "topk4", "cache_delta+topk2"):
+        c = get_codec(spec)
+        inner = getattr(c, "inner", c)
+        for x in (z, z - 0.25):
+            got = inner.encode(x.to(dev))["indices"].cpu()
+            assert torch.equal(got, inner.encode(x)["indices"])
+        # the same entries survive; their values to float32 rounding (the
+        # simplex projection sums each row in another order on the card)
+        got, want = c.roundtrip(z.to(dev)).cpu(), c.roundtrip(z)
+        assert torch.equal(got != 0, want != 0)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+def test_comet_per_client_downlink_through_qdq_matches_plain(dev):
+    """COMET's (100, 1000, 10) per-client stack through a quant8 downlink:
+    one qdq launch, its plain version to atol 1e-6 with no level flips."""
+    z = _probs(12, (100, 1000, 10), dev)
+    _, per_client = pfl.STRATEGIES["comet"]().aggregate(z, None, 1)
+    assert per_client.shape == (100, 1000, 10) and per_client.device.type == "cuda"
+    ops.reset_launches()
+    got = quant_kernel.quantize_dequantize(per_client, 8)
+    torch.cuda.synchronize()
+    assert ops.launches()["quantize_dequantize"] == 1
+    want = quant_kernel.quantize_dequantize_plain(per_client, 8)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    scale = torch.clamp_min(per_client.amax(-1, keepdim=True)
+                            - per_client.amin(-1, keepdim=True), 1e-9)
+    assert int(((got - want).abs() >= 0.5 * scale / 255).sum()) == 0
+
+
+def test_comet_and_fedavg_on_the_card_match_the_cpu(dev):
+    """The same small COMET (quant8 downlink: three qdq launches a round
+    with a lossy uplink) and FedAvg runs on the card and on the CPU:
+    equal ledgers, accuracies within one test sample."""
+    cfg = pfl.FLConfig(**dict(_SMALL, participation=1.0, downlink_codec="quant8"))
+    for method, launches in (("comet", 3 * _SMALL["rounds"]), ("fedavg", 0)):
+        c = cfg if method == "comet" else pfl.FLConfig(**dict(_SMALL, uplink_codec="identity"))
+        ops.reset_launches()
+        g = pfl.run_method(method, c, device=dev)
+        got = ops.launches()
+        assert got == dict(dict.fromkeys(got, 0), quantize_dequantize=launches)
+        h = pfl.run_method(method, c, device="cpu")
+        assert g.ledger.summary() == h.ledger.summary()
+        n_test = max(_SMALL["private_size"] // 5, 200)  # the synthetic test set
+        for a, b in zip(g.server_acc + g.client_acc, h.server_acc + h.client_acc):
+            assert abs(a - b) <= 1.0 / n_test + 1e-6
 
 
 def test_host_sync_inside_a_device_round_raises(dev):

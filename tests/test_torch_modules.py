@@ -184,9 +184,18 @@ def test_ledger_summary_byte_identical():
     assert jl.cumulative_total == pl.cumulative_total
 
 
+@pytest.mark.parametrize("n_clients,n_params,bits", [(6, 229, 32.0), (100, 3210, 32.0),
+                                                     (3, 17, 8.0), (0, 5, 32.0)])
+def test_fedavg_round_cost_equals_reference(n_clients, n_params, bits):
+    kw = dict(n_clients=n_clients, n_params=n_params, bits=bits)
+    got, want = pcomm.fedavg_round_cost(**kw), jcomm.fedavg_round_cost(**kw)
+    assert (got.uplink, got.downlink) == (want.uplink, want.downlink)
+
+
 @pytest.mark.parametrize("spec", ["identity", "quant8", "quant4", "quant1",
                                   "quant6", "cache_delta", "cache_delta+quant8",
-                                  "cache_delta+quant4"])
+                                  "cache_delta+quant4", "topk", "topk4",
+                                  "cache_delta+topk2"])
 def test_round_cost_and_payload_bytes_equal(spec):
     jc, pc = jcodecs.get_codec(spec), pcodecs.get_codec(spec)
     assert jc.name == pc.name and jc.is_identity == pc.is_identity
@@ -255,10 +264,13 @@ def test_codec_registry():
     assert isinstance(pcodecs.get_codec(None), pcodecs.IdentityCodec)
     c = pcodecs.QuantCodec(3)
     assert pcodecs.get_codec(c) is c
-    with pytest.raises(NotImplementedError):
-        pcodecs.get_codec("topk4")
-    with pytest.raises(NotImplementedError):
-        pcodecs.get_codec("cache_delta+topk2")
+    t4 = pcodecs.get_codec("topk4")
+    assert (type(t4), t4.name, t4.k, t4.renormalize, t4.index_bytes) == (
+        pcodecs.TopKCodec, "topk4", 4, True, 4.0)
+    d2 = pcodecs.get_codec("cache_delta+topk2", index_bytes=1)
+    assert (d2.name, d2.inner.name, d2.inner.k, d2.inner.renormalize,
+            d2.inner.index_bytes) == ("cache_delta+topk2", "topk2", 2, False, 1.0)
+    assert pcodecs.get_codec("topk").k == 2
     for bad in ("nope", "cache_deltaX"):
         with pytest.raises(ValueError):
             pcodecs.get_codec(bad)
@@ -444,9 +456,13 @@ def test_unported_options_raise():
                dict(probabilistic_expiry=True, cache_duration=2)]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
-    for method in ("comet", "fedavg", "individual"):
-        with pytest.raises(NotImplementedError, match=method):
-            pfl.run_method(method, cfg, device="cpu")
+    for method in ("fedavg", "individual"):
+        for kw in [dict(engine="shard"), dict(engine="scan"), dict(rng_backend="numpy"),
+                   dict(codec="quant8"), dict(telemetry=True)]:
+            with pytest.raises(ValueError, match=method):
+                pfl.run_method(method, cfg, device="cpu", **kw)
+    h = pfl.run_method("comet", cfg, device="cpu")
+    assert h.ledger.summary()["rounds"] == 2.0
     with pytest.raises(ValueError):
         pfl.run_method("scarlet", cfg, engine="bogus", device="cpu")
 

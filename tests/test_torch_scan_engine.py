@@ -73,7 +73,8 @@ CELLS = ([("scarlet", codec, scen, fused) for codec in CODECS
           for scen in SCENARIOS for fused in (False, True)]
          + [("dsfl", "identity", "full", False)]
          + [(method, "identity", scen, False)
-            for method in ("cfd", "mean", "selective_fd") for scen in SCENARIOS])
+            for method in ("cfd", "mean", "selective_fd") for scen in SCENARIOS]
+         + [("scarlet", "cache_delta+topk2", "full", False)])
 
 
 @pytest.mark.parametrize("method,codec,scen,fused", CELLS)
@@ -273,6 +274,25 @@ def test_constructor_rejects_what_the_engine_cannot_run():
     h = S(dataclasses.replace(cfg, uplink_codec="cache_delta+cache_delta"),
           scarlet(beta="adaptive"), cache_duration=1, device="cpu").run(1)
     assert h.ledger.summary()["rounds"] == 1.0
+
+
+@pytest.mark.parametrize("lib", ["reference", "port"])
+def test_comet_and_a_fused_topk_uplink_are_refused(lib):
+    """COMET (host numpy k-means) is not scan-safe, and top-k has no form
+    in the fused round kernel: both engines refuse them with ValueError."""
+    if lib == "reference":
+        L, S, kw = R, RScan, {}
+    else:
+        L, S, kw = P, P.ScannedFederatedDistillation, {"device": "cpu"}
+    cfg = L.FLConfig(**BASE)
+    with pytest.raises(ValueError, match="not scan-safe"):
+        S(cfg, L.STRATEGIES["comet"](), **kw)
+    with pytest.raises(ValueError, match="cache_delta\\+topk2"):
+        S(dataclasses.replace(cfg, fused_round=True, uplink_codec="cache_delta+topk2"),
+          L.STRATEGIES["scarlet"](), **kw)
+    if lib == "port":
+        with pytest.raises(ValueError, match="not scan-safe"):
+            P.run_method("comet", cfg, engine="scan", device="cpu")
 
 
 def test_injected_draws_are_checked():

@@ -3,9 +3,12 @@
 Both run the same configuration with the reference's numpy draws
 (``rng_backend="numpy"``), and the port starts from the reference's
 initial parameters, handed over through ``params_from_numpy``.  The
-cells cover SCARLET and DS-FL, and the comparison methods CFD (its 1-bit
-``transmit``), mean and Selective-FD (its upload mask, which the ledger
-charges).  Every cell holds the port to:
+cells cover SCARLET (with a ``cache_delta+topk2`` uplink too) and DS-FL,
+the comparison methods CFD (its 1-bit ``transmit``), mean, Selective-FD
+(its upload mask, which the ledger charges) and COMET (host numpy
+k-means, per-client teachers), and the baselines FedAvg and Individual
+(parameter sharing and isolated training on the whole private shards).
+Every cell holds the port to:
 
 - a byte-identical ledger summary (it is a function of integer counts);
 - equal cache timestamps and presence, and cache values to atol 1e-5
@@ -70,8 +73,39 @@ def test_comparison_method_matches_reference(method, codec, part, D, tau):
             assert min(ups) < full
 
 
-def _hold_host_loop(method, codec, part, D, use_cache, skw):
-    cfg = dict(BASE, participation=part, uplink_codec=codec)
+# COMET: full and half participation, the cache plug-in at D=1, a lossy
+# downlink (the per-client stack round-trips through it too), 3 clusters
+COMET_CELLS = [(1.0, 0, "identity", 2), (0.5, 0, "identity", 2), (1.0, 1, "identity", 2),
+               (1.0, 0, "quant8", 2), (0.5, 0, "quant8", 3), (1.0, 0, "identity", 3)]
+
+
+@pytest.mark.parametrize("part,D,down,n_clusters", COMET_CELLS)
+def test_comet_matches_reference(part, D, down, n_clusters):
+    ref, port = _hold_host_loop("comet", "identity", part, D, D > 0,
+                                {"n_clusters": n_clusters}, down=down)
+    # the next round's teachers: one per client, from its cluster (or the
+    # round's teacher where the client sat out)
+    (pidx, pteach), (ridx, rteach) = port.prev_teacher, ref.prev_teacher
+    np.testing.assert_array_equal(pidx.numpy(), np.asarray(ridx))
+    assert tuple(pteach.shape) == (BASE["n_clients"], BASE["public_per_round"],
+                                   BASE["n_classes"])
+    np.testing.assert_allclose(pteach.numpy(), np.asarray(rteach), rtol=0, atol=1e-5)
+    if part == 1.0:
+        assert len(np.unique(pteach.numpy().reshape(BASE["n_clients"], -1), axis=0)) > 1
+
+
+def test_scarlet_topk_uplink_matches_reference():
+    """SCARLET with a ``cache_delta+topk2`` uplink at 1-byte indices."""
+    rh, _ = _hold_host_loop("scarlet", "cache_delta+topk2", 1.0, 1, None, {"beta": 1.5},
+                            index_bytes=1.0)
+    K, m = BASE["n_clients"], BASE["public_per_round"]
+    assert rh.ledger.rounds[0].uplink == K * m * 2 * (4 + 1.0)
+
+
+def _hold_host_loop(method, codec, part, D, use_cache, skw, down="identity",
+                    index_bytes=4.0):
+    cfg = dict(BASE, participation=part, uplink_codec=codec, downlink_codec=down,
+               index_bytes=index_bytes)
     ref = R.FederatedDistillation(R.FLConfig(**cfg), R.STRATEGIES[method](**skw),
                                   cache_duration=D, use_cache=use_cache,
                                   rng_backend="numpy")
@@ -110,7 +144,45 @@ def _hold_host_loop(method, codec, part, D, use_cache, skw):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(port.last_sync),
                                   np.asarray(ref.last_sync))
+    if method == "comet":
+        return ref, port
     return rh, ph
+
+
+@pytest.mark.parametrize("method", ["fedavg", "individual"])
+@pytest.mark.parametrize("part", [1.0, 0.5])
+def test_baseline_matches_reference(method, part):
+    """FedAvg and Individual (participation does not apply to them)."""
+    cfg = dict(BASE, participation=part)
+    Ref = R.FedAvg if method == "fedavg" else R.Individual
+    Port = P.FedAvg if method == "fedavg" else P.Individual
+    ref, port = Ref(R.FLConfig(**cfg)), Port(P.FLConfig(**cfg), device="cpu")
+    port.load_params([_params_np(ref.client_params)], _params_np(ref.server_params))
+    rh, ph = ref.run(), port.run()
+
+    assert ph.ledger.summary() == rh.ledger.summary()
+    assert ph.cumulative_mb == rh.cumulative_mb
+    assert ph.rounds == rh.rounds
+    K = BASE["n_clients"]
+    n_params = sum(int(np.asarray(v).size) for v in ref.server_params.values())
+    want = (2 * K * n_params * 4.0) if method == "fedavg" else 0.0
+    assert [r.uplink + r.downlink for r in ph.ledger.rounds] == [want] * BASE["rounds"]
+    assert (ph.server_val_loss, ph.client_val_loss) == ([], [])
+    if method == "fedavg":
+        for k, v in ref.server_params.items():
+            np.testing.assert_allclose(port.server_params[k].numpy(), np.asarray(v),
+                                       rtol=0, atol=1e-4)
+    for k, v in ref.client_params.items():
+        np.testing.assert_allclose(port.client_params[k].numpy(), np.asarray(v),
+                                   rtol=0, atol=1e-4)
+    one_sample = 1.0 / len(ref.y_test)
+    np.testing.assert_allclose(ph.server_acc, rh.server_acc, rtol=0, atol=one_sample)
+    np.testing.assert_allclose(ph.client_acc, rh.client_acc, rtol=0, atol=one_sample)
+    if method == "individual":
+        assert ph.final_server_acc is None and rh.final_server_acc is None
+        assert ph.server_acc == [0.0] * BASE["rounds"]
+    else:
+        assert ph.final_server_acc == ph.server_acc[-1]
 
 
 def test_run_method_front_door_on_cpu():
@@ -140,3 +212,38 @@ def test_split_runs_continue_round_numbering():
     empty = a.run(0)
     assert empty.ledger.summary()["rounds"] == 0.0
     assert empty.final_server_acc is None
+
+
+def _refusal_kw(lib):
+    cohorts = (lib.CohortSpec(3, 16), lib.CohortSpec(3, 8, 1))
+    return [dict(cohorts=cohorts), dict(engine="shard"), dict(engine="scan"),
+            dict(engine="active"), dict(engine="async"), dict(rng_backend="jax"),
+            dict(rng_backend="numpy"), dict(codec="quant8"),
+            dict(downlink_codec="cache_delta"), dict(telemetry=True)]
+
+
+@pytest.mark.parametrize("method", ["fedavg", "individual"])
+@pytest.mark.parametrize("case", range(len(_refusal_kw(P))))
+def test_baseline_refusals_equal_reference(method, case):
+    """Each branch of the reference's baseline checks, in its order, with
+    its message: the port raises the same ValueError (never a not-ported
+    NotImplementedError)."""
+    cfg = dict(BASE, rounds=1)
+    with pytest.raises(ValueError) as want:
+        R.run_method(method, R.FLConfig(**cfg), **_refusal_kw(R)[case])
+    with pytest.raises(ValueError) as got:
+        P.run_method(method, P.FLConfig(**cfg), device="cpu", **_refusal_kw(P)[case])
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("method", ["fedavg", "individual"])
+def test_baselines_refuse_cohorts_when_built_directly(method):
+    cfg = dict(BASE, cohorts=(P.CohortSpec(3, 16), P.CohortSpec(3, 8, 1)))
+    rcfg = dict(cfg, cohorts=(R.CohortSpec(3, 16), R.CohortSpec(3, 8, 1)))
+    Ref = R.FedAvg if method == "fedavg" else R.Individual
+    Port = P.FedAvg if method == "fedavg" else P.Individual
+    with pytest.raises(ValueError) as want:
+        Ref(R.FLConfig(**rcfg))
+    with pytest.raises(ValueError) as got:
+        Port(P.FLConfig(**cfg), device="cpu")
+    assert str(got.value) == str(want.value)

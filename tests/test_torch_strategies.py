@@ -1,5 +1,6 @@
-"""The port's comparison strategies (``cfd``, ``mean``, ``selective_fd``)
-against the JAX package's, hook by hook, on the same numpy inputs.
+"""The port's comparison strategies (``cfd``, ``mean``, ``selective_fd``,
+``comet``) against the JAX package's, hook by hook, on the same numpy
+inputs.
 
 Tolerances:
 
@@ -9,6 +10,10 @@ Tolerances:
   differ and the closest entry's distance from the threshold, so a
   rounding flip shows with its cause.
 - Teachers agree to atol 1e-6 (float32 sums in other orders).
+- COMET's k-means runs in host numpy on the same float64 copy of the
+  float32 stack in both packages, so the clusters are the same; its
+  cluster teachers (float32 sums of a few rows over a count) agree to
+  atol 1e-7, and the clients share teachers exactly as in the reference.
 - CFD's ``transmit`` at 1, 2 and 8 bits: the same elementwise arithmetic
   as the reference's Pallas kernel (interpret mode), so atol 1e-6 and
   zero level flips, rows on exact half levels included.
@@ -177,6 +182,56 @@ def test_mean_aggregates_equal_reference(method):
     masked = ps.aggregate_masked(torch.from_numpy(z), torch.from_numpy(part), None, 1)
     ref = js.aggregate_masked(jnp.asarray(z), jnp.asarray(part), None, 1)
     np.testing.assert_allclose(masked.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# COMET
+# ---------------------------------------------------------------------------
+
+def _comet_stacks():
+    """(label, (K, m, N) stack): seeded Dirichlet stacks, and two with
+    tied distances: every client alike (every center starts on the same
+    point, so all clients join the first and the other clusters stay
+    empty through every iteration), and five alike beside one."""
+    rng = np.random.default_rng(21)
+    alike = np.broadcast_to(_probs(rng, (1, 8, 5)), (6, 8, 5)).copy()
+    five = alike.copy()
+    five[5] = _probs(rng, (8, 5))
+    return [("seeded", _stack(8, (6, 4, 5))), ("wide", _stack(9, (10, 8, 10))),
+            ("all alike", alike), ("five alike", five)]
+
+
+def _groups(per_client):
+    """The partition of clients by equal teacher rows."""
+    flat = per_client.reshape(per_client.shape[0], -1)
+    return [[bool(np.array_equal(a, b)) for b in flat] for a in flat]
+
+
+@pytest.mark.parametrize("n_clusters", [2, 3])
+@pytest.mark.parametrize("t", [1, 2, 7])
+@pytest.mark.parametrize("label,z", _comet_stacks(), ids=lambda v: v if isinstance(v, str) else "")
+def test_comet_aggregate_equals_reference(label, z, t, n_clusters):
+    js, ps = _pair("comet", n_clusters=n_clusters)
+    jt, jpc = js.aggregate(jnp.asarray(z), None, t)
+    pt, ppc = ps.aggregate(torch.from_numpy(z), None, t)
+    jpc, ppc = np.asarray(jpc), ppc.numpy()
+    assert ppc.shape == jpc.shape == z.shape and ppc.dtype == np.float32
+    np.testing.assert_allclose(pt.numpy(), np.asarray(jt), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ppc, jpc, rtol=0, atol=1e-7)
+    assert _groups(ppc) == _groups(jpc)
+    if label == "all alike":  # one cluster holds every client, the others empty
+        assert all(all(row) for row in _groups(ppc))
+    if label == "five alike":  # the five always share a cluster
+        assert all(_groups(ppc)[0][:5])
+
+
+def test_comet_contract_equals_reference():
+    assert P.STRATEGIES["comet"].analysis_variants == JS["comet"].analysis_variants
+    for kw in P.STRATEGIES["comet"].analysis_variants:
+        js, ps = JS["comet"](**kw), P.STRATEGIES["comet"](**kw)
+        assert ps.declared_contract() == js.declared_contract()
+        assert ps.declared_contract()["scan_safe"] is False
+    assert P.STRATEGIES["comet"]().c == 2
 
 
 # ---------------------------------------------------------------------------
