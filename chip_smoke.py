@@ -18,7 +18,12 @@ Selective-FD (confidence-gated uploads, without and with the cache) on
 both engines, mean on the device engine, COMET on the host loop (host
 k-means, per-client teachers through a quant8 downlink), the FedAvg and
 Individual baselines, and SCARLET with a ``cache_delta+topk2`` uplink on
-both engines.
+both engines.  Then the engine options (phase 4g), SCARLET at the same
+population: heterogeneous client schedules with probabilistic cache
+expiry on the host loop and both device engines, a run split by a
+checkpoint (``repro_torch.checkpoint``) against the uninterrupted run,
+bit for bit, and the clients' mirrored local caches against the global
+cache under partial participation with an outage.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -135,6 +140,25 @@ COMET_QDQ_A_ROUND = 3
 # the N - 1 sent classes, indices at the run's FLConfig.index_bytes.
 TOPK_CODEC = "cache_delta+topk2"
 TOPK_INDEX_BYTES = 1.0
+
+# Phase 4g: the engine options at the slice's population.  (a) SCARLET
+# with heterogeneous schedules (client k: E_k = HET_STEPS[k % 4] local
+# steps at HET_LR_SCALE[k % 3] times the lr, decayed by HET_LR_DECAY a
+# round) and probabilistic expiry (the engines' default uniforms) on the
+# host loop and both device engines: ledgers to rtol 1e-7 and each
+# round's bytes exact for its requests, cache values to ERA_ATOL (per-op
+# against the host loop) and QUANT_STEP_ATOL (fused against either), the
+# E_k = 0 clients unchanged by local training bit for bit; (b) a run split
+# by a checkpoint after RESTORE_AT rounds against (a)'s uninterrupted run,
+# ledgers and state bit for bit; (c) mirrored local caches at
+# MIRROR_PARTICIPATION with MIRROR_OUTAGE's client offline, each
+# participant's mirror equal to the global cache after every round.
+HET_STEPS = (0, 2, 5, 8)
+HET_LR_SCALE = (0.5, 1.0, 2.0)
+HET_LR_DECAY = 0.95
+RESTORE_AT = 5
+MIRROR_PARTICIPATION = 0.3
+MIRROR_OUTAGE = (3, 2, 6)  # client, first and last round offline
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -491,13 +515,15 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                codec: str = "identity", downlink: str = "identity",
                index_bytes: float = 4.0, cache_duration: int = 0,
                use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
-               **strategy_kw) -> dict:
+               scenario=None, probabilistic_expiry: bool = False,
+               track_local_caches: bool = False, hook=None, **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
     (``engine="host"``) or the device engine (``"scan"``): round 1, then
     the other rounds in one leg (on the device engine its only host sync
     is the read-back at its end), the launch counts set to 0 just before
     and read just after.  Selective-FD's upload masks are recorded with
-    the normalized entropies they gate on, for the engines' comparison."""
+    the normalized entropies they gate on, for the engines' comparison.
+    ``hook(engine)`` runs once the engine is built."""
     from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
     from repro_torch.fl import (FederatedDistillation, FLConfig, STRATEGIES,
@@ -534,9 +560,12 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     Engine = FederatedDistillation if engine == "host" else ScannedFederatedDistillation
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
-                 device=device)
+                 scenario=scenario, probabilistic_expiry=probabilistic_expiry,
+                 track_local_caches=track_local_caches, device=device)
     _sync(device)
     t_setup = time.perf_counter() - t0
+    if hook is not None:
+        hook(eng)
     ops.reset_launches()
     t0 = time.perf_counter()
     first = eng.run(1)
@@ -563,7 +592,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     log(f"{label}: final server_acc={sa!r} client_acc={ca!r}")
     log(f"{label}: launches {launches}")
     run = dict(eng=eng, ledger=ledger, launches=launches, per_round_ms=per_round * 1e3,
-               summary=summary, masks=masks, aggregate_s=agg_s, label=label)
+               summary=summary, masks=masks, aggregate_s=agg_s, label=label,
+               accs=first.server_acc + first.client_acc + rest.server_acc + rest.client_acc)
     check_outputs(run, sa, ca)
     return run
 
@@ -675,19 +705,33 @@ def check_sync_guard() -> None:
 # phase 4f: the comparison methods (CFD, Selective-FD, mean) at full width
 # ---------------------------------------------------------------------------
 
-def request_masks(rounds: int, D: int, seed: int) -> list:
+def request_masks(rounds: int, D: int, seed: int, uniforms=None,
+                  expired: Optional[list] = None) -> list:
     """Each round's requests (bool over sorted P^t), from the engines'
     numpy P^t stream (Generator ``[seed, 17]``, as ``_draw_round`` draws
     it) and Alg. 3's test at full participation: absent, or older than
-    ``D`` rounds."""
+    ``D`` rounds; with ``uniforms(t)`` (the round's (m,) float32 expiry
+    uniforms), absent or expired where ``u < clip((age - 1) / D, 0, 1)``
+    in float32.  ``expired`` receives each round's count of present
+    entries requested again."""
     m, n_pub = SLICE["public_per_round"], SLICE["public_size"]
     rng = np.random.default_rng([seed, 17])
     ts = np.zeros(n_pub, np.int64)
     present = np.zeros(n_pub, bool)
     out = []
+    f32 = np.float32
     for t in range(1, rounds + 1):
         idx = np.sort(rng.choice(n_pub, m, replace=False))
-        miss = ~(present[idx] & (t - ts[idx] <= D)) if D else np.ones(m, bool)
+        if not D:
+            miss = np.ones(m, bool)
+        elif uniforms is None:
+            miss = ~(present[idx] & (t - ts[idx] <= D))
+        else:
+            age = (t - ts[idx]).astype(f32)
+            hazard = np.clip((age - f32(1.0)) / f32(D), f32(0.0), f32(1.0))
+            miss = ~(present[idx] & ~(uniforms(t) < hazard))
+        if expired is not None:
+            expired.append(int((miss & present[idx]).sum()))
         out.append(miss)
         ts[idx[miss]], present[idx[miss]] = t, True
     return out
@@ -793,15 +837,17 @@ def run_comparison_methods(device, card: str) -> None:
         f"{k} {v['per_round_ms']:.3f} ms/round" for k, v in runs.items()))
 
 
-def check_codec_ledger(run: dict, up_bytes, down_bytes) -> None:
+def check_codec_ledger(run: dict, up_bytes, down_bytes, uniforms=None,
+                       expired: Optional[list] = None) -> None:
     """Each round's bytes at full participation with the cache on:
     ``up_bytes(n)`` and ``down_bytes(n)`` a client for ``n`` requested
-    samples (``request_masks``), the downlink with the request list and
-    the signals over all of P^t (indices at the run's ``index_bytes``)."""
+    samples (``request_masks``, with ``uniforms`` under probabilistic
+    expiry), the downlink with the request list and the signals over all
+    of P^t (indices at the run's ``index_bytes``)."""
     K, m = SLICE["n_clients"], SLICE["public_per_round"]
     cfg = run["eng"].cfg
     ib = cfg.index_bytes
-    misses = request_masks(len(run["ledger"]), CACHE_DURATION, cfg.seed)
+    misses = request_masks(len(run["ledger"]), CACHE_DURATION, cfg.seed, uniforms, expired)
     for t, (r, miss) in enumerate(zip(run["ledger"], misses), start=1):
         n = int(miss.sum())
         want = (float(K * up_bytes(n)),
@@ -904,8 +950,200 @@ def run_topk_scarlet(device, engine: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the engine options at full width
+# ---------------------------------------------------------------------------
+
+def het_scenario():
+    """Full participation, client k on HET_STEPS[k % 4] local steps at
+    HET_LR_SCALE[k % 3] times the lr, decayed by HET_LR_DECAY a round."""
+    from repro_torch.fl import Heterogeneity, Scenario
+
+    K = SLICE["n_clients"]
+    return Scenario(heterogeneity=Heterogeneity(
+        local_steps=tuple(HET_STEPS[k % len(HET_STEPS)] for k in range(K)),
+        lr_scale=tuple(HET_LR_SCALE[k % len(HET_LR_SCALE)] for k in range(K)),
+        lr_decay=HET_LR_DECAY))
+
+
+def watch_frozen(eng, record: list) -> None:
+    """Wrap the engine's local training: each round, keep device copies
+    of the E_k = 0 clients' rows of every leaf before and after it (no
+    host read, so the device engine's sync guard stays quiet)."""
+    K = SLICE["n_clients"]
+    zero = torch.tensor([k for k in range(K) if HET_STEPS[k % len(HET_STEPS)] == 0],
+                        device=eng.device)
+    if eng.models.n_cohorts != 1:
+        raise AssertionError("the slice has one client cohort")
+    inner = eng._local_train_all
+
+    def wrapped(params, t):
+        out = inner(params, t)
+        record.append([(params[0][k].index_select(0, zero), out[0][k].index_select(0, zero))
+                       for k in params[0]])
+        return out
+
+    eng._local_train_all = wrapped
+
+
+def options_run(device, label: str, engine: str, fused: bool, hook=None) -> dict:
+    return run_engine(device, f"options {label}", "scarlet", engine, fused=fused, codec=CODEC,
+                      cache_duration=CACHE_DURATION, scenario=het_scenario(),
+                      probabilistic_expiry=True, hook=hook, beta=BETA)
+
+
+def run_engine_options(device, card: str) -> dict:
+    """Phase 4g (a): heterogeneous schedules with probabilistic expiry on
+    the host loop and the device engine, per-op and fused."""
+    K, N = SLICE["n_clients"], SLICE["n_classes"]
+    runs = {}
+    for label, engine, fused in (("host loop", "host", False),
+                                 ("device engine per-op", "scan", False),
+                                 ("device engine fused", "scan", True)):
+        rec: list = []
+        r = options_run(device, label, engine, fused,
+                        hook=lambda e, rec=rec: watch_frozen(e, rec))
+        n = SLICE_ROUNDS
+        check_launches(r["launches"], {"fused_round": n} if fused else
+                       {"enhanced_era_fused": n, "quantize_dequantize": n})
+        expired: list = []
+        check_codec_ledger(r, lambda n: n * (N - 1) * 8 / 8.0, lambda n: n * N * 4.0,
+                           uniforms=r["eng"].expiry_uniforms, expired=expired)
+        moved = [not torch.equal(a, b) for rnd in rec for a, b in rnd]
+        n_zero = sum(1 for k in range(K) if HET_STEPS[k % len(HET_STEPS)] == 0)
+        log(f"{r['label']}: expired requests a round {expired}; {n_zero} clients with "
+            f"E_k = 0 unchanged by local training in {len(rec)} of {n} rounds "
+            f"(leaves moved: {sum(moved)}); {r['per_round_ms']:.3f} ms/round ({card})")
+        if len(rec) != n or any(moved):
+            raise AssertionError(f"{r['label']}: an E_k = 0 client moved in local training")
+        if not sum(expired):
+            raise AssertionError(f"{r['label']}: no request expired")
+        runs[label] = r
+    host, perop, fused = (runs[k] for k in ("host loop", "device engine per-op",
+                                            "device engine fused"))
+    compare_runs("options per-op device engine vs host loop", perop, host, 1e-7, ERA_ATOL)
+    compare_runs("options fused vs per-op device engine", fused, perop, 1e-7, QUANT_STEP_ATOL)
+    compare_runs("options fused device engine vs host loop", fused, host, 1e-7,
+                  QUANT_STEP_ATOL)
+    log(f"engine options ({card}): " + ", ".join(
+        f"{k} {v['per_round_ms']:.3f} ms/round" for k, v in runs.items())
+        + f"; {max(HET_STEPS)} masked local steps a round against the slice's "
+        f"{host['eng'].cfg.local_steps}")
+    return runs
+
+
+def state_leaves(eng) -> dict:
+    from repro_torch.checkpoint.io import _flatten, _key
+
+    return {_key(k): v for k, v in _flatten(eng.state_dict())}
+
+
+def run_restore(device, card: str, uninterrupted: dict) -> None:
+    """Phase 4g (b): (a)'s configuration for RESTORE_AT rounds, a
+    checkpoint in a temporary directory, a fresh engine restored from it,
+    the remaining rounds; against (a)'s uninterrupted run, on the host
+    loop and the fused device engine: ledgers and state bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.fl import FederatedDistillation, STRATEGIES, ScannedFederatedDistillation
+
+    for label, engine in (("host loop", FederatedDistillation),
+                          ("device engine fused", ScannedFederatedDistillation)):
+        full = uninterrupted[label]
+
+        def make():
+            return engine(full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA),
+                          cache_duration=CACHE_DURATION, probabilistic_expiry=True,
+                          scenario=het_scenario(), device=device)
+
+        first = make()
+        h1 = first.run(RESTORE_AT)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "engine.npz")
+            _sync(device)
+            t0 = time.perf_counter()
+            save_pytree(path, first.state_dict())
+            t1 = time.perf_counter()
+            size = os.path.getsize(path)
+            restored = make()
+            _sync(device)
+            t2 = time.perf_counter()
+            restored.load_state_dict(load_pytree(path, restored.state_dict()))
+            _sync(device)
+            t3 = time.perf_counter()
+        h2 = restored.run(SLICE_ROUNDS - RESTORE_AT)
+        ledger = [(r.uplink, r.downlink) for r in h1.ledger.rounds + h2.ledger.rounds]
+        want = [(r.uplink, r.downlink) for r in full["ledger"]]
+        a, b = state_leaves(restored), state_leaves(full["eng"])
+        differ = [k for k in b if k not in a or not torch.equal(a[k], b[k])]
+        log(f"restore {label}: {RESTORE_AT} rounds, checkpoint {size} bytes "
+            f"(save {t1 - t0:.3f} s, restore {t3 - t2:.3f} s, host clock), "
+            f"{SLICE_ROUNDS - RESTORE_AT} more rounds: ledger equal={ledger == want}; "
+            f"{len(b)} state leaves, {len(differ)} differ from the uninterrupted run "
+            f"{differ[:5]} ({card})")
+        if ledger != want or differ or a.keys() != b.keys():
+            raise AssertionError(f"restore {label}: the split run differs")
+
+
+def run_mirrors(device, card: str) -> None:
+    """Phase 4g (c): mirrored local caches on the host loop at
+    MIRROR_PARTICIPATION with MIRROR_OUTAGE's client offline: after every
+    round each participant's mirror (catch-up package applied on return,
+    then Alg. 2's local update) equals the global cache bit for bit."""
+    from repro_torch.fl import Outage, Scenario, fixed_fraction
+
+    scenario = Scenario(participation=fixed_fraction(MIRROR_PARTICIPATION),
+                        outages=(Outage(*MIRROR_OUTAGE),))
+    stats = dict(checked=0, returning=0, bad=[], back=[])
+
+    def hook(eng):
+        inner = eng._round
+
+        def wrapped(t, hist, u):
+            before = eng.last_sync.copy()
+            inner(t, hist, u)
+            took_part = np.nonzero(eng.last_sync == t)[0]
+            for k in took_part:
+                stats["checked"] += 1
+                stats["returning"] += int(before[k] < t - 1)
+                if not all(torch.equal(a, b) for a, b in zip(eng.local_caches[k], eng.cache_g)):
+                    stats["bad"].append((t, int(k)))
+            if MIRROR_OUTAGE[0] in took_part and t > MIRROR_OUTAGE[2]:
+                stats["back"].append(t)
+
+        eng._round = wrapped
+
+    r = run_engine(device, "mirrors host loop", "scarlet", "host", codec=CODEC,
+                   cache_duration=CACHE_DURATION, scenario=scenario,
+                   track_local_caches=True, hook=hook, beta=BETA)
+    check_launches(r["launches"], {"enhanced_era_fused": SLICE_ROUNDS,
+                                   "quantize_dequantize": SLICE_ROUNDS})
+    log(f"{r['label']}: {stats['checked']} (client, round) mirrors checked, "
+        f"{stats['returning']} of them returning stragglers (catch-up applied); client "
+        f"{MIRROR_OUTAGE[0]} offline in rounds {MIRROR_OUTAGE[1]}-{MIRROR_OUTAGE[2]} took part "
+        f"again in rounds {stats['back']}; {len(stats['bad'])} differ from the global cache "
+        f"{stats['bad'][:5]}; {r['per_round_ms']:.3f} ms/round ({card})")
+    if stats["bad"] or not stats["returning"]:
+        raise AssertionError("mirrored local caches differ from the global cache")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the same small run on the card and on the CPU
 # ---------------------------------------------------------------------------
+
+def check_options_cuda_vs_cpu(card_run: dict) -> None:
+    """Phase 4g (a)'s host-loop run on the CPU: the ledger equal to the
+    card's, accuracies within one test sample."""
+    c = options_run(torch.device("cpu"), "host loop (cpu)", "host", False)
+    equal = c["ledger"] == card_run["ledger"]
+    n_test = len(c["eng"].y_test)
+    acc_err = max(abs(a - b) for a, b in zip(card_run["accs"], c["accs"]))
+    log(f"options host loop cuda vs cpu: ledger equal={equal} accuracy max diff={acc_err!r} "
+        f"(one test sample = {1.0 / n_test!r})")
+    if not equal:
+        raise AssertionError("options host loop: ledgers differ between card and CPU")
+    if acc_err > 1.0 / n_test + 1e-6:
+        raise AssertionError(f"options host loop: accuracies differ by {acc_err}")
 
 def run_small(device, engine: str):
     from repro_torch.fl import (FederatedDistillation, FLConfig, STRATEGIES,
@@ -1758,6 +1996,10 @@ def main() -> int:
     compare_runs("per-op device engine vs host loop", perop, sl, 1e-7, QUANT_STEP_ATOL)
     # 4f. the comparison methods at the same width, both engines
     run_comparison_methods(dev, card)
+    # 4g. the engine options at the same width
+    opts = run_engine_options(dev, card)
+    run_restore(dev, card, opts)
+    run_mirrors(dev, card)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width
@@ -1769,6 +2011,7 @@ def main() -> int:
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
     check_small_methods_cuda_vs_cpu()
+    check_options_cuda_vs_cpu(opts["host loop"])
     # 5b. the reduced whisper prefill, card vs CPU
     check_whisper_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the

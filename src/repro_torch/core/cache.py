@@ -5,11 +5,14 @@ global cache over the public dataset as dense tensors indexed by public
 sample id, the request list (miss mask), teacher assembly, the cache
 update with its per-sample signals, and the catch-up packages sent to
 clients that skipped rounds (as packages for the host loop, as a byte
-count on the device for the device engine).  Nothing here that the
-device engine calls waits for the card: no boolean-mask indexing, no
-``nonzero``, no reads back to the host.  Expiry is checked at request
-time (an index misses when absent or older than ``D``), as in the
-reference; see its module docstring for why.
+count on the device for the device engine), and the clients' mirrored
+local caches (Alg. 2's UpdateLocalCache, the host loop's
+``track_local_caches`` mode).  Nothing here that the device engine calls
+waits for the card: no boolean-mask indexing, no ``nonzero``, no reads
+back to the host.  Expiry is checked at request time (an index misses
+when absent or older than ``D``, or, probabilistically, with hazard
+``(age - 1) / D``), as in the reference; see its module docstring for
+why.
 
 The functions are functional like the reference's: an update returns new
 tensors and leaves its input untouched, so the round loop can still read
@@ -17,16 +20,19 @@ the pre-round cache for catch-up accounting after updating it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.runtime import divide
+
 __all__ = ["NEWLY_CACHED", "CACHED", "EXPIRED", "CacheState", "init_cache",
            "normalize_cache_duration", "miss_mask", "cached_at",
            "signals_for_round", "assemble_teacher", "update_global_cache",
-           "CatchUpPackage", "make_catch_up", "catch_up_bytes",
-           "catch_up_bytes_device"]
+           "update_local_cache", "pack_queue", "unpack_queue",
+           "CatchUpPackage", "make_catch_up", "apply_catch_up",
+           "catch_up_bytes", "catch_up_bytes_device"]
 
 NEWLY_CACHED = 0
 CACHED = 1
@@ -82,17 +88,30 @@ def normalize_cache_duration(D) -> int:
 
 
 def miss_mask(cache: CacheState, idx: torch.Tensor, t: int, D: int, *,
-              probabilistic: bool = False) -> torch.Tensor:
+              probabilistic: bool = False,
+              u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """True where a request must be issued (absent or expired); Alg. 3
     test.  ``D == 0`` disables caching (every sample misses).  ``D`` is
-    a static python integer; probabilistic expiry is not ported yet."""
-    if probabilistic:
-        raise NotImplementedError("probabilistic expiry is not yet ported")
+    a static python integer.
+
+    ``probabilistic=True`` is the paper's stochastic expiry (reference
+    ``miss_mask``): a present entry expires where ``u < hazard``, with
+    ``hazard = clip((age - 1) / D, 0, 1)`` in float32.  ``u`` holds the
+    round's uniforms, shape ``idx.shape``, on ``idx``'s device: the port
+    has no jax key, so the engine draws them (or is given them) and
+    passes them in.  The division is an IEEE division on every device
+    (``runtime.divide``): a hazard one ulp off flips ``u < hazard`` on
+    a tie."""
     D = normalize_cache_duration(D)
     if D == 0:
         return torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     present = cache.present[idx]
     age = t - cache.ts[idx]
+    if probabilistic:
+        if u is None:
+            raise ValueError("probabilistic expiry needs the round's uniforms u")
+        hazard = torch.clamp(divide(age.to(torch.float32) - 1.0, D), 0.0, 1.0)
+        return ~(present & ~(u < hazard))
     return ~(present & (age <= D))
 
 
@@ -134,6 +153,42 @@ def update_global_cache(cache: CacheState, idx: torch.Tensor,
     return CacheState(values, ts, present), sig
 
 
+def update_local_cache(cache_k: CacheState, idx: torch.Tensor,
+                       signals: torch.Tensor, z_req_dense: torch.Tensor,
+                       t: int) -> Tuple[CacheState, torch.Tensor]:
+    """UpdateLocalCache (Alg. 2): a client rebuilds the teacher from the
+    signals, its local cache and the broadcast queue (``z_req_dense``:
+    ``(len(idx), N)``, fresh labels at miss positions; see
+    :func:`pack_queue` / :func:`unpack_queue` for the wire form) and
+    syncs its cache.  Returns (new cache, teacher)."""
+    is_miss = signals != CACHED
+    teacher = torch.where(is_miss[:, None], z_req_dense, cache_k.values[idx])
+    values = cache_k.values.clone()
+    values[idx] = teacher
+    ts = cache_k.ts.clone()
+    ts[idx] = torch.where(is_miss, torch.full_like(ts[idx], t), cache_k.ts[idx])
+    present = cache_k.present.clone()
+    present[idx] = True
+    return CacheState(values, ts, present), teacher
+
+
+def pack_queue(z_dense: torch.Tensor, miss: torch.Tensor) -> torch.Tensor:
+    """Wire form: the FIFO queue transmitted, fresh labels at miss
+    positions in idx order (a dynamic size; host loop only)."""
+    return z_dense[miss]
+
+
+def unpack_queue(queue: torch.Tensor, miss: torch.Tensor,
+                 num_classes: int) -> torch.Tensor:
+    """Inverse of :func:`pack_queue`: the queue scattered back to a dense
+    ``(len(idx), N)`` tensor, zeros at cached positions."""
+    n = miss.shape[0]
+    if queue.shape[0] == 0:
+        return torch.zeros((n, num_classes), dtype=queue.dtype, device=queue.device)
+    pos = torch.clamp(torch.cumsum(miss.to(torch.int64), 0) - 1, 0, queue.shape[0] - 1)
+    return torch.where(miss[:, None], queue[pos], 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Partial participation: catch-up packages (Section III-D).
 # ---------------------------------------------------------------------------
@@ -152,6 +207,15 @@ def make_catch_up(cache_g: CacheState, last_sync: int) -> CatchUpPackage:
     newer = cache_g.present & (cache_g.ts > last_sync)
     idx = torch.nonzero(newer).flatten()
     return CatchUpPackage(idx=idx, values=cache_g.values[idx], ts=cache_g.ts[idx])
+
+
+def apply_catch_up(cache_k: CacheState, pkg: CatchUpPackage) -> CacheState:
+    """A returning client's local cache with ``pkg`` applied."""
+    values, ts, present = (a.clone() for a in cache_k)
+    values[pkg.idx] = pkg.values
+    ts[pkg.idx] = pkg.ts
+    present[pkg.idx] = True
+    return CacheState(values, ts, present)
 
 
 def catch_up_bytes(pkg: CatchUpPackage, bytes_per_value: float = 4.0) -> float:

@@ -9,6 +9,7 @@ from repro_torch.fl.convert import params_from_numpy  # noqa: F401
 from repro_torch.fl.rounds import FederatedDistillation, History  # noqa: F401
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation  # noqa: F401
 from repro_torch.fl.scenarios import (  # noqa: F401
+    Heterogeneity,
     Outage,
     Participation,
     Scenario,

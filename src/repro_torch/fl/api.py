@@ -55,7 +55,11 @@ def run_method(
     individual (:mod:`repro_torch.fl.baselines`) run on the host and
     refuse every option that does not apply to them with the reference's
     ``ValueError``.  The keywords mean what they mean in
-    ``repro.fl.run_method``.  ``device`` is ``"cuda"`` by default and the
+    ``repro.fl.run_method``: ``scenario`` (participation, outages and a
+    per-client ``Heterogeneity``), ``probabilistic_expiry`` (both
+    engines) and ``track_local_caches`` (host loop; the device engine
+    refuses it with the reference's ``ValueError``) go through to the
+    engine.  ``device`` is ``"cuda"`` by default and the
     run raises when there is no CUDA device; pass ``device="cpu"`` to run
     on the CPU.  Engines and options of the reference that are not ported
     yet raise ``NotImplementedError``.

@@ -19,12 +19,14 @@ from repro_torch.fl.rounds import (
     accuracy,
     distill,
     local_train,
+    local_train_masked,
     predict_soft,
     val_loss_hard,
     val_loss_soft,
 )
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation
 from repro_torch.fl.scenarios import (
+    Heterogeneity,
     Outage,
     Participation,
     Scenario,
@@ -65,10 +67,12 @@ __all__ = [
     "Scenario",
     "Participation",
     "Outage",
+    "Heterogeneity",
     "full_participation",
     "fixed_fraction",
     "bernoulli_participation",
     "local_train",
+    "local_train_masked",
     "distill",
     "predict_soft",
     "val_loss_soft",

@@ -11,7 +11,10 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
   1. draw P^t and the participation mask from the numpy Generators
      (bit-identical to the reference's ``rng_backend="numpy"`` stream);
   2. participating clients distill on the previous round's teacher, then
-     train locally on their private shard;
+     train locally on their private shard (under a ``Heterogeneity``
+     every client runs the longest schedule's step count and applies only
+     its own first E_k steps, at its own rate, as the reference's
+     ``local_train_masked`` does);
   3. clients emit soft-labels on P^t; the strategy's ``transmit`` (CFD:
      the quantize-dequantize kernel) and the uplink codec's round trip
      give what the server sees, and the strategy's upload mask what each
@@ -23,13 +26,20 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
      updated, the server model distilled;
   5. the ledger records exact bytes, catch-up packages included.
 
+Probabilistic expiry (``probabilistic_expiry=True``) tests each request
+against a uniform of the round.  The reference draws them from its jax
+key ``fold_in(PRNGKey(seed), t)``; the port, which has no jax stream,
+draws them from the stateless numpy stream
+``default_rng([seed, EXPIRY_SALT, t])`` or takes the leg's ``(T, m)``
+stack from ``run(expiry_uniforms=...)`` (e.g. the reference's).
+
 Entry points run on ``device="cuda"`` by default and raise when there is
 no CUDA device; ``device="cpu"`` runs every kernel's plain version.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -51,9 +61,12 @@ from repro_torch.fl.strategies.base import Strategy
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.resnet import Params, apply_mlp, init_mlp
 
-__all__ = ["local_train", "distill", "predict_soft", "accuracy",
-           "val_loss_soft", "val_loss_hard", "History",
-           "FederatedDistillation"]
+__all__ = ["local_train", "local_train_masked", "distill", "predict_soft",
+           "accuracy", "val_loss_soft", "val_loss_hard", "History",
+           "FederatedDistillation", "EXPIRY_SALT"]
+
+# the default expiry uniforms of round t: default_rng([seed, EXPIRY_SALT, t])
+EXPIRY_SALT = 71
 
 
 # ---------------------------------------------------------------------------
@@ -77,26 +90,46 @@ def _kl(params: Params, x, teacher) -> torch.Tensor:
 
 
 def _sgd(loss: Callable[[Params], torch.Tensor], params: Params,
-         lr: float, steps: int) -> Params:
+         rates: Iterable) -> Params:
+    """One SGD step for each rate in ``rates``: a float, or a ``(K,)``
+    tensor of per-model rates for a stack of K models."""
     with torch.enable_grad():
-        for _ in range(steps):
+        for lr in rates:
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
             grads = torch.autograd.grad(loss(leaves).sum(),
                                         list(leaves.values()))
-            params = {k: v.detach() - lr * g
+            params = {k: v.detach() - _per_model(lr, v) * g
                       for (k, v), g in zip(leaves.items(), grads)}
     return params
 
 
+def _per_model(lr, v: torch.Tensor):
+    """A ``(K,)`` rate laid along the model axis of a ``(K, ...)`` leaf."""
+    if isinstance(lr, torch.Tensor):
+        return lr.view((-1,) + (1,) * (v.dim() - 1))
+    return lr
+
+
 def local_train(params: Params, x, y, mask, lr: float, steps: int) -> Params:
     """``steps`` full-batch SGD steps on the masked private CE."""
-    return _sgd(lambda p: _ce(p, x, y, mask), params, lr, steps)
+    return _sgd(lambda p: _ce(p, x, y, mask), params, [lr] * steps)
+
+
+def local_train_masked(params: Params, x, y, mask, lr: torch.Tensor,
+                       n_steps: torch.Tensor, max_steps: int) -> Params:
+    """Heterogeneous schedules over a stack of K models (reference
+    ``local_train_masked``): ``max_steps`` gradient steps, of which model
+    k applies the first ``n_steps[k]`` at rate ``lr[k]`` and the rest at
+    rate 0 (both ``(K,)`` tensors on the models' device), so a model with
+    ``n_steps[k] == 0`` leaves local training bit for bit unchanged."""
+    rates = (torch.where(n_steps > i, lr, 0.0) for i in range(max_steps))
+    return _sgd(lambda p: _ce(p, x, y, mask), params, rates)
 
 
 def distill(params: Params, x, teacher, lr: float, steps: int) -> Params:
     """``steps`` SGD steps on KL(teacher || model) over the public rows."""
-    return _sgd(lambda p: _kl(p, x, teacher), params, lr, steps)
+    return _sgd(lambda p: _kl(p, x, teacher), params, [lr] * steps)
 
 
 @torch.no_grad()
@@ -187,6 +220,12 @@ class FederatedDistillation:
     are byte-identical.  Initial parameters come from a CPU
     ``torch.Generator`` seeded with ``cfg.seed`` (the same numbers on
     every device); :meth:`load_params` installs the reference's instead.
+
+    ``track_local_caches=True`` (host loop only) mirrors each client's
+    local cache, updated from the broadcast queue and the signals as
+    Alg. 2 has the client do it, catch-up packages applied on return, in
+    ``local_caches``: a check that the synchronized caches stay equal to
+    the global one.
     """
 
     def __init__(self, cfg: FLConfig, strategy: Strategy,
@@ -200,10 +239,6 @@ class FederatedDistillation:
             raise NotImplementedError("rng_backend='jax' is not yet ported")
         if rng_backend != "numpy":
             raise ValueError(f"unknown rng_backend: {rng_backend!r}")
-        if track_local_caches:
-            raise NotImplementedError("track_local_caches is not yet ported")
-        if probabilistic_expiry:
-            raise NotImplementedError("probabilistic expiry is not yet ported")
         if cfg.telemetry:
             raise NotImplementedError("telemetry is not yet ported")
         self.device = resolve_device(device)
@@ -213,12 +248,19 @@ class FederatedDistillation:
         self.use_cache = strategy.uses_cache if use_cache is None else use_cache
         if self.D == 0:
             self.use_cache = False
+        self.probabilistic_expiry = probabilistic_expiry
+        self.track_local_caches = track_local_caches
         self.scenario = scenario or Scenario.from_participation_rate(cfg.participation)
         self.codec_up = get_codec(cfg.uplink_codec, index_bytes=cfg.index_bytes)
         self.codec_down = get_codec(cfg.downlink_codec, index_bytes=cfg.index_bytes)
-        self.rng_idx = np.random.default_rng([cfg.seed, 17])
-        self.rng_part = np.random.default_rng([cfg.seed, 29])
+        self._seed_generators()
         self._setup()
+
+    def _seed_generators(self) -> None:
+        """The two numpy Generators of the draws, as the reference seeds
+        them (P^t, participation)."""
+        self.rng_idx = np.random.default_rng([self.cfg.seed, 17])
+        self.rng_part = np.random.default_rng([self.cfg.seed, 29])
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -286,9 +328,22 @@ class FederatedDistillation:
 
         self.cache_g = cache_lib.init_cache(c.public_size, c.n_classes,
                                             device=self.device)
+        self.local_caches: List[cache_lib.CacheState] = [
+            cache_lib.init_cache(c.public_size, c.n_classes, device=self.device)
+            for _ in range(c.n_clients)] if self.track_local_caches else []
         self.prev_teacher = None  # (idx tensor, (m, N) or per-client (K, m, N) teacher)
         self.last_sync = np.zeros(c.n_clients, np.int64)  # last participated round
         self.t_done = 0  # rounds completed so far (run() continues from here)
+
+        # heterogeneous schedules, resolved once on the host and uploaded
+        # per cohort: no round reads them back
+        het = self.scenario.heterogeneity
+        if het is not None:
+            lr_k, steps_k, self._max_steps = het.resolve(c.n_clients, c.lr,
+                                                         c.local_steps)
+            self._lr_k_c = m.split(self._tensor(lr_k, torch.float32))
+            self._steps_k_c = m.split(self._tensor(steps_k, torch.int32))
+            self._lr_decay = np.float32(het.lr_decay)
 
     def load_params(self, client_params, server_params) -> None:
         """Install given initial parameters (numpy dicts, e.g. the
@@ -309,16 +364,20 @@ class FederatedDistillation:
         self.client_params, self.server_params = clients, server
 
     # ------------------------------------------------------------------
-    def run(self, rounds: Optional[int] = None) -> History:
+    def run(self, rounds: Optional[int] = None, *,
+            expiry_uniforms: Optional[np.ndarray] = None) -> History:
         """Run ``rounds`` more rounds (default: the configured count),
         numbered on from ``t_done``; returns a fresh :class:`History`
-        covering only this leg."""
+        covering only this leg.  ``expiry_uniforms`` (probabilistic expiry
+        only): the leg's ``(T, m)`` float32 uniforms, row ``i`` for round
+        ``t_done + 1 + i``, in place of the default stream's."""
         c = self.cfg
         hist = History()
         T = c.rounds if rounds is None else rounds
         t_end = self.t_done + T
-        for t in range(self.t_done + 1, t_end + 1):
-            self._round(t, hist)
+        u = self._leg_uniforms(T, expiry_uniforms)
+        for i, t in enumerate(range(self.t_done + 1, t_end + 1)):
+            self._round(t, hist, None if u is None else u[i])
             if t % c.eval_every == 0 or t == t_end:
                 self._eval(t, hist)
         self.t_done = t_end
@@ -326,18 +385,54 @@ class FederatedDistillation:
         hist.final_client_acc = hist.client_acc[-1] if hist.client_acc else None
         return hist
 
+    def expiry_uniforms(self, t: int) -> np.ndarray:
+        """Round ``t``'s default expiry uniforms, ``(m,)`` float32 in [0, 1):
+        a stateless stream keyed by (seed, ``EXPIRY_SALT``, t), as the
+        reference's key ``fold_in(PRNGKey(seed), t)`` is, so a restored
+        or split run draws the same ones."""
+        rng = np.random.default_rng([self.cfg.seed, EXPIRY_SALT, t])
+        return rng.random(self.cfg.public_per_round, dtype=np.float32)
+
+    def _leg_uniforms(self, T: int, given) -> Optional[np.ndarray]:
+        """The leg's ``(T, m)`` expiry uniforms: ``given`` (checked) or the
+        default stream's; None when expiry is deterministic."""
+        if not (self.use_cache and self.probabilistic_expiry):
+            if given is not None:
+                raise ValueError("expiry_uniforms apply to probabilistic expiry "
+                                 "with the cache on")
+            return None
+        m = self.cfg.public_per_round
+        if given is None:
+            ts = range(self.t_done + 1, self.t_done + T + 1)
+            return np.stack([self.expiry_uniforms(t) for t in ts]).reshape(T, m)
+        u = np.asarray(given)
+        if u.shape != (T, m) or u.dtype != np.float32:
+            raise ValueError(f"expiry_uniforms must be ({T}, {m}) float32, got "
+                             f"{u.shape} {u.dtype}")
+        return u
+
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         """All cross-round simulation state, in a fixed structure: absent
-        optionals are zero placeholders with ``have_*`` flags, as in the
-        reference.  The device engine runs its rounds on this dict.  The
-        stateful numpy Generators are not part of it."""
+        optionals are zero placeholders with ``have_*`` flags, with the
+        reference's keys and dtypes, so :mod:`repro_torch.checkpoint`
+        files move between the two packages.  The device engine runs its
+        rounds on this dict.  The numpy Generators and the mirrored local
+        caches are not part of it (see :meth:`load_state_dict`)."""
         c = self.cfg
         if self.prev_teacher is not None:
             prev_idx, prev_teacher = self.prev_teacher
+            if prev_teacher.dim() == 3:
+                # per-client (K, m, N) teachers (COMET) do not fit the
+                # fixed (m, N) slot of a fresh engine's like-tree
+                raise ValueError(
+                    "per-client prev_teacher stacks (COMET) are not "
+                    "checkpointable; state_dict supports shared-teacher "
+                    "strategies only")
+            prev_idx = prev_idx.to(torch.int32)
             have_prev = True
         else:
-            prev_idx = torch.zeros(c.public_per_round, dtype=torch.int64,
+            prev_idx = torch.zeros(c.public_per_round, dtype=torch.int32,
                                    device=self.device)
             prev_teacher = torch.zeros((c.public_per_round, c.n_classes),
                                        device=self.device)
@@ -362,6 +457,45 @@ class FederatedDistillation:
             last_sync=self._tensor(self.last_sync, torch.int32),
         )
 
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a :meth:`state_dict` snapshot (the port's or, through
+        :func:`repro_torch.checkpoint.load_pytree`, the reference's); the
+        next ``run()`` continues as the uninterrupted run would.
+
+        One deliberate difference from the reference, which restores only
+        under its stateless jax key stream and refuses the numpy one: the
+        port has only the numpy stream, so the restore re-seeds both
+        Generators as the constructor does and replays the draws of
+        rounds 1..``t_done`` (``_draw_round``; a few host draws a round).
+        A restored engine then continues exactly as one whose legs drew
+        their own draws.  A leg run with injected ``draws=`` (device
+        engine) does not advance the Generators, so its continuation must
+        be given ``draws=`` too.  The default expiry uniforms are
+        stateless and need no replay.  The snapshot's keys stay the
+        reference's."""
+        if self.track_local_caches:
+            # mirrored per-client caches are not captured: a restored
+            # engine would check cold mirrors against a warm global cache
+            raise ValueError(
+                "track_local_caches state is not checkpointed; restore "
+                "into an engine with track_local_caches=False")
+        on = lambda v: torch.as_tensor(v).to(self.device)  # noqa: E731
+        self.t_done = int(state["t_done"])
+        self.client_params = [{k: on(v) for k, v in p.items()}
+                              for p in state["client_params"]]
+        self.server_params = {k: on(v) for k, v in state["server_params"].items()}
+        self.cache_g = cache_lib.CacheState(*(on(a) for a in state["cache"]))
+        self.prev_teacher = ((on(state["prev_idx"]).to(torch.int64),
+                              on(state["prev_teacher"]))
+                             if bool(state["have_prev"]) else None)
+        self.last_teacher_val = (on(state["teacher_val"])
+                                 if bool(state["have_tv"]) else None)
+        self.last_sync = np.asarray(torch.as_tensor(state["last_sync"]).cpu()
+                                    ).astype(np.int64)
+        self._seed_generators()
+        for t in range(1, self.t_done + 1):
+            self._draw_round(t)
+
     # ------------------------------------------------------------------
     # Per-cohort client steps, shared by the host loop and the device
     # engine.
@@ -375,11 +509,19 @@ class FederatedDistillation:
         return [distill(p, x_prev, teach_c[i], c.lr_dist, c.distill_steps)
                 for i, p in enumerate(params)]
 
-    def _local_train_all(self, params: List[Params]) -> List[Params]:
-        """Every cohort's local training on its private shards."""
+    def _local_train_all(self, params: List[Params], t: int) -> List[Params]:
+        """Every cohort's local training on its private shards in round
+        ``t``; under a ``Heterogeneity`` each client's own schedule at
+        ``lr_k * lr_decay ** (t - 1)`` (float32, on the host)."""
         c = self.cfg
-        return [local_train(p, self.xs_c[i], self.ys_c[i],
-                            self.train_mask_c[i], c.lr, c.local_steps)
+        if self.scenario.heterogeneity is None:
+            return [local_train(p, self.xs_c[i], self.ys_c[i],
+                                self.train_mask_c[i], c.lr, c.local_steps)
+                    for i, p in enumerate(params)]
+        decay = float(self._lr_decay ** (np.float32(t) - np.float32(1.0)))
+        return [local_train_masked(p, self.xs_c[i], self.ys_c[i],
+                                   self.train_mask_c[i], self._lr_k_c[i] * decay,
+                                   self._steps_k_c[i], self._max_steps)
                 for i, p in enumerate(params)]
 
     def _predict_all(self, params: List[Params], x) -> torch.Tensor:
@@ -397,7 +539,7 @@ class FederatedDistillation:
                                           replace=False))
         return part, idx
 
-    def _round(self, t: int, hist: History) -> None:
+    def _round(self, t: int, hist: History, u: Optional[np.ndarray]) -> None:
         c, s = self.cfg, self.strategy
         K = c.n_clients
         part, idx = self._draw_round(t)
@@ -417,11 +559,14 @@ class FederatedDistillation:
                 self._distill_all(params, self.x_pub[pidx], pteach),
                 params, part_c)
         self.client_params = _select_cohorts(
-            self._local_train_all(params), params, part_c)
+            self._local_train_all(params, t), params, part_c)
 
         # --- request list (cache) ----------------------------------------
         if self.use_cache:
-            miss = cache_lib.miss_mask(self.cache_g, idx_t, t, self.D)
+            miss = cache_lib.miss_mask(
+                self.cache_g, idx_t, t, self.D,
+                probabilistic=self.probabilistic_expiry,
+                u=None if u is None else self._tensor(u))
         else:
             miss = torch.ones(len(idx), dtype=torch.bool, device=self.device)
         n_req = int(miss.sum())
@@ -453,7 +598,7 @@ class FederatedDistillation:
         cache_prev = self.cache_g  # pre-round state: catch-up covers <= t-1
         if self.use_cache:
             teacher = cache_lib.assemble_teacher(self.cache_g, idx_t, fresh, miss)
-            self.cache_g, _ = cache_lib.update_global_cache(
+            self.cache_g, signals = cache_lib.update_global_cache(
                 self.cache_g, idx_t, teacher, miss, t)
         else:
             teacher = fresh
@@ -475,11 +620,24 @@ class FederatedDistillation:
 
         # --- catch-up packages for returning stragglers --------------------
         catch_up = 0.0
+        catch_up_pkgs = {}
         if self.use_cache:
             for k in np.nonzero(part)[0]:
                 if self.last_sync[k] < t - 1:
                     pkg = cache_lib.make_catch_up(cache_prev, int(self.last_sync[k]))
+                    catch_up_pkgs[k] = pkg
                     catch_up += cache_lib.catch_up_bytes(pkg)
+
+        # --- mirrored local caches (track_local_caches) --------------------
+        if self.track_local_caches and self.use_cache:
+            queue = cache_lib.pack_queue(teacher, miss)
+            dense = cache_lib.unpack_queue(queue, miss, c.n_classes)
+            for k in np.nonzero(part)[0]:
+                ck = self.local_caches[k]
+                if k in catch_up_pkgs:  # returning straggler
+                    ck = cache_lib.apply_catch_up(ck, catch_up_pkgs[k])
+                self.local_caches[k], _ = cache_lib.update_local_cache(
+                    ck, idx_t, signals, dense, t)
 
         # --- communication accounting --------------------------------------
         # an upload mask gates the uplink only: each participant sends its

@@ -20,7 +20,12 @@ round, exactly as the host loop draws them) and uploads the ``(T, K)``
 and ``(T, m)`` stacks once.  So the device engine and the host loop of
 the same configuration see the same draws.  ``run(draws=(part, idx))``
 takes the stacks from the caller instead, e.g. the reference's jax-stream
-draws, to hold a run against the reference's scan engine.
+draws, to hold a run against the reference's scan engine.  Under
+probabilistic expiry the leg's ``(T, m)`` expiry uniforms are uploaded
+with the draws, from the host loop's default stream or from
+``run(expiry_uniforms=...)``.  Heterogeneous schedules run as on the host
+loop: the per-client rates and step counts sit on the device from
+construction, and the round's decay is a host float.
 
 ``FLConfig.fused_round`` replaces the uplink codec round trip and the
 SCARLET aggregation with one :func:`repro_torch.kernels.ops.fused_round`
@@ -51,6 +56,7 @@ class _Leg:
     ts: List[int]
     part: torch.Tensor          # (T, K) bool
     idx: torch.Tensor           # (T, m) int64
+    u: Optional[torch.Tensor]   # (T, m) float32 expiry uniforms, or None
     do_eval: List[bool]
     state: Dict[str, Any]
     outputs: List[Dict[str, torch.Tensor]] = field(default_factory=list)
@@ -101,17 +107,20 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
     # ------------------------------------------------------------------
     def run(self, rounds: Optional[int] = None, *,
-            draws: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> History:
+            draws: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+            expiry_uniforms: Optional[np.ndarray] = None) -> History:
         """Run ``rounds`` more rounds (default: the configured count),
         numbered on from ``t_done``; returns a fresh :class:`History` for
         this leg.  ``draws=(part, idx)`` gives the leg's ``(T, K)`` bool
         participation masks and ``(T, m)`` P^t indices in place of the
-        engine's own (its numpy Generators are then not advanced)."""
-        leg = self._start_leg(rounds, draws)
+        engine's own (its numpy Generators are then not advanced);
+        ``expiry_uniforms`` the leg's ``(T, m)`` float32 expiry uniforms
+        (probabilistic expiry), as on the host loop."""
+        leg = self._start_leg(rounds, draws, expiry_uniforms)
         self._run_rounds(leg)
         return self._finish_run(leg)
 
-    def _start_leg(self, rounds: Optional[int], draws) -> _Leg:
+    def _start_leg(self, rounds: Optional[int], draws, expiry_uniforms=None) -> _Leg:
         """Draw (or check) the leg's draws on the host and upload them,
         with the initial state, before any round runs."""
         c = self.cfg
@@ -135,10 +144,13 @@ class ScannedFederatedDistillation(FederatedDistillation):
                       or (np.diff(srt, axis=1) <= 0).any()):
                 raise ValueError("each round's P^t must hold distinct public "
                                  f"indices in [0, {c.public_size})")
+        u = self._leg_uniforms(T, expiry_uniforms)
         state = self.state_dict()
         del state["t_done"]
+        state["prev_idx"] = state["prev_idx"].to(torch.int64)
         return _Leg(t0=t0, ts=ts, part=self._tensor(part),
                     idx=self._tensor(idx, torch.int64),
+                    u=None if u is None else self._tensor(u),
                     do_eval=[t % c.eval_every == 0 or t == t0 + T for t in ts],
                     state=state)
 
@@ -151,8 +163,9 @@ class ScannedFederatedDistillation(FederatedDistillation):
         try:
             st = leg.state
             for i, t in enumerate(leg.ts):
+                kw = {} if leg.u is None else {"u": leg.u[i]}
                 st, out = self._round_device(st, t, leg.part[i], leg.idx[i],
-                                             leg.do_eval[i])
+                                             leg.do_eval[i], **kw)
                 leg.outputs.append(out)
             leg.state = st
         finally:
@@ -161,10 +174,12 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
     # ------------------------------------------------------------------
     def _round_device(self, st: Dict[str, Any], t: int, part: torch.Tensor,
-                      idx: torch.Tensor, do_eval: bool):
+                      idx: torch.Tensor, do_eval: bool,
+                      u: Optional[torch.Tensor] = None):
         """One round on the device (reference ``_round_device``): the
         state in, the state out and this round's results.  ``t`` and
-        ``do_eval`` are host values; nothing here reads the device."""
+        ``do_eval`` are host values; ``u`` is the round's row of expiry
+        uniforms (probabilistic expiry); nothing here reads the device."""
         c, s = self.cfg, self.strategy
         m, N = c.public_per_round, c.n_classes
         part_f = part.to(torch.float32)
@@ -180,13 +195,14 @@ class ScannedFederatedDistillation(FederatedDistillation):
         upd = self._distill_all(cp, self.x_pub[st["prev_idx"]],
                                 st["prev_teacher"])
         cp = _select_cohorts(upd, cp, self.models.split(part & st["have_prev"]))
-        cp = _select_cohorts(self._local_train_all(cp), cp,
+        cp = _select_cohorts(self._local_train_all(cp, t), cp,
                              self.models.split(part))
 
         # --- request list (cache) ------------------------------------------
         cache_prev = st["cache"]
         if self.use_cache:
-            miss = cache_lib.miss_mask(cache_prev, idx, t, self.D)
+            miss = cache_lib.miss_mask(cache_prev, idx, t, self.D,
+                                       probabilistic=self.probabilistic_expiry, u=u)
         else:
             miss = torch.ones(m, dtype=torch.bool, device=self.device)
         miss_f = miss.to(torch.float32)

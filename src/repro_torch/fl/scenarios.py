@@ -1,20 +1,22 @@
-"""Client scenarios: participation sampling and outage windows
-(counterpart of ``repro.fl.scenarios``, numpy path).
+"""Client scenarios: participation sampling, outage windows and per-client
+schedule heterogeneity (counterpart of ``repro.fl.scenarios``, numpy
+path).
 
 Sampling draws from a numpy Generator owned by the engine, exactly as the
 reference's host loop does, so a port run and a reference run with the
-same seed draw the same participation masks bit for bit.  Per-client
-schedule heterogeneity and the jax-key twins are not ported yet.
+same seed draw the same participation masks bit for bit.  The jax-key
+twins (``participation_mask_device``) are not ported: the port has no
+jax stream.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Participation", "Outage", "Scenario", "full_participation",
-           "fixed_fraction", "bernoulli_participation"]
+__all__ = ["Participation", "Outage", "Heterogeneity", "Scenario",
+           "full_participation", "fixed_fraction", "bernoulli_participation"]
 
 
 @dataclass(frozen=True)
@@ -70,8 +72,38 @@ class Outage:
 
 
 @dataclass(frozen=True)
+class Heterogeneity:
+    """Per-client local-training schedules.
+
+    ``local_steps[k]``: client k's local step count E_k (default: the
+    config's ``local_steps``).  ``lr_scale[k]`` multiplies the config lr
+    for client k.  ``lr_decay`` applies a global ``decay**(t-1)`` factor
+    in round t.  A field left ``None`` falls back to the config value.
+    """
+
+    local_steps: Optional[Tuple[int, ...]] = None
+    lr_scale: Optional[Tuple[float, ...]] = None
+    lr_decay: float = 1.0
+
+    def resolve(self, n_clients: int, base_lr: float,
+                base_steps: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        """-> (lr_k (K,) float32, steps_k (K,) int32, max_steps)."""
+        steps = (np.full(n_clients, base_steps, np.int32)
+                 if self.local_steps is None
+                 else np.asarray(self.local_steps, np.int32))
+        scale = (np.ones(n_clients, np.float32)
+                 if self.lr_scale is None
+                 else np.asarray(self.lr_scale, np.float32))
+        if steps.shape != (n_clients,) or scale.shape != (n_clients,):
+            raise ValueError("heterogeneity schedules must have one entry "
+                             f"per client ({n_clients})")
+        return base_lr * scale, steps, int(steps.max())
+
+
+@dataclass(frozen=True)
 class Scenario:
-    """Participation sampling composed with outage windows.
+    """Participation sampling composed with outage windows and per-client
+    schedule heterogeneity.
 
     ``min_participants`` guards aggregation: if a round's draw comes up
     empty while some client is available, the lowest-indexed available
@@ -81,6 +113,7 @@ class Scenario:
 
     participation: Participation = field(default_factory=Participation)
     outages: Tuple[Outage, ...] = ()
+    heterogeneity: Optional[Heterogeneity] = None
     min_participants: int = 1
 
     @classmethod

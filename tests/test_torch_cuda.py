@@ -331,6 +331,73 @@ def test_divide_is_a_true_division_on_the_card(dev):
     assert not torch.equal((x.to(dev) / 255.0).cpu(), want)
 
 
+@pytest.mark.parametrize("D", [1, 3, 25])
+def test_probabilistic_miss_mask_on_the_card_equals_the_cpu(dev, D):
+    """The hazard (age - 1) / D is an IEEE division on the card too: for
+    random uniforms, uniforms equal to each hazard and one float below
+    it, the card's mask equals the CPU's with zero flips."""
+    from repro_torch.core import cache as pcache
+
+    ages = np.tile(np.arange(D + 3), 50)
+    t = 100
+    n = len(ages)
+    ts = (t - ages).astype(np.int32)
+    cache = pcache.CacheState(torch.zeros(n, 3), torch.from_numpy(ts),
+                              torch.ones(n, dtype=torch.bool))
+    f32 = np.float32
+    hazard = np.clip((ages.astype(f32) - f32(1.0)) / f32(D), f32(0), f32(1))
+    us = [np.random.default_rng(s).random(n, dtype=np.float32) for s in range(4)]
+    us += [hazard, np.where(hazard > 0, np.nextafter(hazard, f32(-1)), f32(0))]
+    idx = torch.arange(n)
+    for u in us:
+        u = torch.from_numpy(np.ascontiguousarray(u, np.float32))
+        want = pcache.miss_mask(cache, idx, t, D, probabilistic=True, u=u)
+        got = pcache.miss_mask(pcache.CacheState(*(a.to(dev) for a in cache)),
+                               idx.to(dev), t, D, probabilistic=True, u=u.to(dev))
+        assert int((got.cpu() != want).sum()) == 0
+    assert not bool(want[ages <= 1].any())  # one float below a zero hazard: 0
+
+
+@pytest.mark.parametrize("engine,fused", [("host", False), ("scan", False), ("scan", True)])
+def test_restore_round_trip_on_the_card(dev, engine, fused, tmp_path):
+    """Heterogeneous schedules and probabilistic expiry at half
+    participation: 2 rounds, a checkpoint, a fresh card engine restored
+    from it, 2 more, against 4 rounds in one engine: ledgers and state
+    bit for bit (the kernels sum in a fixed order)."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.checkpoint.io import _flatten, _key
+
+    cfg = pfl.FLConfig(**dict(_SMALL, rounds=4, fused_round=fused))
+    scen = pfl.Scenario(participation=pfl.fixed_fraction(0.5),
+                        heterogeneity=pfl.Heterogeneity(
+                            local_steps=(0, 2, 5, 8) * 2, lr_scale=(0.5, 1.0, 2.0, 1.0) * 2,
+                            lr_decay=0.95))
+    Engine = pfl.FederatedDistillation if engine == "host" else pfl.ScannedFederatedDistillation
+
+    def make():
+        return Engine(cfg, pfl.STRATEGIES["scarlet"](beta=1.5), cache_duration=2,
+                      probabilistic_expiry=True, scenario=scen, device=dev)
+
+    full = make()
+    hf = full.run(4)
+    first = make()
+    h1 = first.run(2)
+    path = str(tmp_path / "engine.npz")
+    save_pytree(path, first.state_dict())
+    restored = make()
+    restored.load_state_dict(load_pytree(path, restored.state_dict()))
+    h2 = restored.run(2)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    ledger = lambda h: [(r.uplink, r.downlink) for r in h.ledger.rounds]  # noqa: E731
+    assert ledger(h1) + ledger(h2) == ledger(hf)
+    a = {_key(k): v for k, v in _flatten(restored.state_dict())}
+    b = {_key(k): v for k, v in _flatten(full.state_dict())}
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert a[k].device == b[k].device
+
+
 # ---------------------------------------------------------------------------
 # Flash attention: kernel against its plain version, and the whisper
 # prefill through it.  float32 to atol 1e-5 (the kernel sums with FMA in

@@ -8,6 +8,7 @@ operations in float32, reduction order aside).
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,8 +157,19 @@ def test_cache_duration_validation_matches_reference():
                      (-1, ValueError)):
         with pytest.raises(err):
             pcache.normalize_cache_duration(bad)
+    # probabilistic expiry: the reference's uniforms of its key give its
+    # mask; without uniforms the port raises, as the reference does
+    # without a key
     jc, pc = _cache_pair(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError):
+    idx = np.arange(40)
+    key = jax.random.PRNGKey(5)
+    u = np.asarray(jax.random.uniform(key, idx.shape))
+    for D in (1, 3, 25):
+        want = jcache.miss_mask(jc, jnp.asarray(idx), 9, D, probabilistic=True, key=key)
+        got = pcache.miss_mask(pc, torch.from_numpy(idx), 9, D, probabilistic=True,
+                               u=torch.from_numpy(u))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
         pcache.miss_mask(pc, torch.arange(3), 2, 3, probabilistic=True)
 
 
@@ -451,9 +463,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
     for kw in [dict(engine="shard"), dict(engine="active"), dict(engine="async"),
-               dict(rng_backend="jax"),
-               dict(track_local_caches=True), dict(telemetry=True),
-               dict(probabilistic_expiry=True, cache_duration=2)]:
+               dict(rng_backend="jax"), dict(telemetry=True)]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
     for method in ("fedavg", "individual"):
