@@ -23,7 +23,14 @@ population: heterogeneous client schedules with probabilistic cache
 expiry on the host loop and both device engines, a run split by a
 checkpoint (``repro_torch.checkpoint``) against the uninterrupted run,
 bit for bit, and the clients' mirrored local caches against the global
-cache under partial participation with an outage.
+cache under partial participation with an outage.  Then run telemetry
+(phase 4h): the engine options' run with ``telemetry=True`` on the three
+engines, its per-round Alg. 3 census held against the numpy replay of the
+requests and its rows held across engines; the stragglers' catch-up and
+staleness counters; telemetry off against on, bit for bit; and the host
+plane (``repro_torch.obs``): a span tracer's Chrome trace and a run
+record through ``python -m repro_torch.obs validate|render``, and a
+fused leg under ``profiler_trace``, whose trace must name the kernels.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -153,6 +160,37 @@ TOPK_INDEX_BYTES = 1.0
 # ledgers and state bit for bit; (c) mirrored local caches at
 # MIRROR_PARTICIPATION with MIRROR_OUTAGE's client offline, each
 # participant's mirror equal to the global cache after every round.
+# Phase 4h: run telemetry at the slice's population.  (a) Phase 4g (a)'s
+# configuration with telemetry on, on the three engines: the Alg. 3 census
+# against request_masks, participants, bytes equal to the ledger, beta,
+# sharpening (entropy post < pre) and the 8-bit codec error in (0, 1/255];
+# counters and bytes equal on the three engines.  Every run's gauges equal
+# a float64 recomputation from the round's own inputs (the participation,
+# the transmitted stack, the server's view, the teacher) to TEL_GAUGE_ATOL
+# (float32 means over 1000 rows and 100 clients).  Across engines, where
+# the state is the same: the host loop and the per-op engine at full
+# participation in every round (the same bits), and every engine in round
+# 1, to TEL_GAUGE_ATOL, the fused engine's post-sharpening entropy to
+# TEL_FUSED_POST_ATOL (its teacher lies within one 8-bit level of the
+# per-op one).  After round 1 an engine whose clients distilled on another
+# teacher (the fused kernel's, or a partial mean in another order) follows
+# its own trajectory: its gauges are printed and held to
+# TEL_TRAJECTORY_RTOL.  (b) Phase 4g (c)'s stragglers without the mirrors:
+# TEL_CATCH_UP returning clients of TEL_PARTICIPATIONS (client, round)
+# pairs, TEL_BUCKET0 of them present the round before (a numpy replay of
+# the draws).  (c) Telemetry off against on, each engine: ledgers, caches,
+# parameters and accuracies bit for bit.  (d) The host plane: (a) in a
+# SpanTracer, its Chrome trace and a run record through ``python -m
+# repro_torch.obs`` in a child process, and one fused leg under
+# ``profiler_trace``.
+TEL_GAUGE_ATOL = 1e-5
+TEL_FUSED_POST_ATOL = 1e-3
+TEL_TRAJECTORY_RTOL = 0.1
+TEL_CATCH_UP = 188
+TEL_PARTICIPATIONS = 300
+TEL_BUCKET0 = 112
+TEL_PROFILED_ROUNDS = 3
+
 HET_STEPS = (0, 2, 5, 8)
 HET_LR_SCALE = (0.5, 1.0, 2.0)
 HET_LR_DECAY = 0.95
@@ -516,23 +554,28 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                index_bytes: float = 4.0, cache_duration: int = 0,
                use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
                scenario=None, probabilistic_expiry: bool = False,
-               track_local_caches: bool = False, hook=None, **strategy_kw) -> dict:
+               track_local_caches: bool = False, hook=None, telemetry: bool = False,
+               **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
     (``engine="host"``) or the device engine (``"scan"``): round 1, then
     the other rounds in one leg (on the device engine its only host sync
     is the read-back at its end), the launch counts set to 0 just before
     and read just after.  Selective-FD's upload masks are recorded with
     the normalized entropies they gate on, for the engines' comparison.
-    ``hook(engine)`` runs once the engine is built."""
+    ``hook(engine)`` runs once the engine is built.  With ``telemetry``
+    the run's ``History`` (both legs' ledger and telemetry rows) is kept
+    as ``history``."""
     from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
-    from repro_torch.fl import (FederatedDistillation, FLConfig, STRATEGIES,
+    from repro_torch.fl import (FederatedDistillation, FLConfig, History, STRATEGIES,
                                 ScannedFederatedDistillation)
     from repro_torch.kernels import ops
     from repro_torch.kernels.runtime import divide
+    from repro_torch.obs.device import RoundTelemetry, TelemetryLog
 
     cfg = FLConfig(**SLICE, rounds=rounds, eval_every=rounds, uplink_codec=codec,
-                   downlink_codec=downlink, index_bytes=index_bytes, fused_round=fused)
+                   downlink_codec=downlink, index_bytes=index_bytes, fused_round=fused,
+                   telemetry=telemetry)
     strat = STRATEGIES[method](**strategy_kw)
     masks = []
     if method == "selective_fd":
@@ -594,6 +637,14 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     run = dict(eng=eng, ledger=ledger, launches=launches, per_round_ms=per_round * 1e3,
                summary=summary, masks=masks, aggregate_s=agg_s, label=label,
                accs=first.server_acc + first.client_acc + rest.server_acc + rest.client_acc)
+    if telemetry:
+        a, b = first.telemetry.stacks(), rest.telemetry.stacks()
+        tel_log = TelemetryLog.from_stacked(RoundTelemetry(*(
+            np.concatenate([a[f], b[f]]) for f in RoundTelemetry._fields)))
+        run["history"] = History(rounds=rest.rounds, server_acc=rest.server_acc,
+                                 client_acc=rest.client_acc, ledger=CommLedger(ledger),
+                                 final_server_acc=sa, final_client_acc=ca, telemetry=tel_log)
+        run["telemetry"] = tel_log.stacks()
     check_outputs(run, sa, ca)
     return run
 
@@ -1128,13 +1179,288 @@ def run_mirrors(device, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: run telemetry at full width
+# ---------------------------------------------------------------------------
+
+TEL_ENGINES = (("host loop", "host", False), ("device engine per-op", "scan", False),
+               ("device engine fused", "scan", True))
+
+
+def path_launches(fused: bool, telemetry: bool) -> dict:
+    """The slice's launches a 10-round run: the fused engine's telemetry
+    adds one qdq a round (the server's view of the transmitted stack)."""
+    n = SLICE_ROUNDS
+    if fused:
+        return dict(fused_round=n, **({"quantize_dequantize": n} if telemetry else {}))
+    return {"enhanced_era_fused": n, "quantize_dequantize": n}
+
+
+def hold_telemetry(label: str, runs: dict, perop_same_state: bool) -> None:
+    """The three engines' stacks: counters and bytes equal; gauges against
+    the host loop's to TEL_GAUGE_ATOL where the state is the same (round 1;
+    every round for the per-op engine when ``perop_same_state``), the fused
+    engine's post-sharpening entropy to TEL_FUSED_POST_ATOL; after that to
+    TEL_TRAJECTORY_RTOL (see the phase's comment), the differences printed."""
+    from repro_torch.obs.device import EXACT_FIELDS, GAUGE_FIELDS
+
+    host, perop, fused = (runs[k]["telemetry"] for k, _, _ in TEL_ENGINES)
+    bad = [f"{f} ({name})" for f in EXACT_FIELDS for name, other in
+           (("per-op", perop), ("fused", fused))
+           if other[f].dtype != host[f].dtype or not np.array_equal(other[f], host[f])]
+    failed = list(bad)
+    for name, other in (("per-op", perop), ("fused", fused)):
+        same = SLICE_ROUNDS if (name == "per-op" and perop_same_state) else 1
+        for f in GAUGE_FIELDS:
+            d = np.abs(other[f].astype(np.float64) - host[f])
+            atol = TEL_FUSED_POST_ATOL if (name, f) == ("fused", "teacher_entropy_post") \
+                else TEL_GAUGE_ATOL
+            rel = d / np.maximum(np.abs(host[f]), 1e-30)
+            log(f"telemetry {label} {name} vs host loop {f}: max_abs_err rounds 1-{same} "
+                f"{float(d[:same].max())!r} (atol {atol}), all rounds {d.tolist()} "
+                f"(rel max {float(rel.max())!r}, limit {TEL_TRAJECTORY_RTOL})")
+            if d[:same].max() > atol or rel.max() > TEL_TRAJECTORY_RTOL:
+                failed.append(f"{f} ({name})")
+    log(f"telemetry {label}: counters and bytes equal on the three engines: {not bad} "
+        f"{bad[:4]}")
+    if failed:
+        raise AssertionError(f"telemetry {label}: the engines' rows differ: {failed}")
+
+
+def capture_rows(eng, record: list) -> None:
+    """Wrap the engine's ``_telemetry_row``: each round, keep device copies
+    of its inputs and the row it returned (no host read, so the device
+    engine's sync guard stays quiet)."""
+    inner = eng._telemetry_row
+
+    def wrapped(**kw):
+        tel = inner(**kw)
+        record.append(dict({k: kw[k].clone() for k in ("part", "z_tx", "z_srv", "fresh")},
+                           tel=tel))
+        return tel
+
+    eng._telemetry_row = wrapped
+
+
+def check_recomputed(run: dict, record: list) -> None:
+    """Each round's gauges against a float64 numpy recomputation from the
+    round's own inputs, to TEL_GAUGE_ATOL."""
+    def entropy(p):
+        p = np.clip(p, 1e-12, 1.0)
+        return float(np.mean(-np.sum(p * np.log(p), axis=-1)))
+
+    worst = dict.fromkeys(("teacher_entropy_pre", "teacher_entropy_post", "beta",
+                           "codec_quant_error"), 0.0)
+    for rec in record:
+        part, z_tx, z_srv, fresh = (rec[k].double().cpu().numpy()
+                                    for k in ("part", "z_tx", "z_srv", "fresh"))
+        n = max(part.sum(), 1.0)
+        want = dict(teacher_entropy_pre=entropy(np.tensordot(part, z_srv, 1) / n),
+                    teacher_entropy_post=entropy(fresh), beta=BETA,
+                    codec_quant_error=float(np.sum(np.abs(z_srv - z_tx) * part[:, None, None])
+                                            / max(n * z_srv[0].size, 1.0)))
+        for f, w in want.items():
+            worst[f] = max(worst[f], abs(float(getattr(rec["tel"], f)) - w))
+    log(f"{run['label']}: gauges against a float64 recomputation from each round's "
+        f"inputs, {len(record)} rounds: max_abs_err {worst} (atol {TEL_GAUGE_ATOL})")
+    if len(record) != SLICE_ROUNDS or max(worst.values()) > TEL_GAUGE_ATOL:
+        raise AssertionError(f"{run['label']}: gauges differ from their recomputation")
+
+
+def check_census(run: dict) -> None:
+    """(a)'s rows: the Alg. 3 census equal to request_masks' numpy replay;
+    full participation; bytes equal to the ledger's rows in float32; beta;
+    sharpening; the 8-bit codec error in (0, 1/255]."""
+    st = run["telemetry"]
+    m, K = SLICE["public_per_round"], SLICE["n_clients"]
+    expired: list = []
+    req = np.array([int(x.sum()) for x in request_masks(
+        SLICE_ROUNDS, CACHE_DURATION, run["eng"].cfg.seed,
+        run["eng"].expiry_uniforms, expired)])
+    led = np.array([(r.uplink, r.downlink) for r in run["ledger"]], np.float32)
+    checks = {
+        "cache_expired == expired requests": np.array_equal(st["cache_expired"], expired),
+        "cache_miss_new + cache_expired == requests": np.array_equal(
+            st["cache_miss_new"] + st["cache_expired"], req),
+        "cache_hits == |P^t| - requests": np.array_equal(st["cache_hits"], m - req),
+        "participants == K": np.array_equal(st["participants"], np.full((SLICE_ROUNDS, 1), K)),
+        "bytes == ledger": (np.array_equal(st["uplink_bytes"], led[:, 0])
+                            and np.array_equal(st["downlink_bytes"], led[:, 1])),
+        "beta == 1.5": bool((st["beta"] == np.float32(BETA)).all()),
+        "entropy post < pre": bool((st["teacher_entropy_post"]
+                                    < st["teacher_entropy_pre"]).all()),
+        "codec error in (0, 1/255]": bool(((st["codec_quant_error"] > 0)
+                                           & (st["codec_quant_error"] <= 1 / 255)).all()),
+    }
+    log(f"{run['label']}: requests {req.tolist()}, expired {st['cache_expired'].tolist()}, "
+        f"hits {st['cache_hits'].tolist()}; teacher entropy pre "
+        f"{st['teacher_entropy_pre'].tolist()} post {st['teacher_entropy_post'].tolist()}; "
+        f"codec error {st['codec_quant_error'].tolist()}; launches {run['launches']}; "
+        f"{run['per_round_ms']:.3f} ms/round")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{run['label']}: telemetry rows fail {failed}")
+
+
+def telemetry_run(device, label: str, engine: str, fused: bool, telemetry: bool,
+                  stragglers: bool = False, capture: bool = False, tag: str = "") -> dict:
+    """(a)'s configuration, or (b)'s straggler scenario, on one engine;
+    ``capture``: each round's gauges held against their recomputation."""
+    from repro_torch.fl import Outage, Scenario, fixed_fraction
+
+    kw = (dict(scenario=Scenario(participation=fixed_fraction(MIRROR_PARTICIPATION),
+                                 outages=(Outage(*MIRROR_OUTAGE),)))
+          if stragglers else dict(scenario=het_scenario(), probabilistic_expiry=True))
+    record: list = []
+    r = run_engine(device, f"telemetry {tag} {label}", "scarlet", engine, fused=fused,
+                   codec=CODEC, cache_duration=CACHE_DURATION, telemetry=telemetry,
+                   hook=(lambda e: capture_rows(e, record)) if capture else None,
+                   beta=BETA, **kw)
+    if device.type == "cuda":
+        check_launches(r["launches"], path_launches(fused, telemetry))
+    if capture:
+        check_recomputed(r, record)
+    return r
+
+
+def run_telemetry(device, card: str, tracer) -> dict:
+    """Phase 4h (a)-(c); (a)'s three runs inside ``tracer``."""
+    on, off, strag = {}, {}, {}
+    for label, engine, fused in TEL_ENGINES:
+        with tracer.span(label, engine=engine, fused=fused, rounds=SLICE_ROUNDS):
+            on[label] = telemetry_run(device, label, engine, fused, True, capture=True,
+                                      tag="(a)")
+        check_census(on[label])
+    hold_telemetry("(a) options", on, perop_same_state=True)
+
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    ib = 4.0
+    for label, engine, fused in TEL_ENGINES:
+        r = strag[label] = telemetry_run(device, label, engine, fused, True, stragglers=True,
+                                         capture=True, tag="(b) stragglers")
+        st = r["telemetry"]
+        n_part = st["participants"].sum(1)
+        if label == "host loop":  # the catch-up share: downlink less the broadcast
+            misses = request_masks(SLICE_ROUNDS, CACHE_DURATION, r["eng"].cfg.seed)
+            share = np.array([d.downlink - n_part[i] * (n * N * 4.0 + n * ib + m * ib + m * 0.25)
+                              for i, (d, n) in enumerate(zip(r["ledger"],
+                                                             (int(x.sum()) for x in misses)))],
+                             np.float32)
+        checks = {
+            "catch_up_clients": int(st["catch_up_clients"].sum()) == TEL_CATCH_UP,
+            "participations": int(n_part.sum()) == TEL_PARTICIPATIONS,
+            "bucket 0": int(st["staleness_hist"][:, 0].sum()) == TEL_BUCKET0,
+            "buckets 1-7": int(st["staleness_hist"][:, 1:].sum()) == TEL_CATCH_UP,
+            "catch_up_bytes == ledger share": np.array_equal(st["catch_up_bytes"], share),
+        }
+        log(f"{r['label']}: catch-up clients {st['catch_up_clients'].tolist()} "
+            f"(sum {int(st['catch_up_clients'].sum())}), participations {int(n_part.sum())}, "
+            f"staleness {st['staleness_hist'].sum(0).tolist()}, catch-up bytes "
+            f"{st['catch_up_bytes'].tolist()}; {r['per_round_ms']:.3f} ms/round")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"{r['label']}: telemetry fails {failed}")
+    hold_telemetry("(b) stragglers", strag, perop_same_state=False)
+
+    for label, engine, fused in TEL_ENGINES:  # (c): off, then on, without capture
+        r = off[label] = telemetry_run(device, label, engine, fused, False, tag="(c) off")
+        o = telemetry_run(device, label, engine, fused, True, tag="(c) on")
+        a, b = state_leaves(r["eng"]), state_leaves(o["eng"])
+        differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+        same = (r["ledger"] == o["ledger"] and r["accs"] == o["accs"]
+                and not differ and a.keys() == b.keys())
+        log(f"telemetry off vs on, {label}: ledger equal={r['ledger'] == o['ledger']}, "
+            f"accuracies equal={r['accs'] == o['accs']}, {len(differ)} of {len(a)} "
+            f"state leaves differ {differ[:5]}; {r['per_round_ms']:.3f} ms/round off, "
+            f"{o['per_round_ms']:.3f} on ({card})")
+        if not same:
+            raise AssertionError(f"telemetry on moved the {label} run")
+    return dict(on=on, off=off, stragglers=strag)
+
+
+def run_obs_host_plane(device, tracer, tel: dict) -> None:
+    """Phase 4h (d): (a)'s SpanTracer as a Chrome trace and a run record
+    with the engines' telemetry summaries, validated and rendered by
+    ``python -m repro_torch.obs`` in child processes; one fused leg under
+    ``profiler_trace``, whose trace must name the fused round and qdq
+    kernels."""
+    import tempfile
+
+    from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
+    from repro_torch.obs import profiler_trace
+    from repro_torch.obs.export import telemetry_summary, write_chrome_trace, write_run_record
+    from repro_torch.obs.trace import PROFILE_TRACE
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    host = tel["on"]["host loop"]
+    with tempfile.TemporaryDirectory() as d:
+        trace_path = write_chrome_trace(os.path.join(d, "trace.json"), tracer)
+        rec_path = os.path.join(d, "record.json")
+        write_run_record(rec_path, name="phase 4h (a)", config=host["eng"].cfg,
+                         history=host["history"], tracer=tracer,
+                         extra={"engines": {k: telemetry_summary(v["history"])
+                                            for k, v in tel["on"].items()}})
+        for args in (["validate", trace_path], ["render", rec_path, "--format", "text"]):
+            p = subprocess.run([sys.executable, "-m", "repro_torch.obs", *args],
+                               capture_output=True, text=True, env=env, timeout=120)
+            log(f"python -m repro_torch.obs {args[0]}: exit {p.returncode}; "
+                + (p.stdout.strip().splitlines()[0] if args[0] == "validate"
+                   else f"{len(p.stdout.splitlines())} lines"))
+            if args[0] == "render":
+                print(p.stdout, flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"python -m repro_torch.obs {args[0]} failed: "
+                                     f"{p.stderr[-2000:]}")
+
+        cfg = FLConfig(**SLICE, rounds=TEL_PROFILED_ROUNDS, eval_every=TEL_PROFILED_ROUNDS,
+                       uplink_codec=CODEC, fused_round=True, telemetry=True)
+        eng = ScannedFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA),
+                                           cache_duration=CACHE_DURATION, device=device)
+        with profiler_trace(d):
+            eng.run()
+            _sync(device)
+        with open(os.path.join(d, PROFILE_TRACE)) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(d, PROFILE_TRACE))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    hits = {k: sum(1 for e in kernels if k in e["name"]) for k in ("fused_round", "qdq")}
+    log(f"profiler_trace of a {TEL_PROFILED_ROUNDS}-round fused leg: {size} bytes, "
+        f"{len(events)} events, {len(kernels)} kernel events, {len(names)} kernel names; "
+        f"kernels naming fused_round {hits['fused_round']}, qdq {hits['qdq']}: "
+        f"{sorted(n for n in names if 'fused_round' in n or 'qdq' in n)}")
+    if not (hits["fused_round"] >= TEL_PROFILED_ROUNDS and hits["qdq"] >= TEL_PROFILED_ROUNDS):
+        raise AssertionError("the profiler's trace does not name the fused round and qdq "
+                             "kernels")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the same small run on the card and on the CPU
 # ---------------------------------------------------------------------------
 
-def check_options_cuda_vs_cpu(card_run: dict) -> None:
-    """Phase 4g (a)'s host-loop run on the CPU: the ledger equal to the
-    card's, accuracies within one test sample."""
-    c = options_run(torch.device("cpu"), "host loop (cpu)", "host", False)
+def check_options_cuda_vs_cpu(card_run: dict, card_tel: dict) -> None:
+    """Phase 4g (a)'s host-loop run on the CPU, telemetry on: the ledger
+    equal to the card's (telemetry off), accuracies within one test
+    sample; its telemetry against phase 4h (a)'s card host loop: counters
+    and bytes equal, gauges to TEL_GAUGE_ATOL in round 1 and in their
+    recomputation from each round's inputs, to TEL_TRAJECTORY_RTOL after
+    (the two devices break 8-bit rounding ties differently)."""
+    from repro_torch.obs.device import EXACT_FIELDS, GAUGE_FIELDS
+
+    c = telemetry_run(torch.device("cpu"), "host loop (cpu)", "host", False, True,
+                      capture=True, tag="options")
+    g_st, c_st = card_tel["telemetry"], c["telemetry"]
+    bad = [f for f in EXACT_FIELDS
+           if c_st[f].dtype != g_st[f].dtype or not np.array_equal(c_st[f], g_st[f])]
+    d = {f: np.abs(c_st[f].astype(np.float64) - g_st[f]) for f in GAUGE_FIELDS}
+    rel = max(float((d[f] / np.maximum(np.abs(g_st[f]), 1e-30)).max()) for f in d)
+    log(f"options host loop telemetry cuda vs cpu: counters and bytes equal={not bad} "
+        f"{bad}; gauge abs err round 1 { {f: float(v[0]) for f, v in d.items()} } (atol "
+        f"{TEL_GAUGE_ATOL}), all rounds { {f: float(v.max()) for f, v in d.items()} } "
+        f"(rel max {rel!r}, limit {TEL_TRAJECTORY_RTOL})")
+    if (bad or max(float(v[0]) for v in d.values()) > TEL_GAUGE_ATOL
+            or rel > TEL_TRAJECTORY_RTOL):
+        raise AssertionError("options host loop: telemetry differs between card and CPU")
     equal = c["ledger"] == card_run["ledger"]
     n_test = len(c["eng"].y_test)
     acc_err = max(abs(a - b) for a, b in zip(card_run["accs"], c["accs"]))
@@ -2000,6 +2326,12 @@ def main() -> int:
     opts = run_engine_options(dev, card)
     run_restore(dev, card, opts)
     run_mirrors(dev, card)
+    # 4h. run telemetry at the same width, and the obs host plane
+    from repro_torch.obs import SpanTracer
+
+    tracer = SpanTracer("phase 4h", meta={"card": card})
+    tel = run_telemetry(dev, card, tracer)
+    run_obs_host_plane(dev, tracer, tel)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width
@@ -2011,7 +2343,7 @@ def main() -> int:
     check_small_cuda_vs_cpu("host")
     check_small_cuda_vs_cpu("scan")
     check_small_methods_cuda_vs_cpu()
-    check_options_cuda_vs_cpu(opts["host loop"])
+    check_options_cuda_vs_cpu(opts["host loop"], tel["on"]["host loop"])
     # 5b. the reduced whisper prefill, card vs CPU
     check_whisper_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the

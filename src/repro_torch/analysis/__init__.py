@@ -1,7 +1,7 @@
 """Static contract analyzer for the port: prove declared invariants by
 tracing, before anything runs (counterpart of ``repro.analysis``).
 
-Two passes, one CLI (``python -m repro_torch.analysis``):
+Three passes, one CLI (``python -m repro_torch.analysis``):
 
 ``contract_checks``
     runs every registered strategy hook and codec ``roundtrip`` on fake
@@ -17,8 +17,14 @@ Two passes, one CLI (``python -m repro_torch.analysis``):
     shared memory, operand alignment, scalars read to the host; with a
     card, also against each compiled kernel's registers and spills.
 
-The reference's telemetry, replication, active-set and async passes wait
-for the engines they check.
+``obs_checks``
+    traces the device engine's telemetry round code (the row, the
+    strategy's ``sharpen_gauge``, any ``telemetry_hook``) on fake CUDA
+    tensors, and runs one round of a tiny engine with telemetry off and on
+    from the same state: the two differ by the telemetry entry alone.
+
+The reference's replication, active-set and async passes wait for the
+engines they check.
 """
 from __future__ import annotations
 

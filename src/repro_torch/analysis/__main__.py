@@ -21,13 +21,13 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.analysis import contract_checks, fixtures, launch_checks
+from repro_torch.analysis import contract_checks, fixtures, launch_checks, obs_checks
 from repro_torch.analysis.report import Report
 from repro_torch.kernels import fixture_kernel, runtime
 
 # Passes of the reference analyzer that wait for the engines they check.
-_WAITING = ("obs, replication, active-set and async passes not run: they wait for the "
-            "port's telemetry, shard, active and async engines (ROADMAP Queue A)")
+_WAITING = ("replication, active-set and async passes not run: they wait for the "
+            "port's shard, active and async engines (ROADMAP Queue A)")
 
 
 def main(argv=None) -> int:
@@ -36,7 +36,7 @@ def main(argv=None) -> int:
         description="static contract analyzer (trace-time proofs)")
     ap.add_argument("--strict", action="store_true", help="warnings also fail the build")
     ap.add_argument("--fast", action="store_true",
-                    help="skip the engine passes (none is ported yet: changes nothing)")
+                    help="skip the engine passes (the telemetry pass and its fixture)")
     ap.add_argument("--selftest", action="store_true",
                     help="run the passes over the broken fixtures and verify each is flagged")
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     if device.type == "cpu":
         report.add("info", "launch", "device", "compiled attributes not read: device=cpu")
     if args.selftest:
-        rc = _selftest(report, device)
+        rc = _selftest(report, device, fast=args.fast)
         print(report.render(verbose=True))
         if args.json:
             _dump(report, args.json)
@@ -62,6 +62,8 @@ def main(argv=None) -> int:
 
     plans = []
     report.extend(contract_checks.run(plans=plans))
+    if not args.fast:
+        report.extend(obs_checks.run(plans=plans))
     report.extend(launch_checks.run(attrs=attrs))
     report.extend(launch_checks.check_launches(plans, attrs=attrs))
     report.add("info", "analysis", "engine passes", _WAITING)
@@ -87,7 +89,7 @@ def _expect(report, failures, label, got, want) -> None:
                    f"NOT flagged at level {want!r} (got {[f.level for f in got]})")
 
 
-def _selftest(report, device) -> int:
+def _selftest(report, device, fast: bool = False) -> int:
     """Every broken fixture must be flagged at its expected level, and the
     kernels' valid plans must lint clean (and, on a card, run)."""
     attrs = runtime.func_attrs if device.type == "cuda" else None
@@ -106,6 +108,13 @@ def _selftest(report, device) -> int:
             report.add("error", "selftest", label, "valid plan falsely flagged: " + bad[0].message)
         else:
             report.add("ok", "selftest", label, "valid plan passes (no false positive)")
+    # telemetry fixture: a hook that reads the card on the host inside the
+    # round must be caught by the obs pass
+    if not fast:
+        label = "fixture/telemetry-callback"
+        _expect(report, failures, label,
+                obs_checks.check_round_body(label, fixtures.telemetry_callback_engine()),
+                "error")
     if device.type == "cuda":
         _card_selftest(report, failures, device)
     return 1 if failures else 0

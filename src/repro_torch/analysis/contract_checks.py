@@ -56,7 +56,7 @@ def _record(plans: Optional[List], subject: str, hook: str, tr) -> None:
 
 def _scan_hooks(s, um):
     """(hook name, fn, args) for everything the device engine calls inside
-    its rounds."""
+    its rounds (``sharpen_gauge`` with telemetry on)."""
     z, part = tensor_spec((_K, _M, _N)), tensor_spec((_K,))
     return [
         ("transmit", lambda z_: s.transmit(z_), (z,)),
@@ -65,6 +65,7 @@ def _scan_hooks(s, um):
          (z, part, um)),
         ("two_phase", lambda z_, p_, u_: s.finalize_aggregate(
             s.partial_aggregate(z_, p_, u_, _T), _T), (z, part, um)),
+        ("sharpen_gauge", lambda zb: s.sharpen_gauge(zb, _T), (tensor_spec((_M, _N)),)),
     ]
 
 

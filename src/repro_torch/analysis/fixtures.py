@@ -20,10 +20,12 @@ working one on a healthy repo.  One fixture per bug class:
   ``repro_torch.kernels.fixture_kernel`` on their broken plans (a float4
   copy of a misaligned view, a scalar read to the host and passed by
   value, a 32 MiB shared-memory tile), and :func:`valid_kernel_cases`, the
-  same kernels on their valid plans.
+  same kernels on their valid plans;
+- :func:`telemetry_callback_engine`: a telemetry-on device engine whose
+  ``telemetry_hook`` reads the card on the host.
 
-The telemetry, active-set, async and replication fixtures of the
-reference wait for the engines they test.
+The active-set, async and replication fixtures of the reference wait for
+the engines they test.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from repro_torch.kernels import fixture_kernel
 
 __all__ = ["CallbackSmugglerStrategy", "HostRNGStrategy", "StaleFlagStrategy",
            "FalseFusedStrategy", "BROKEN_STRATEGIES", "EXPECTED_STRATEGY_LEVEL",
-           "broken_kernel_cases", "valid_kernel_cases", "analysis_cases"]
+           "broken_kernel_cases", "valid_kernel_cases", "analysis_cases",
+           "telemetry_callback_engine"]
 
 
 class CallbackSmugglerStrategy(Strategy):
@@ -137,3 +140,27 @@ def analysis_cases():
     """The broken cases without the expectation, matching the
     kernel-module protocol so this file can be linted like a module."""
     return [(label, fn, args) for label, fn, args, _ in broken_kernel_cases()]
+
+
+# ---------------------------------------------------------------------------
+# Telemetry fixture
+# ---------------------------------------------------------------------------
+
+def telemetry_callback_engine():
+    """A telemetry-on device engine (on the CPU) whose hook leaves the card.
+
+    The hook looks innocent — it returns the row unchanged — but its
+    ``.item()`` reads a device value on the host inside every round.
+    ``repro_torch.analysis.obs_checks.check_round_body`` must flag it as an
+    error (on the card, the engine's sync guard raises there).
+    """
+    from repro_torch.analysis.obs_checks import build_engine
+
+    eng = build_engine("mean", {}, {}, "identity", telemetry=True)
+
+    def leaky_hook(tel, t):
+        tel.cache_hits.item()
+        return tel
+
+    eng.telemetry_hook = leaky_hook
+    return eng

@@ -59,10 +59,14 @@ def run_method(
     per-client ``Heterogeneity``), ``probabilistic_expiry`` (both
     engines) and ``track_local_caches`` (host loop; the device engine
     refuses it with the reference's ``ValueError``) go through to the
-    engine.  ``device`` is ``"cuda"`` by default and the
-    run raises when there is no CUDA device; pass ``device="cpu"`` to run
-    on the CPU.  Engines and options of the reference that are not ported
-    yet raise ``NotImplementedError``.
+    engine.  ``telemetry=True`` fills ``History.telemetry`` (one
+    :class:`repro_torch.obs.device.RoundTelemetry` row a round) on both
+    engines for the distillation methods; the baselines refuse it with
+    the reference's ``ValueError``.  ``device`` is ``"cuda"`` by default
+    and the run raises when there is no CUDA device; pass ``device="cpu"``
+    to run on the CPU.  Engines and options of the reference that are not
+    ported yet (``engine="shard"|"active"|"async"``, ``rng_backend="jax"``)
+    raise ``NotImplementedError``.
     """
     if engine not in _ENGINES and engine not in _NOT_PORTED_ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")

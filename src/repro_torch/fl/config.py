@@ -3,7 +3,9 @@ defaults of ``repro.fl.config.FLConfig``, so a reference config carries
 over field for field.  ``fused_round`` selects the device engine's
 (``engine="scan"``) one-kernel round; the host loop ignores it, as the
 reference's host loop does.  ``mesh_spec`` belongs to the sharded
-engine, not ported yet.  ``telemetry=True`` raises on every engine."""
+engine, not ported yet.  ``telemetry=True`` records one
+``repro_torch.obs.device.RoundTelemetry`` row a round in
+``History.telemetry`` on both engines."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -26,6 +26,12 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
      updated, the server model distilled;
   5. the ledger records exact bytes, catch-up packages included.
 
+Telemetry (``FLConfig.telemetry``) appends one
+:class:`repro_torch.obs.device.RoundTelemetry` row a round to
+``History.telemetry`` (:meth:`FederatedDistillation._telemetry_row`,
+shared with the device engine): an observation that leaves the run bit
+for bit as it is without it.
+
 Probabilistic expiry (``probabilistic_expiry=True``) tests each request
 against a uniform of the round.  The reference draws them from its jax
 key ``fold_in(PRNGKey(seed), t)``; the port, which has no jax stream,
@@ -60,6 +66,7 @@ from repro_torch.fl.scenarios import Scenario
 from repro_torch.fl.strategies.base import Strategy
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.resnet import Params, apply_mlp, init_mlp
+from repro_torch.obs import device as obs_device
 
 __all__ = ["local_train", "local_train_masked", "distill", "predict_soft",
            "accuracy", "val_loss_soft", "val_loss_hard", "History",
@@ -189,9 +196,13 @@ class History:
     # None when the leg never evaluated that model (a zero-round leg)
     final_server_acc: Optional[float] = None
     final_client_acc: Optional[float] = None
+    # per-round telemetry when the run had FLConfig.telemetry on; None
+    # otherwise.  Not part of state_dict: an observation of one leg, like
+    # the ledger.
+    telemetry: Optional[obs_device.TelemetryLog] = None
 
     def as_dict(self) -> Dict[str, Any]:
-        return {
+        out = {
             "rounds": self.rounds,
             "server_acc": self.server_acc,
             "client_acc": self.client_acc,
@@ -203,6 +214,9 @@ class History:
             "final_server_acc": self.final_server_acc,
             "final_client_acc": self.final_client_acc,
         }
+        if self.telemetry is not None:
+            out["telemetry"] = self.telemetry.as_dict()
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +240,11 @@ class FederatedDistillation:
     Alg. 2 has the client do it, catch-up packages applied on return, in
     ``local_caches``: a check that the synchronized caches stay equal to
     the global one.
+
+    ``cfg.telemetry`` turns on the per-round telemetry rows;
+    ``telemetry_hook``, if set, is a pure tensor transform ``(tel, t) ->
+    tel`` applied to each row inside the round (on the device engine it
+    must not read the card: its rounds run under the sync guard).
     """
 
     def __init__(self, cfg: FLConfig, strategy: Strategy,
@@ -239,8 +258,6 @@ class FederatedDistillation:
             raise NotImplementedError("rng_backend='jax' is not yet ported")
         if rng_backend != "numpy":
             raise ValueError(f"unknown rng_backend: {rng_backend!r}")
-        if cfg.telemetry:
-            raise NotImplementedError("telemetry is not yet ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -253,6 +270,8 @@ class FederatedDistillation:
         self.scenario = scenario or Scenario.from_participation_rate(cfg.participation)
         self.codec_up = get_codec(cfg.uplink_codec, index_bytes=cfg.index_bytes)
         self.codec_down = get_codec(cfg.downlink_codec, index_bytes=cfg.index_bytes)
+        self._telemetry = bool(cfg.telemetry)
+        self.telemetry_hook = None
         self._seed_generators()
         self._setup()
 
@@ -373,6 +392,8 @@ class FederatedDistillation:
         ``t_done + 1 + i``, in place of the default stream's."""
         c = self.cfg
         hist = History()
+        if self._telemetry:
+            hist.telemetry = obs_device.TelemetryLog()
         T = c.rounds if rounds is None else rounds
         t_end = self.t_done + T
         u = self._leg_uniforms(T, expiry_uniforms)
@@ -539,6 +560,42 @@ class FederatedDistillation:
                                           replace=False))
         return part, idx
 
+    def _telemetry_row(self, *, t: int, part, miss, base_present, z_tx, z_srv,
+                       fresh, last_sync, uplink, downlink,
+                       catch_up) -> obs_device.RoundTelemetry:
+        """One :class:`repro_torch.obs.device.RoundTelemetry` row (reference
+        ``_telemetry_row``), shared by both engines: the one expression is
+        what makes their counter stacks equal.  Counters come from the
+        full-width ``part`` and the pre-update ``miss``, ``base_present``
+        and ``last_sync``; ``z_tx`` is the (K, m, N) stack as transmitted,
+        ``z_srv`` the server's post-uplink-codec view, ``fresh`` the
+        aggregated teacher after sharpening and the downlink codec.  The
+        byte counts are host floats (host loop) or float32 device scalars
+        (device engine).  ``t`` is a host int; nothing here reads the
+        device."""
+        part_f = part.to(torch.float32)
+        n_part = part_f.sum()
+        hits, new, expired = obs_device.cache_signal_counts(base_present, miss)
+        cerr = (obs_device.as_f32(0.0, part) if self.codec_up.is_identity else
+                obs_device.codec_error_mean(z_srv, z_tx, part_f, n_part))
+        zbar = obs_device.participant_mean(z_srv, part_f, n_part)
+        tel = obs_device.RoundTelemetry(
+            participants=obs_device.participants_per_cohort(
+                part, self.models.offsets, self.models.sizes),
+            cache_hits=hits, cache_miss_new=new, cache_expired=expired,
+            catch_up_clients=obs_device.returning_client_count(part, last_sync, t),
+            staleness_hist=obs_device.staleness_histogram(part, last_sync, t),
+            uplink_bytes=obs_device.as_f32(uplink, part),
+            downlink_bytes=obs_device.as_f32(downlink, part),
+            catch_up_bytes=obs_device.as_f32(catch_up, part),
+            teacher_entropy_pre=obs_device.mean_entropy(zbar),
+            teacher_entropy_post=obs_device.mean_entropy(fresh),
+            beta=self.strategy.sharpen_gauge(zbar, t).to(torch.float32),
+            codec_quant_error=cerr)
+        if self.telemetry_hook is not None:
+            tel = self.telemetry_hook(tel, t)
+        return tel
+
     def _round(self, t: int, hist: History, u: Optional[np.ndarray]) -> None:
         c, s = self.cfg, self.strategy
         K = c.n_clients
@@ -546,6 +603,9 @@ class FederatedDistillation:
         n_part = int(part.sum())
         if n_part == 0:  # total outage: nothing moves, the cache ages
             hist.ledger.record(comm_lib.RoundCost(0.0, 0.0))
+            if self._telemetry:  # the zero row, as the device engine's gate gives
+                hist.telemetry.append(obs_device.zeros(self.models.n_cohorts,
+                                                       self.device))
             return
         idx_t = self._tensor(idx, torch.int64)
         part_t = self._tensor(part)
@@ -577,6 +637,7 @@ class FederatedDistillation:
         x_round = self.x_pub[idx_t]
         z_all = self._predict_all(self.client_params, x_round)  # (K, m, N)
         z_all = s.transmit(z_all)  # the method's uplink transform (CFD)
+        z_tx = z_all  # as transmitted: telemetry's codec-error reference
         if not self.codec_up.is_identity:  # lossy wire: what the server sees
             z_all = self.codec_up.roundtrip(z_all, base=base,
                                             present=base_present)
@@ -664,6 +725,12 @@ class FederatedDistillation:
             downlink_codec=self.codec_down,
         )
         hist.ledger.record(cost)
+        if self._telemetry:  # before last_sync moves: the row reads the old one
+            hist.telemetry.append(self._telemetry_row(
+                t=t, part=part_t, miss=miss, base_present=base_present,
+                z_tx=z_tx, z_srv=z_all, fresh=fresh,
+                last_sync=self._tensor(self.last_sync, torch.int32),
+                uplink=cost.uplink, downlink=cost.downlink, catch_up=catch_up))
         self.last_sync[part] = t
 
     # ------------------------------------------------------------------

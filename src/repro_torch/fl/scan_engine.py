@@ -30,6 +30,15 @@ construction, and the round's decay is a host float.
 ``FLConfig.fused_round`` replaces the uplink codec round trip and the
 SCARLET aggregation with one :func:`repro_torch.kernels.ops.fused_round`
 kernel a round.
+
+Telemetry (``FLConfig.telemetry``): each round computes its
+:class:`repro_torch.obs.device.RoundTelemetry` row on the device, gated
+to zeros on a total outage, and keeps it with the round's results; the
+running totals ride in the state.  The rows come back inside the leg's
+one read-back.  Neither is part of ``state_dict``.  The fused path never
+materialises the server's decoded view, so with a lossy uplink codec
+telemetry round-trips the transmitted stack itself (one more qdq launch
+a round under ``cache_delta+quantB``).
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.fl.rounds import FederatedDistillation, History, _select_cohorts, distill
 from repro_torch.kernels import round_kernel
+from repro_torch.obs import device as obs_device
 
 __all__ = ["ScannedFederatedDistillation"]
 
@@ -148,6 +158,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
         state = self.state_dict()
         del state["t_done"]
         state["prev_idx"] = state["prev_idx"].to(torch.int64)
+        if self._telemetry:  # the leg's running totals
+            state["telemetry"] = obs_device.zeros(self.models.n_cohorts, self.device)
         return _Leg(t0=t0, ts=ts, part=self._tensor(part),
                     idx=self._tensor(idx, torch.int64),
                     u=None if u is None else self._tensor(u),
@@ -213,6 +225,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
         # --- uplink + aggregation (fixed shapes, participation-weighted) ---
         x_round = self.x_pub[idx]
         z_all = s.transmit(self._predict_all(cp, x_round))     # (K, m, N)
+        z_tx = z_all  # as transmitted: telemetry's codec-error reference
         if self._fused_spec is not None:
             um = s.upload_mask(z_all)
             fbase = (round_kernel.resolve_delta_base(base, base_present, m, N)
@@ -286,16 +299,44 @@ class ScannedFederatedDistillation(FederatedDistillation):
         out = dict(uplink=torch.where(any_p, uplink, 0.0),
                    downlink=torch.where(any_p, downlink, 0.0),
                    have_tv=new_st["have_tv"])
+        if self._telemetry:  # from the pre-update last_sync
+            out["telemetry"], new_st["telemetry"] = self._telemetry_device(
+                st["telemetry"], t, part, any_p, miss=miss, base=base,
+                base_present=base_present, z_tx=z_tx, z_all=z_all, fresh=fresh,
+                last_sync=st["last_sync"], uplink=out["uplink"],
+                downlink=out["downlink"], catch_up=catch_up)
         if do_eval:  # the schedule is known on the host
             out.update(self._eval_metrics(cp, server_params, teacher_val))
         return new_st, out
+
+    def _telemetry_device(self, totals: obs_device.RoundTelemetry, t: int,
+                          part: torch.Tensor, any_p: torch.Tensor, *, miss, base,
+                          base_present, z_tx, z_all, fresh, last_sync, uplink,
+                          downlink, catch_up):
+        """(the round's telemetry row, the leg's running totals): the row of
+        :meth:`_telemetry_row` (with ``telemetry_hook``), zeroed unless
+        ``any_p``, as the host loop's total-outage row is.  On the fused
+        path ``z_all`` is the transmitted stack; the server's view comes
+        from the uplink codec's round trip here.  What the analyzer's obs
+        pass traces on fake CUDA tensors."""
+        z_srv = z_all
+        if self._fused_spec is not None and not self.codec_up.is_identity:
+            z_srv = self.codec_up.roundtrip(z_tx, base=base, present=base_present)
+        tel = obs_device.gate(self._telemetry_row(
+            t=t, part=part, miss=miss, base_present=base_present, z_tx=z_tx,
+            z_srv=z_srv, fresh=fresh, last_sync=last_sync, uplink=uplink,
+            downlink=downlink, catch_up=catch_up), any_p)
+        return tel, obs_device.accumulate(totals, tel)
 
     # ------------------------------------------------------------------
     def _finish_run(self, leg: _Leg) -> History:
         """Persist the final state and rebuild the host-visible History
         from the leg's results, read back from the device in one copy
-        (plus one for ``last_sync``)."""
+        (plus one for ``last_sync``); telemetry rows ride in that copy as
+        float32 (every counter is an exact small integer)."""
         st = leg.state
+        st.pop("telemetry", None)
+        tel_rows = [o.pop("telemetry") for o in leg.outputs if "telemetry" in o]
         self.client_params = st["client_params"]
         self.server_params = st["server_params"]
         self.cache_g = st["cache"]
@@ -310,14 +351,18 @@ class ScannedFederatedDistillation(FederatedDistillation):
         erows = [torch.cat([torch.stack([o["server_acc"], o["client_acc"],
                                          o["server_val"], o["client_val"]]),
                             o["cohort_acc"]]) for o in evals]
+        trows = [torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in r])
+                 for r in tel_rows]
         flat = torch.cat([torch.stack(rows).flatten() if rows else torch.zeros(0, **f32),
                           torch.stack(erows).flatten() if erows else torch.zeros(0, **f32),
+                          torch.stack(trows).flatten() if trows else torch.zeros(0, **f32),
                           torch.stack([st["have_prev"], st["have_tv"]]).to(torch.float32)])
         flat = flat.cpu().numpy()
         self.last_sync = st["last_sync"].cpu().numpy().astype(np.int64)
         T, E = len(outs), len(evals)
         per_round = flat[:3 * T].reshape(T, 3)
         per_eval = flat[3 * T:3 * T + (4 + n_coh) * E].reshape(E, 4 + n_coh)
+        tel_flat = flat[3 * T + (4 + n_coh) * E:-2]
         have_prev, have_tv = flat[-2:] > 0
         if have_prev:
             self.prev_teacher = (st["prev_idx"], st["prev_teacher"])
@@ -343,4 +388,17 @@ class ScannedFederatedDistillation(FederatedDistillation):
             hist.client_val_loss.append(float(row[3]))
         hist.final_server_acc = hist.server_acc[-1] if hist.server_acc else None
         hist.final_client_acc = hist.client_acc[-1] if hist.client_acc else None
+        if self._telemetry:
+            hist.telemetry = self._telemetry_log(tel_flat, T)
         return hist
+
+    def _telemetry_log(self, flat: np.ndarray, T: int) -> obs_device.TelemetryLog:
+        """The leg's ``(T, width)`` float32 telemetry rows, read back flat,
+        split into the row's fields, counters cast back to int32."""
+        like = obs_device.zeros(self.models.n_cohorts)
+        sizes = [leaf.numel() for leaf in like]
+        rows = flat.reshape(T, sum(sizes))
+        cols = np.split(rows, np.cumsum(sizes)[:-1], axis=1)
+        return obs_device.TelemetryLog.from_stacked(obs_device.RoundTelemetry(*(
+            c.reshape((T,) + tuple(leaf.shape)).astype(leaf.numpy().dtype)
+            for c, leaf in zip(cols, like))))

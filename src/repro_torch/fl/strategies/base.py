@@ -71,6 +71,14 @@ class Strategy:
     def upload_mask(self, z_clients: torch.Tensor) -> Optional[torch.Tensor]:
         return None
 
+    # telemetry gauge (repro_torch.obs): the resolved sharpening knob of
+    # round ``t`` given the participant-mean soft labels ``zbar`` (m, N):
+    # Enhanced ERA's static or adaptive beta, ERA's temperature, 0 where
+    # the strategy has none.  Pure tensor code that runs inside the device
+    # round when telemetry is on, and mutates nothing.
+    def sharpen_gauge(self, zbar: torch.Tensor, t) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=zbar.device)
+
     # ------------------------------------------------------------------
     # Fixed-shape masked aggregation: the two-phase contract.
     #

@@ -20,6 +20,10 @@ class ERAStrategy(Strategy):
     def aggregate(self, z, um, t):
         return era_lib.era(torch.mean(z, dim=0), self.opts.get("T", 0.1)), None
 
+    def sharpen_gauge(self, zbar, t):
+        return torch.full((), self.opts.get("T", 0.1), dtype=torch.float32,
+                          device=zbar.device)
+
     # two-phase contract: the linear phase is inherited (weighted sum);
     # the temperature softmax runs once on the reduced mean
     def finalize_aggregate(self, partials, t):

@@ -54,6 +54,12 @@ class EnhancedERAStrategy(Strategy):
         h_norm = divide(torch.mean(era_lib.entropy(zbar)), math.log(n))
         return 1.0 + (self.opts.get("beta_max", 2.5) - 1.0) * h_norm
 
+    def sharpen_gauge(self, zbar, t):
+        beta = self.opts.get("beta", 1.5)
+        if beta == "adaptive":
+            return self._adaptive_beta(zbar).to(torch.float32)
+        return torch.full((), beta, dtype=torch.float32, device=zbar.device)
+
     def aggregate(self, z, um, t):
         beta = self.opts.get("beta", 1.5)
         if beta == "adaptive":

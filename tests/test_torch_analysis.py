@@ -26,7 +26,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from repro.analysis import fixtures as rfix
-from repro_torch.analysis import contract_checks, fixtures, launch_checks, traceutil
+from repro_torch.analysis import contract_checks, fixtures, launch_checks, obs_checks, traceutil
 from repro_torch.analysis.__main__ import main
 from repro_torch.analysis.report import Finding, Report
 from repro_torch.kernels import fixture_kernel, ops, runtime
@@ -213,6 +213,77 @@ def test_cli_selftest_cpu(capsys):
     assert main(["--selftest", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "NOT flagged" not in out and "fixture/smem-hog" in out
+    assert "[OK   ] selftest: fixture/telemetry-callback: flagged as expected (error)" in out
+
+
+# ---------------------------------------------------------------------------
+# The telemetry (obs) pass
+# ---------------------------------------------------------------------------
+
+def test_obs_pass_clean_on_the_references_variants():
+    from repro.analysis import obs_checks as robs
+
+    assert obs_checks.ANALYSIS_VARIANTS == robs.ANALYSIS_VARIANTS
+    plans = []
+    got = obs_checks.run(plans=plans)
+    assert [f for f in got if f.level in ("error", "warn")] == []
+    assert {f.subject for f in got} == {
+        "telemetry[scarlet]", "telemetry[scarlet+adaptive]",
+        "telemetry[scarlet+cache_delta+quant8]", "telemetry[dsfl]",
+        "telemetry[scarlet+fused]", "telemetry[scarlet+cache_delta+quant8+fused]",
+        "telemetry[structure]", "telemetry[structure+fused]"}
+    # the fused path's server view is the telemetry's own qdq launch
+    assert [(label, launch.plan.kernel) for label, launch in plans] == [
+        ("telemetry[scarlet+cache_delta+quant8+fused]#0", "qdq_tile")]
+    linted = launch_checks.check_launches(plans)
+    assert linted and not [f for f in linted if f.level in ("error", "warn")]
+
+
+def test_telemetry_callback_fixture_flagged():
+    got = obs_checks.check_round_body("fixture/telemetry-callback",
+                                      fixtures.telemetry_callback_engine())
+    assert [f.level for f in got] == ["error"]
+    assert "host reads of device values" in got[0].message
+
+
+def test_obs_pass_flags_telemetry_that_moves_the_round():
+    """A telemetry path that also touches the round's state is caught by
+    the off/on round, though its row looks right."""
+    from repro_torch.fl.scan_engine import ScannedFederatedDistillation
+
+    class Meddling(ScannedFederatedDistillation):
+        def _round_device(self, st, t, part, idx, do_eval, u=None):
+            new_st, out = super()._round_device(st, t, part, idx, do_eval, u=u)
+            if self._telemetry:
+                new_st["server_params"] = {k: v + 1e-7 for k, v in new_st["server_params"].items()}
+            return new_st, out
+
+    def make(tel):
+        eng = obs_checks.build_engine("scarlet", {}, {"cache_duration": 2}, "identity", tel)
+        eng.__class__ = Meddling
+        return eng
+
+    got = obs_checks.check_off_on("fixture/meddling", make)
+    assert [f.level for f in got] == ["error"] and "server_params" in got[0].message
+    clean = obs_checks.check_off_on("clean", lambda tel: obs_checks.build_engine(
+        "dsfl", {}, {}, "identity", tel))
+    assert [f.level for f in clean] == ["ok"]
+
+
+def test_contract_pass_traces_sharpen_gauge():
+    """``sharpen_gauge`` runs inside the device round with telemetry on: a
+    host read there breaks a strategy's scan_safe claim."""
+    from repro_torch.fl.strategies import STRATEGIES
+
+    class ReadingGauge(STRATEGIES["scarlet"]):
+        name = "fixture_reading_gauge"
+
+        def sharpen_gauge(self, zbar, t):
+            return torch.full((), float(zbar.max()), device=zbar.device)
+
+    got = contract_checks.check_strategy("fixture_reading_gauge", ReadingGauge)
+    errors = [f.message for f in got if f.level == "error"]
+    assert errors and all("sharpen_gauge: host reads" in m for m in errors)
 
 
 def test_cli_strict_cpu_json(capsys, tmp_path):
@@ -385,7 +456,7 @@ def test_the_port_imports_neither_jax_nor_the_reference():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch" / "analysis").glob("*.py"))
     files.append(root / "src" / "repro_torch" / "kernels" / "fixture_kernel.py")
-    assert len(files) == 8
+    assert len(files) == 9
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)

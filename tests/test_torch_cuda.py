@@ -322,6 +322,61 @@ def test_host_sync_inside_a_device_round_raises(dev):
     assert torch.cuda.get_sync_debug_mode() == 0
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_telemetry_on_device_run_without_host_sync(dev, fused):
+    """Telemetry on, rounds under the sync guard: the launches of the
+    telemetry-off run, plus the fused engine's server view (one qdq a
+    round); a hook that reads the card raises inside the round."""
+    from repro_torch.obs.device import STALENESS_BUCKETS
+
+    n = _SMALL["rounds"]
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused, telemetry=True)
+    eng = pfl.ScannedFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5),
+                                           cache_duration=2, device=dev)
+    ops.reset_launches()
+    h = eng.run()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    got = ops.launches()
+    want = ({"quantize_dequantize": n, "fused_round": n} if fused else
+            {"enhanced_era_fused": n, "quantize_dequantize": n})
+    assert got == dict(dict.fromkeys(got, 0), **want)
+    st = h.telemetry.stacks()
+    assert st["staleness_hist"].shape == (n, STALENESS_BUCKETS)
+    np.testing.assert_array_equal(st["participants"].sum(1), [4] * n)
+    np.testing.assert_array_equal(
+        st["uplink_bytes"], np.array([r.uplink for r in h.ledger.rounds], np.float32))
+
+    leaky = pfl.ScannedFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5),
+                                             cache_duration=2, device=dev)
+    leaky.telemetry_hook = lambda tel, t: (tel.cache_hits.item(), tel)[1]
+    with pytest.raises(RuntimeError):
+        leaky.run(1)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("engine,fused", [("host", False), ("scan", False), ("scan", True)])
+def test_telemetry_rows_on_the_card_match_the_cpu(dev, engine, fused):
+    """The same small telemetry-on run on the card and on the CPU: the
+    counters and bytes equal (integer counts from the same draws); the
+    gauges of round 1, where both start from the same parameters, to atol
+    1e-5 (float32 means summed in other orders), and of every round to
+    1e-3: the two devices may break a rounding tie of the 8-bit residual
+    code differently, which moves a value by a level (range/255) and the
+    trajectory after it (the caches are held to 1e-3 card vs CPU in
+    ``chip_smoke.py`` for the same reason)."""
+    from repro_torch.obs.device import EXACT_FIELDS, GAUGE_FIELDS
+
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused, telemetry=True)
+    g, c = (pfl.run_method("scarlet", cfg, engine=engine, cache_duration=2, beta=1.5,
+                           device=d).telemetry.stacks() for d in (dev, "cpu"))
+    for f in EXACT_FIELDS:
+        assert g[f].dtype == c[f].dtype
+        np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+    for f in GAUGE_FIELDS:
+        np.testing.assert_allclose(g[f][0], c[f][0], rtol=0, atol=1e-5, err_msg=f)
+        np.testing.assert_allclose(g[f], c[f], rtol=0, atol=1e-3, err_msg=f)
+
+
 def test_divide_is_a_true_division_on_the_card(dev):
     """PyTorch's CUDA ``tensor / python_number`` multiplies by the float32
     reciprocal; ``runtime.divide`` divides, bit for bit as the CPU does."""

@@ -463,9 +463,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
     for kw in [dict(engine="shard"), dict(engine="active"), dict(engine="async"),
-               dict(rng_backend="jax"), dict(telemetry=True)]:
+               dict(rng_backend="jax")]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
+    # telemetry is ported: it runs and fills History.telemetry
+    h = pfl.run_method("scarlet", cfg, device="cpu", telemetry=True)
+    assert len(h.telemetry) == h.ledger.summary()["rounds"] == 2.0
     for method in ("fedavg", "individual"):
         for kw in [dict(engine="shard"), dict(engine="scan"), dict(rng_backend="numpy"),
                    dict(codec="quant8"), dict(telemetry=True)]:

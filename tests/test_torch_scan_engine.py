@@ -266,8 +266,10 @@ def test_constructor_rejects_what_the_engine_cannot_run():
         S(cfg, scarlet(), track_local_caches=True, device="cpu")
     with pytest.raises(NotImplementedError):
         S(cfg, scarlet(), device="cpu", rng_backend="jax")
-    with pytest.raises(NotImplementedError):
-        S(dataclasses.replace(cfg, telemetry=True), scarlet(), device="cpu")
+    # telemetry is ported: a telemetry-on engine builds and runs a round
+    h = S(dataclasses.replace(cfg, telemetry=True), scarlet(), cache_duration=1,
+          device="cpu").run(1)
+    assert len(h.telemetry) == 1 and h.telemetry.summary()["participants_total"] == 6
     # the per-op path runs adaptive beta and a codec with no kernel form
     h = S(dataclasses.replace(cfg, uplink_codec="cache_delta+cache_delta"),
           scarlet(beta="adaptive"), cache_duration=1, device="cpu").run(1)
