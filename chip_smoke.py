@@ -31,6 +31,15 @@ staleness counters; telemetry off against on, bit for bit; and the host
 plane (``repro_torch.obs``): a span tracer's Chrome trace and a run
 record through ``python -m repro_torch.obs validate|render``, and a
 fused leg under ``profiler_trace``, whose trace must name the kernels.
+Then the active-set engine (phase 4i, ``engine="active"``): at the same
+population, per-op and fused, under partial participation (a total
+outage, a round of one participant, returning stragglers; telemetry on)
+and full participation, its ledgers bit for bit the device engine's and
+its state close to the device engine's and the host loop's; the ERA, qdq
+and fused-round kernels at every gathered stack size it reached; the
+reference's million-client configuration at K = 10^4 (RAM store) and
+10^6 (memmap store), whose device peak may grow by less than 32 bytes a
+client; and a checkpoint split after 5 rounds, bit for bit.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -42,9 +51,10 @@ whisper's vocabulary as soft-labels, and ``soft_cross_entropy`` over the
 prefill's logits, all under ``torch.cuda.set_sync_debug_mode("error")``.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
-the compiled kernels' attributes, the selftest (which launches the three
-fixture kernels on their valid plans and has the card refuse the
-shared-memory hog), the fixture kernels against their plain versions, the
+the compiled kernels' attributes (the active-set pass among them), the
+selftest (which launches the three fixture kernels on their valid plans,
+has the card refuse the shared-memory hog and flags the active engine's
+O(K) leak for its K-sized shape), the fixture kernels against their plain versions, the
 misaligned plan faulting in a child process, and the contract pass's
 verdicts confirmed by CUDA graph capture in another.
 Last come the reduced whisper configuration on the card and on the CPU.
@@ -197,6 +207,45 @@ HET_LR_DECAY = 0.95
 RESTORE_AT = 5
 MIRROR_PARTICIPATION = 0.3
 MIRROR_OUTAGE = (3, 2, 6)  # client, first and last round offline
+
+# Phase 4i: the active-set engine (engine="active").  (a) The slice's
+# population under ACTIVE_PARTICIPATION with outages: every client offline
+# in ACTIVE_OUTAGE_ROUND (a total outage), all but client 0 in
+# ACTIVE_SINGLE_ROUND (a gathered stack of one), clients
+# ACTIVE_STRAGGLERS offline in rounds 2-3 (catch-up on return); then full
+# participation (a stack of 128 with 28 padding rows).  The active engine,
+# per-op and fused, against the device engine and the host loop on the same
+# numpy draws: ledgers equal bit for bit to the device engine's and to
+# float32 to the host loop's; caches to QUANT_STEP_ATOL (the reference's
+# quant8 band); accuracies to ACTIVE_ACC_ATOL and the server's parameters
+# to ACTIVE_PARAM_ATOL (the gathered stack sums its rows in another order
+# than the dense one, and an 8-bit level flip in a cached teacher moves the
+# next rounds' training a little).  (b) The three kernels at every stack
+# size the runs reach, 1 included, against their plain versions with phase
+# 3's tolerances.  (c) The reference's million-client configuration
+# (benchmarks/active_bench.py:_cfg): ACTIVE_M of K clients a round at each
+# K of ACTIVE_KS, the largest on a memmap store; one warm-up round, then
+# ACTIVE_TIMED timed rounds; the device's peak may grow by less than
+# ACTIVE_PEAK_PER_CLIENT bytes a client from the smaller K to the larger
+# (int32 last_sync, the bool mask, int32 searchsorted positions and float32
+# counts are about 22).  (d) ACTIVE_RESTORE_AT rounds, a checkpoint, a
+# fresh engine, the rest: (a)'s run bit for bit.
+ACTIVE_PARTICIPATION = 0.3
+ACTIVE_OUTAGE_ROUND = 4
+ACTIVE_SINGLE_ROUND = 6
+ACTIVE_STRAGGLERS = tuple(range(0, 100, 9))
+ACTIVE_ACC_ATOL = 2e-3
+ACTIVE_PARAM_ATOL = 1e-3
+ACTIVE_BENCH = dict(n_classes=10, dim=8, hidden=8, mlp_depth=1, local_steps=1,
+                    distill_steps=1, public_size=256, public_per_round=64,
+                    partition="uniform", eval_every=10 ** 6, seed=0)
+ACTIVE_BENCH_CACHE = 3
+ACTIVE_M = 64
+ACTIVE_KS = (10_000, 1_000_000)
+ACTIVE_MEMMAP_FROM = 1_000_000
+ACTIVE_TIMED = 3
+ACTIVE_PEAK_PER_CLIENT = 32
+ACTIVE_RESTORE_AT = 5
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -555,9 +604,10 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
                scenario=None, probabilistic_expiry: bool = False,
                track_local_caches: bool = False, hook=None, telemetry: bool = False,
-               **strategy_kw) -> dict:
+               engine_kw: Optional[dict] = None, **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
-    (``engine="host"``) or the device engine (``"scan"``): round 1, then
+    (``engine="host"``), the device engine (``"scan"``) or the active-set
+    engine (``"active"``, with ``engine_kw``): round 1, then
     the other rounds in one leg (on the device engine its only host sync
     is the read-back at its end), the launch counts set to 0 just before
     and read just after.  Selective-FD's upload masks are recorded with
@@ -567,8 +617,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     as ``history``."""
     from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
-    from repro_torch.fl import (FederatedDistillation, FLConfig, History, STRATEGIES,
-                                ScannedFederatedDistillation)
+    from repro_torch.fl import (ActiveSetFederatedDistillation, FederatedDistillation, FLConfig,
+                                History, STRATEGIES, ScannedFederatedDistillation)
     from repro_torch.kernels import ops
     from repro_torch.kernels.runtime import divide
     from repro_torch.obs.device import RoundTelemetry, TelemetryLog
@@ -600,11 +650,12 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
             return out
 
         strat.aggregate = timed
-    Engine = FederatedDistillation if engine == "host" else ScannedFederatedDistillation
+    Engine = {"host": FederatedDistillation, "scan": ScannedFederatedDistillation,
+              "active": ActiveSetFederatedDistillation}[engine]
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
                  scenario=scenario, probabilistic_expiry=probabilistic_expiry,
-                 track_local_caches=track_local_caches, device=device)
+                 track_local_caches=track_local_caches, device=device, **(engine_kw or {}))
     _sync(device)
     t_setup = time.perf_counter() - t0
     if hook is not None:
@@ -625,8 +676,10 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     ledger = first.ledger.rounds + rest.ledger.rounds
     summary = CommLedger(ledger).summary()
     sa, ca = rest.final_server_acc, rest.final_client_acc
-    sync = ("synchronized" if engine == "host" else
-            "rounds under sync debug mode 'error', one read-back at the end")
+    sync = {"host": "synchronized",
+            "scan": "rounds under sync debug mode 'error', one read-back at the end",
+            "active": "gathered steps under sync debug mode 'error', one read-back a round"
+            }[engine]
     log(f"{label}: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, then "
         f"{per_round * 1e3:.3f} ms/round over {rounds - 1} rounds (host clock, {sync}; "
         "one eval included)")
@@ -1227,18 +1280,18 @@ def hold_telemetry(label: str, runs: dict, perop_same_state: bool) -> None:
 
 
 def capture_rows(eng, record: list) -> None:
-    """Wrap the engine's ``_telemetry_row``: each round, keep device copies
-    of its inputs and the row it returned (no host read, so the device
-    engine's sync guard stays quiet)."""
-    inner = eng._telemetry_row
+    """Wrap the engine's ``_telemetry_gauges``: each round, keep device
+    copies of its inputs and the gauges it returned (no host read, so the
+    device engine's sync guard stays quiet)."""
+    inner = eng._telemetry_gauges
 
-    def wrapped(**kw):
-        tel = inner(**kw)
-        record.append(dict({k: kw[k].clone() for k in ("part", "z_tx", "z_srv", "fresh")},
-                           tel=tel))
-        return tel
+    def wrapped(t, w, **kw):
+        gauges = inner(t, w, **kw)
+        record.append(dict({k: kw[k].clone() for k in ("z_tx", "z_srv", "fresh")},
+                           w=w.clone(), gauges=gauges))
+        return gauges
 
-    eng._telemetry_row = wrapped
+    eng._telemetry_gauges = wrapped
 
 
 def check_recomputed(run: dict, record: list) -> None:
@@ -1252,14 +1305,14 @@ def check_recomputed(run: dict, record: list) -> None:
                            "codec_quant_error"), 0.0)
     for rec in record:
         part, z_tx, z_srv, fresh = (rec[k].double().cpu().numpy()
-                                    for k in ("part", "z_tx", "z_srv", "fresh"))
+                                    for k in ("w", "z_tx", "z_srv", "fresh"))
         n = max(part.sum(), 1.0)
         want = dict(teacher_entropy_pre=entropy(np.tensordot(part, z_srv, 1) / n),
                     teacher_entropy_post=entropy(fresh), beta=BETA,
                     codec_quant_error=float(np.sum(np.abs(z_srv - z_tx) * part[:, None, None])
                                             / max(n * z_srv[0].size, 1.0)))
         for f, w in want.items():
-            worst[f] = max(worst[f], abs(float(getattr(rec["tel"], f)) - w))
+            worst[f] = max(worst[f], abs(float(rec["gauges"][f]) - w))
     log(f"{run['label']}: gauges against a float64 recomputation from each round's "
         f"inputs, {len(record)} rounds: max_abs_err {worst} (atol {TEL_GAUGE_ATOL})")
     if len(record) != SLICE_ROUNDS or max(worst.values()) > TEL_GAUGE_ATOL:
@@ -1432,6 +1485,391 @@ def run_obs_host_plane(device, tracer, tel: dict) -> None:
     if not (hits["fused_round"] >= TEL_PROFILED_ROUNDS and hits["qdq"] >= TEL_PROFILED_ROUNDS):
         raise AssertionError("the profiler's trace does not name the fused round and qdq "
                              "kernels")
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the active-set engine
+# ---------------------------------------------------------------------------
+
+def active_scenario():
+    """Phase 4i (a)'s partial participation: bernoulli draws, a total
+    outage, a round of one participant, and stragglers that come back."""
+    from repro_torch.fl import Outage, Scenario, bernoulli_participation
+
+    K = SLICE["n_clients"]
+    outages = (tuple(Outage(k, ACTIVE_OUTAGE_ROUND, ACTIVE_OUTAGE_ROUND) for k in range(K))
+               + tuple(Outage(k, ACTIVE_SINGLE_ROUND, ACTIVE_SINGLE_ROUND) for k in range(1, K))
+               + tuple(Outage(k, 2, 3) for k in ACTIVE_STRAGGLERS))
+    return Scenario(participation=bernoulli_participation(ACTIVE_PARTICIPATION), outages=outages)
+
+
+def record_stacks(sizes: list):
+    """A run_engine hook: each gathered round's stack size (one cohort)."""
+    def hook(eng):
+        plan = eng._gather_plan
+
+        def recorded(part):
+            out = plan(part)
+            sizes.append(sum(len(pad) for _, _, pad in out))
+            return out
+
+        eng._gather_plan = recorded
+    return hook
+
+
+# the active round's host-side parts, timed by ``time_parts``: the engine's
+# methods, and the store's scatter
+ACTIVE_PARTS = ("_draw_round", "_gather_plan", "_build_step_args", "_bookkeeping_step",
+                "_client_step", "scatter", "_eval")
+
+
+def time_parts(eng) -> dict:
+    """Wrap each of ACTIVE_PARTS (on the engine, ``scatter`` on its store)
+    with the host clock; returns {part: seconds so far}.  No synchronise:
+    inside the guarded steps one would raise, so the two steps' share is
+    their issue time and the card's work shows up where the round's
+    read-back waits for it."""
+    spent = dict.fromkeys(ACTIVE_PARTS, 0.0)
+    for name in ACTIVE_PARTS:
+        owner = eng.store if name == "scatter" else eng
+        fn = getattr(owner, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+    return spent
+
+
+def parts_line(spent: dict, total_s: float, rounds: int) -> str:
+    """ms a round of each part, and the rest of the leg (the read-back's
+    wait for the card, the ledger, last_sync)."""
+    rest = total_s - sum(spent.values())
+    return ", ".join(f"{k.strip('_')} {v / rounds * 1e3:.3f}" for k, v in spent.items()) + \
+        f", rest (the read-back's wait for the card, the ledger) {rest / rounds * 1e3:.3f}"
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def hold_active(label: str, act: dict, ref: dict, ledger_rtol: float) -> None:
+    """The active run against another engine's: the per-round ledger (equal
+    when ``ledger_rtol`` is 0), cache timestamps and presence equal, values
+    to QUANT_STEP_ATOL; accuracies to ACTIVE_ACC_ATOL, the server's
+    parameters to ACTIVE_PARAM_ATOL, ``last_sync`` equal."""
+    compare_runs(label, act, ref, ledger_rtol, QUANT_STEP_ATOL)
+    acc = float(np.max(np.abs(np.array(act["accs"]) - np.array(ref["accs"]))))
+    sp = max(float((act["eng"].server_params[k] - v).abs().max())
+             for k, v in ref["eng"].server_params.items())
+    sync = np.array_equal(act["eng"].last_sync, ref["eng"].last_sync)
+    log(f"{label}: accuracies max_abs_err={acc!r} (atol {ACTIVE_ACC_ATOL}); server params "
+        f"max_abs_err={sp!r} (atol {ACTIVE_PARAM_ATOL}); last_sync equal={sync}")
+    if not (acc <= ACTIVE_ACC_ATOL and sp <= ACTIVE_PARAM_ATOL and sync):
+        raise AssertionError(f"{label}: runs differ")
+
+
+def run_active_slice(device, card: str) -> dict:
+    """Phase 4i (a): the active engine at the slice's population, per-op and
+    fused, against the device engine and the host loop, under partial
+    participation (telemetry on for the per-op pair) and full
+    participation; launch counts a run; the store's initial parameters
+    against the dense engine's, bit for bit."""
+    from repro_torch.obs.device import EXACT_FIELDS
+
+    n_out = 1  # ACTIVE_OUTAGE_ROUND
+    runs, sizes = {}, []
+    for scen in ("partial", "full"):
+        scenario = active_scenario if scen == "partial" else (lambda: None)
+        active_rounds = SLICE_ROUNDS - (n_out if scen == "partial" else 0)
+        for fused in (False, True):
+            tel = scen == "partial" and not fused
+            kw = dict(fused=fused, codec=CODEC, cache_duration=CACHE_DURATION, beta=BETA,
+                      telemetry=tel)
+            path = "fused" if fused else "per-op"
+            parts = {}
+
+            def hook(eng, parts=parts):
+                record_stacks(sizes)(eng)
+                parts.update(spent=time_parts(eng), t0=time.perf_counter())
+
+            act = run_engine(device, f"active {path} {scen}", "scarlet", "active",
+                             scenario=scenario(), hook=hook, **kw)
+            total = time.perf_counter() - parts["t0"]
+            log(f"active {path} {scen}: ms a round by part over the run's {SLICE_ROUNDS} "
+                f"rounds and 2 evals: {parts_line(parts['spent'], total, SLICE_ROUNDS)}")
+            dev = run_engine(device, f"device engine {path} {scen}", "scarlet", "scan",
+                             scenario=scenario(), **kw)
+            check_launches(act["launches"], {"fused_round": active_rounds} if fused else
+                           {"enhanced_era_fused": active_rounds,
+                            "quantize_dequantize": active_rounds})
+            hold_active(f"active {path} vs device engine {path} ({scen})", act, dev, 0.0)
+            if tel:
+                same = {f: np.array_equal(act["telemetry"][f], dev["telemetry"][f])
+                        for f in EXACT_FIELDS}
+                log(f"active per-op vs device engine per-op ({scen}): telemetry exact fields "
+                    f"equal {same}")
+                if not all(same.values()):
+                    raise AssertionError("active telemetry counters differ from the device "
+                                         "engine's")
+            runs[(scen, path)] = act
+            runs[(scen, "device " + path)] = dev
+        host = run_engine(device, f"host loop {scen}", "scarlet", "host", codec=CODEC,
+                          cache_duration=CACHE_DURATION, beta=BETA, scenario=scenario())
+        for path in ("per-op", "fused"):
+            hold_active(f"active {path} vs host loop ({scen})", runs[(scen, path)], host, 1e-7)
+        ledger = runs[(scen, "per-op")]["ledger"]
+        if scen == "partial" and (ledger[ACTIVE_OUTAGE_ROUND - 1].uplink,
+                                  ledger[ACTIVE_OUTAGE_ROUND - 1].downlink) != (0.0, 0.0):
+            raise AssertionError("the total-outage round was charged")
+    if 1 not in sizes or 128 not in sizes:
+        raise AssertionError(f"phase 4i (a) did not reach stacks of 1 and 128: {sorted(set(sizes))}")
+
+    from repro_torch.fl import (ActiveSetFederatedDistillation, FLConfig,
+                                ScannedFederatedDistillation, STRATEGIES)
+
+    cfg = FLConfig(**SLICE, rounds=SLICE_ROUNDS, uplink_codec=CODEC)
+    dense = ScannedFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA), device=device)
+    store = ActiveSetFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA), device=device)
+    same = all(np.array_equal(store.client_params[0][k], v.cpu().numpy())
+               for k, v in dense.client_params[0].items()) and all(
+        torch.equal(store.server_params[k], v) for k, v in dense.server_params.items())
+    log(f"active store: initial parameters equal the dense engine's bit for bit={same} "
+        f"({store.store.nbytes} bytes on the host for {SLICE['n_clients']} clients)")
+    if not same:
+        raise AssertionError("the store's initial parameters differ from the dense engine's")
+    log(f"phase 4i (a): gathered stack sizes {sorted(set(sizes))}; ms/round "
+        + ", ".join(f"{k[1]} {k[0]} {v['per_round_ms']:.3f}" for k, v in runs.items())
+        + f" ({card})")
+    return dict(runs=runs, sizes=sorted(set(sizes)))
+
+
+def active_weights(K: int, n: int, device) -> torch.Tensor:
+    """The SCARLET strategy's weights over a gathered stack of ``K`` rows
+    whose first ``n`` take part: ``pv * (K / n)``, float32."""
+    pv = torch.zeros(K, device=device)
+    pv[:n] = 1.0
+    return pv * (torch.full((), float(K), device=device) / pv.sum())
+
+
+def check_active_kernels(device, sizes: list, card: str) -> dict:
+    """Phase 4i (b): the ERA, qdq and fused-round kernels at every gathered
+    stack size of (a) and (c), 1 included, as the active engine calls them
+    (padding rows at weight 0), against their plain versions; one shape
+    of each timed."""
+    from repro_torch.kernels import era_kernel, quant_kernel, round_kernel
+
+    rng = np.random.default_rng(14)
+    m, N = SLICE["public_per_round"], SLICE["n_classes"]
+    shapes = [(k, m, N) for k in sorted(set(sizes) | {1})]
+    shapes.append((ACTIVE_M, ACTIVE_BENCH["public_per_round"], ACTIVE_BENCH["n_classes"]))
+    errs = {"era": 0.0, "qdq": 0.0, "round": 0.0}
+    for K, mm, n in shapes:
+        for n_part in sorted({K // 2 + 1, K}):
+            z, base = _probs(rng, (K, mm, n), device), _probs(rng, (mm, n), device)
+            w = active_weights(K, n_part, device)
+            zw = z * w[:, None, None]
+            r = (z - base)[..., :-1]
+            pairs = (("era", era_kernel.enhanced_era_fused(zw, BETA),
+                      era_kernel.enhanced_era_fused_plain(zw, BETA), ERA_ATOL),
+                     ("qdq", quant_kernel.quantize_dequantize(r, 8),
+                      quant_kernel.quantize_dequantize_plain(r, 8), QDQ_ATOL),
+                     ("round", round_kernel.fused_round(z, w, BETA, base, mode="delta", bits=8),
+                      round_kernel.fused_round_plain(z, w, BETA, base, mode="delta", bits=8),
+                      ROUND_ATOL))
+            _sync(device)
+            for name, got, want, atol in pairs:
+                err = float((got - want).abs().max())
+                flips = _level_flips(got, want, r, 8) if name == "qdq" else 0
+                if not (bool(torch.isfinite(got).all()) and err <= atol and flips == 0):
+                    raise AssertionError(f"active {name} at ({K},{mm},{n}) with {n_part} "
+                                         f"participants: max_abs_err {err} > {atol} or "
+                                         f"{flips} level flips")
+                errs[name] = max(errs[name], err)
+    log(f"phase 4i (b): ERA, qdq (residual view, 8 bits) and fused_round (delta+quant8) at "
+        f"the gathered stacks {shapes}, half and all rows taking part: max_abs_err "
+        f"{errs} (atol ERA {ERA_ATOL}, qdq {QDQ_ATOL}, round {ROUND_ATOL}) ok")
+
+    times = {}
+    K = ACTIVE_M
+    z, base = _probs(rng, (K, m, N), device), _probs(rng, (m, N), device)
+    w = active_weights(K, K // 2 + 1, device)
+    zw, r = z * w[:, None, None], (z - base)[..., :-1]
+    zb = _probs(rng, (K, ACTIVE_BENCH["public_per_round"], ACTIVE_BENCH["n_classes"]), device)
+    wb = active_weights(K, K, device)
+    zbw = zb * wb[:, None, None]
+    n_in, n_b = K * m * N, zb.numel()
+    for name, shape, fn, plain, nbytes, nops in (
+            ("enhanced_era_fused", (K, m, N), lambda: era_kernel.enhanced_era_fused(zw, BETA),
+             lambda: era_kernel.enhanced_era_fused_plain(zw, BETA),
+             4.0 * (n_in + m * N), n_in + 9.0 * m * N),
+            ("enhanced_era_fused", tuple(zb.shape),
+             lambda: era_kernel.enhanced_era_fused(zbw, BETA),
+             lambda: era_kernel.enhanced_era_fused_plain(zbw, BETA),
+             4.0 * (n_b + n_b // K), n_b + 9.0 * n_b // K),
+            ("quantize_dequantize", tuple(r.shape), lambda: quant_kernel.quantize_dequantize(r, 8),
+             lambda: quant_kernel.quantize_dequantize_plain(r, 8), 4.0 * 2 * r.numel(),
+             11.0 * r.numel()),
+            ("fused_round", (K, m, N),
+             lambda: round_kernel.fused_round(z, w, BETA, base, mode="delta", bits=8),
+             lambda: round_kernel.fused_round_plain(z, w, BETA, base, mode="delta", bits=8),
+             4.0 * (n_in + K + 2 * m * N), 20.0 * n_in + 9.0 * m * N)):
+        b, why = bound_ms(nbytes, nops)
+        ms, pms = cuda_ms(fn), cuda_ms(plain)
+        times[(name, shape)] = (ms, pms, b)
+        log(f"time active {name} {shape}: ms={ms!r} plain_ms={pms!r} bound_ms={b!r} by {why} "
+            f"({card})")
+    return dict(errs=errs, times=times)
+
+
+def run_active_million(device, card: str) -> dict:
+    """Phase 4i (c): the reference's million-client configuration at each K
+    of ACTIVE_KS: setup, one warm-up round, ACTIVE_TIMED timed rounds (the
+    leg-end eval pass over all K clients timed apart), the store's bytes
+    and the device's peak against its allocation before the engine."""
+    import gc
+    import tempfile
+
+    from repro_torch.fl import (ActiveSetFederatedDistillation, FLConfig, STRATEGIES, Scenario,
+                                fixed_fraction)
+    from repro_torch.kernels import ops
+
+    out = {}
+    for K in ACTIVE_KS:
+        memmap = K >= ACTIVE_MEMMAP_FROM
+        cfg = FLConfig(n_clients=K, rounds=ACTIVE_TIMED + 1, private_size=2 * K, **ACTIVE_BENCH)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            eng = ActiveSetFederatedDistillation(
+                cfg, STRATEGIES["scarlet"](beta=BETA), cache_duration=ACTIVE_BENCH_CACHE,
+                scenario=Scenario(participation=fixed_fraction(ACTIVE_M / K)),
+                store_backing="memmap" if memmap else "ram", store_dir=d if memmap else None,
+                device=device)
+            setup = time.perf_counter() - t0
+            sizes, shapes, eval_s = [], [], []
+            record_stacks(sizes)(eng)
+            era = ops.enhanced_era_fused
+
+            def era_recorded(z, beta):
+                shapes.append(tuple(z.shape))
+                return era(z, beta)
+
+            ev = eng._eval
+
+            def eval_timed(t, hist):
+                t1 = time.perf_counter()
+                ev(t, hist)
+                eval_s.append(time.perf_counter() - t1)
+
+            eng._eval = eval_timed
+            ops.enhanced_era_fused = era_recorded
+            try:
+                eng.run(1)
+                spent = time_parts(eng)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                hist = eng.run(ACTIVE_TIMED)
+                torch.cuda.synchronize()
+                leg = time.perf_counter() - t0
+            finally:
+                ops.enhanced_era_fused = era
+            launches = ops.launches()
+            peak = torch.cuda.max_memory_allocated()
+            store_bytes = eng.store.nbytes
+            ledger = [(r.uplink, r.downlink) for r in hist.ledger.rounds]
+            ms = (leg - eval_s[-1]) / ACTIVE_TIMED * 1e3
+            del eng
+            gc.collect()
+        log(f"active K={K} ({'memmap' if memmap else 'ram'} store, {ACTIVE_M} a round): setup "
+            f"{setup:.3f} s; {ms:.3f} ms/round over {ACTIVE_TIMED} rounds (host clock, the "
+            f"leg-end eval apart); leg-end eval over all {K} clients {eval_s[-1]:.3f} s; store "
+            f"{store_bytes} bytes ({store_bytes / K:.1f} a client); device peak "
+            f"{peak - before} bytes above the {before} allocated before the engine "
+            f"(max_memory_allocated {peak}); ledger {ledger}; ERA shapes {shapes[-ACTIVE_TIMED:]}; "
+            f"launches {launches}; accuracies {hist.final_server_acc!r} "
+            f"{hist.final_client_acc!r} ({card})")
+        log(f"active K={K}: ms a round by part over {ACTIVE_TIMED} rounds (eval: the leg-end "
+            f"pass over {ACTIVE_TIMED}): {parts_line(spent, leg, ACTIVE_TIMED)} ({card})")
+        era_shape = (ACTIVE_M, ACTIVE_BENCH["public_per_round"], ACTIVE_BENCH["n_classes"])
+        if not (len(ledger) == ACTIVE_TIMED and all(u > 0 and dn > 0 for u, dn in ledger)):
+            raise AssertionError(f"active K={K}: the ledger is not {ACTIVE_TIMED} positive rows")
+        if shapes[-ACTIVE_TIMED:] != [era_shape] * ACTIVE_TIMED or sizes[-ACTIVE_TIMED:] != \
+                [ACTIVE_M] * ACTIVE_TIMED:
+            raise AssertionError(f"active K={K}: ERA did not run once a round at {era_shape}")
+        check_launches(launches, {"enhanced_era_fused": ACTIVE_TIMED})
+        if not (np.isfinite(hist.final_server_acc) and np.isfinite(hist.final_client_acc)):
+            raise AssertionError(f"active K={K}: accuracies not finite")
+        out[K] = dict(ms=ms, eval_s=eval_s[-1], setup_s=setup, store_bytes=store_bytes,
+                      peak=peak - before)
+    lo, hi = ACTIVE_KS
+    per_client = (out[hi]["peak"] - out[lo]["peak"]) / (hi - lo)
+    log(f"active device peak: {out[hi]['peak']} bytes at K={hi} against {out[lo]['peak']} at "
+        f"K={lo}: {per_client!r} bytes a client (limit {ACTIVE_PEAK_PER_CLIENT}) ({card})")
+    if per_client >= ACTIVE_PEAK_PER_CLIENT:
+        raise AssertionError("the active engine's device memory grows with the population")
+    out["peak_per_client"] = per_client
+    return out
+
+
+def run_active_restore(device, card: str, uninterrupted: dict) -> None:
+    """Phase 4i (d): (a)'s partial-participation active run split by a
+    checkpoint after ACTIVE_RESTORE_AT rounds, restored into a fresh engine:
+    ledger and state bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.checkpoint.io import _flatten, _key
+    from repro_torch.fl import ActiveSetFederatedDistillation, STRATEGIES
+
+    full = uninterrupted
+
+    def make():
+        return ActiveSetFederatedDistillation(full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA),
+                                              cache_duration=CACHE_DURATION,
+                                              scenario=active_scenario(), device=device)
+
+    first = make()
+    h1 = first.run(ACTIVE_RESTORE_AT)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "engine.npz")
+        save_pytree(path, first.state_dict())
+        size = os.path.getsize(path)
+        restored = make()
+        restored.load_state_dict(load_pytree(path, restored.state_dict()))
+    h2 = restored.run(SLICE_ROUNDS - ACTIVE_RESTORE_AT)
+    ledger = [(r.uplink, r.downlink) for r in h1.ledger.rounds + h2.ledger.rounds]
+    want = [(r.uplink, r.downlink) for r in full["ledger"]]
+    a = {_key(k): v for k, v in _flatten(restored.state_dict())}
+    b = {_key(k): v for k, v in _flatten(full["eng"].state_dict())}
+    differ = [k for k in b if k not in a or not _equal(a[k], b[k])]
+    log(f"restore active: {ACTIVE_RESTORE_AT} rounds, checkpoint {size} bytes, "
+        f"{SLICE_ROUNDS - ACTIVE_RESTORE_AT} more rounds: ledger equal={ledger == want}; "
+        f"{len(b)} state leaves, {len(differ)} differ from the uninterrupted run {differ[:5]} "
+        f"({card})")
+    if ledger != want or differ or a.keys() != b.keys():
+        raise AssertionError("restore active: the split run differs")
+
+
+def run_active(device, card: str) -> dict:
+    """Phase 4i: (a), (b) at the stacks (a) and (c) reached, (c), (d)."""
+    t0 = time.perf_counter()
+    sl = run_active_slice(device, card)
+    million = run_active_million(device, card)
+    kern = check_active_kernels(device, sl["sizes"] + [ACTIVE_M], card)
+    run_active_restore(device, card, sl["runs"][("partial", "per-op")])
+    log(f"phase 4i: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(slice=sl, million=million, kernels=kern)
 
 
 # ---------------------------------------------------------------------------
@@ -1969,21 +2407,41 @@ def run_analysis(device) -> dict:
             attrs[name] = runtime.func_attrs(lib, name)
             log(f"analysis: func_attrs {lib}/{name}: {attrs[name]}")
 
-    t0 = time.perf_counter()
-    rc = analysis_main(["--strict"])
-    log(f"analysis: python -m repro_torch.analysis --strict (device cuda) exit {rc} in "
-        f"{time.perf_counter() - t0:.3f} s")
-    if rc != 0:
-        raise AssertionError("the strict analysis pass found errors or warnings on the card")
+    import tempfile
 
-    ops.reset_launches()
-    rc = analysis_main(["--selftest"])
-    torch.cuda.synchronize()
-    launches = ops.launches()
-    log(f"analysis: --selftest exit {rc}, launches {launches}")
-    if rc != 0:
-        raise AssertionError("the analyzer's selftest failed on the card")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        rc = analysis_main(["--strict", "--json", os.path.join(d, "strict.json")])
+        log(f"analysis: python -m repro_torch.analysis --strict (device cuda) exit {rc} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        if rc != 0:
+            raise AssertionError("the strict analysis pass found errors or warnings on the card")
+        with open(os.path.join(d, "strict.json")) as f:
+            strict = json.load(f)["findings"]
+
+        ops.reset_launches()
+        rc = analysis_main(["--selftest", "--json", os.path.join(d, "selftest.json")])
+        torch.cuda.synchronize()
+        launches = ops.launches()
+        log(f"analysis: --selftest exit {rc}, launches {launches}")
+        if rc != 0:
+            raise AssertionError("the analyzer's selftest failed on the card")
+        with open(os.path.join(d, "selftest.json")) as f:
+            selftest = {x["subject"]: x for x in json.load(f)["findings"]
+                        if x["pass_name"] == "selftest"}
     check_launches(launches, {"copy_vec4": 1, "scale": 1, "copy_smem": 1})
+    # phase 4i (e): the active-set pass ran clean on its three variants, and
+    # the selftest flagged the O(K) leak for its K-sized shape
+    active = [x for x in strict if x["pass_name"] == "active"]
+    leak = selftest.get("fixture/active-k-leak", {})
+    clean = selftest.get("fixture/active-clean", {})
+    log(f"analysis: active pass {[(x['level'], x['subject']) for x in active]}; "
+        f"selftest: active-k-leak {leak.get('level')}: {leak.get('message', '')[:160]}; "
+        f"active-clean {clean.get('level')}")
+    if (len(active) != 3 or any(x["level"] != "ok" for x in active)
+            or leak.get("level") != "ok" or "(193,)" not in leak.get("message", "")
+            or clean.get("level") != "ok"):
+        raise AssertionError("the active-set pass or its fixtures did not hold on the card")
 
     rng = np.random.default_rng(10)
 
@@ -2332,6 +2790,9 @@ def main() -> int:
     tracer = SpanTracer("phase 4h", meta={"card": card})
     tel = run_telemetry(dev, card, tracer)
     run_obs_host_plane(dev, tracer, tel)
+    # 4i. the active-set engine: the slice's population, its kernels at the
+    # gathered shapes, a million clients, restore
+    run_active(dev, card)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width

@@ -1,7 +1,7 @@
 """Static contract analyzer for the port: prove declared invariants by
 tracing, before anything runs (counterpart of ``repro.analysis``).
 
-Three passes, one CLI (``python -m repro_torch.analysis``):
+Four passes, one CLI (``python -m repro_torch.analysis``):
 
 ``contract_checks``
     runs every registered strategy hook and codec ``roundtrip`` on fake
@@ -23,8 +23,14 @@ Three passes, one CLI (``python -m repro_torch.analysis``):
     tensors, and runs one round of a tiny engine with telemetry off and on
     from the same state: the two differ by the telemetry entry alone.
 
-The reference's replication, active-set and async passes wait for the
-engines they check.
+``active_checks``
+    the active-set engine's O(m)/O(K) split: both round steps traced on
+    fake CUDA tensors (no host sync), and each run once on the CPU at a
+    prime K = 193 under a shape recorder: the gathered client step must
+    hold no K-sized tensor, the bookkeeping step must hold one.
+
+The reference's replication and async passes wait for the engines they
+check.
 """
 from __future__ import annotations
 

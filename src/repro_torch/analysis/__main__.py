@@ -21,13 +21,14 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.analysis import contract_checks, fixtures, launch_checks, obs_checks
+from repro_torch.analysis import (active_checks, contract_checks, fixtures, launch_checks,
+                                  obs_checks)
 from repro_torch.analysis.report import Report
 from repro_torch.kernels import fixture_kernel, runtime
 
 # Passes of the reference analyzer that wait for the engines they check.
-_WAITING = ("replication, active-set and async passes not run: they wait for the "
-            "port's shard, active and async engines (ROADMAP Queue A)")
+_WAITING = ("replication and async passes not run: they wait for the port's shard "
+            "and async engines (ROADMAP Queue A)")
 
 
 def main(argv=None) -> int:
@@ -36,7 +37,8 @@ def main(argv=None) -> int:
         description="static contract analyzer (trace-time proofs)")
     ap.add_argument("--strict", action="store_true", help="warnings also fail the build")
     ap.add_argument("--fast", action="store_true",
-                    help="skip the engine passes (the telemetry pass and its fixture)")
+                    help="skip the engine passes (the telemetry and active-set passes and "
+                         "their fixtures)")
     ap.add_argument("--selftest", action="store_true",
                     help="run the passes over the broken fixtures and verify each is flagged")
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -64,6 +66,7 @@ def main(argv=None) -> int:
     report.extend(contract_checks.run(plans=plans))
     if not args.fast:
         report.extend(obs_checks.run(plans=plans))
+        report.extend(active_checks.run(plans=plans))
     report.extend(launch_checks.run(attrs=attrs))
     report.extend(launch_checks.check_launches(plans, attrs=attrs))
     report.add("info", "analysis", "engine passes", _WAITING)
@@ -115,6 +118,29 @@ def _selftest(report, device, fast: bool = False) -> int:
         _expect(report, failures, label,
                 obs_checks.check_round_body(label, fixtures.telemetry_callback_engine()),
                 "error")
+    # active-set fixture: the numerically invisible O(K) leak into the
+    # gathered client step must be flagged for its K-sized shape, and the
+    # real engines must pass (no false positive)
+    if not fast:
+        label = "fixture/active-k-leak"
+        K = active_checks.K_ANALYSIS
+        got = active_checks.check_engine(label, fixtures.leaky_active_engine())
+        hit = [f for f in got if f.level == "error" and f"({K},)" in f.message]
+        if hit:
+            report.add("ok", "selftest", label, f"flagged as expected: {hit[0].message}")
+        else:
+            failures.append(label)
+            report.add("error", "selftest", label,
+                       "O(K) state leaked into the client step NOT flagged for its "
+                       f"({K},) shape (got {[f.message[:80] for f in got]})")
+        bad = [f for f in active_checks.run() if f.level == "error"]
+        if bad:
+            failures.append("fixture/active-clean")
+            report.add("error", "selftest", "fixture/active-clean",
+                       "real active engine falsely flagged: " + bad[0].message)
+        else:
+            report.add("ok", "selftest", "fixture/active-clean",
+                       "real active engines pass (no false positive)")
     if device.type == "cuda":
         _card_selftest(report, failures, device)
     return 1 if failures else 0

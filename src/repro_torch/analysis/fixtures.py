@@ -22,10 +22,12 @@ working one on a healthy repo.  One fixture per bug class:
   value, a 32 MiB shared-memory tile), and :func:`valid_kernel_cases`, the
   same kernels on their valid plans;
 - :func:`telemetry_callback_engine`: a telemetry-on device engine whose
-  ``telemetry_hook`` reads the card on the host.
+  ``telemetry_hook`` reads the card on the host;
+- :func:`leaky_active_engine`: an active-set engine whose O(m) client
+  step reads the O(K) ``last_sync`` mirror.
 
-The active-set, async and replication fixtures of the reference wait for
-the engines they test.
+The async and replication fixtures of the reference wait for the engines
+they test.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch.kernels import fixture_kernel
 __all__ = ["CallbackSmugglerStrategy", "HostRNGStrategy", "StaleFlagStrategy",
            "FalseFusedStrategy", "BROKEN_STRATEGIES", "EXPECTED_STRATEGY_LEVEL",
            "broken_kernel_cases", "valid_kernel_cases", "analysis_cases",
-           "telemetry_callback_engine"]
+           "telemetry_callback_engine", "leaky_active_engine"]
 
 
 class CallbackSmugglerStrategy(Strategy):
@@ -164,3 +166,34 @@ def telemetry_callback_engine():
 
     eng.telemetry_hook = leaky_hook
     return eng
+
+
+# ---------------------------------------------------------------------------
+# Active-set fixture
+# ---------------------------------------------------------------------------
+
+def leaky_active_engine():
+    """An active-set engine (on the CPU) whose O(m) client step touches
+    O(K) state.
+
+    The leak is numerically invisible (``0.0 * sum(last_sync)``), so every
+    conformance cell still passes bit for bit, but the client step now
+    reads a ``(K,)`` tensor and its device cost grows with the population
+    again.  ``repro_torch.analysis.active_checks.check_engine`` must flag it
+    as an error for its K-sized shape.
+    """
+    from repro_torch.analysis.active_checks import analysis_config
+    from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
+    from repro_torch.fl.scenarios import Scenario, bernoulli_participation
+    from repro_torch.fl.strategies import STRATEGIES
+
+    class LeakyActiveEngine(ActiveSetFederatedDistillation):
+        def _client_step(self, args):
+            out = super()._client_step(args)
+            out["uplink"] = out["uplink"] + 0.0 * self._get_last_sync_dev().to(
+                torch.float32).sum()
+            return out
+
+    return LeakyActiveEngine(
+        analysis_config(), STRATEGIES["scarlet"](), cache_duration=2,
+        scenario=Scenario(participation=bernoulli_participation(0.3)), device="cpu")

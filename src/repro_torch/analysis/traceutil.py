@@ -20,12 +20,22 @@ would show or lose:
 
 ``.numpy()`` on a fake tensor fails, and so fails the trace.
 
+On a build without CUDA, gradients are not traced: such a build cannot
+run autograd on fake CUDA tensors (its graph needs the CUDA device guard
+and aborts the process).  There the trace runs with grad mode off,
+``torch.enable_grad`` turned into a no-op and ``torch.autograd.grad``
+answering zeros of its inputs' shapes: the losses' forward code and the
+updates run on fake tensors; the backward is autograd's own code, with
+no user code in it (the port defines no ``autograd.Function``) and so no
+host read.  Where a CUDA device is present the real backward is traced.
+
 ``FakeTensorMode`` is private PyTorch API: this module is the one place
 that imports it.  On a build without CUDA its device guard does not cover
 the Python bindings that take a device guard of their own: indexing runs
 here on a fake CPU twin of the tensor with the same sizes, strides and
 storage offset, the result mapped back onto the fake CUDA tensor;
-``contiguous`` is a ``clone`` where it copies; a scalar conversion calls
+``contiguous`` is a ``clone`` where it copies; ``~x`` is
+``torch.bitwise_not(x)``; a scalar conversion calls
 ``aten._local_scalar_dense`` itself.
 """
 from __future__ import annotations
@@ -84,6 +94,37 @@ def record_host_rng(record: List[str]):
         yield record
     finally:
         np.random.default_rng, np.random.RandomState = orig_rng, orig_rs
+
+
+@contextlib.contextmanager
+def _stub_autograd() -> Iterator[None]:
+    """Grad mode off and gradients as zeros for the trace, on a build
+    without a CUDA device only (see module doc)."""
+    if torch.cuda.is_available():
+        yield
+        return
+    orig_grad, orig_enable = torch.autograd.grad, torch.enable_grad
+
+    def grad(outputs, inputs, *args, **kwargs):
+        seq = [inputs] if isinstance(inputs, torch.Tensor) else list(inputs)
+        return tuple(torch.zeros_like(x) for x in seq)
+
+    class enable_grad(contextlib.ContextDecorator):  # noqa: N801 — torch's name
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    torch.autograd.grad, torch.enable_grad = grad, enable_grad
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        torch.autograd.grad, torch.enable_grad = orig_grad, orig_enable
 
 
 @contextlib.contextmanager
@@ -167,7 +208,7 @@ _TO_PYTHON = {torch.Tensor.__float__: float, torch.Tensor.__int__: int,
 
 
 class _CudaBindings(TorchFunctionMode):
-    """Python indexing, ``contiguous`` and the scalar conversions
+    """Python indexing, ``contiguous``, ``~`` and the scalar conversions
     (``float()``, ``int()``, ``bool()``, ``.item()``) of fake CUDA tensors
     (see module doc).  A conversion goes through
     ``aten._local_scalar_dense``, where the host spy records it."""
@@ -183,6 +224,8 @@ class _CudaBindings(TorchFunctionMode):
             if func is torch.Tensor.__setitem__:
                 _getitem(x, args[1])  # the index must be valid; no data to write
                 return None
+            if func is torch.Tensor.__invert__:
+                return torch.bitwise_not(x)
             if func is torch.Tensor.contiguous:
                 fmt = kwargs.get("memory_format", args[1] if len(args) > 1
                                  else torch.contiguous_format)
@@ -239,7 +282,7 @@ def trace(fn, *args) -> TraceResult:
     rng: List[str] = []
     launches: List[Launch] = []
     spy = _HostSpy()
-    with record_host_rng(rng), _record_launches(launches), FakeTensorMode():
+    with record_host_rng(rng), _record_launches(launches), FakeTensorMode(), _stub_autograd():
         fake = [torch.empty(a[0], dtype=a[1], device="cuda") if _is_spec(a) else a
                 for a in args]
         try:

@@ -1,6 +1,6 @@
-"""npz checkpoints of nested tensor trees (counterpart of
-``repro.checkpoint``; the client-parameter store of the active engine is
-not ported yet)."""
+"""npz checkpoints of nested tensor trees, and the active-set engine's
+host-resident client-parameter store (counterpart of
+``repro.checkpoint``)."""
 from repro_torch.checkpoint.io import (  # noqa: F401
     CheckpointDtypeError,
     CheckpointError,
@@ -9,3 +9,4 @@ from repro_torch.checkpoint.io import (  # noqa: F401
     load_pytree,
     save_pytree,
 )
+from repro_torch.checkpoint.store import ClientParamStore  # noqa: F401

@@ -226,19 +226,38 @@ def catch_up_bytes(pkg: CatchUpPackage, bytes_per_value: float = 4.0) -> float:
 
 def catch_up_bytes_device(cache_g: CacheState, last_sync: torch.Tensor,
                           part: torch.Tensor, t: int,
-                          bytes_per_value: float = 4.0) -> torch.Tensor:
+                          bytes_per_value: float = 4.0, *,
+                          method: str = "dense") -> torch.Tensor:
     """Total catch-up downlink bytes of round ``t``, as a 0-dim float32
     tensor on the cache's device: :func:`make_catch_up` +
     :func:`catch_up_bytes` summed over the returning stragglers (clients
     in ``part`` whose ``last_sync`` predates round ``t - 1``), without a
     host sync.  ``last_sync`` (int32) and ``part`` (bool) are ``(K,)``.
 
-    It compares every client's sync point with every entry, a ``(K, |P|)``
-    mask: the reference's ``"dense"`` method, the one its scan engine
-    uses.  The ``"sorted"`` method, for the active engine's K, is not
-    ported yet."""
+    ``method`` selects how each client's count of newer entries is taken;
+    both give the same exact small-integer counts, times the same
+    constant, summed over the same ``(K,)`` vector, so their totals are
+    equal bit for bit:
+
+    - ``"dense"`` (the device engine's) compares every client's sync point
+      with every entry, a ``(K, |P|)`` mask;
+    - ``"sorted"`` (the active engine's, where K may be 10^6) sorts the
+      ``|P|`` timestamps once, absent entries sunk to ``_NEVER - 1``, below
+      any ``last_sync`` a client can hold, and counts by
+      ``torch.searchsorted``: O(K + |P|) memory.  ``last_sync`` is taken
+      in the timestamps' dtype (int32)."""
     returning = part & (last_sync < t - 1)                              # (K,)
-    newer = cache_g.present[None, :] & (cache_g.ts[None, :] > last_sync[:, None])
-    counts = newer.sum(1).to(torch.float32)
+    if method == "dense":
+        newer = cache_g.present[None, :] & (cache_g.ts[None, :] > last_sync[:, None])
+        counts = newer.sum(1).to(torch.float32)
+    elif method == "sorted":
+        ts_eff = torch.where(cache_g.present, cache_g.ts,
+                             torch.full_like(cache_g.ts, _NEVER - 1))
+        ts_sorted = torch.sort(ts_eff).values                           # (|P|,)
+        pos = torch.searchsorted(ts_sorted, last_sync.to(ts_sorted.dtype),
+                                 right=True, out_int32=True)            # (K,)
+        counts = (ts_sorted.shape[0] - pos).to(torch.float32)
+    else:
+        raise ValueError(f"unknown catch-up method {method!r}")
     per_client = counts * (cache_g.num_classes * bytes_per_value + 8.0)
     return torch.where(returning, per_client, 0.0).sum()

@@ -1,6 +1,7 @@
 """Federated distillation on PyTorch: the host round loop, the
-device-resident engine, strategies, the FedAvg and Individual baselines
+device-resident engine, the active-set engine, strategies, the FedAvg and Individual baselines
 and scenarios (the ported part of ``repro.fl``)."""
+from repro_torch.fl.active_engine import ActiveSetFederatedDistillation  # noqa: F401
 from repro_torch.fl.api import run_method  # noqa: F401
 from repro_torch.fl.baselines import FedAvg, Individual  # noqa: F401
 from repro_torch.fl.cohorts import ClientModels, CohortSpec, resolve_cohorts  # noqa: F401

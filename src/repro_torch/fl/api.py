@@ -1,10 +1,12 @@
 """Front door: run one FL method end-to-end (counterpart of
-``repro.fl.api``; the host and device (``"scan"``) engines so far)."""
+``repro.fl.api``; the host, device (``"scan"``) and active-set
+(``"active"``) engines so far)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
 from repro_torch.fl.baselines import FedAvg, Individual
 from repro_torch.fl.cohorts import CohortSpec
 from repro_torch.fl.config import FLConfig
@@ -16,8 +18,9 @@ from repro_torch.fl.strategies import STRATEGIES
 __all__ = ["run_method"]
 
 _ENGINES = {"host": FederatedDistillation,
-            "scan": ScannedFederatedDistillation}
-_NOT_PORTED_ENGINES = ("shard", "active", "async")
+            "scan": ScannedFederatedDistillation,
+            "active": ActiveSetFederatedDistillation}
+_NOT_PORTED_ENGINES = ("shard", "async")
 
 
 def run_method(
@@ -45,28 +48,32 @@ def run_method(
 
     ``method`` in {scarlet, dsfl, cfd, comet, selective_fd, mean, fedavg,
     individual}.  The distillation methods run on ``engine="host"`` (the
-    round loop of :mod:`repro_torch.fl.rounds`) or ``"scan"`` (the
+    round loop of :mod:`repro_torch.fl.rounds`), ``"scan"`` (the
     device-resident engine of :mod:`repro_torch.fl.scan_engine`, which
     takes ``fused_round``; only scarlet with a static beta has a fused
     path, as in the reference, and any other method raises ``ValueError``
-    under ``fused_round=True``); comet (host numpy k-means, per-client
+    under ``fused_round=True``) or ``"active"`` (the active-set engine of
+    :mod:`repro_torch.fl.active_engine`: the device engine's round body on
+    the gathered participants, the clients' state in a host store, here on
+    its default RAM backing, as in the reference; it takes the device
+    engine's methods and options).  comet (host numpy k-means, per-client
     teachers) runs on the host loop only and raises ``ValueError`` on the
-    device engine, as in the reference.  The baselines fedavg and
-    individual (:mod:`repro_torch.fl.baselines`) run on the host and
+    device and active engines, as in the reference.  The baselines fedavg
+    and individual (:mod:`repro_torch.fl.baselines`) run on the host and
     refuse every option that does not apply to them with the reference's
     ``ValueError``.  The keywords mean what they mean in
     ``repro.fl.run_method``: ``scenario`` (participation, outages and a
-    per-client ``Heterogeneity``), ``probabilistic_expiry`` (both
-    engines) and ``track_local_caches`` (host loop; the device engine
-    refuses it with the reference's ``ValueError``) go through to the
-    engine.  ``telemetry=True`` fills ``History.telemetry`` (one
-    :class:`repro_torch.obs.device.RoundTelemetry` row a round) on both
-    engines for the distillation methods; the baselines refuse it with
+    per-client ``Heterogeneity``), ``probabilistic_expiry`` (every
+    engine) and ``track_local_caches`` (host loop; the device and active
+    engines refuse it with the reference's ``ValueError``) go through to
+    the engine.  ``telemetry=True`` fills ``History.telemetry`` (one
+    :class:`repro_torch.obs.device.RoundTelemetry` row a round) on every
+    engine for the distillation methods; the baselines refuse it with
     the reference's ``ValueError``.  ``device`` is ``"cuda"`` by default
     and the run raises when there is no CUDA device; pass ``device="cpu"``
     to run on the CPU.  Engines and options of the reference that are not
-    ported yet (``engine="shard"|"active"|"async"``, ``rng_backend="jax"``)
-    raise ``NotImplementedError``.
+    ported yet (``engine="shard"|"async"``, ``rng_backend="jax"``) raise
+    ``NotImplementedError``.
     """
     if engine not in _ENGINES and engine not in _NOT_PORTED_ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")

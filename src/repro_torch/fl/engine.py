@@ -6,6 +6,7 @@ vmapped ``*_v`` primitives have no separate form in the port: each
 primitive here takes one model or a stack of them."""
 from __future__ import annotations
 
+from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
 from repro_torch.fl.api import run_method
 from repro_torch.fl.baselines import FedAvg, Individual
 from repro_torch.fl.cohorts import ClientModels, CohortSpec, resolve_cohorts
@@ -53,6 +54,7 @@ __all__ = [
     "History",
     "FederatedDistillation",
     "ScannedFederatedDistillation",
+    "ActiveSetFederatedDistillation",
     "FedAvg",
     "Individual",
     "run_method",

@@ -29,7 +29,7 @@ Workflow per round t (SCARLET Alg. 1, any participation scenario):
 Telemetry (``FLConfig.telemetry``) appends one
 :class:`repro_torch.obs.device.RoundTelemetry` row a round to
 ``History.telemetry`` (:meth:`FederatedDistillation._telemetry_row`,
-shared with the device engine): an observation that leaves the run bit
+shared with the device engines): an observation that leaves the run bit
 for bit as it is without it.
 
 Probabilistic expiry (``probabilistic_expiry=True``) tests each request
@@ -284,6 +284,31 @@ class FederatedDistillation:
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
+    # ------------------------------------------------------------------
+    # Placement hooks (reference ``rounds.py:288-300``): the active-set
+    # engine (:mod:`repro_torch.fl.active_engine`) overrides them to keep
+    # the O(K) per-client state on the host; here they put it on the
+    # device, as before.
+    def _client_array(self, a, dtype=None):
+        """Placement of a per-client array (one row a client: private and
+        test shards, masks, per-client schedules)."""
+        return self._tensor(a, dtype)
+
+    def _eval_array(self, a, dtype=None):
+        """Placement of an eval-only array whose size follows the
+        population (the server's test set, ``private_size / 5`` rows)."""
+        return self._tensor(a, dtype)
+
+    def _init_client_params(self, generator: torch.Generator) -> None:
+        """Draw the clients' initial parameters from ``generator`` (before
+        the server's, from the same Generator)."""
+        self._restore_client_params(self.models.init_params(generator))
+
+    def _restore_client_params(self, stacks) -> None:
+        """Install given per-cohort client stacks (numpy arrays or tensors;
+        :meth:`load_params`, :meth:`load_state_dict`)."""
+        self.client_params = [{k: self._tensor(v) for k, v in p.items()} for p in stacks]
+
     def _partition_clients(self, x, y, seed: int):
         """Per-client shards in the dense ``(xs, ys, mask)`` layout."""
         c = self.cfg
@@ -306,15 +331,13 @@ class FederatedDistillation:
         xts, yts, tmask = self._partition_clients(
             data["x_test"], data["y_test"], seed=c.seed + 7)
         self.x_pub = self._tensor(data["x_public"])
-        self.x_test = self._tensor(data["x_test"])
-        self.y_test = self._tensor(data["y_test"], torch.int64)
+        self.x_test = self._eval_array(data["x_test"])
+        self.y_test = self._eval_array(data["y_test"], torch.int64)
 
         self.models = ClientModels(resolve_cohorts(c), c.dim, c.n_classes)
         gen = torch.Generator().manual_seed(c.seed)
-        clients = self.models.init_params(gen)
+        self._init_client_params(gen)
         server = init_mlp(gen, c.dim, c.n_classes, c.hidden, c.mlp_depth)
-        self.client_params = [{k: self._tensor(v) for k, v in p.items()}
-                              for p in clients]
         self.server_params = {k: self._tensor(v) for k, v in server.items()}
         self.n_params = sum(v.numel() for v in self.server_params.values())
 
@@ -334,13 +357,13 @@ class FederatedDistillation:
         f32 = torch.float32
         # the whole private shards and test shards (the baselines train
         # and test on these), and their per-cohort views
-        self.xs, self.ys = self._tensor(xs), self._tensor(ys, torch.int64)
-        self.mask = self._tensor(mask, f32)
-        self.xts, self.yts = self._tensor(xts), self._tensor(yts, torch.int64)
-        self.tmask = self._tensor(tmask, f32)
+        self.xs, self.ys = self._client_array(xs), self._client_array(ys, torch.int64)
+        self.mask = self._client_array(mask, f32)
+        self.xts, self.yts = self._client_array(xts), self._client_array(yts, torch.int64)
+        self.tmask = self._client_array(tmask, f32)
         self.xs_c, self.ys_c = m.split(self.xs), m.split(self.ys)
-        self.train_mask_c = m.split(self._tensor(train_mask, f32))
-        self.val_mask_c = m.split(self._tensor(val_mask, f32))
+        self.train_mask_c = m.split(self._client_array(train_mask, f32))
+        self.val_mask_c = m.split(self._client_array(val_mask, f32))
         self.xts_c, self.yts_c = m.split(self.xts), m.split(self.yts)
         self.tmask_c = m.split(self.tmask)
         self.last_teacher_val: Optional[torch.Tensor] = None
@@ -360,16 +383,15 @@ class FederatedDistillation:
         if het is not None:
             lr_k, steps_k, self._max_steps = het.resolve(c.n_clients, c.lr,
                                                          c.local_steps)
-            self._lr_k_c = m.split(self._tensor(lr_k, torch.float32))
-            self._steps_k_c = m.split(self._tensor(steps_k, torch.int32))
+            self._lr_k_c = m.split(self._client_array(lr_k, torch.float32))
+            self._steps_k_c = m.split(self._client_array(steps_k, torch.int32))
             self._lr_decay = np.float32(het.lr_decay)
 
     def load_params(self, client_params, server_params) -> None:
         """Install given initial parameters (numpy dicts, e.g. the
         reference's) in place of the port's own; see
         :func:`repro_torch.fl.convert.params_from_numpy`."""
-        clients, server = params_from_numpy(client_params, server_params,
-                                            self.device)
+        clients, server = params_from_numpy(client_params, server_params, "cpu")
         for new, old in zip(clients + [server],
                             self.client_params + [self.server_params]):
             got = {k: tuple(v.shape) for k, v in new.items()}
@@ -380,7 +402,8 @@ class FederatedDistillation:
         if len(clients) != len(self.client_params):
             raise ValueError(f"{len(clients)} cohorts given, "
                              f"{len(self.client_params)} configured")
-        self.client_params, self.server_params = clients, server
+        self._restore_client_params(clients)
+        self.server_params = {k: v.to(self.device) for k, v in server.items()}
 
     # ------------------------------------------------------------------
     def run(self, rounds: Optional[int] = None, *,
@@ -502,8 +525,7 @@ class FederatedDistillation:
                 "into an engine with track_local_caches=False")
         on = lambda v: torch.as_tensor(v).to(self.device)  # noqa: E731
         self.t_done = int(state["t_done"])
-        self.client_params = [{k: on(v) for k, v in p.items()}
-                              for p in state["client_params"]]
+        self._restore_client_params(state["client_params"])
         self.server_params = {k: on(v) for k, v in state["server_params"].items()}
         self.cache_g = cache_lib.CacheState(*(on(a) for a in state["cache"]))
         self.prev_teacher = ((on(state["prev_idx"]).to(torch.int64),
@@ -560,38 +582,52 @@ class FederatedDistillation:
                                           replace=False))
         return part, idx
 
-    def _telemetry_row(self, *, t: int, part, miss, base_present, z_tx, z_srv,
-                       fresh, last_sync, uplink, downlink,
-                       catch_up) -> obs_device.RoundTelemetry:
-        """One :class:`repro_torch.obs.device.RoundTelemetry` row (reference
-        ``_telemetry_row``), shared by both engines: the one expression is
-        what makes their counter stacks equal.  Counters come from the
-        full-width ``part`` and the pre-update ``miss``, ``base_present``
-        and ``last_sync``; ``z_tx`` is the (K, m, N) stack as transmitted,
-        ``z_srv`` the server's post-uplink-codec view, ``fresh`` the
-        aggregated teacher after sharpening and the downlink codec.  The
-        byte counts are host floats (host loop) or float32 device scalars
-        (device engine).  ``t`` is a host int; nothing here reads the
-        device."""
-        part_f = part.to(torch.float32)
-        n_part = part_f.sum()
-        hits, new, expired = obs_device.cache_signal_counts(base_present, miss)
-        cerr = (obs_device.as_f32(0.0, part) if self.codec_up.is_identity else
-                obs_device.codec_error_mean(z_srv, z_tx, part_f, n_part))
-        zbar = obs_device.participant_mean(z_srv, part_f, n_part)
-        tel = obs_device.RoundTelemetry(
+    def _telemetry_counters(self, t: int, part, last_sync) -> Dict[str, torch.Tensor]:
+        """The row's counters (reference ``_telemetry_row``), from the
+        full-width ``(K,)`` participation and the pre-update ``last_sync``:
+        every engine computes them from the same full-width inputs, which
+        is what makes their counter stacks equal.  ``t`` is a host int;
+        nothing here reads the device."""
+        return dict(
             participants=obs_device.participants_per_cohort(
                 part, self.models.offsets, self.models.sizes),
-            cache_hits=hits, cache_miss_new=new, cache_expired=expired,
             catch_up_clients=obs_device.returning_client_count(part, last_sync, t),
-            staleness_hist=obs_device.staleness_histogram(part, last_sync, t),
-            uplink_bytes=obs_device.as_f32(uplink, part),
-            downlink_bytes=obs_device.as_f32(downlink, part),
-            catch_up_bytes=obs_device.as_f32(catch_up, part),
+            staleness_hist=obs_device.staleness_histogram(part, last_sync, t))
+
+    def _telemetry_gauges(self, t: int, w, *, miss, base_present, z_tx, z_srv,
+                          fresh) -> Dict[str, torch.Tensor]:
+        """The row's cache signals and gauges, from the stack the round
+        aggregated: ``w`` its float32 participation weights (the full-width
+        vector, or the active-set engine's gathered rows), ``z_tx`` the
+        stack as transmitted, ``z_srv`` the server's post-uplink-codec
+        view, ``fresh`` the aggregated teacher after sharpening and the
+        downlink codec; ``miss`` and ``base_present`` pre-update."""
+        n_part = w.sum()
+        hits, new, expired = obs_device.cache_signal_counts(base_present, miss)
+        cerr = (obs_device.as_f32(0.0, w) if self.codec_up.is_identity else
+                obs_device.codec_error_mean(z_srv, z_tx, w, n_part))
+        zbar = obs_device.participant_mean(z_srv, w, n_part)
+        return dict(
+            cache_hits=hits, cache_miss_new=new, cache_expired=expired,
             teacher_entropy_pre=obs_device.mean_entropy(zbar),
             teacher_entropy_post=obs_device.mean_entropy(fresh),
             beta=self.strategy.sharpen_gauge(zbar, t).to(torch.float32),
             codec_quant_error=cerr)
+
+    def _telemetry_row(self, t: int, counters: Dict[str, torch.Tensor],
+                       gauges: Dict[str, torch.Tensor], *, uplink, downlink,
+                       catch_up) -> obs_device.RoundTelemetry:
+        """One :class:`repro_torch.obs.device.RoundTelemetry` row from
+        :meth:`_telemetry_counters` and :meth:`_telemetry_gauges`, with
+        ``telemetry_hook``; shared by every engine.  The byte counts are
+        host floats (host loop) or float32 device scalars (device
+        engines)."""
+        like = counters["participants"]
+        tel = obs_device.RoundTelemetry(
+            **counters, **gauges,
+            uplink_bytes=obs_device.as_f32(uplink, like),
+            downlink_bytes=obs_device.as_f32(downlink, like),
+            catch_up_bytes=obs_device.as_f32(catch_up, like))
         if self.telemetry_hook is not None:
             tel = self.telemetry_hook(tel, t)
         return tel
@@ -727,9 +763,11 @@ class FederatedDistillation:
         hist.ledger.record(cost)
         if self._telemetry:  # before last_sync moves: the row reads the old one
             hist.telemetry.append(self._telemetry_row(
-                t=t, part=part_t, miss=miss, base_present=base_present,
-                z_tx=z_tx, z_srv=z_all, fresh=fresh,
-                last_sync=self._tensor(self.last_sync, torch.int32),
+                t, self._telemetry_counters(
+                    t, part_t, self._tensor(self.last_sync, torch.int32)),
+                self._telemetry_gauges(
+                    t, part_t.to(torch.float32), miss=miss,
+                    base_present=base_present, z_tx=z_tx, z_srv=z_all, fresh=fresh),
                 uplink=cost.uplink, downlink=cost.downlink, catch_up=catch_up))
         self.last_sync[part] = t
 

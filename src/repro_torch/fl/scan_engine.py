@@ -42,6 +42,7 @@ a round under ``cache_delta+quantB``).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -52,6 +53,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.fl.rounds import FederatedDistillation, History, _select_cohorts, distill
 from repro_torch.kernels import round_kernel
+from repro_torch.models.resnet import Params
 from repro_torch.obs import device as obs_device
 
 __all__ = ["ScannedFederatedDistillation"]
@@ -137,23 +139,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
         T = c.rounds if rounds is None else rounds
         t0 = self.t_done
         ts = list(range(t0 + 1, t0 + T + 1))
-        K, m = c.n_clients, c.public_per_round
-        if draws is None:
-            pairs = [self._draw_round(t) for t in ts]
-            part = np.array([p for p, _ in pairs], bool).reshape(T, K)
-            idx = np.array([i for _, i in pairs], np.int64).reshape(T, m)
-        else:
-            part, idx = np.asarray(draws[0]).astype(bool), np.asarray(draws[1])
-            if part.shape != (T, K) or idx.shape != (T, m):
-                raise ValueError(f"draws must be ({T}, {K}) and ({T}, {m}), "
-                                 f"got {part.shape} and {idx.shape}")
-            if (part & self.scenario.offline_masks(T, K, start=t0 + 1)).any():
-                raise ValueError("draws let an offline client participate")
-            srt = np.sort(idx, axis=1)
-            if T and (srt[:, 0].min() < 0 or srt[:, -1].max() >= c.public_size
-                      or (np.diff(srt, axis=1) <= 0).any()):
-                raise ValueError("each round's P^t must hold distinct public "
-                                 f"indices in [0, {c.public_size})")
+        part, idx = self._leg_draws(T, draws)
         u = self._leg_uniforms(T, expiry_uniforms)
         state = self.state_dict()
         del state["t_done"]
@@ -166,13 +152,50 @@ class ScannedFederatedDistillation(FederatedDistillation):
                     do_eval=[t % c.eval_every == 0 or t == t0 + T for t in ts],
                     state=state)
 
-    def _run_rounds(self, leg: _Leg) -> None:
-        """The leg's rounds, on the device; on a CUDA device any host sync
-        inside them raises."""
+    def _leg_draws(self, T: int, draws) -> Tuple[np.ndarray, np.ndarray]:
+        """The leg's ``(T, K)`` participation masks and ``(T, m)`` P^t
+        indices: drawn round by round from the numpy Generators, or
+        ``draws`` checked (no offline client takes part; each P^t holds
+        distinct public indices)."""
+        c = self.cfg
+        t0 = self.t_done
+        K, m = c.n_clients, c.public_per_round
+        if draws is None:
+            pairs = [self._draw_round(t) for t in range(t0 + 1, t0 + T + 1)]
+            part = np.array([p for p, _ in pairs], bool).reshape(T, K)
+            idx = np.array([i for _, i in pairs], np.int64).reshape(T, m)
+            return part, idx
+        part, idx = np.asarray(draws[0]).astype(bool), np.asarray(draws[1])
+        if part.shape != (T, K) or idx.shape != (T, m):
+            raise ValueError(f"draws must be ({T}, {K}) and ({T}, {m}), "
+                             f"got {part.shape} and {idx.shape}")
+        if (part & self.scenario.offline_masks(T, K, start=t0 + 1)).any():
+            raise ValueError("draws let an offline client participate")
+        srt = np.sort(idx, axis=1)
+        if T and (srt[:, 0].min() < 0 or srt[:, -1].max() >= c.public_size
+                  or (np.diff(srt, axis=1) <= 0).any()):
+            raise ValueError("each round's P^t must hold distinct public "
+                             f"indices in [0, {c.public_size})")
+        return part, idx
+
+    @contextlib.contextmanager
+    def _sync_guard(self):
+        """On a CUDA device, ``torch.cuda.set_sync_debug_mode("error")``
+        for the block, the previous mode restored after: any host sync
+        inside raises."""
         prev = torch.cuda.get_sync_debug_mode() if self.device.type == "cuda" else None
         if prev is not None:
             torch.cuda.set_sync_debug_mode("error")
         try:
+            yield
+        finally:
+            if prev is not None:
+                torch.cuda.set_sync_debug_mode(prev)
+
+    def _run_rounds(self, leg: _Leg) -> None:
+        """The leg's rounds, on the device; on a CUDA device any host sync
+        inside them raises."""
+        with self._sync_guard():
             st = leg.state
             for i, t in enumerate(leg.ts):
                 kw = {} if leg.u is None else {"u": leg.u[i]}
@@ -180,9 +203,6 @@ class ScannedFederatedDistillation(FederatedDistillation):
                                              leg.do_eval[i], **kw)
                 leg.outputs.append(out)
             leg.state = st
-        finally:
-            if prev is not None:
-                torch.cuda.set_sync_debug_mode(prev)
 
     # ------------------------------------------------------------------
     def _round_device(self, st: Dict[str, Any], t: int, part: torch.Tensor,
@@ -192,11 +212,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
         state in, the state out and this round's results.  ``t`` and
         ``do_eval`` are host values; ``u`` is the round's row of expiry
         uniforms (probabilistic expiry); nothing here reads the device."""
-        c, s = self.cfg, self.strategy
-        m, N = c.public_per_round, c.n_classes
         part_f = part.to(torch.float32)
-        n_part = part_f.sum()
-        any_p = n_part > 0
+        any_p = part_f.sum() > 0
 
         def gate(new, old):
             """Keep ``old`` wholesale on a total-outage round."""
@@ -210,34 +227,95 @@ class ScannedFederatedDistillation(FederatedDistillation):
         cp = _select_cohorts(self._local_train_all(cp, t), cp,
                              self.models.split(part))
 
+        # --- the server's side, then the outage gate ----------------------
+        catch_up = 0.0
+        if self.use_cache:
+            catch_up = cache_lib.catch_up_bytes_device(
+                st["cache"], st["last_sync"], part, t)
+        r = self._server_round(cp, part_f, idx, t, x_pub=self.x_pub,
+                               cache_prev=st["cache"],
+                               server_params=st["server_params"],
+                               catch_up=catch_up, u=u)
+        cache = st["cache"]
+        if self.use_cache:
+            cache = cache_lib.CacheState(
+                *(gate(a, b) for a, b in zip(r["cache"], st["cache"])))
+        server_params = {k: gate(v, st["server_params"][k])
+                         for k, v in r["server_params"].items()}
+        # App.-D proxy teacher
+        zv = self._predict_all(cp, self.x_pub[self.pub_val_idx])
+        teacher_val = gate(zv.mean(0), st["teacher_val"])
+        new_st = dict(
+            client_params=cp,
+            server_params=server_params,
+            cache=cache,
+            prev_idx=gate(idx, st["prev_idx"]),
+            prev_teacher=gate(r["teacher"], st["prev_teacher"]),
+            have_prev=st["have_prev"] | any_p,
+            teacher_val=teacher_val,
+            have_tv=st["have_tv"] | any_p,
+            last_sync=torch.where(part, t, st["last_sync"]),
+        )
+        out = dict(uplink=torch.where(any_p, r["uplink"], 0.0),
+                   downlink=torch.where(any_p, r["downlink"], 0.0),
+                   have_tv=new_st["have_tv"])
+        if self._telemetry:  # from the pre-update last_sync
+            out["telemetry"], new_st["telemetry"] = self._telemetry_device(
+                st["telemetry"], t, part, any_p, miss=r["miss"], base=r["base"],
+                base_present=r["base_present"], z_tx=r["z_tx"], z_all=r["z_all"],
+                fresh=r["fresh"], last_sync=st["last_sync"], uplink=out["uplink"],
+                downlink=out["downlink"], catch_up=catch_up)
+        if do_eval:  # the schedule is known on the host
+            out.update(self._eval_metrics(cp, server_params, teacher_val))
+        return new_st, out
+
+    def _server_round(self, params: List[Params], w: torch.Tensor,
+                      idx: torch.Tensor, t: int, *, x_pub, cache_prev,
+                      server_params, catch_up, u=None) -> Dict[str, Any]:
+        """The round from the clients' trained parameters to the server's,
+        shared by this engine (the full stacks, ``w`` the float32
+        participation vector) and the active-set engine (the gathered
+        stack, ``w`` its valid rows): the request list, the uplink codec
+        or the fused kernel, the ``w``-weighted aggregation, the downlink
+        codec, the teacher, the cache update, server distillation and the
+        round's bytes with ``catch_up`` the catch-up bytes.  Nothing is
+        gated on a total outage (the caller gates).  Returns the pieces
+        the callers and telemetry read: ``miss``, ``base``,
+        ``base_present``, ``z_tx`` (as transmitted), ``z_all`` (the
+        server's view; the transmitted stack on the fused path),
+        ``fresh``, ``teacher``, ``cache``, ``server_params``, ``uplink``
+        and ``downlink``.  ``t`` is a host int; nothing here reads the
+        device."""
+        c, s = self.cfg, self.strategy
+        m, N = c.public_per_round, c.n_classes
+        n_part = w.sum()
+
         # --- request list (cache) ------------------------------------------
-        cache_prev = st["cache"]
         if self.use_cache:
             miss = cache_lib.miss_mask(cache_prev, idx, t, self.D,
                                        probabilistic=self.probabilistic_expiry, u=u)
         else:
-            miss = torch.ones(m, dtype=torch.bool, device=self.device)
+            miss = torch.ones(m, dtype=torch.bool, device=idx.device)
         miss_f = miss.to(torch.float32)
         n_req = miss_f.sum()
         # shared delta-coding base: the synchronized cache at P^t (pre-update)
         base, base_present = cache_lib.cached_at(cache_prev, idx)
 
-        # --- uplink + aggregation (fixed shapes, participation-weighted) ---
-        x_round = self.x_pub[idx]
-        z_all = s.transmit(self._predict_all(cp, x_round))     # (K, m, N)
+        # --- uplink + aggregation (fixed shapes, weighted by w) ------------
+        x_round = x_pub[idx]
+        z_all = s.transmit(self._predict_all(params, x_round))  # (rows, m, N)
         z_tx = z_all  # as transmitted: telemetry's codec-error reference
         if self._fused_spec is not None:
             um = s.upload_mask(z_all)
             fbase = (round_kernel.resolve_delta_base(base, base_present, m, N)
                      if self._fused_spec["mode"] == "delta" else None)
-            fresh = s.aggregate_masked_fused(z_all, part_f, self._fused_spec,
-                                             fbase, t)
+            fresh = s.aggregate_masked_fused(z_all, w, self._fused_spec, fbase, t)
         else:
             if not self.codec_up.is_identity:  # lossy wire: the server's view
                 z_all = self.codec_up.roundtrip(z_all, base=base,
                                                 present=base_present)
             um = s.upload_mask(z_all)
-            fresh = s.aggregate_masked(z_all, part_f, um, t)
+            fresh = s.aggregate_masked(z_all, w, um, t)
         if not self.codec_down.is_identity:  # decoded broadcast (see rounds.py)
             fresh = self.codec_down.roundtrip(fresh, base=base,
                                               present=base_present)
@@ -246,30 +324,18 @@ class ScannedFederatedDistillation(FederatedDistillation):
         cache = cache_prev
         if self.use_cache:
             teacher = cache_lib.assemble_teacher(cache_prev, idx, fresh, miss)
-            new_cache, _ = cache_lib.update_global_cache(cache_prev, idx,
-                                                         teacher, miss, t)
-            cache = cache_lib.CacheState(
-                *(gate(a, b) for a, b in zip(new_cache, cache_prev)))
+            cache, _ = cache_lib.update_global_cache(cache_prev, idx, teacher,
+                                                     miss, t)
         else:
             teacher = fresh
 
-        # --- server distillation + App.-D proxy teacher -------------------
-        sp = distill(st["server_params"], x_round, teacher, c.lr_dist,
-                     c.distill_steps)
-        server_params = {k: gate(v, st["server_params"][k])
-                         for k, v in sp.items()}
-        zv = self._predict_all(cp, self.x_pub[self.pub_val_idx])
-        teacher_val = gate(zv.mean(0), st["teacher_val"])
+        # --- server distillation ------------------------------------------
+        sp = distill(server_params, x_round, teacher, c.lr_dist, c.distill_steps)
 
         # --- communication accounting (float32, on the device) ------------
-        catch_up = 0.0
-        if self.use_cache:
-            catch_up = cache_lib.catch_up_bytes_device(
-                cache_prev, st["last_sync"], part, t)
         n_up = n_req
         if um is not None:  # Selective-FD: the mask gates the uplink only
-            uploaded = (um.to(torch.float32) * part_f[:, None]
-                        * miss_f[None, :]).sum()
+            uploaded = (um.to(torch.float32) * w[:, None] * miss_f[None, :]).sum()
             n_up = uploaded / torch.clamp_min(n_part, 1.0)
         uplink, downlink = comm_lib.distillation_round_cost_device(
             n_clients=n_part,
@@ -285,29 +351,18 @@ class ScannedFederatedDistillation(FederatedDistillation):
             uplink_codec=self.codec_up,
             downlink_codec=self.codec_down,
         )
-        new_st = dict(
-            client_params=cp,
-            server_params=server_params,
-            cache=cache,
-            prev_idx=gate(idx, st["prev_idx"]),
-            prev_teacher=gate(teacher, st["prev_teacher"]),
-            have_prev=st["have_prev"] | any_p,
-            teacher_val=teacher_val,
-            have_tv=st["have_tv"] | any_p,
-            last_sync=torch.where(part, t, st["last_sync"]),
-        )
-        out = dict(uplink=torch.where(any_p, uplink, 0.0),
-                   downlink=torch.where(any_p, downlink, 0.0),
-                   have_tv=new_st["have_tv"])
-        if self._telemetry:  # from the pre-update last_sync
-            out["telemetry"], new_st["telemetry"] = self._telemetry_device(
-                st["telemetry"], t, part, any_p, miss=miss, base=base,
-                base_present=base_present, z_tx=z_tx, z_all=z_all, fresh=fresh,
-                last_sync=st["last_sync"], uplink=out["uplink"],
-                downlink=out["downlink"], catch_up=catch_up)
-        if do_eval:  # the schedule is known on the host
-            out.update(self._eval_metrics(cp, server_params, teacher_val))
-        return new_st, out
+        return dict(miss=miss, base=base, base_present=base_present, z_tx=z_tx,
+                    z_all=z_all, fresh=fresh, teacher=teacher, cache=cache,
+                    server_params=sp, uplink=uplink, downlink=downlink)
+
+    def _server_view(self, z_tx, z_all, base, base_present) -> torch.Tensor:
+        """The server's decoded view of the uplink, for telemetry's gauges:
+        ``z_all``, except on the fused path with a lossy uplink codec,
+        which never materialises it; there the uplink codec's round trip
+        of the transmitted ``z_tx`` (one more qdq launch a round)."""
+        if self._fused_spec is not None and not self.codec_up.is_identity:
+            return self.codec_up.roundtrip(z_tx, base=base, present=base_present)
+        return z_all
 
     def _telemetry_device(self, totals: obs_device.RoundTelemetry, t: int,
                           part: torch.Tensor, any_p: torch.Tensor, *, miss, base,
@@ -315,17 +370,15 @@ class ScannedFederatedDistillation(FederatedDistillation):
                           downlink, catch_up):
         """(the round's telemetry row, the leg's running totals): the row of
         :meth:`_telemetry_row` (with ``telemetry_hook``), zeroed unless
-        ``any_p``, as the host loop's total-outage row is.  On the fused
-        path ``z_all`` is the transmitted stack; the server's view comes
-        from the uplink codec's round trip here.  What the analyzer's obs
-        pass traces on fake CUDA tensors."""
-        z_srv = z_all
-        if self._fused_spec is not None and not self.codec_up.is_identity:
-            z_srv = self.codec_up.roundtrip(z_tx, base=base, present=base_present)
+        ``any_p``, as the host loop's total-outage row is.  What the
+        analyzer's obs pass traces on fake CUDA tensors."""
+        gauges = self._telemetry_gauges(
+            t, part.to(torch.float32), miss=miss, base_present=base_present,
+            z_tx=z_tx, z_srv=self._server_view(z_tx, z_all, base, base_present),
+            fresh=fresh)
         tel = obs_device.gate(self._telemetry_row(
-            t=t, part=part, miss=miss, base_present=base_present, z_tx=z_tx,
-            z_srv=z_srv, fresh=fresh, last_sync=last_sync, uplink=uplink,
-            downlink=downlink, catch_up=catch_up), any_p)
+            t, self._telemetry_counters(t, part, last_sync), gauges,
+            uplink=uplink, downlink=downlink, catch_up=catch_up), any_p)
         return tel, obs_device.accumulate(totals, tel)
 
     # ------------------------------------------------------------------

@@ -10,13 +10,35 @@ yet.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["init_mlp", "apply_mlp"]
+__all__ = ["init_mlp", "apply_mlp", "mlp_leaves", "draw_leaf"]
 
 Params = Dict[str, torch.Tensor]
+
+
+def mlp_leaves(in_dim: int, n_classes: int, hidden: int = 128,
+               depth: int = 2) -> List[Tuple[str, Tuple[int, ...], Optional[float]]]:
+    """``(name, shape, scale)`` of each leaf of one model, in draw order:
+    ``w{i}`` He-normal (``scale = sqrt(2 / fan_in)``), ``b{i}`` zeros
+    (``scale`` None)."""
+    dims = [in_dim] + [hidden] * depth + [n_classes]
+    leaves = []
+    for i, (a, c) in enumerate(zip(dims[:-1], dims[1:])):
+        leaves += [(f"w{i}", (a, c), math.sqrt(2.0 / a)), (f"b{i}", (c,), None)]
+    return leaves
+
+
+def draw_leaf(generator: torch.Generator, shape: Tuple[int, ...],
+              scale: Optional[float], lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """One leaf of :func:`mlp_leaves` for ``lead`` stacked models, drawn
+    from ``generator`` on its device (zeros for ``scale`` None)."""
+    if scale is None:
+        return torch.zeros(lead + shape, device=generator.device)
+    return torch.randn(lead + shape, generator=generator,
+                       device=generator.device) * scale
 
 
 def init_mlp(generator: torch.Generator, in_dim: int, n_classes: int,
@@ -27,14 +49,8 @@ def init_mlp(generator: torch.Generator, in_dim: int, n_classes: int,
     once with a leading client axis.  The formula is the reference's;
     the numbers differ from ``jax.random``'s."""
     lead = () if stack is None else (stack,)
-    dev = generator.device
-    params: Params = {}
-    dims = [in_dim] + [hidden] * depth + [n_classes]
-    for i, (a, c) in enumerate(zip(dims[:-1], dims[1:])):
-        params[f"w{i}"] = (torch.randn(lead + (a, c), generator=generator,
-                                       device=dev) * math.sqrt(2.0 / a))
-        params[f"b{i}"] = torch.zeros(lead + (c,), device=dev)
-    return params
+    return {name: draw_leaf(generator, shape, scale, lead)
+            for name, shape, scale in mlp_leaves(in_dim, n_classes, hidden, depth)}
 
 
 def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:

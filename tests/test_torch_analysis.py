@@ -456,9 +456,109 @@ def test_the_port_imports_neither_jax_nor_the_reference():
     root = pathlib.Path(__file__).resolve().parents[1]
     files = sorted((root / "src" / "repro_torch" / "analysis").glob("*.py"))
     files.append(root / "src" / "repro_torch" / "kernels" / "fixture_kernel.py")
-    assert len(files) == 9
+    files += [root / "src" / "repro_torch" / "fl" / "active_engine.py",
+              root / "src" / "repro_torch" / "checkpoint" / "store.py"]
+    assert len(files) == 12
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module] if isinstance(node, ast.ImportFrom) else [])
             assert not any(n.split(".")[0] in ("jax", "repro") for n in names), f
+
+
+# ---------------------------------------------------------------------------
+# The active-set pass (reference tests/test_analysis.py active cases)
+# ---------------------------------------------------------------------------
+
+def test_repo_active_pass_clean():
+    from repro_torch.analysis import active_checks
+
+    plans = []
+    findings = active_checks.run(plans=plans)
+    errs = [f for f in findings if f.level == "error"]
+    assert not errs, "\n".join(str(f) for f in errs)
+    # one ok per analysis variant, each certifying the K-separation
+    oks = [f for f in findings if f.level == "ok"]
+    assert len(oks) == len(active_checks.ANALYSIS_VARIANTS)
+    assert all(f"K={active_checks.K_ANALYSIS}" in f.message for f in oks)
+    # the SCARLET variants' client steps launch the ERA kernel (and the
+    # quant codec's qdq) at the gathered shapes, for the launch lint
+    libs = {launch.lib for _, launch in plans}
+    assert {"era_fused", "qdq"} <= libs
+    assert not [f for f in launch_checks.check_launches(plans) if f.level in ("error", "warn")]
+
+
+def test_leaky_active_engine_flagged_for_its_k_sized_shape():
+    from repro_torch.analysis import active_checks
+
+    got = active_checks.check_engine("fixture/active-k-leak", fixtures.leaky_active_engine())
+    errs = [f for f in got if f.level == "error"]
+    assert errs, "O(K) leak into the gathered client step not flagged"
+    # the leak is in the client step, not the (legitimately O(K)) bookkeeping
+    assert all("client-step" in f.subject for f in errs)
+    K = active_checks.K_ANALYSIS
+    assert any("client step" in f.message and f"({K},)" in f.message for f in errs)
+
+
+def test_active_pass_traces_the_right_functions():
+    """An engine whose 'bookkeeping' never touches K-sized state must not
+    be certified: a vacuous K-separation proof is worse than none."""
+    from repro_torch.analysis import active_checks
+
+    eng = active_checks.build_engine("scarlet", {}, {"cache_duration": 2}, "identity")
+    orig = eng.active_round_fns
+
+    def swapped():
+        (_, fn, args) = [e for e in orig() if e[0] == "client-step"][0]
+        return [("bookkeeping", fn, args)]
+
+    eng.active_round_fns = swapped
+    errs = [f for f in active_checks.check_engine("fixture/mislabeled", eng)
+            if f.level == "error"]
+    assert errs and any("proves nothing" in f.message for f in errs)
+
+
+def test_active_pass_flags_a_host_read_in_the_client_step():
+    from repro_torch.analysis import active_checks
+    from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
+
+    class Syncing(ActiveSetFederatedDistillation):
+        def _client_step(self, args):
+            out = super()._client_step(args)
+            float(out["uplink"])  # reads the card on the host
+            return out
+
+    from repro_torch.fl.strategies import STRATEGIES
+
+    eng = Syncing(active_checks.analysis_config(), STRATEGIES["scarlet"](), cache_duration=2,
+                  device="cpu")
+    errs = [f for f in active_checks.check_engine("fixture/syncing", eng) if f.level == "error"]
+    assert any("host reads" in f.message and "client-step" in f.subject for f in errs)
+
+
+def test_cli_selftest_flags_the_active_leak(capsys):
+    assert main(["--selftest", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[OK   ] selftest: fixture/active-k-leak: flagged as expected" in out
+    assert "[OK   ] selftest: fixture/active-clean: real active engines pass" in out
+
+
+def test_trace_takes_invert_and_autograd_on_fake_cuda_tensors():
+    """``~x`` and ``torch.autograd.grad`` inside a trace: the first took a
+    CUDA device guard in its binding, the second aborted the process on a
+    build without CUDA; grad mode is back on after the trace."""
+    tr = traceutil.trace(lambda a, b: ~(a & ~b), S((5,), torch.bool), S((5,), torch.bool))
+    assert tr.ok and tr.output.device.type == "cuda" and tr.output.dtype == torch.bool
+
+    def sgd(w, x):
+        with torch.enable_grad():
+            w = w.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad((x @ w).sum(), [w])
+        return w.detach() - 0.1 * g
+
+    tr = traceutil.trace(sgd, S((3, 2)), S((4, 3)))
+    assert tr.ok and tuple(tr.output.shape) == (3, 2) and not tr.scan_safety_violations()
+    assert torch.is_grad_enabled()
+    w = torch.ones(2, requires_grad=True)
+    (g,) = torch.autograd.grad((w * 3.0).sum(), [w])
+    assert torch.equal(g, torch.full((2,), 3.0))

@@ -848,3 +848,80 @@ def test_analyzer_on_the_card(dev, capsys):
     n = ops.launches()
     assert n["copy_vec4"] == 1 and n["scale"] == 1 and n["copy_smem"] == 1
     capsys.readouterr()
+
+
+# ---------------------------------------------------------------------------
+# The active-set engine on the card: the sorted catch-up count, the
+# kernels at its gathered stack sizes (padding rows at weight 0), a run
+# without a host sync inside its steps
+# ---------------------------------------------------------------------------
+
+def test_catch_up_bytes_sorted_matches_dense_on_the_card(dev):
+    from repro_torch.core import cache as cache_lib
+
+    rng = np.random.default_rng(5)
+    for K, P in ((1, 7), (193, 41), (100_000, 1000)):
+        ts = rng.integers(-3, 40, P).astype(np.int32)
+        present = rng.random(P) < 0.6
+        cache = cache_lib.CacheState(torch.zeros(P, 10, device=dev),
+                                     torch.from_numpy(ts).to(dev),
+                                     torch.from_numpy(present).to(dev))
+        ls = rng.integers(0, 42, K).astype(np.int32)
+        ls[rng.random(K) < 0.2] = cache_lib._NEVER
+        ls = torch.from_numpy(ls).to(dev)
+        part = torch.from_numpy(rng.random(K) < 0.5).to(dev)
+        for t in (1, 20, 43):
+            dense = cache_lib.catch_up_bytes_device(cache, ls, part, t)
+            srt = cache_lib.catch_up_bytes_device(cache, ls, part, t, method="sorted")
+            assert torch.equal(dense, srt)
+            cpu = cache_lib.catch_up_bytes_device(
+                cache_lib.CacheState(*(a.cpu() for a in cache)), ls.cpu(), part.cpu(), t,
+                method="sorted")
+            assert torch.equal(srt.cpu(), cpu)
+
+
+def _gathered(K, n_part, m, N, dev, seed):
+    z, base = _probs(seed, (K, m, N), dev), _probs(seed + 1, (m, N), dev)
+    pv = torch.zeros(K, device=dev)
+    pv[:n_part] = 1.0
+    w = pv * (torch.full((), float(K), device=dev) / pv.sum())
+    return z, base, w
+
+
+@pytest.mark.parametrize("K", [1, 2, 64, 128])
+@pytest.mark.parametrize("m,N", [(1000, 10), (64, 10)])
+def test_kernels_at_the_gathered_stack_sizes(dev, K, m, N):
+    for n_part in sorted({K // 2 + 1, K}):
+        z, base, w = _gathered(K, n_part, m, N, dev, K + n_part)
+        zw = z * w[:, None, None]
+        torch.testing.assert_close(era_kernel.enhanced_era_fused(zw, 1.5),
+                                   era_kernel.enhanced_era_fused_plain(zw, 1.5),
+                                   rtol=0, atol=ATOL)
+        r = (z - base)[..., :-1]
+        got = quant_kernel.quantize_dequantize(r, 8)
+        want = quant_kernel.quantize_dequantize_plain(r, 8)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+        scale = torch.clamp_min(r.amax(-1, keepdim=True) - r.amin(-1, keepdim=True), 1e-9)
+        assert int(((got - want).abs() >= 0.5 * scale / 255.0).sum()) == 0
+        torch.testing.assert_close(
+            round_kernel.fused_round(z, w, 1.5, base, mode="delta", bits=8),
+            round_kernel.fused_round_plain(z, w, 1.5, base, mode="delta", bits=8),
+            rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_active_engine_runs_without_host_sync(dev, fused):
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused)
+    scen = pfl.Scenario(participation=pfl.bernoulli_participation(0.5))
+    eng = pfl.ActiveSetFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5),
+                                             cache_duration=2, scenario=scen, device=dev)
+    ops.reset_launches()
+    h = eng.run()  # each round's two steps run under sync debug mode "error"
+    assert torch.cuda.get_sync_debug_mode() == 0
+    n = _SMALL["rounds"]
+    assert ops.launches()["fused_round" if fused else "enhanced_era_fused"] == n
+    dense = pfl.ScannedFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5),
+                                             cache_duration=2, scenario=scen, device=dev)
+    hd = dense.run()
+    assert [(r.uplink, r.downlink) for r in h.ledger.rounds] == \
+        [(r.uplink, r.downlink) for r in hd.ledger.rounds]

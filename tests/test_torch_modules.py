@@ -21,6 +21,7 @@ import repro.core.era as jera
 import repro.data.synthetic as jdata
 import repro.fl.scenarios as jscen
 from repro.models import resnet as jresnet
+from repro_torch.checkpoint import ClientParamStore
 import repro_torch.compress as pcodecs
 import repro_torch.core.cache as pcache
 import repro_torch.core.comm as pcomm
@@ -28,6 +29,7 @@ import repro_torch.core.era as pera
 import repro_torch.data.synthetic as pdata
 import repro_torch.fl as pfl
 import repro_torch.fl.scenarios as pscen
+from repro_torch.fl.cohorts import ClientModels, resolve_cohorts
 from repro_torch.models import resnet as presnet
 
 ATOL = 1e-6
@@ -456,16 +458,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         pfl.run_method("scarlet", cfg, cache_duration=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pfl.FederatedDistillation(cfg, pfl.STRATEGIES["scarlet"]())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfl.run_method("scarlet", cfg, cache_duration=2, engine="active")
+    models = ClientModels(resolve_cohorts(cfg), cfg.dim, cfg.n_classes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClientParamStore(models, torch.Generator())
+    store = ClientParamStore(models, torch.Generator(), device="cpu")
+    assert store.gather(0, np.arange(2))["w0"].device.type == "cpu"
     h = pfl.run_method("scarlet", cfg, cache_duration=2, device="cpu")
     assert h.ledger.summary()["rounds"] == 2.0
 
 
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
-    for kw in [dict(engine="shard"), dict(engine="active"), dict(engine="async"),
-               dict(rng_backend="jax")]:
+    for kw in [dict(engine="shard"), dict(engine="async"), dict(rng_backend="jax")]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
+    # the active-set engine is ported: it runs
+    h = pfl.run_method("scarlet", cfg, device="cpu", engine="active")
+    assert h.ledger.summary()["rounds"] == 2.0
     # telemetry is ported: it runs and fills History.telemetry
     h = pfl.run_method("scarlet", cfg, device="cpu", telemetry=True)
     assert len(h.telemetry) == h.ledger.summary()["rounds"] == 2.0
