@@ -39,7 +39,16 @@ its state close to the device engine's and the host loop's; the ERA, qdq
 and fused-round kernels at every gathered stack size it reached; the
 reference's million-client configuration at K = 10^4 (RAM store) and
 10^6 (memmap store), whose device peak may grow by less than 32 bytes a
-client; and a checkpoint split after 5 rounds, bit for bit.
+client; and a checkpoint split after 5 rounds, bit for bit.  Then the async
+engine (phase 4j, ``engine="async"``): at the same population under the
+default traffic model and a wide window, per-op and fused, bit for bit the
+device engine's ledger; under Poisson arrivals, 0-3 windows of report
+latency and churn, at staleness decay 1.0 and 0.5, each round's bytes
+against a host replay of the reference's rule, the staleness histogram
+against the replay, no in-flight client dispatched and the ledger
+unmoved by the decay; the ERA, qdq and fused-round kernels at the
+staleness weights those runs aggregated with; and a checkpoint split with
+reports in flight, bit for bit.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -53,8 +62,9 @@ Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
 selftest (which launches the three fixture kernels on their valid plans,
-has the card refuse the shared-memory hog and flags the active engine's
-O(K) leak for its K-sized shape), the fixture kernels against their plain versions, the
+has the card refuse the shared-memory hog, flags the active engine's
+O(K) leak for its K-sized shape and the async engine's staleness hook
+that computes on the host), the fixture kernels against their plain versions, the
 misaligned plan faulting in a child process, and the contract pass's
 verdicts confirmed by CUDA graph capture in another.
 Last come the reduced whisper configuration on the card and on the CPU.
@@ -246,6 +256,44 @@ ACTIVE_MEMMAP_FROM = 1_000_000
 ACTIVE_TIMED = 3
 ACTIVE_PEAK_PER_CLIENT = 32
 ACTIVE_RESTORE_AT = 5
+
+# Phase 4j: the async engine (engine="async"), SCARLET at the slice's
+# population with its codec and cache.  (a) The default traffic model and
+# a wide window (latency uniform on ASYNC_WIDE_TICKS ticks at ASYNC_WINDOW
+# ticks a window: every delay floors to 0), per-op and fused, against phase
+# 4b's device-engine run of the same path: the ledger bit for bit, cache
+# values to QUANT_STEP_ATOL (phase 4b's band), the server's parameters to
+# ASYNC_PARAM_ATOL and accuracies to one test sample (the same operations
+# in the same order; the log says whether they are bit for bit).  (b)
+# Genuinely async traffic: ASYNC_RATE Poisson contacts a tick (reachable
+# with p = 1 - e^-1.5 = 0.777), latency uniform on 0..ASYNC_MAX_DELAY
+# windows, clients ASYNC_JOINERS join at round ASYNC_JOIN and ASYNC_LEAVERS
+# leave after round ASYNC_LEAVE; staleness decay 1.0 and ASYNC_DECAY,
+# per-op and fused, telemetry on.  A host replay from the planned dispatch
+# masks, the traffic (compiled anew) and the recorded pre-round caches: no
+# blocked client dispatched; each round's bytes by the reference's rule in
+# float64 (exact where every term is exact in float32; else to
+# ASYNC_LEDGER_RTOL: the arrivals' mean dispatch-time request count is a
+# fraction, and the card rounds it, times N - 1 and times the arrivals);
+# the staleness histogram (a report that was in flight: its delay).  The
+# four ledgers equal bit for bit.  (c) The three kernels at the weights the
+# decayed runs aggregated with (w K / sum w, w = decay^s on the arrivals),
+# against their plain versions at phase 3's tolerances.  (d)
+# ASYNC_RESTORE_AT rounds with reports in flight, a checkpoint, a fresh
+# engine, the rest: (b)'s per-op decayed run, leaves and ledger bit for
+# bit.  (e) Phase 4e: the analyzer's async pass clean on its five variants
+# and its fixture flagged.
+ASYNC_WIDE_TICKS = (0, 3)
+ASYNC_WINDOW = 4
+ASYNC_RATE = 1.5
+ASYNC_MAX_DELAY = 3
+ASYNC_JOIN, ASYNC_JOINERS = 3, tuple(range(0, 10))
+ASYNC_LEAVE, ASYNC_LEAVERS = 7, tuple(range(10, 20))
+ASYNC_DECAY = 0.5
+ASYNC_SEED = 5
+ASYNC_LEDGER_RTOL = 2.0 ** -22
+ASYNC_PARAM_ATOL = 1e-4
+ASYNC_RESTORE_AT = 5
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -606,8 +654,9 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                track_local_caches: bool = False, hook=None, telemetry: bool = False,
                engine_kw: Optional[dict] = None, **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
-    (``engine="host"``), the device engine (``"scan"``) or the active-set
-    engine (``"active"``, with ``engine_kw``): round 1, then
+    (``engine="host"``), the device engine (``"scan"``), the active-set
+    engine (``"active"``) or the async engine (``"async"``; ``engine_kw``
+    goes to the engine's constructor): round 1, then
     the other rounds in one leg (on the device engine its only host sync
     is the read-back at its end), the launch counts set to 0 just before
     and read just after.  Selective-FD's upload masks are recorded with
@@ -617,8 +666,9 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     as ``history``."""
     from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
-    from repro_torch.fl import (ActiveSetFederatedDistillation, FederatedDistillation, FLConfig,
-                                History, STRATEGIES, ScannedFederatedDistillation)
+    from repro_torch.fl import (ActiveSetFederatedDistillation, AsyncFederatedDistillation,
+                                FederatedDistillation, FLConfig, History, STRATEGIES,
+                                ScannedFederatedDistillation)
     from repro_torch.kernels import ops
     from repro_torch.kernels.runtime import divide
     from repro_torch.obs.device import RoundTelemetry, TelemetryLog
@@ -651,7 +701,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
 
         strat.aggregate = timed
     Engine = {"host": FederatedDistillation, "scan": ScannedFederatedDistillation,
-              "active": ActiveSetFederatedDistillation}[engine]
+              "active": ActiveSetFederatedDistillation,
+              "async": AsyncFederatedDistillation}[engine]
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
                  scenario=scenario, probabilistic_expiry=probabilistic_expiry,
@@ -678,7 +729,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     sa, ca = rest.final_server_acc, rest.final_client_acc
     sync = {"host": "synchronized",
             "scan": "rounds under sync debug mode 'error', one read-back at the end",
-            "active": "gathered steps under sync debug mode 'error', one read-back a round"
+            "active": "gathered steps under sync debug mode 'error', one read-back a round",
+            "async": "rounds under sync debug mode 'error', one read-back at the end"
             }[engine]
     log(f"{label}: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, then "
         f"{per_round * 1e3:.3f} ms/round over {rounds - 1} rounds (host clock, {sync}; "
@@ -1559,19 +1611,23 @@ def _equal(a, b) -> bool:
     return np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def hold_active(label: str, act: dict, ref: dict, ledger_rtol: float) -> None:
-    """The active run against another engine's: the per-round ledger (equal
-    when ``ledger_rtol`` is 0), cache timestamps and presence equal, values
-    to QUANT_STEP_ATOL; accuracies to ACTIVE_ACC_ATOL, the server's
-    parameters to ACTIVE_PARAM_ATOL, ``last_sync`` equal."""
+def hold_active(label: str, act: dict, ref: dict, ledger_rtol: float,
+                acc_atol: float = ACTIVE_ACC_ATOL, param_atol: float = ACTIVE_PARAM_ATOL) -> None:
+    """A run against another engine's (the active engine's, phase 4i; the
+    async engine's, 4j): the per-round ledger (equal when ``ledger_rtol``
+    is 0), cache timestamps and presence equal, values to QUANT_STEP_ATOL;
+    accuracies to ``acc_atol``, the server's parameters to ``param_atol``,
+    ``last_sync`` equal."""
     compare_runs(label, act, ref, ledger_rtol, QUANT_STEP_ATOL)
     acc = float(np.max(np.abs(np.array(act["accs"]) - np.array(ref["accs"]))))
     sp = max(float((act["eng"].server_params[k] - v).abs().max())
              for k, v in ref["eng"].server_params.items())
+    cv = float((act["eng"].cache_g.values - ref["eng"].cache_g.values).abs().max())
     sync = np.array_equal(act["eng"].last_sync, ref["eng"].last_sync)
-    log(f"{label}: accuracies max_abs_err={acc!r} (atol {ACTIVE_ACC_ATOL}); server params "
-        f"max_abs_err={sp!r} (atol {ACTIVE_PARAM_ATOL}); last_sync equal={sync}")
-    if not (acc <= ACTIVE_ACC_ATOL and sp <= ACTIVE_PARAM_ATOL and sync):
+    log(f"{label}: accuracies max_abs_err={acc!r} (atol {acc_atol}); server params "
+        f"max_abs_err={sp!r} (atol {param_atol}); last_sync equal={sync}; bit for bit="
+        f"{acc == sp == cv == 0.0}")
+    if not (acc <= acc_atol and sp <= param_atol and sync):
         raise AssertionError(f"{label}: runs differ")
 
 
@@ -1870,6 +1926,316 @@ def run_active(device, card: str) -> dict:
     run_active_restore(device, card, sl["runs"][("partial", "per-op")])
     log(f"phase 4i: {time.perf_counter() - t0:.3f} s ({card})")
     return dict(slice=sl, million=million, kernels=kern)
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the async engine
+# ---------------------------------------------------------------------------
+
+def async_traffic(kind: str):
+    """``default``: the synchronous model; ``wide``: ASYNC_WIDE_TICKS of
+    latency at ASYNC_WINDOW ticks a window (every delay floors to 0);
+    ``async``: (b)'s Poisson arrivals, latency and churn."""
+    from repro_torch.fl import ArrivalProcess, ChurnEvent, LatencyModel, TrafficModel
+
+    if kind == "default":
+        return TrafficModel()
+    if kind == "wide":
+        return TrafficModel(latency=LatencyModel("uniform", lo=ASYNC_WIDE_TICKS[0],
+                                                 hi=ASYNC_WIDE_TICKS[1]),
+                            window_ticks=ASYNC_WINDOW, seed=ASYNC_SEED)
+    churn = (tuple(ChurnEvent(k, join=ASYNC_JOIN) for k in ASYNC_JOINERS)
+             + tuple(ChurnEvent(k, join=1, leave=ASYNC_LEAVE) for k in ASYNC_LEAVERS))
+    return TrafficModel(arrivals=ArrivalProcess("poisson", rate=ASYNC_RATE),
+                        latency=LatencyModel("uniform", lo=0, hi=ASYNC_MAX_DELAY),
+                        churn=churn, seed=ASYNC_SEED)
+
+
+def record_async(rec: dict):
+    """A run_engine hook: each leg's flight plan, and each round's inputs to
+    the flight bookkeeping (the pre-round cache's timestamps and presence,
+    the arrivals' weights: device tensors, read after the run)."""
+    def hook(eng):
+        plan_flight, books = eng.plan_flight, eng._flight_books
+
+        def planned(T, draws=None):
+            plan = plan_flight(T, draws)
+            rec.setdefault("plans", []).append(plan)
+            return plan
+
+        def booked(cache, last_sync, dispatch, arrive, t):
+            out = books(cache, last_sync, dispatch, arrive, t)
+            rec.setdefault("rounds", []).append(dict(t=t, ts=cache.ts, present=cache.present,
+                                                     w=out["w"]))
+            return out
+
+        eng.plan_flight, eng._flight_books = planned, booked
+    return hook
+
+
+def run_async_engine(device, label: str, kind: str, fused: bool, decay: float = 1.0,
+                     telemetry: bool = False) -> dict:
+    """SCARLET at the slice's population through ``engine="async"`` under
+    ``async_traffic(kind)``; the run's merged flight plan and per-round
+    records under ``plan`` and ``rec``."""
+    rec = {}
+    r = run_engine(device, label, "scarlet", "async", fused=fused, codec=CODEC,
+                   cache_duration=CACHE_DURATION, telemetry=telemetry,
+                   engine_kw=dict(traffic=async_traffic(kind)), hook=record_async(rec),
+                   beta=BETA, staleness_decay=decay)
+    plans = rec["plans"]
+    r["plan"] = {f: np.concatenate([getattr(p, f) for p in plans])
+                 for f in ("dispatch", "arrive", "delay", "available", "idx")}
+    r["rec"] = rec["rounds"]
+    return r
+
+
+def arrival_rounds(r: dict) -> int:
+    return int(r["plan"]["arrive"].any(axis=1).sum())
+
+
+def check_async_ledger(r: dict) -> dict:
+    """(b): a host replay of the run from its planned dispatch masks, the
+    traffic's delays and availability (compiled anew) and its recorded
+    pre-round caches: no dispatch of a blocked client, the arrivals, each
+    round's bytes by the reference's rule in float64 and the staleness
+    histogram.  Returns the counts the log reports."""
+    from repro_torch.obs.device import STALENESS_BUCKETS
+
+    eng = r["eng"]
+    cfg = eng.cfg
+    K, m, N, D, ib = (cfg.n_clients, cfg.public_per_round, cfg.n_classes, CACHE_DURATION,
+                      cfg.index_bytes)
+    T = len(r["ledger"])
+    traffic = async_traffic("async").compile(T, K)
+    plan, hist = r["plan"], r["telemetry"]["staleness_hist"]
+    busy, due = np.zeros(K, bool), np.zeros(K, np.int64)
+    ls, fn, sent = np.zeros(K, np.int64), np.zeros(K, np.float64), np.zeros(K, np.int64)
+    entry = N * 4.0 + 8.0  # a catch-up entry: values, index, timestamp
+    exact = late = 0
+    requests = []
+    for i, t in enumerate(range(1, T + 1)):
+        d, a = plan["dispatch"][i], plan["arrive"][i]
+        if (d & busy).any() or (d & ~traffic.available[i]).any():
+            raise AssertionError(f"{r['label']} round {t}: a blocked client was dispatched")
+        arrive = (busy & (due == t)) | (d & (traffic.delay[i] == 0))
+        if not np.array_equal(arrive, a):
+            raise AssertionError(f"{r['label']} round {t}: arrivals differ from the replay")
+        ts = r["rec"][i]["ts"].cpu().numpy().astype(np.int64)
+        present = r["rec"][i]["present"].cpu().numpy()
+        idx = plan["idx"][i]
+        n_req = int((~(present[idx] & (t - ts[idx] <= D))).sum())
+        requests.append(n_req)
+        ls_mid = np.where(d, t - 1, ls)
+
+        def charge(sync, who):
+            back = np.nonzero(who & (sync < t - 1))[0]
+            return float(sum((present & (ts > sync[k])).sum() for k in back)) * entry
+
+        disp, arr = charge(ls, d), charge(ls_mid, a)
+        fn[d] = n_req
+        n_arr = int(a.sum())
+        if n_arr:
+            n_up = fn[a].sum() / n_arr
+            want = (n_arr * (n_up * (N - 1) * 8 / 8.0),
+                    n_arr * (n_req * N * 4.0 + n_req * ib + m * ib + m * 0.25) + disp + arr)
+        else:
+            want = (0.0, disp if d.any() else 0.0)
+        got = (r["ledger"][i].uplink, r["ledger"][i].downlink)
+        if got == want:
+            exact += 1
+        elif not np.allclose(got, want, rtol=ASYNC_LEDGER_RTOL, atol=0):
+            raise AssertionError(f"{r['label']} round {t}: ledger {got}, the reference's rule "
+                                 f"gives {want} ({n_arr} arrivals, {n_req} requests)")
+        row = np.zeros(STALENESS_BUCKETS, np.int64)
+        for k in np.nonzero(a)[0]:
+            lag = t - 1 - ls[k]
+            if not d[k]:  # a report that was in flight: the lag is its delay
+                late += 1
+                if lag != t - sent[k]:
+                    raise AssertionError(f"{r['label']} round {t}: client {k}'s lag {lag} is "
+                                         f"not its delay {t - sent[k]}")
+            row[min(lag, STALENESS_BUCKETS - 1)] += 1
+        if not np.array_equal(hist[i], row):
+            raise AssertionError(f"{r['label']} round {t}: staleness histogram {hist[i]}, "
+                                 f"the replay gives {row}")
+        busy = (busy & ~a) | (d & (traffic.delay[i] > 0))
+        due = np.where(d, t + traffic.delay[i], due)
+        sent = np.where(d, t, sent)
+        ls = np.where(a, t, ls_mid)
+    if not np.array_equal(ls, eng.last_sync):
+        raise AssertionError(f"{r['label']}: last_sync differs from the replay")
+    return dict(exact=exact, late=late, requests=requests,
+                dispatched=int(plan["dispatch"].sum()), arrived=int(plan["arrive"].sum()),
+                arrival_rounds=arrival_rounds(r))
+
+
+def check_async_kernels(device, runs: list, card: str) -> dict:
+    """(c): the ERA, qdq and fused-round kernels at the weights the decayed
+    runs of (b) aggregated with, ``w * K / sum w`` for ``w`` an arrival
+    mask times ``decay ** staleness`` (the SCARLET strategy's
+    ``_participant_weights``), against their plain versions; one weight
+    vector of each run timed."""
+    from repro_torch.fl.strategies.scarlet import _participant_weights
+    from repro_torch.kernels import era_kernel, quant_kernel, round_kernel
+
+    rng = np.random.default_rng(29)
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    weights = []
+    for r in runs:
+        for rd in r["rec"]:
+            w = rd["w"]
+            wh = w.cpu().numpy()
+            if wh.any() and not np.isin(wh, (0.0, 1.0)).all():  # a fractional round
+                weights.append((r["label"], rd["t"], _participant_weights(w)))
+    if not weights:
+        raise AssertionError("phase 4j (c): no round of (b) aggregated fractional weights")
+    errs = {"era": 0.0, "qdq": 0.0, "round": 0.0, "round_linear": 0.0}
+    for label, t, pw in weights:
+        z, base = _probs(rng, (K, m, N), device), _probs(rng, (m, N), device)
+        zw, res = z * pw[:, None, None], (z - base)[..., :-1]
+        wsum = float(pw.abs().sum())
+        cases = (("era", era_kernel.enhanced_era_fused(zw, BETA),
+                  era_kernel.enhanced_era_fused_plain(zw, BETA), ERA_ATOL),
+                 ("qdq", quant_kernel.quantize_dequantize(res, 8),
+                  quant_kernel.quantize_dequantize_plain(res, 8), QDQ_ATOL),
+                 ("round", round_kernel.fused_round(z, pw, BETA, base, mode="delta", bits=8),
+                  round_kernel.fused_round_plain(z, pw, BETA, base, mode="delta", bits=8),
+                  ROUND_ATOL),
+                 ("round_linear",
+                  round_kernel.fused_round(z, pw, None, base, mode="delta", bits=8,
+                                           sharpen=False),
+                  round_kernel.fused_round_plain(z, pw, None, base, mode="delta", bits=8,
+                                                 sharpen=False),
+                  ROUND_LINEAR_RTOL * wsum))
+        _sync(device)
+        for name, got, want, atol in cases:
+            err = float((got - want).abs().max())
+            flips = _level_flips(got, want, res, 8) if name == "qdq" else 0
+            if not (bool(torch.isfinite(got).all()) and err <= atol and flips == 0):
+                raise AssertionError(f"phase 4j (c) {name} at {label} round {t}'s weights: "
+                                     f"max_abs_err {err} > {atol} or {flips} level flips")
+            errs[name] = max(errs[name], err)
+    distinct = sorted({round(float(v), 6) for _, _, pw in weights for v in pw.cpu().numpy()})
+    log(f"phase 4j (c): ERA, qdq (residual view, 8 bits) and fused_round (delta+quant8) at "
+        f"{len(weights)} rounds' staleness weights (K/sum w times decay^s; distinct values "
+        f"{distinct[:12]}{' ...' if len(distinct) > 12 else ''}): max_abs_err {errs} (atol ERA "
+        f"{ERA_ATOL}, qdq {QDQ_ATOL}, round {ROUND_ATOL}, linear {ROUND_LINEAR_RTOL} x sum|w|) ok")
+    _, _, pw = weights[0]
+    z, base = _probs(rng, (K, m, N), device), _probs(rng, (m, N), device)
+    zw, res = z * pw[:, None, None], (z - base)[..., :-1]
+    n_in = K * m * N
+    times = {}
+    for name, shape, fn, plain, nbytes, nops in (
+            ("enhanced_era_fused", tuple(zw.shape),
+             lambda: era_kernel.enhanced_era_fused(zw, BETA),
+             lambda: era_kernel.enhanced_era_fused_plain(zw, BETA),
+             4.0 * (n_in + m * N), n_in + 9.0 * m * N),
+            ("quantize_dequantize", tuple(res.shape),
+             lambda: quant_kernel.quantize_dequantize(res, 8),
+             lambda: quant_kernel.quantize_dequantize_plain(res, 8), 4.0 * 2 * res.numel(),
+             11.0 * res.numel()),
+            ("fused_round", tuple(z.shape),
+             lambda: round_kernel.fused_round(z, pw, BETA, base, mode="delta", bits=8),
+             lambda: round_kernel.fused_round_plain(z, pw, BETA, base, mode="delta", bits=8),
+             4.0 * (n_in + K + 2 * m * N), 20.0 * n_in + 9.0 * m * N)):
+        b, why = bound_ms(nbytes, nops)
+        ms, pms = cuda_ms(fn), cuda_ms(plain)
+        times[name] = (ms, pms, b)
+        log(f"time async {name} {shape} at staleness weights: ms={ms!r} "
+            f"plain_ms={pms!r} bound_ms={b!r} by {why} ({card})")
+    return dict(errs=errs, times=times, n_weights=len(weights))
+
+
+def run_async_restore(device, card: str, full: dict) -> None:
+    """(d): (b)'s per-op decayed run split by a checkpoint after
+    ASYNC_RESTORE_AT rounds, with reports in flight, restored into a fresh
+    engine through the npz format: leaves and ledger bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.fl import AsyncFederatedDistillation, STRATEGIES
+
+    def make():
+        return AsyncFederatedDistillation(
+            full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA, staleness_decay=ASYNC_DECAY),
+            cache_duration=CACHE_DURATION, traffic=async_traffic("async"), device=device)
+
+    first = make()
+    h1 = first.run(ASYNC_RESTORE_AT)
+    flying = int(first.in_flight.sum())
+    if not flying:
+        raise AssertionError("phase 4j (d): no report in flight at the checkpoint")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "engine.npz")
+        save_pytree(path, first.state_dict())
+        size = os.path.getsize(path)
+        restored = make()
+        restored.load_state_dict(load_pytree(path, restored.state_dict()))
+    h2 = restored.run(SLICE_ROUNDS - ASYNC_RESTORE_AT)
+    ledger = [(r.uplink, r.downlink) for r in h1.ledger.rounds + h2.ledger.rounds]
+    want = [(r.uplink, r.downlink) for r in full["ledger"]]
+    a, b = state_leaves(restored), state_leaves(full["eng"])
+    differ = [k for k in b if k not in a or not _equal(a[k], b[k])]
+    log(f"restore async: {ASYNC_RESTORE_AT} rounds, {flying} reports in flight, checkpoint "
+        f"{size} bytes, {SLICE_ROUNDS - ASYNC_RESTORE_AT} more rounds: ledger equal="
+        f"{ledger == want}; {len(b)} state leaves, {len(differ)} differ from the uninterrupted "
+        f"run {differ[:5]} ({card})")
+    if ledger != want or differ or a.keys() != b.keys():
+        raise AssertionError("restore async: the split run differs")
+
+
+def run_async(device, card: str, device_runs: dict) -> dict:
+    """Phase 4j: (a) against ``device_runs`` (phase 4b's, by path), (b),
+    (c), (d); the analyzer's async pass is (e), in phase 4e."""
+    t0 = time.perf_counter()
+    runs = {}
+    for kind in ("default", "wide"):
+        for path, fused in (("per-op", False), ("fused", True)):
+            r = run_async_engine(device, f"async {path} {kind}", kind, fused)
+            check_launches(r["launches"], {"fused_round": SLICE_ROUNDS} if fused else
+                           {"enhanced_era_fused": SLICE_ROUNDS,
+                            "quantize_dequantize": SLICE_ROUNDS})
+            if not (r["plan"]["arrive"] == r["plan"]["dispatch"]).all():
+                raise AssertionError(f"{r['label']}: a report arrived late under zero delay")
+            ref = device_runs[path]
+            hold_active(f"async {path} {kind} vs device engine {path}", r, ref, 0.0,
+                        acc_atol=1.0 / len(ref["eng"].y_test), param_atol=ASYNC_PARAM_ATOL)
+            runs[(kind, path)] = r
+    ledgers = []
+    for decay in (1.0, ASYNC_DECAY):
+        for path, fused in (("per-op", False), ("fused", True)):
+            r = run_async_engine(device, f"async {path} traffic decay {decay}", "async", fused,
+                                 decay=decay, telemetry=True)
+            n_arr = arrival_rounds(r)
+            check_launches(r["launches"], {"fused_round": n_arr, "quantize_dequantize": n_arr}
+                           if fused else {"enhanced_era_fused": n_arr,
+                                          "quantize_dequantize": n_arr})
+            got = check_async_ledger(r)
+            log(f"{r['label']}: {got['dispatched']} dispatches, {got['arrived']} arrivals "
+                f"({got['late']} after time in flight) over {got['arrival_rounds']} arrival "
+                f"rounds; requests a round {got['requests']}; every round's bytes equal the "
+                f"reference's rule recomputed in float64 ({got['exact']} of {SLICE_ROUNDS} "
+                f"exactly, the rest to rtol {ASYNC_LEDGER_RTOL}); no blocked client "
+                "dispatched; staleness histogram equal to the replay's ok")
+            if not got["late"]:
+                raise AssertionError(f"{r['label']}: no report arrived late")
+            ledgers.append([(x.uplink, x.downlink) for x in r["ledger"]])
+            runs[(f"decay {decay}", path)] = r
+    same = all(x == ledgers[0] for x in ledgers)
+    log(f"phase 4j (b): decay 1.0 and {ASYNC_DECAY}, per-op and fused: the four ledgers "
+        f"equal bit for bit={same}")
+    if not same:
+        raise AssertionError("phase 4j (b): staleness decay or the fused path moved the ledger")
+    kern = check_async_kernels(device, [runs[(f"decay {ASYNC_DECAY}", p)]
+                                        for p in ("per-op", "fused")], card)
+    run_async_restore(device, card, runs[(f"decay {ASYNC_DECAY}", "per-op")])
+    log("phase 4j: ms/round (host clock, rounds 2-10, one eval) async "
+        + ", ".join(f"{k[1]} {k[0]} {v['per_round_ms']:.3f}" for k, v in runs.items())
+        + f"; device engine per-op {device_runs['per-op']['per_round_ms']:.3f}, fused "
+        f"{device_runs['fused']['per_round_ms']:.3f} ({card})")
+    log(f"phase 4j: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(runs=runs, kernels=kern)
 
 
 # ---------------------------------------------------------------------------
@@ -2442,6 +2808,19 @@ def run_analysis(device) -> dict:
             or leak.get("level") != "ok" or "(193,)" not in leak.get("message", "")
             or clean.get("level") != "ok"):
         raise AssertionError("the active-set pass or its fixtures did not hold on the card")
+    # phase 4j (e): the async pass ran clean on its five variants, reaching
+    # the staleness hook where the decay is not 1, and the selftest flagged
+    # the hook that computes its weights on the host
+    asyn = [x for x in strict if x["pass_name"] == "async"]
+    cb = selftest.get("fixture/async-staleness-callback", {})
+    aclean = selftest.get("fixture/async-clean", {})
+    log(f"analysis: async pass {[(x['level'], x['subject']) for x in asyn]}; selftest: "
+        f"async-staleness-callback {cb.get('level')}: {cb.get('message', '')[:160]}; "
+        f"async-clean {aclean.get('level')}")
+    if (len(asyn) != 5 or any(x["level"] != "ok" for x in asyn)
+            or sum("hook reached" in x["message"] for x in asyn) != 2
+            or cb.get("level") != "ok" or aclean.get("level") != "ok"):
+        raise AssertionError("the async pass or its fixture did not hold on the card")
 
     rng = np.random.default_rng(10)
 
@@ -2793,6 +3172,9 @@ def main() -> int:
     # 4i. the active-set engine: the slice's population, its kernels at the
     # gathered shapes, a million clients, restore
     run_active(dev, card)
+    # 4j. the async engine: the synchronous regime against 4b, async traffic,
+    # its kernels at staleness weights, restore with reports in flight
+    run_async(dev, card, {"per-op": perop, "fused": fused})
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width

@@ -21,14 +21,14 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.analysis import (active_checks, contract_checks, fixtures, launch_checks,
-                                  obs_checks)
+from repro_torch.analysis import (active_checks, async_checks, contract_checks, fixtures,
+                                  launch_checks, obs_checks)
 from repro_torch.analysis.report import Report
 from repro_torch.kernels import fixture_kernel, runtime
 
 # Passes of the reference analyzer that wait for the engines they check.
-_WAITING = ("replication and async passes not run: they wait for the port's shard "
-            "and async engines (ROADMAP Queue A)")
+_WAITING = ("replication pass not run: its checks wait for the port's shard engine "
+            "(ROADMAP Queue A)")
 
 
 def main(argv=None) -> int:
@@ -37,8 +37,8 @@ def main(argv=None) -> int:
         description="static contract analyzer (trace-time proofs)")
     ap.add_argument("--strict", action="store_true", help="warnings also fail the build")
     ap.add_argument("--fast", action="store_true",
-                    help="skip the engine passes (the telemetry and active-set passes and "
-                         "their fixtures)")
+                    help="skip the engine passes (the telemetry, active-set and async "
+                         "passes and their fixtures)")
     ap.add_argument("--selftest", action="store_true",
                     help="run the passes over the broken fixtures and verify each is flagged")
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -67,6 +67,7 @@ def main(argv=None) -> int:
     if not args.fast:
         report.extend(obs_checks.run(plans=plans))
         report.extend(active_checks.run(plans=plans))
+        report.extend(async_checks.run(plans=plans))
     report.extend(launch_checks.run(attrs=attrs))
     report.extend(launch_checks.check_launches(plans, attrs=attrs))
     report.add("info", "analysis", "engine passes", _WAITING)
@@ -141,6 +142,21 @@ def _selftest(report, device, fast: bool = False) -> int:
         else:
             report.add("ok", "selftest", "fixture/active-clean",
                        "real active engines pass (no false positive)")
+    # async fixture: a staleness hook that computes its weights on the host
+    # must be flagged, and the real async engines must pass
+    if not fast:
+        label = "fixture/async-staleness-callback"
+        _expect(report, failures, label,
+                async_checks.check_engine(label, fixtures.async_staleness_callback_engine()),
+                "error")
+        bad = [f for f in async_checks.run() if f.level == "error"]
+        if bad:
+            failures.append("fixture/async-clean")
+            report.add("error", "selftest", "fixture/async-clean",
+                       "real async engine falsely flagged: " + bad[0].message)
+        else:
+            report.add("ok", "selftest", "fixture/async-clean",
+                       "real async engines pass (no false positive)")
     if device.type == "cuda":
         _card_selftest(report, failures, device)
     return 1 if failures else 0

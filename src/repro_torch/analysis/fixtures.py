@@ -24,10 +24,11 @@ working one on a healthy repo.  One fixture per bug class:
 - :func:`telemetry_callback_engine`: a telemetry-on device engine whose
   ``telemetry_hook`` reads the card on the host;
 - :func:`leaky_active_engine`: an active-set engine whose O(m) client
-  step reads the O(K) ``last_sync`` mirror.
+  step reads the O(K) ``last_sync`` mirror;
+- :func:`async_staleness_callback_engine`: an async engine whose
+  ``staleness_weight`` computes the right weights on the host.
 
-The async and replication fixtures of the reference wait for the engines
-they test.
+The replication fixture of the reference waits for the engine it tests.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ from repro_torch.kernels import fixture_kernel
 __all__ = ["CallbackSmugglerStrategy", "HostRNGStrategy", "StaleFlagStrategy",
            "FalseFusedStrategy", "BROKEN_STRATEGIES", "EXPECTED_STRATEGY_LEVEL",
            "broken_kernel_cases", "valid_kernel_cases", "analysis_cases",
-           "telemetry_callback_engine", "leaky_active_engine"]
+           "telemetry_callback_engine", "leaky_active_engine",
+           "async_staleness_callback_engine"]
 
 
 class CallbackSmugglerStrategy(Strategy):
@@ -197,3 +199,30 @@ def leaky_active_engine():
     return LeakyActiveEngine(
         analysis_config(), STRATEGIES["scarlet"](), cache_duration=2,
         scenario=Scenario(participation=bernoulli_participation(0.3)), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Async fixture
+# ---------------------------------------------------------------------------
+
+def async_staleness_callback_engine():
+    """An async engine (on the CPU, decay 0.5) whose staleness hook leaves
+    the card.
+
+    The weights are the default policy's, ``0.5 ** s`` in float32 (exact
+    powers of two), computed in numpy on a host copy of the staleness:
+    every run still passes, but each round copies to the host and waits
+    for the card.  ``repro_torch.analysis.async_checks.check_engine`` must
+    flag it as an error.
+    """
+    from repro_torch.analysis.async_checks import build_engine
+
+    eng = build_engine("scarlet", {"staleness_decay": 0.5}, {"cache_duration": 2},
+                       "identity")
+
+    def host_weight(staleness):
+        s = staleness.cpu().numpy().astype(np.float32)
+        return torch.from_numpy(np.float32(0.5) ** s).to(staleness.device)
+
+    eng.strategy.staleness_weight = host_weight
+    return eng

@@ -32,7 +32,7 @@ __all__ = ["NEWLY_CACHED", "CACHED", "EXPIRED", "CacheState", "init_cache",
            "signals_for_round", "assemble_teacher", "update_global_cache",
            "update_local_cache", "pack_queue", "unpack_queue",
            "CatchUpPackage", "make_catch_up", "apply_catch_up",
-           "catch_up_bytes", "catch_up_bytes_device"]
+           "catch_up_bytes", "catch_up_bytes_device", "catch_up_bytes_async"]
 
 NEWLY_CACHED = 0
 CACHED = 1
@@ -261,3 +261,31 @@ def catch_up_bytes_device(cache_g: CacheState, last_sync: torch.Tensor,
         raise ValueError(f"unknown catch-up method {method!r}")
     per_client = counts * (cache_g.num_classes * bytes_per_value + 8.0)
     return torch.where(returning, per_client, 0.0).sum()
+
+
+def catch_up_bytes_async(cache_g: CacheState, last_sync: torch.Tensor,
+                         dispatch: torch.Tensor, arrive: torch.Tensor, t: int,
+                         bytes_per_value: float = 4.0, *,
+                         method: str = "dense") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Catch-up bytes of an async round (reference ``catch_up_bytes_async``):
+    ``(total, dispatch_bytes)``, 0-dim float32 tensors, each side charged
+    against the cache the bytes flow from.
+
+    - dispatch side: every dispatched client whose ``last_sync`` predates
+      ``t - 1`` gets the usual package, :func:`catch_up_bytes_device` over
+      ``dispatch``; the dispatch then marks it synced through ``t - 1``;
+    - arrival side: a report landing in round ``t`` after ``d`` rounds in
+      flight is sent the entries cached since its dispatch (``ts > t_d -
+      1``), counted with the dispatch-updated sync points over ``arrive``.
+      A zero-delay arrival has sync point ``t - 1`` and is charged nothing.
+
+    When every delay is zero, ``arrive`` equals ``dispatch``, every
+    arrival-side term is an exact 0.0 and ``total`` is bit for bit
+    ``catch_up_bytes_device(cache_g, last_sync, dispatch, t)``.  ``method``
+    as there ("sorted" takes ``last_sync`` in the timestamps' dtype)."""
+    disp = catch_up_bytes_device(cache_g, last_sync, dispatch, t, bytes_per_value,
+                                 method=method)
+    ls_mid = torch.where(dispatch, t - 1, last_sync)
+    arr = catch_up_bytes_device(cache_g, ls_mid, arrive, t, bytes_per_value,
+                                method=method)
+    return disp + arr, disp

@@ -273,11 +273,11 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         pv_f = self.models.concat(args["pv"]).to(torch.float32)
         r = self._server_round(params, pv_f, idx, t, x_pub=x_pub,
                                cache_prev=args["cache"],
-                               server_params=args["server_params"],
-                               catch_up=args["catch_up"], u=args.get("u"))
+                               server_params=args["server_params"], u=args.get("u"))
+        uplink, downlink = self._round_bytes(r, pv_f, args["catch_up"])
         out = dict(client_params=params, server_params=r["server_params"],
-                   cache=r["cache"], teacher=r["teacher"], uplink=r["uplink"],
-                   downlink=r["downlink"])
+                   cache=r["cache"], teacher=r["teacher"], uplink=uplink,
+                   downlink=downlink)
         if self._telemetry:
             out["telemetry"] = self._telemetry_gauges(
                 t, pv_f, miss=r["miss"], base_present=r["base_present"], z_tx=r["z_tx"],

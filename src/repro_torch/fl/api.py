@@ -1,12 +1,13 @@
 """Front door: run one FL method end-to-end (counterpart of
-``repro.fl.api``; the host, device (``"scan"``) and active-set
-(``"active"``) engines so far)."""
+``repro.fl.api``; the host, device (``"scan"``), active-set (``"active"``)
+and async (``"async"``) engines so far)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
 from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
+from repro_torch.fl.async_engine import AsyncFederatedDistillation
 from repro_torch.fl.baselines import FedAvg, Individual
 from repro_torch.fl.cohorts import CohortSpec
 from repro_torch.fl.config import FLConfig
@@ -19,8 +20,9 @@ __all__ = ["run_method"]
 
 _ENGINES = {"host": FederatedDistillation,
             "scan": ScannedFederatedDistillation,
-            "active": ActiveSetFederatedDistillation}
-_NOT_PORTED_ENGINES = ("shard", "async")
+            "active": ActiveSetFederatedDistillation,
+            "async": AsyncFederatedDistillation}
+_NOT_PORTED_ENGINES = ("shard",)
 
 
 def run_method(
@@ -56,9 +58,15 @@ def run_method(
     :mod:`repro_torch.fl.active_engine`: the device engine's round body on
     the gathered participants, the clients' state in a host store, here on
     its default RAM backing, as in the reference; it takes the device
-    engine's methods and options).  comet (host numpy k-means, per-client
+    engine's methods and options) or ``"async"`` (the async engine of
+    :mod:`repro_torch.fl.async_engine`: dispatch now, aggregate the
+    reports that arrive, under ``traffic``, a
+    :class:`repro_torch.fl.traffic.TrafficModel`, default the synchronous
+    model; ``staleness_decay`` goes to the strategy; the device engine's
+    methods and options).  ``traffic`` applies to ``engine="async"`` only
+    and raises ``ValueError`` elsewhere.  comet (host numpy k-means, per-client
     teachers) runs on the host loop only and raises ``ValueError`` on the
-    device and active engines, as in the reference.  The baselines fedavg
+    device, active and async engines, as in the reference.  The baselines fedavg
     and individual (:mod:`repro_torch.fl.baselines`) run on the host and
     refuse every option that does not apply to them with the reference's
     ``ValueError``.  The keywords mean what they mean in
@@ -72,13 +80,15 @@ def run_method(
     the reference's ``ValueError``.  ``device`` is ``"cuda"`` by default
     and the run raises when there is no CUDA device; pass ``device="cpu"``
     to run on the CPU.  Engines and options of the reference that are not
-    ported yet (``engine="shard"|"async"``, ``rng_backend="jax"``) raise
+    ported yet (``engine="shard"``, ``rng_backend="jax"``) raise
     ``NotImplementedError``.
     """
     if engine not in _ENGINES and engine not in _NOT_PORTED_ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")
     if traffic is not None and engine != "async":
-        raise ValueError("traffic models apply to engine='async' only")
+        raise ValueError("traffic models apply to engine='async' only "
+                         "(the synchronous engines have no dispatch/"
+                         "arrival split)")
     if codec is not None:
         cfg = dataclasses.replace(cfg, uplink_codec=codec)
     if downlink_codec is not None:
@@ -121,4 +131,6 @@ def run_method(
               device=device)
     if rng_backend is not None:
         kw["rng_backend"] = rng_backend
+    if traffic is not None:
+        kw["traffic"] = traffic
     return _ENGINES[engine](cfg, strat, **kw).run(rounds)

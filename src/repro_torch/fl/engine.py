@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
 from repro_torch.fl.api import run_method
+from repro_torch.fl.async_engine import AsyncFederatedDistillation
 from repro_torch.fl.baselines import FedAvg, Individual
 from repro_torch.fl.cohorts import ClientModels, CohortSpec, resolve_cohorts
 from repro_torch.fl.config import FLConfig
@@ -26,6 +27,12 @@ from repro_torch.fl.rounds import (
     val_loss_soft,
 )
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation
+from repro_torch.fl.traffic import (
+    ArrivalProcess,
+    ChurnEvent,
+    LatencyModel,
+    TrafficModel,
+)
 from repro_torch.fl.scenarios import (
     Heterogeneity,
     Outage,
@@ -55,6 +62,11 @@ __all__ = [
     "FederatedDistillation",
     "ScannedFederatedDistillation",
     "ActiveSetFederatedDistillation",
+    "AsyncFederatedDistillation",
+    "ArrivalProcess",
+    "LatencyModel",
+    "ChurnEvent",
+    "TrafficModel",
     "FedAvg",
     "Individual",
     "run_method",

@@ -571,11 +571,14 @@ class FederatedDistillation:
         """``(K, |x|, N)`` soft predictions in global client order."""
         return self.models.concat([predict_soft(p, x) for p in params])
 
-    def _draw_round(self, t: int):
+    def _draw_round(self, t: int, blocked: Optional[np.ndarray] = None):
         """(participation mask, sorted P^t indices) for round ``t`` from
-        the two numpy Generators (the reference's numpy stream)."""
+        the two numpy Generators (the reference's numpy stream); clients in
+        ``blocked`` are not drawn (the async engine's), and the Generators
+        advance alike with or without it."""
         c = self.cfg
-        part = self.scenario.participation_mask(t, c.n_clients, self.rng_part)
+        part = self.scenario.participation_mask(t, c.n_clients, self.rng_part,
+                                                blocked=blocked)
         # P^t is drawn from its own stream *before* any participation
         # branching so every scenario sees the identical subset sequence.
         idx = np.sort(self.rng_idx.choice(c.public_size, c.public_per_round,

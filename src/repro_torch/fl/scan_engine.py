@@ -234,8 +234,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
                 st["cache"], st["last_sync"], part, t)
         r = self._server_round(cp, part_f, idx, t, x_pub=self.x_pub,
                                cache_prev=st["cache"],
-                               server_params=st["server_params"],
-                               catch_up=catch_up, u=u)
+                               server_params=st["server_params"], u=u)
+        uplink, downlink = self._round_bytes(r, part_f, catch_up)
         cache = st["cache"]
         if self.use_cache:
             cache = cache_lib.CacheState(
@@ -256,8 +256,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
             have_tv=st["have_tv"] | any_p,
             last_sync=torch.where(part, t, st["last_sync"]),
         )
-        out = dict(uplink=torch.where(any_p, r["uplink"], 0.0),
-                   downlink=torch.where(any_p, r["downlink"], 0.0),
+        out = dict(uplink=torch.where(any_p, uplink, 0.0),
+                   downlink=torch.where(any_p, downlink, 0.0),
                    have_tv=new_st["have_tv"])
         if self._telemetry:  # from the pre-update last_sync
             out["telemetry"], new_st["telemetry"] = self._telemetry_device(
@@ -269,35 +269,38 @@ class ScannedFederatedDistillation(FederatedDistillation):
             out.update(self._eval_metrics(cp, server_params, teacher_val))
         return new_st, out
 
+    def _request_list(self, cache_prev, idx: torch.Tensor, t: int, u=None) -> torch.Tensor:
+        """Round ``t``'s ``(m,)`` bool request list over ``idx`` against the
+        pre-round cache (every entry with the cache off)."""
+        if self.use_cache:
+            return cache_lib.miss_mask(cache_prev, idx, t, self.D,
+                                       probabilistic=self.probabilistic_expiry, u=u)
+        return torch.ones(self.cfg.public_per_round, dtype=torch.bool, device=idx.device)
+
     def _server_round(self, params: List[Params], w: torch.Tensor,
                       idx: torch.Tensor, t: int, *, x_pub, cache_prev,
-                      server_params, catch_up, u=None) -> Dict[str, Any]:
+                      server_params, u=None) -> Dict[str, Any]:
         """The round from the clients' trained parameters to the server's,
         shared by this engine (the full stacks, ``w`` the float32
-        participation vector) and the active-set engine (the gathered
-        stack, ``w`` its valid rows): the request list, the uplink codec
-        or the fused kernel, the ``w``-weighted aggregation, the downlink
-        codec, the teacher, the cache update, server distillation and the
-        round's bytes with ``catch_up`` the catch-up bytes.  Nothing is
-        gated on a total outage (the caller gates).  Returns the pieces
-        the callers and telemetry read: ``miss``, ``base``,
-        ``base_present``, ``z_tx`` (as transmitted), ``z_all`` (the
-        server's view; the transmitted stack on the fused path),
-        ``fresh``, ``teacher``, ``cache``, ``server_params``, ``uplink``
-        and ``downlink``.  ``t`` is a host int; nothing here reads the
+        participation vector), the active-set engine (the gathered stack,
+        ``w`` its valid rows) and the async engine (``w`` the arrivals'
+        staleness weights): the request list, the uplink codec or the fused
+        kernel, the ``w``-weighted aggregation, the downlink codec, the
+        teacher, the cache update and server distillation.  Nothing is
+        gated on a total outage (the caller gates), and the bytes are the
+        caller's (:meth:`_round_bytes`).  Returns the pieces the callers
+        and telemetry read: ``miss``, ``miss_f``, ``n_req``, ``um`` (the
+        upload mask or None), ``base``, ``base_present``, ``z_tx`` (as
+        transmitted), ``z_all`` (the server's view; the transmitted stack
+        on the fused path), ``fresh``, ``teacher``, ``cache`` and
+        ``server_params``.  ``t`` is a host int; nothing here reads the
         device."""
         c, s = self.cfg, self.strategy
         m, N = c.public_per_round, c.n_classes
-        n_part = w.sum()
 
         # --- request list (cache) ------------------------------------------
-        if self.use_cache:
-            miss = cache_lib.miss_mask(cache_prev, idx, t, self.D,
-                                       probabilistic=self.probabilistic_expiry, u=u)
-        else:
-            miss = torch.ones(m, dtype=torch.bool, device=idx.device)
+        miss = self._request_list(cache_prev, idx, t, u)
         miss_f = miss.to(torch.float32)
-        n_req = miss_f.sum()
         # shared delta-coding base: the synchronized cache at P^t (pre-update)
         base, base_present = cache_lib.cached_at(cache_prev, idx)
 
@@ -331,18 +334,33 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
         # --- server distillation ------------------------------------------
         sp = distill(server_params, x_round, teacher, c.lr_dist, c.distill_steps)
+        return dict(miss=miss, miss_f=miss_f, n_req=miss_f.sum(), um=um, base=base,
+                    base_present=base_present, z_tx=z_tx, z_all=z_all, fresh=fresh,
+                    teacher=teacher, cache=cache, server_params=sp)
 
-        # --- communication accounting (float32, on the device) ------------
-        n_up = n_req
-        if um is not None:  # Selective-FD: the mask gates the uplink only
-            uploaded = (um.to(torch.float32) * w[:, None] * miss_f[None, :]).sum()
-            n_up = uploaded / torch.clamp_min(n_part, 1.0)
-        uplink, downlink = comm_lib.distillation_round_cost_device(
-            n_clients=n_part,
-            n_selected=float(m),
+    def _round_bytes(self, r: Dict[str, Any], count: torch.Tensor, catch_up,
+                     n_up=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(uplink, downlink) of a round, float32 on the device, from
+        :meth:`_server_round`'s ``r``: ``count`` the float32 0/1 vector of
+        the clients that report (the participants; the async engine's
+        arrivals, never their staleness weights), ``catch_up`` the
+        catch-up bytes, ``n_up`` each reporter's requested samples (default
+        this round's request count; the async engine's dispatch-time
+        mean).  An upload mask (Selective-FD) gates the uplink only."""
+        c, s = self.cfg, self.strategy
+        n_clients = count.sum()
+        if n_up is None:
+            n_up = r["n_req"]
+        if r["um"] is not None:  # Selective-FD: the mask gates the uplink only
+            uploaded = (r["um"].to(torch.float32) * count[:, None]
+                        * r["miss_f"][None, :]).sum()
+            n_up = uploaded / torch.clamp_min(n_clients, 1.0)
+        return comm_lib.distillation_round_cost_device(
+            n_clients=n_clients,
+            n_selected=float(c.public_per_round),
             n_up_samples=n_up,
-            n_down_samples=n_req,
-            n_classes=N,
+            n_down_samples=r["n_req"],
+            n_classes=c.n_classes,
             uplink_bits=s.uplink_bits,
             downlink_bits=s.downlink_bits,
             with_cache_signals=self.use_cache,
@@ -351,9 +369,6 @@ class ScannedFederatedDistillation(FederatedDistillation):
             uplink_codec=self.codec_up,
             downlink_codec=self.codec_down,
         )
-        return dict(miss=miss, base=base, base_present=base_present, z_tx=z_tx,
-                    z_all=z_all, fresh=fresh, teacher=teacher, cache=cache,
-                    server_params=sp, uplink=uplink, downlink=downlink)
 
     def _server_view(self, z_tx, z_all, base, base_present) -> torch.Tensor:
         """The server's decoded view of the uplink, for telemetry's gauges:

@@ -139,10 +139,18 @@ class Scenario:
         return np.stack([self.offline_mask(t, n_clients)
                          for t in range(start, start + n_rounds)])
 
-    def participation_mask(self, t: int, n_clients: int,
-                           rng: np.random.Generator) -> np.ndarray:
+    def participation_mask(self, t: int, n_clients: int, rng: np.random.Generator,
+                           blocked: Optional[np.ndarray] = None) -> np.ndarray:
+        """Round ``t``'s participants.  ``blocked`` (``(K,)`` bool, the
+        async engine's unreachable and in-flight clients) is folded in with
+        the offline mask, as the reference's async engine folds it into
+        ``participation_mask_device``: conscription picks only clients that
+        are neither.  The sample is taken first and conscription draws
+        nothing, so ``rng`` advances alike whatever is blocked."""
         mask = self.participation.sample(n_clients, rng)
         off = self.offline_mask(t, n_clients)
+        if blocked is not None:
+            off = off | np.asarray(blocked, bool)
         mask &= ~off
         if mask.sum() < self.min_participants:
             avail = np.nonzero(~off)[0]

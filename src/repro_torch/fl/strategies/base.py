@@ -14,7 +14,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["Strategy"]
+__all__ = ["Strategy", "positive_or_one"]
+
+
+def positive_or_one(wsum: torch.Tensor) -> torch.Tensor:
+    """The divisor of a weighted mean: ``wsum`` where positive, else 1."""
+    return torch.where(wsum > 0, wsum, torch.ones_like(wsum))
 
 
 class Strategy:
@@ -80,6 +85,20 @@ class Strategy:
         return torch.zeros((), dtype=torch.float32, device=zbar.device)
 
     # ------------------------------------------------------------------
+    # Staleness weighting (repro_torch.fl.async_engine).  A report that
+    # lands ``s`` rounds after its dispatch has its aggregation weight
+    # multiplied by ``staleness_weight(s)``: float32 ``decay ** s`` with
+    # ``staleness_decay`` from the constructor options.  Weights multiply
+    # soft-labels, never byte counts, so the ledger does not move.  At the
+    # default decay 1.0 the engine skips the multiply.  Pure tensor code
+    # that runs inside the device round: ``repro_torch.analysis.
+    # async_checks`` flags an override that reads the card on the host.
+    def staleness_weight(self, staleness: torch.Tensor) -> torch.Tensor:
+        decay = torch.full((), float(self.opts.get("staleness_decay", 1.0)),
+                           dtype=torch.float32, device=staleness.device)
+        return decay ** staleness.to(torch.float32)
+
+    # ------------------------------------------------------------------
     # Fixed-shape masked aggregation: the two-phase contract.
     #
     # ``partial_aggregate`` returns linear moments of a (K, m, N) stack
@@ -89,6 +108,13 @@ class Strategy:
     # ``aggregate_masked`` composes the two on one device and must equal
     # ``aggregate(z[part], um[part])`` up to float rounding.  The
     # defaults give the participation-weighted mean.
+    #
+    # The mean divides by the weights' sum where it is positive (1 on a
+    # total outage).  The reference divides by ``max(sum, 1)``, which is
+    # the same for 0/1 participation but leaves a teacher of mass
+    # ``sum w`` under staleness weights whose sum is below 1 (one report
+    # two rounds late at decay 0.5: mass 0.25); the port does not copy
+    # that.
 
     def partial_aggregate(self, z_clients: torch.Tensor, part: torch.Tensor,
                           upload_mask: Optional[torch.Tensor],
@@ -98,7 +124,7 @@ class Strategy:
 
     def finalize_aggregate(self, partials: Dict[str, torch.Tensor],
                            t) -> torch.Tensor:
-        return partials["zsum"] / torch.clamp_min(partials["wsum"], 1.0)
+        return partials["zsum"] / positive_or_one(partials["wsum"])
 
     def aggregate_masked(self, z_clients: torch.Tensor, part: torch.Tensor,
                          upload_mask: Optional[torch.Tensor],

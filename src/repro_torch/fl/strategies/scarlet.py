@@ -6,7 +6,7 @@ import math
 import torch
 
 from repro_torch.core import era as era_lib
-from repro_torch.fl.strategies.base import Strategy
+from repro_torch.fl.strategies.base import Strategy, positive_or_one
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.runtime import divide
 
@@ -14,11 +14,13 @@ __all__ = ["EnhancedERAStrategy"]
 
 
 def _participant_weights(part: torch.Tensor) -> torch.Tensor:
-    """``part * (K / max(sum(part), 1))``: the weights under which a
-    kernel's ``sum / K`` over the full stack is the participant mean.
-    ``K / n`` is a true float32 division, as in the reference (PyTorch's
-    ``scalar / tensor`` would multiply by a reciprocal)."""
-    n_part = torch.clamp_min(part.sum(), 1.0)
+    """``part * (K / sum(part))`` (``K`` on a total outage): the weights
+    under which a kernel's ``sum / K`` over the full stack is the weighted
+    participant mean, also for staleness weights summing below 1 (see
+    ``Strategy``).  ``K / n`` is a true float32 division, as in the
+    reference (PyTorch's ``scalar / tensor`` would multiply by a
+    reciprocal)."""
+    n_part = positive_or_one(part.sum())
     return part * (torch.full_like(n_part, float(part.shape[0])) / n_part)
 
 

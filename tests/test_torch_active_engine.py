@@ -280,9 +280,13 @@ def test_run_method_active_engine(method):
 
 
 def test_run_method_refuses_the_engines_still_to_port():
-    for engine in ("shard", "async"):
-        with pytest.raises(NotImplementedError):
-            P.run_method("scarlet", P.FLConfig(**BASE), engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError):
+        P.run_method("scarlet", P.FLConfig(**BASE), engine="shard", device="cpu")
+    # the async engine is ported: it runs, and refuses COMET as the others do
+    h = P.run_method("scarlet", P.FLConfig(**BASE), engine="async", device="cpu")
+    assert len(h.ledger.rounds) == BASE["rounds"]
+    with pytest.raises(ValueError, match="scan-safe"):
+        P.run_method("comet", P.FLConfig(**BASE), engine="async", device="cpu")
     with pytest.raises(ValueError, match="no scanned/sharded"):
         P.run_method("fedavg", P.FLConfig(**BASE), engine="active", device="cpu")
     with pytest.raises(ValueError, match="scan-safe"):

@@ -457,8 +457,10 @@ def test_the_port_imports_neither_jax_nor_the_reference():
     files = sorted((root / "src" / "repro_torch" / "analysis").glob("*.py"))
     files.append(root / "src" / "repro_torch" / "kernels" / "fixture_kernel.py")
     files += [root / "src" / "repro_torch" / "fl" / "active_engine.py",
-              root / "src" / "repro_torch" / "checkpoint" / "store.py"]
-    assert len(files) == 12
+              root / "src" / "repro_torch" / "checkpoint" / "store.py",
+              root / "src" / "repro_torch" / "fl" / "async_engine.py",
+              root / "src" / "repro_torch" / "fl" / "traffic.py"]
+    assert len(files) == 15
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -562,3 +564,82 @@ def test_trace_takes_invert_and_autograd_on_fake_cuda_tensors():
     w = torch.ones(2, requires_grad=True)
     (g,) = torch.autograd.grad((w * 3.0).sum(), [w])
     assert torch.equal(g, torch.full((2,), 3.0))
+
+
+# ---------------------------------------------------------------------------
+# The async pass (reference repro/analysis/async_checks.py)
+# ---------------------------------------------------------------------------
+
+def test_repo_async_pass_clean():
+    from repro.analysis import async_checks as rasync
+    from repro_torch.analysis import async_checks
+
+    assert async_checks.ANALYSIS_VARIANTS == rasync.ANALYSIS_VARIANTS
+    ref_cfg, cfg = rasync.analysis_config(), async_checks.analysis_config()
+    assert {k: getattr(cfg, k) for k in vars(ref_cfg)} == vars(ref_cfg)
+    plans = []
+    got = async_checks.run(plans=plans)
+    assert [f.level for f in got] == ["ok"] * len(async_checks.ANALYSIS_VARIANTS)
+    reached = {f.subject for f in got if "hook reached" in f.message}
+    assert reached == {"async[scarlet+decay]", "async[scarlet+decay+telemetry]"}
+    assert "with its telemetry" in [f for f in got if "telemetry" in f.subject][0].message
+    assert plans == []  # no kernel in the bookkeeping nor in the identity-codec telemetry
+
+
+def test_async_staleness_callback_fixture_flagged():
+    from repro_torch.analysis import async_checks
+
+    eng = fixtures.async_staleness_callback_engine()
+    got = async_checks.check_engine("fixture/async-staleness-callback", eng)
+    assert got and all(f.level == "error" for f in got)
+    assert any("device-to-host copies" in f.message or "trace failed" in f.message for f in got)
+    # equal in value: the run is the real hook's run, bit for bit
+    real = async_checks.build_engine("scarlet", {"staleness_decay": 0.5},
+                                     {"cache_duration": 2}, "identity")
+    a, b = eng.run(2), real.run(2)
+    assert [(r.uplink, r.downlink) for r in a.ledger.rounds] == \
+        [(r.uplink, r.downlink) for r in b.ledger.rounds]
+    for k in real.server_params:
+        assert torch.equal(eng.server_params[k], real.server_params[k])
+
+
+def test_async_pass_flags_an_unreached_hook_and_a_host_read():
+    from repro_torch.analysis import async_checks
+
+    eng = async_checks.build_engine("scarlet", {"staleness_decay": 0.5}, {"cache_duration": 2},
+                                    "identity")
+    real = eng._flight_books
+
+    def skipping(*args):  # decay 0.5, but the books take the unit-decay branch
+        eng._unit_staleness = True
+        try:
+            return real(*args)
+        finally:
+            eng._unit_staleness = False
+
+    eng._flight_books = skipping
+    got = async_checks.check_engine("fixture/unreached", eng)
+    assert [f.level for f in got] == ["error"] and "never called" in got[0].message
+
+    eng = async_checks.build_engine("dsfl", {}, {}, "identity")
+    books = eng._uplink_books
+
+    def reading(flight_nreq, dispatch, arrive_f, n_req):
+        float(n_req)
+        return books(flight_nreq, dispatch, arrive_f, n_req)
+
+    eng._uplink_books = reading
+    got = async_checks.check_engine("fixture/reading", eng)
+    assert [f.level for f in got] == ["error"] and "host reads" in got[0].message
+
+
+def test_cli_selftest_flags_the_async_fixture(capsys):
+    assert main(["--selftest", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[OK   ] selftest: fixture/async-staleness-callback: flagged as expected (error)" in out
+    assert "[OK   ] selftest: fixture/async-clean: real async engines pass" in out
+    assert main(["--strict", "--device", "cpu", "-v"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[OK   ] async: async[") == 5
+    assert "replication pass not run" in out and "async" not in out.split(
+        "replication pass not run")[1].splitlines()[0]

@@ -925,3 +925,80 @@ def test_active_engine_runs_without_host_sync(dev, fused):
     hd = dense.run()
     assert [(r.uplink, r.downlink) for r in h.ledger.rounds] == \
         [(r.uplink, r.downlink) for r in hd.ledger.rounds]
+
+
+# ---------------------------------------------------------------------------
+# The async engine on the card: the kernels at staleness weights (decay^s
+# on the arrivals, times K / sum w), catch_up_bytes_async card vs CPU, and
+# a run with reports in flight without a host sync inside its rounds
+# ---------------------------------------------------------------------------
+
+def _staleness_weights(K, seed, dev, decay=0.5):
+    """The SCARLET strategy's weights over a (K,) arrival mask whose
+    arrivals are 0-3 rounds stale at ``decay``: fractional, summing to K."""
+    from repro_torch.fl.strategies.scarlet import _participant_weights
+
+    rng = np.random.default_rng(seed)
+    arrive = rng.random(K) < 0.4
+    arrive[rng.integers(K)] = True
+    w = arrive * decay ** rng.integers(0, 4, K)
+    return _participant_weights(torch.from_numpy(w.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("K,m,N", [(100, 1000, 10), (7, 333, 10), (1, 64, 10), (64, 64, 10)])
+@pytest.mark.parametrize("decay", [0.5, 0.9])
+def test_kernels_at_staleness_weights(dev, K, m, N, decay):
+    w = _staleness_weights(K, K + m, dev, decay)
+    z, base = _probs(K, (K, m, N), dev), _probs(K + 1, (m, N), dev)
+    zw = z * w[:, None, None]
+    torch.testing.assert_close(era_kernel.enhanced_era_fused(zw, 1.5),
+                               era_kernel.enhanced_era_fused_plain(zw, 1.5), rtol=0, atol=ATOL)
+    for sharpen, beta, atol in ((True, 1.5, ATOL), (False, None, 2e-6 * float(w.sum()))):
+        kw = dict(mode="delta", bits=8, sharpen=sharpen)
+        torch.testing.assert_close(round_kernel.fused_round(z, w, beta, base, **kw),
+                                   round_kernel.fused_round_plain(z, w, beta, base, **kw),
+                                   rtol=0, atol=atol)
+
+
+def test_catch_up_bytes_async_card_equals_cpu(dev):
+    from repro_torch.core import cache as cache_lib
+
+    rng = np.random.default_rng(9)
+    K, P, t = 1000, 500, 12
+    ts = rng.integers(1, t, P).astype(np.int32)
+    present = rng.random(P) < 0.6
+    ls = rng.integers(0, t, K).astype(np.int32)
+    dispatch = rng.random(K) < 0.3
+    arrive = (rng.random(K) < 0.3) | (dispatch & (rng.random(K) < 0.25))
+    host = (cache_lib.CacheState(torch.zeros(P, 10), torch.from_numpy(ts),
+                                 torch.from_numpy(present)),
+            torch.from_numpy(ls), torch.from_numpy(dispatch), torch.from_numpy(arrive))
+    card = (cache_lib.CacheState(*(a.to(dev) for a in host[0])),) + tuple(a.to(dev)
+                                                                          for a in host[1:])
+    for method in ("dense", "sorted"):
+        want = cache_lib.catch_up_bytes_async(*host, t, method=method)
+        got = cache_lib.catch_up_bytes_async(*card, t, method=method)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_async_engine_runs_without_host_sync(dev, fused):
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused)
+    traffic = pfl.TrafficModel(arrivals=pfl.ArrivalProcess("poisson", rate=1.5),
+                               latency=pfl.LatencyModel("uniform", lo=0, hi=2), seed=3)
+    eng = pfl.AsyncFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5,
+                                                                        staleness_decay=0.5),
+                                         cache_duration=2, traffic=traffic, device=dev)
+    ops.reset_launches()
+    h = eng.run()  # its rounds run under sync debug mode "error"
+    assert torch.cuda.get_sync_debug_mode() == 0
+    n_arr = int(eng.last_plan.arrive.any(axis=1).sum())
+    assert n_arr and ops.launches()["fused_round" if fused else "enhanced_era_fused"] == n_arr
+    cpu = pfl.AsyncFederatedDistillation(cfg, pfl.STRATEGIES["scarlet"](beta=1.5,
+                                                                        staleness_decay=0.5),
+                                         cache_duration=2, traffic=traffic, device="cpu")
+    hc = cpu.run()
+    assert [(r.uplink, r.downlink) for r in h.ledger.rounds] == \
+        [(r.uplink, r.downlink) for r in hc.ledger.rounds]
+    np.testing.assert_array_equal(eng.last_plan.arrive, cpu.last_plan.arrive)

@@ -460,6 +460,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         pfl.FederatedDistillation(cfg, pfl.STRATEGIES["scarlet"]())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pfl.run_method("scarlet", cfg, cache_duration=2, engine="active")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pfl.run_method("scarlet", cfg, cache_duration=2, engine="async",
+                       traffic=pfl.TrafficModel())
+    h = pfl.run_method("scarlet", cfg, cache_duration=2, engine="async",
+                       traffic=pfl.TrafficModel(), device="cpu")
+    assert h.ledger.summary()["rounds"] == 2.0
     models = ClientModels(resolve_cohorts(cfg), cfg.dim, cfg.n_classes)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ClientParamStore(models, torch.Generator())
@@ -471,12 +477,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
-    for kw in [dict(engine="shard"), dict(engine="async"), dict(rng_backend="jax")]:
+    for kw in [dict(engine="shard"), dict(rng_backend="jax")]:
         with pytest.raises(NotImplementedError):
             pfl.run_method("scarlet", cfg, device="cpu", **kw)
-    # the active-set engine is ported: it runs
-    h = pfl.run_method("scarlet", cfg, device="cpu", engine="active")
-    assert h.ledger.summary()["rounds"] == 2.0
+    # the active-set and async engines are ported: they run
+    for engine in ("active", "async"):
+        h = pfl.run_method("scarlet", cfg, device="cpu", engine=engine)
+        assert h.ledger.summary()["rounds"] == 2.0
     # telemetry is ported: it runs and fills History.telemetry
     h = pfl.run_method("scarlet", cfg, device="cpu", telemetry=True)
     assert len(h.telemetry) == h.ledger.summary()["rounds"] == 2.0
