@@ -48,7 +48,15 @@ against a host replay of the reference's rule, the staleness histogram
 against the replay, no in-flight client dispatched and the ledger
 unmoved by the decay; the ERA, qdq and fused-round kernels at the
 staleness weights those runs aggregated with; and a checkpoint split with
-reports in flight, bit for bit.
+reports in flight, bit for bit.  Then the client-sharded engine (phase
+4k, ``engine="shard"``): a world of one over NCCL in this process, per-op
+and fused, and once through ``run_method``, which starts that world
+itself, each ledger bit for bit the device engine's; worlds of 2 and 4
+ranks spawned on the one card over gloo with CUDA tensors (NCCL refuses
+two ranks on a device), every rank's ledger and replicated state equal,
+with launches, ms/round, device peak and each all-reduce's time per
+rank; and the qdq and fused-round kernels at each world's per-rank
+shapes.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -63,8 +71,9 @@ card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
 selftest (which launches the three fixture kernels on their valid plans,
 has the card refuse the shared-memory hog, flags the active engine's
-O(K) leak for its K-sized shape and the async engine's staleness hook
-that computes on the host), the fixture kernels against their plain versions, the
+O(K) leak for its K-sized shape, the async engine's staleness hook
+that computes on the host and the replicated carry keyed on a
+shard-local slice), the fixture kernels against their plain versions, the
 misaligned plan faulting in a child process, and the contract pass's
 verdicts confirmed by CUDA graph capture in another.
 Last come the reduced whisper configuration on the card and on the CPU.
@@ -294,6 +303,32 @@ ASYNC_SEED = 5
 ASYNC_LEDGER_RTOL = 2.0 ** -22
 ASYNC_PARAM_ATOL = 1e-4
 ASYNC_RESTORE_AT = 5
+
+# Phase 4k: the client-sharded engine (engine="shard"), SCARLET at the
+# slice's population with its codec and cache, per-op and fused.  (a) A
+# world of one over NCCL in this process: the rounds under the device
+# engine's sync guard as they are; the engine driven as phase 4b drives
+# the device engine (launch counts, ms/round, the device's peak) and once
+# more through run_method, which starts the world itself: each ledger bit
+# for bit phase 4b's, caches to QUANT_STEP_ATOL, accuracies and the
+# server's parameters to phase 4i's ACTIVE_ACC_ATOL and ACTIVE_PARAM_ATOL
+# (the per-op path sharpens the summed mean with the plain ERA where 4b
+# runs enhanced_era_fused over the weighted stack; the fused path adds
+# the moments by all-reduce, then sharpens).  (b) Worlds of SHARD_WORLDS
+# ranks on the one card: NCCL refuses two ranks on one device, so these
+# run over gloo with CUDA tensors (gloo stages them through host memory;
+# the engine's all-reduce turns the sync debug mode off for the gloo
+# collective call alone).  Each rank: the ledger equal to (a)'s, the
+# replicated state (cache, server parameters, teacher, last_sync, the
+# gathered clients) equal on every rank bit for bit, 10 qdq (per-op) or
+# 10 fused_round (fused) launches, ms/round, the device's peak above what
+# the process held before the engine was built; each
+# all-reduce of the run timed alone at its size.  (c) qdq (residual view,
+# 8 bits) and fused_round (delta+quant8, sharpen=False, 0/1 participation)
+# at each world's per-rank shape (K/n, m, N) against their plain versions
+# at phase 3's tolerances, timed.
+SHARD_WORLDS = (2, 4)
+SHARD_TIMED = 20
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -655,8 +690,9 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                engine_kw: Optional[dict] = None, **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
     (``engine="host"``), the device engine (``"scan"``), the active-set
-    engine (``"active"``) or the async engine (``"async"``; ``engine_kw``
-    goes to the engine's constructor): round 1, then
+    engine (``"active"``), the async engine (``"async"``) or the sharded
+    engine (``"shard"``, on the process group already started;
+    ``engine_kw`` goes to the engine's constructor): round 1, then
     the other rounds in one leg (on the device engine its only host sync
     is the read-back at its end), the launch counts set to 0 just before
     and read just after.  Selective-FD's upload masks are recorded with
@@ -668,7 +704,7 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     from repro_torch.core.comm import CommLedger
     from repro_torch.fl import (ActiveSetFederatedDistillation, AsyncFederatedDistillation,
                                 FederatedDistillation, FLConfig, History, STRATEGIES,
-                                ScannedFederatedDistillation)
+                                ScannedFederatedDistillation, ShardedFederatedDistillation)
     from repro_torch.kernels import ops
     from repro_torch.kernels.runtime import divide
     from repro_torch.obs.device import RoundTelemetry, TelemetryLog
@@ -702,7 +738,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
         strat.aggregate = timed
     Engine = {"host": FederatedDistillation, "scan": ScannedFederatedDistillation,
               "active": ActiveSetFederatedDistillation,
-              "async": AsyncFederatedDistillation}[engine]
+              "async": AsyncFederatedDistillation,
+              "shard": ShardedFederatedDistillation}[engine]
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
                  scenario=scenario, probabilistic_expiry=probabilistic_expiry,
@@ -730,7 +767,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     sync = {"host": "synchronized",
             "scan": "rounds under sync debug mode 'error', one read-back at the end",
             "active": "gathered steps under sync debug mode 'error', one read-back a round",
-            "async": "rounds under sync debug mode 'error', one read-back at the end"
+            "async": "rounds under sync debug mode 'error', one read-back at the end",
+            "shard": "rounds under sync debug mode 'error', one read-back at the end"
             }[engine]
     log(f"{label}: setup {t_setup:.3f} s, first round {t1 - t0:.4f} s, then "
         f"{per_round * 1e3:.3f} ms/round over {rounds - 1} rounds (host clock, {sync}; "
@@ -2239,6 +2277,208 @@ def run_async(device, card: str, device_runs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the client-sharded engine
+# ---------------------------------------------------------------------------
+
+def record_packs(sizes: list):
+    """A run_engine hook: the size of every all-reduce the sharded engine
+    packs in its rounds (a Python count, no device read)."""
+    def hook(eng):
+        real = eng._all_reduce
+
+        def packed(*groups):
+            sizes.append(sum(v.numel() for g in groups for v in g.values()))
+            return real(*groups)
+
+        eng._all_reduce = packed
+    return hook
+
+
+def time_all_reduce(eng, sizes: list) -> dict:
+    """Each distinct packed size's all-reduce over the engine's data axis,
+    alone: the median of SHARD_TIMED calls, host clock, the card
+    synchronized around each."""
+    out = {}
+    for n in sorted(set(sizes)):
+        flat = torch.ones(n, device=eng.device)
+        ts = []
+        for _ in range(SHARD_TIMED + 2):
+            torch.cuda.synchronize(eng.device)
+            t0 = time.perf_counter()
+            type(eng)._all_reduce(eng, {"x": flat})  # not record_packs' wrapper
+            torch.cuda.synchronize(eng.device)
+            ts.append(time.perf_counter() - t0)
+        out[n] = statistics.median(ts[2:]) * 1e3
+    return out
+
+
+def shard_state(eng) -> dict:
+    """The replicated state and the gathered clients, as numpy."""
+    st = eng.state_dict()
+    leaves = {"last_sync": np.asarray(eng.last_sync)}
+    for name, tree in (("cache", st["cache"]._asdict()), ("server", st["server_params"]),
+                       ("prev_teacher", {"": st["prev_teacher"]}),
+                       ("clients", st["client_params"][0])):
+        for k, v in tree.items():
+            leaves[f"{name}.{k}"] = v.cpu().numpy()
+    return leaves
+
+
+def run_shard_engine(device, label: str, fused: bool) -> dict:
+    """SCARLET at the slice's population through ``engine="shard"`` on the
+    process group already started: run_engine's run, the all-reduce sizes
+    and times, the device's peak (above what the process held before the
+    engine was built), the replicated state."""
+    sizes = []
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    r = run_engine(device, label, "scarlet", "shard", fused=fused, codec=CODEC,
+                   cache_duration=CACHE_DURATION, hook=record_packs(sizes), beta=BETA)
+    r["peak"] = torch.cuda.max_memory_allocated(device) - before
+    r["all_reduce_ms"] = time_all_reduce(r["eng"], sizes)
+    r["packs"] = sizes
+    r["state"] = shard_state(r["eng"])
+    check_launches(r["launches"], {"fused_round": SLICE_ROUNDS} if fused
+                   else {"quantize_dequantize": SLICE_ROUNDS})
+    check_slice_round1(r)
+    return r
+
+
+def shard_rank(n: int) -> dict:
+    """A rank of a gloo world of ``n`` on the card: both paths, as
+    numpy and numbers."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    torch.cuda.init()  # a fresh process: the allocator's statistics exist from here
+    torch.cuda.set_device(device)
+    out = {}
+    for path, fused in (("per-op", False), ("fused", True)):
+        r = run_shard_engine(device, f"shard n={n} rank {dist.get_rank()} {path} (gloo)",
+                             fused)
+        out[path] = {k: r[k] for k in ("ledger", "launches", "per_round_ms", "peak",
+                                       "all_reduce_ms", "packs", "state", "accs")}
+        out[path]["ledger"] = [(x.uplink, x.downlink) for x in r["ledger"]]
+    return out
+
+
+def check_shard_kernels(device, card: str) -> dict:
+    """Phase 4k (c): qdq and fused_round (sharpen=False) at the per-rank
+    shapes (K/n, m, N) of n = 1 and SHARD_WORLDS, with about 60 % of the
+    clients taking part, against their plain versions; each timed."""
+    from repro_torch.kernels import quant_kernel, round_kernel
+
+    rng = np.random.default_rng(15)
+    K, m, N = SLICE["n_clients"], SLICE["public_per_round"], SLICE["n_classes"]
+    errs, times = {"qdq": 0.0, "round_linear": 0.0}, {}
+    for n in (1,) + SHARD_WORLDS:
+        k = K // n
+        z, base = _probs(rng, (k, m, N), device), _probs(rng, (m, N), device)
+        w = torch.from_numpy((rng.random(k) < 0.6).astype(np.float32)).to(device)
+        r = (z - base)[..., :-1]
+        cases = (("qdq", lambda: quant_kernel.quantize_dequantize(r, 8),
+                  lambda: quant_kernel.quantize_dequantize_plain(r, 8), QDQ_ATOL,
+                  4.0 * 2 * r.numel(), 11.0 * r.numel(), tuple(r.shape)),
+                 ("round_linear",
+                  lambda: round_kernel.fused_round(z, w, None, base, mode="delta", bits=8,
+                                                   sharpen=False),
+                  lambda: round_kernel.fused_round_plain(z, w, None, base, mode="delta",
+                                                         bits=8, sharpen=False),
+                  ROUND_LINEAR_RTOL * max(float(w.sum()), 1.0),
+                  4.0 * (k * m * N + k + 2 * m * N), 20.0 * k * m * N, (k, m, N)))
+        for name, fn, plain, atol, nbytes, nops, shape in cases:
+            got, want = fn(), plain()
+            _sync(device)
+            err = float((got - want).abs().max())
+            flips = _level_flips(got, want, r, 8) if name == "qdq" else 0
+            if not (bool(torch.isfinite(got).all()) and err <= atol and flips == 0):
+                raise AssertionError(f"phase 4k (c) {name} at {shape}: max_abs_err {err} > "
+                                     f"{atol} or {flips} level flips")
+            errs[name] = max(errs[name], err)
+            b, why = bound_ms(nbytes, nops)
+            ms, pms = cuda_ms(fn), cuda_ms(plain)
+            times[(name, n)] = dict(ms=ms, plain_ms=pms, bound_ms=b)
+            kernel = "quantize_dequantize" if name == "qdq" else "fused_round sharpen=False"
+            log(f"time shard n={n} {kernel} {shape}: ms={ms!r} plain_ms={pms!r} "
+                f"bound_ms={b!r} by {why} ({card})")
+    log(f"phase 4k (c): qdq (residual view, 8 bits) and fused_round (delta+quant8, "
+        f"sharpen=False) at the per-rank shapes of n = {(1,) + SHARD_WORLDS}: max_abs_err "
+        f"{errs} (atol qdq {QDQ_ATOL}, zero level flips; linear {ROUND_LINEAR_RTOL} x sum w) ok")
+    return dict(errs=errs, times=times)
+
+
+def run_shard(device, card: str, device_runs: dict) -> dict:
+    """Phase 4k: (a) against ``device_runs`` (phase 4b's, by path), (b)
+    against (a), (c)."""
+    import torch.distributed as dist
+
+    import repro_torch.fl as pfl
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    one = {}
+    with mesh_lib.world_of_one("nccl"):
+        log(f"phase 4k (a): a world of one, backend {dist.get_backend()}")
+        for path, fused in (("per-op", False), ("fused", True)):
+            r = run_shard_engine(device, f"shard n=1 {path} (nccl)", fused)
+            hold_active(f"shard n=1 {path} vs device engine {path}", r, device_runs[path], 0.0)
+            one[path] = r
+    for path, fused in (("per-op", False), ("fused", True)):
+        ops.reset_launches()
+        h = pfl.run_method("scarlet", pfl.FLConfig(**SLICE, rounds=SLICE_ROUNDS,
+                                                    eval_every=SLICE_ROUNDS, uplink_codec=CODEC,
+                                                    fused_round=fused),
+                           engine="shard", cache_duration=CACHE_DURATION, beta=BETA,
+                           device=device)
+        launches = ops.launches()
+        ledger = [(x.uplink, x.downlink) for x in h.ledger.rounds]
+        want = [(x.uplink, x.downlink) for x in device_runs[path]["ledger"]]
+        log(f"phase 4k (a): run_method(engine='shard') {path}, a world of one it started "
+            f"(NCCL) and tore down: launches {launches}; ledger equal to phase 4b's={ledger == want}")
+        check_launches(launches, {"fused_round": SLICE_ROUNDS} if fused
+                       else {"quantize_dequantize": SLICE_ROUNDS})
+        if ledger != want or dist.is_initialized():
+            raise AssertionError(f"phase 4k (a): run_method {path} differs from phase 4b")
+    worlds = {}
+    for n in SHARD_WORLDS:
+        ranks = mesh_lib.run_world(n, shard_rank, n, backend="gloo", threads=None)
+        for path in ("per-op", "fused"):
+            rs = [r[path] for r in ranks]
+            want = [(x.uplink, x.downlink) for x in one[path]["ledger"]]
+            same_ledger = all(r["ledger"] == want for r in rs)
+            same_state = all(r["state"].keys() == rs[0]["state"].keys() and all(
+                np.array_equal(r["state"][k], rs[0]["state"][k]) for k in r["state"])
+                for r in rs[1:])
+            vs_one = max(float(np.abs(rs[0]["state"][k] - one[path]["state"][k]).max())
+                         for k in rs[0]["state"] if rs[0]["state"][k].dtype.kind == "f")
+            log(f"phase 4k (b) n={n} {path} (gloo, CUDA tensors): ledger equal to (a)'s on "
+                f"every rank={same_ledger}; replicated state and gathered clients equal on "
+                f"every rank bit for bit={same_state} (vs (a): max_abs_err {vs_one!r}); "
+                f"launches {[r['launches'] for r in rs]}; ms/round "
+                f"{[round(r['per_round_ms'], 3) for r in rs]}; device peak per rank "
+                f"{[r['peak'] for r in rs]} B; all-reduce ms by packed size "
+                f"{rs[0]['all_reduce_ms']} ({card})")
+            for r in rs:
+                check_launches(r["launches"], {"fused_round": SLICE_ROUNDS} if path == "fused"
+                               else {"quantize_dequantize": SLICE_ROUNDS})
+            if not (same_ledger and same_state):
+                raise AssertionError(f"phase 4k (b) n={n} {path}: ranks differ")
+            worlds[(n, path)] = rs
+    kern = check_shard_kernels(device, card)
+    log("phase 4k: ms/round (host clock, rounds 2-10, one eval) shard "
+        + ", ".join(f"{p} n=1 {one[p]['per_round_ms']:.3f}" for p in one)
+        + ", " + ", ".join(f"{p} n={n} {max(r['per_round_ms'] for r in v):.3f}"
+                           for (n, p), v in worlds.items())
+        + f"; device engine per-op {device_runs['per-op']['per_round_ms']:.3f}, fused "
+        f"{device_runs['fused']['per_round_ms']:.3f}; device peak n=1 "
+        + ", ".join(f"{p} {one[p]['peak']}" for p in one)
+        + f" B; all-reduce n=1 (nccl) ms by packed size {one['per-op']['all_reduce_ms']} ({card})")
+    log(f"phase 4k: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(one=one, worlds=worlds, kernels=kern)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the same small run on the card and on the CPU
 # ---------------------------------------------------------------------------
 
@@ -2821,6 +3061,18 @@ def run_analysis(device) -> dict:
             or sum("hook reached" in x["message"] for x in asyn) != 2
             or cb.get("level") != "ok" or aclean.get("level") != "ok"):
         raise AssertionError("the async pass or its fixture did not hold on the card")
+    # phase 4k (d): the replication pass ran clean on its four variants (a
+    # gloo world of two on the CPU), and the selftest flagged the carry
+    # update keyed on a shard-local slice and passed its all-reduced twin
+    rep = [x for x in strict if x["pass_name"] == "replication"]
+    broken = selftest.get("fixture/broken-carry", {})
+    fixed = selftest.get("fixture/fixed-carry", {})
+    log(f"analysis: replication pass {[(x['level'], x['subject']) for x in rep]}; selftest: "
+        f"broken-carry {broken.get('level')}: {broken.get('message', '')[:160]}; "
+        f"fixed-carry {fixed.get('level')}")
+    if (len(rep) != 4 or any(x["level"] != "ok" for x in rep)
+            or broken.get("level") != "ok" or fixed.get("level") != "ok"):
+        raise AssertionError("the replication pass or its fixtures did not hold")
 
     rng = np.random.default_rng(10)
 
@@ -3175,6 +3427,9 @@ def main() -> int:
     # 4j. the async engine: the synchronous regime against 4b, async traffic,
     # its kernels at staleness weights, restore with reports in flight
     run_async(dev, card, {"per-op": perop, "fused": fused})
+    # 4k. the client-sharded engine: a world of one over NCCL against 4b,
+    # worlds of 2 and 4 on the card over gloo, its kernels at their shapes
+    run_shard(dev, card, {"per-op": perop, "fused": fused})
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width

@@ -1,7 +1,7 @@
 """Static contract analyzer for the port: prove declared invariants by
 tracing, before anything runs (counterpart of ``repro.analysis``).
 
-Four passes, one CLI (``python -m repro_torch.analysis``):
+Six passes, one CLI (``python -m repro_torch.analysis``):
 
 ``contract_checks``
     runs every registered strategy hook and codec ``roundtrip`` on fake
@@ -29,8 +29,15 @@ Four passes, one CLI (``python -m repro_torch.analysis``):
     prime K = 193 under a shape recorder: the gathered client step must
     hold no K-sized tensor, the bookkeeping step must hold one.
 
-The reference's replication and async passes wait for the engines they
-check.
+``async_checks``
+    the async engine's flight bookkeeping and staleness hook, traced on
+    fake CUDA tensors: no host sync, and the hook on the traced path.
+
+``replication_checks``
+    the client-sharded engine's replicated state: one real round on each
+    rank of a gloo world of two under a taint-carrying dispatch mode
+    (shard-local leaves tainted, all-reduces clearing), every replicated
+    leaf untainted and equal on both ranks bit for bit.
 """
 from __future__ import annotations
 

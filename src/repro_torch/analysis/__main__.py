@@ -22,13 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import (active_checks, async_checks, contract_checks, fixtures,
-                                  launch_checks, obs_checks)
+                                  launch_checks, obs_checks, replication_checks)
 from repro_torch.analysis.report import Report
 from repro_torch.kernels import fixture_kernel, runtime
-
-# Passes of the reference analyzer that wait for the engines they check.
-_WAITING = ("replication pass not run: its checks wait for the port's shard engine "
-            "(ROADMAP Queue A)")
 
 
 def main(argv=None) -> int:
@@ -37,8 +33,8 @@ def main(argv=None) -> int:
         description="static contract analyzer (trace-time proofs)")
     ap.add_argument("--strict", action="store_true", help="warnings also fail the build")
     ap.add_argument("--fast", action="store_true",
-                    help="skip the engine passes (the telemetry, active-set and async "
-                         "passes and their fixtures)")
+                    help="skip the engine passes (the telemetry, active-set, async and "
+                         "replication passes and their fixtures)")
     ap.add_argument("--selftest", action="store_true",
                     help="run the passes over the broken fixtures and verify each is flagged")
     ap.add_argument("--json", metavar="PATH", default=None,
@@ -68,9 +64,12 @@ def main(argv=None) -> int:
         report.extend(obs_checks.run(plans=plans))
         report.extend(active_checks.run(plans=plans))
         report.extend(async_checks.run(plans=plans))
+        report.extend(replication_checks.run())
+    else:
+        report.add("info", "analysis", "engine passes",
+                   "skipped under --fast: telemetry, active-set, async and replication")
     report.extend(launch_checks.run(attrs=attrs))
     report.extend(launch_checks.check_launches(plans, attrs=attrs))
-    report.add("info", "analysis", "engine passes", _WAITING)
     print(report.render(verbose=args.verbose))
     if args.json:
         _dump(report, args.json)
@@ -157,6 +156,20 @@ def _selftest(report, device, fast: bool = False) -> int:
         else:
             report.add("ok", "selftest", "fixture/async-clean",
                        "real async engines pass (no false positive)")
+    # replication fixtures (one gloo world of two ranks): the carry update
+    # keyed on a shard-local slice must be flagged, its summed twin not
+    if not fast:
+        found = replication_checks.check(
+            [("fixture", label, name) for label, name in replication_checks.FIXTURE_CASES])
+        _expect(report, failures, "fixture/broken-carry", found["fixture-broken"], "error")
+        bad = [f for f in found["fixture-fixed"] if f.level == "error"]
+        if bad:
+            failures.append("fixture/fixed-carry")
+            report.add("error", "selftest", "fixture/fixed-carry",
+                       "all-reduced carry falsely flagged: " + bad[0].message)
+        else:
+            report.add("ok", "selftest", "fixture/fixed-carry",
+                       "all-reduced twin passes (no false positive)")
     if device.type == "cuda":
         _card_selftest(report, failures, device)
     return 1 if failures else 0

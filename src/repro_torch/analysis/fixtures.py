@@ -26,9 +26,10 @@ working one on a healthy repo.  One fixture per bug class:
 - :func:`leaky_active_engine`: an active-set engine whose O(m) client
   step reads the O(K) ``last_sync`` mirror;
 - :func:`async_staleness_callback_engine`: an async engine whose
-  ``staleness_weight`` computes the right weights on the host.
-
-The replication fixture of the reference waits for the engine it tests.
+  ``staleness_weight`` computes the right weights on the host;
+- :func:`broken_carry_fn`: a replicated carry update keyed on a
+  shard-local slice, and :func:`fixed_carry_fn`, its twin that sums over
+  the data axis first.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ __all__ = ["CallbackSmugglerStrategy", "HostRNGStrategy", "StaleFlagStrategy",
            "FalseFusedStrategy", "BROKEN_STRATEGIES", "EXPECTED_STRATEGY_LEVEL",
            "broken_kernel_cases", "valid_kernel_cases", "analysis_cases",
            "telemetry_callback_engine", "leaky_active_engine",
-           "async_staleness_callback_engine"]
+           "async_staleness_callback_engine", "broken_carry_fn", "fixed_carry_fn"]
 
 
 class CallbackSmugglerStrategy(Strategy):
@@ -226,3 +227,37 @@ def async_staleness_callback_engine():
 
     eng.strategy.staleness_weight = host_weight
     return eng
+
+
+# ---------------------------------------------------------------------------
+# Replication fixtures
+# ---------------------------------------------------------------------------
+
+def broken_carry_fn():
+    """The reference's old ``last_sync`` bug, distilled: a carry update
+    ``(last_sync, t, six, group) -> last_sync`` for state declared
+    replicated, keyed on a shard-local participation slice (``six`` is the
+    rank's data coordinate), so the ranks disagree after one round.
+    ``repro_torch.analysis.replication_checks`` must flag it."""
+
+    def body(last_sync, t, six, group):
+        kloc = last_sync.shape[0]
+        part_local = (torch.arange(kloc) + t + six) % 2 > 0  # shard-varying
+        return torch.where(part_local, t, last_sync)
+
+    return body
+
+
+def fixed_carry_fn():
+    """The repaired twin: the shard-varying signal is summed over the data
+    axis before it touches the replicated carry."""
+    from repro_torch.launch.mesh import all_reduce_sum
+
+    def body(last_sync, t, six, group):
+        kloc = last_sync.shape[0]
+        part_local = (torch.arange(kloc) + t + six) % 2 > 0
+        # reduce to a replicated global view before the carry update
+        part_global = all_reduce_sum(part_local.to(torch.int32), group) > 0
+        return torch.where(part_global, t, last_sync)
+
+    return body

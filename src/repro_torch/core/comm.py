@@ -15,6 +15,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.launch.mesh import all_reduce_sum
+
 __all__ = ["BYTES_F32", "BYTES_INDEX", "BYTES_SIGNAL", "index_bytes_for",
            "RoundCost", "CommLedger", "soft_label_bytes",
            "distillation_round_cost", "distillation_round_cost_device",
@@ -104,6 +106,7 @@ def distillation_round_cost_device(
     bytes_index: float = BYTES_INDEX,
     uplink_codec=None,
     downlink_codec=None,
+    group=None,
 ):
     """``(uplink, downlink)`` bytes for one round, as plain arithmetic.
 
@@ -123,7 +126,15 @@ def distillation_round_cost_device(
 
     A non-identity codec replaces the flat bits-per-value payload with
     its analytic ``payload_bytes`` on that direction.
+
+    ``group`` (a ``torch.distributed`` process group) makes the cost
+    shard-aware, as the reference's ``axis_name`` does: ``n_clients`` is
+    then this shard's participant count, a float32 tensor, summed over
+    the group before the arithmetic; every other count must already be
+    the replicated global value.
     """
+    if group is not None:
+        n_clients = all_reduce_sum(n_clients.detach().clone(), group)
     if uplink_codec is not None and not uplink_codec.is_identity:
         up_per_client = uplink_codec.payload_bytes(n_up_samples, n_classes)
     else:

@@ -1,6 +1,6 @@
 """Federated distillation on PyTorch: the host round loop, the
 device-resident engine, the active-set engine, the async engine and its
-traffic models, strategies, the FedAvg and Individual baselines and
+traffic models, the client-sharded engine, strategies, the FedAvg and Individual baselines and
 scenarios (the ported part of ``repro.fl``)."""
 from repro_torch.fl.active_engine import ActiveSetFederatedDistillation  # noqa: F401
 from repro_torch.fl.async_engine import AsyncFederatedDistillation  # noqa: F401
@@ -11,6 +11,7 @@ from repro_torch.fl.config import FLConfig  # noqa: F401
 from repro_torch.fl.convert import params_from_numpy  # noqa: F401
 from repro_torch.fl.rounds import FederatedDistillation, History  # noqa: F401
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation  # noqa: F401
+from repro_torch.fl.shard_engine import ShardedFederatedDistillation  # noqa: F401
 from repro_torch.fl.scenarios import (  # noqa: F401
     Heterogeneity,
     Outage,

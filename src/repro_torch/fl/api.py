@@ -1,10 +1,13 @@
 """Front door: run one FL method end-to-end (counterpart of
-``repro.fl.api``; the host, device (``"scan"``), active-set (``"active"``)
-and async (``"async"``) engines so far)."""
+``repro.fl.api``; the host, device (``"scan"``), active-set
+(``"active"``), async (``"async"``) and client-sharded (``"shard"``)
+engines)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from repro_torch.fl.active_engine import ActiveSetFederatedDistillation
 from repro_torch.fl.async_engine import AsyncFederatedDistillation
@@ -14,15 +17,18 @@ from repro_torch.fl.config import FLConfig
 from repro_torch.fl.rounds import FederatedDistillation, History
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation
 from repro_torch.fl.scenarios import Scenario
+from repro_torch.fl.shard_engine import ShardedFederatedDistillation
 from repro_torch.fl.strategies import STRATEGIES
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import world_of_one
 
 __all__ = ["run_method"]
 
 _ENGINES = {"host": FederatedDistillation,
             "scan": ScannedFederatedDistillation,
             "active": ActiveSetFederatedDistillation,
-            "async": AsyncFederatedDistillation}
-_NOT_PORTED_ENGINES = ("shard",)
+            "async": AsyncFederatedDistillation,
+            "shard": ShardedFederatedDistillation}
 
 
 def run_method(
@@ -63,7 +69,13 @@ def run_method(
     reports that arrive, under ``traffic``, a
     :class:`repro_torch.fl.traffic.TrafficModel`, default the synchronous
     model; ``staleness_decay`` goes to the strategy; the device engine's
-    methods and options).  ``traffic`` applies to ``engine="async"`` only
+    methods and options) or ``"shard"`` (the client-sharded engine of
+    :mod:`repro_torch.fl.shard_engine`: the clients split over the ranks
+    of a ``torch.distributed`` process group along ``cfg.mesh_spec``'s
+    "data" axis; the device engine's methods and options; in a process
+    with no initialised group it starts a world of one, NCCL on a CUDA
+    device and gloo on the CPU, and tears it down after the run).
+    ``traffic`` applies to ``engine="async"`` only
     and raises ``ValueError`` elsewhere.  comet (host numpy k-means, per-client
     teachers) runs on the host loop only and raises ``ValueError`` on the
     device, active and async engines, as in the reference.  The baselines fedavg
@@ -79,11 +91,10 @@ def run_method(
     engine for the distillation methods; the baselines refuse it with
     the reference's ``ValueError``.  ``device`` is ``"cuda"`` by default
     and the run raises when there is no CUDA device; pass ``device="cpu"``
-    to run on the CPU.  Engines and options of the reference that are not
-    ported yet (``engine="shard"``, ``rng_backend="jax"``) raise
-    ``NotImplementedError``.
+    to run on the CPU.  ``rng_backend="jax"``, the one option of the
+    reference not ported yet, raises ``NotImplementedError``.
     """
-    if engine not in _ENGINES and engine not in _NOT_PORTED_ENGINES:
+    if engine not in _ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")
     if traffic is not None and engine != "async":
         raise ValueError("traffic models apply to engine='async' only "
@@ -120,8 +131,6 @@ def run_method(
                              "distillation-based methods only")
         cls = FedAvg if method == "fedavg" else Individual
         return cls(cfg, device=device).run(rounds)
-    if engine in _NOT_PORTED_ENGINES:
-        raise NotImplementedError(f"engine={engine!r} is not yet ported")
     strat = STRATEGIES[method](**strategy_kw)
     kw = dict(cache_duration=cache_duration,
               use_cache=use_cache,
@@ -133,4 +142,8 @@ def run_method(
         kw["rng_backend"] = rng_backend
     if traffic is not None:
         kw["traffic"] = traffic
+    if engine == "shard" and not dist.is_initialized():
+        backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+        with world_of_one(backend):
+            return _ENGINES[engine](cfg, strat, **kw).run(rounds)
     return _ENGINES[engine](cfg, strat, **kw).run(rounds)

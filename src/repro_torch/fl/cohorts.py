@@ -106,3 +106,17 @@ class ClientModels:
         if len(parts) == 1:
             return parts[0]
         return torch.cat(parts, dim=0)
+
+    def shard_sizes(self, n_shards: int) -> Tuple[int, ...]:
+        """Per-cohort client count on ONE shard; validates divisibility.
+
+        The sharded engine splits every cohort block independently over
+        the mesh "data" axis, so each cohort size must divide by the
+        shard count (an equal per-cohort composition on every shard)."""
+        for spec, n in zip(self.cohorts, self.sizes):
+            if n % n_shards:
+                raise ValueError(
+                    f"cohort {spec} has {n} clients, not divisible over "
+                    f"{n_shards} shards (every cohort must split evenly; "
+                    "pick divisible cohort sizes or a narrower mesh)")
+        return tuple(n // n_shards for n in self.sizes)

@@ -1,9 +1,12 @@
 """Run configuration for the federated-distillation engines: the fields and
 defaults of ``repro.fl.config.FLConfig``, so a reference config carries
 over field for field.  ``fused_round`` selects the one-kernel round of
-the device and active engines (``engine="scan"|"active"``); the host loop
-ignores it, as the reference's host loop does.  ``mesh_spec`` belongs to
-the sharded engine, not ported yet.  ``telemetry=True`` records one
+the device engines (``engine="scan"|"active"|"async"|"shard"``); the host
+loop ignores it, as the reference's host loop does.  ``mesh_spec`` is the
+client-sharded engine's mesh over the ranks of its process group
+(``"auto"``, ``"DATA"``, ``"DATAxMODEL"``, ``"production"``,
+``"production_multipod"``; :func:`repro_torch.fl.shard_engine.resolve_mesh`)
+and is ignored by the other engines.  ``telemetry=True`` records one
 ``repro_torch.obs.device.RoundTelemetry`` row a round in
 ``History.telemetry`` on every engine."""
 from __future__ import annotations

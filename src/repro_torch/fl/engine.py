@@ -27,6 +27,7 @@ from repro_torch.fl.rounds import (
     val_loss_soft,
 )
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation
+from repro_torch.fl.shard_engine import ShardedFederatedDistillation
 from repro_torch.fl.traffic import (
     ArrivalProcess,
     ChurnEvent,
@@ -61,6 +62,7 @@ __all__ = [
     "History",
     "FederatedDistillation",
     "ScannedFederatedDistillation",
+    "ShardedFederatedDistillation",
     "ActiveSetFederatedDistillation",
     "AsyncFederatedDistillation",
     "ArrivalProcess",

@@ -309,6 +309,13 @@ class FederatedDistillation:
         :meth:`load_params`, :meth:`load_state_dict`)."""
         self.client_params = [{k: self._tensor(v) for k, v in p.items()} for p in stacks]
 
+    @property
+    def held(self) -> ClientModels:
+        """The cohort blocks of the clients whose per-client arrays and
+        parameters this process holds, in the order it holds them: every
+        client here (the sharded engine: its shard's)."""
+        return self.models
+
     def _partition_clients(self, x, y, seed: int):
         """Per-client shards in the dense ``(xs, ys, mask)`` layout."""
         c = self.cfg
@@ -353,7 +360,7 @@ class FederatedDistillation:
         pos = np.arange(mask.shape[1])[None, :]
         val_mask = mask & (pos >= val_cut[:, None])
         train_mask = mask & (pos < val_cut[:, None])
-        m = self.models
+        m = self.held
         f32 = torch.float32
         # the whole private shards and test shards (the baselines train
         # and test on these), and their per-cohort views
@@ -392,10 +399,14 @@ class FederatedDistillation:
         reference's) in place of the port's own; see
         :func:`repro_torch.fl.convert.params_from_numpy`."""
         clients, server = params_from_numpy(client_params, server_params, "cpu")
-        for new, old in zip(clients + [server],
-                            self.client_params + [self.server_params]):
+        for new, old, n in zip(clients + [server],
+                               self.client_params + [self.server_params],
+                               list(self.models.sizes) + [None]):
+            # a cohort's stack holds all its clients, of which this
+            # process may hold a block (the sharded engine)
             got = {k: tuple(v.shape) for k, v in new.items()}
-            want = {k: tuple(v.shape) for k, v in old.items()}
+            want = {k: tuple(v.shape) if n is None else (n,) + tuple(v.shape)[1:]
+                    for k, v in old.items()}
             if got != want:
                 raise ValueError(f"parameter shapes {got} do not match the "
                                  f"configured model {want}")
@@ -598,18 +609,22 @@ class FederatedDistillation:
             staleness_hist=obs_device.staleness_histogram(part, last_sync, t))
 
     def _telemetry_gauges(self, t: int, w, *, miss, base_present, z_tx, z_srv,
-                          fresh) -> Dict[str, torch.Tensor]:
+                          fresh, n_part=None, group=None) -> Dict[str, torch.Tensor]:
         """The row's cache signals and gauges, from the stack the round
         aggregated: ``w`` its float32 participation weights (the full-width
-        vector, or the active-set engine's gathered rows), ``z_tx`` the
-        stack as transmitted, ``z_srv`` the server's post-uplink-codec
-        view, ``fresh`` the aggregated teacher after sharpening and the
-        downlink codec; ``miss`` and ``base_present`` pre-update."""
-        n_part = w.sum()
+        vector, the active-set engine's gathered rows, or the sharded
+        engine's shard, with ``n_part`` the global participant count and
+        ``group`` the process group its sums are all-reduced over),
+        ``z_tx`` the stack as transmitted, ``z_srv`` the server's
+        post-uplink-codec view, ``fresh`` the aggregated teacher after
+        sharpening and the downlink codec; ``miss`` and ``base_present``
+        pre-update."""
+        if n_part is None:
+            n_part = w.sum()
         hits, new, expired = obs_device.cache_signal_counts(base_present, miss)
         cerr = (obs_device.as_f32(0.0, w) if self.codec_up.is_identity else
-                obs_device.codec_error_mean(z_srv, z_tx, w, n_part))
-        zbar = obs_device.participant_mean(z_srv, w, n_part)
+                obs_device.codec_error_mean(z_srv, z_tx, w, n_part, group=group))
+        zbar = obs_device.participant_mean(z_srv, w, n_part, group=group)
         return dict(
             cache_hits=hits, cache_miss_new=new, cache_expired=expired,
             teacher_entropy_pre=obs_device.mean_entropy(zbar),

@@ -141,7 +141,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
         ts = list(range(t0 + 1, t0 + T + 1))
         part, idx = self._leg_draws(T, draws)
         u = self._leg_uniforms(T, expiry_uniforms)
-        state = self.state_dict()
+        state = self._leg_state()
         del state["t_done"]
         state["prev_idx"] = state["prev_idx"].to(torch.int64)
         if self._telemetry:  # the leg's running totals
@@ -151,6 +151,12 @@ class ScannedFederatedDistillation(FederatedDistillation):
                     u=None if u is None else self._tensor(u),
                     do_eval=[t % c.eval_every == 0 or t == t0 + T for t in ts],
                     state=state)
+
+    def _leg_state(self) -> Dict[str, Any]:
+        """The state a leg's rounds start from: :meth:`state_dict` (the
+        sharded engine's keeps its shard's clients, where its
+        ``state_dict`` gathers every client)."""
+        return self.state_dict()
 
     def _leg_draws(self, T: int, draws) -> Tuple[np.ndarray, np.ndarray]:
         """The leg's ``(T, K)`` participation masks and ``(T, m)`` P^t
@@ -279,7 +285,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
     def _server_round(self, params: List[Params], w: torch.Tensor,
                       idx: torch.Tensor, t: int, *, x_pub, cache_prev,
-                      server_params, u=None) -> Dict[str, Any]:
+                      server_params, u=None, reduce=None) -> Dict[str, Any]:
         """The round from the clients' trained parameters to the server's,
         shared by this engine (the full stacks, ``w`` the float32
         participation vector), the active-set engine (the gathered stack,
@@ -294,7 +300,15 @@ class ScannedFederatedDistillation(FederatedDistillation):
         transmitted), ``z_all`` (the server's view; the transmitted stack
         on the fused path), ``fresh``, ``teacher``, ``cache`` and
         ``server_params``.  ``t`` is a host int; nothing here reads the
-        device."""
+        device.
+
+        ``reduce`` (the sharded engine's) splits the aggregation in its
+        two phases: the strategy's linear moments of ``params``' stack,
+        one shard of the clients with ``w`` its 0/1 participation, go
+        through ``reduce`` (a dict of tensors in, their sums over the
+        shards out) before ``finalize_aggregate``.  With an upload mask
+        the shard's uploaded-entry count rides along, and ``r`` holds the
+        sum as ``uploaded``."""
         c, s = self.cfg, self.strategy
         m, N = c.public_per_round, c.n_classes
 
@@ -308,17 +322,30 @@ class ScannedFederatedDistillation(FederatedDistillation):
         x_round = x_pub[idx]
         z_all = s.transmit(self._predict_all(params, x_round))  # (rows, m, N)
         z_tx = z_all  # as transmitted: telemetry's codec-error reference
+        uploaded = None
         if self._fused_spec is not None:
             um = s.upload_mask(z_all)
             fbase = (round_kernel.resolve_delta_base(base, base_present, m, N)
                      if self._fused_spec["mode"] == "delta" else None)
-            fresh = s.aggregate_masked_fused(z_all, w, self._fused_spec, fbase, t)
+            if reduce is None:
+                fresh = s.aggregate_masked_fused(z_all, w, self._fused_spec, fbase, t)
+            else:
+                partials = s.partial_aggregate_fused(z_all, w, self._fused_spec, fbase, t)
         else:
             if not self.codec_up.is_identity:  # lossy wire: the server's view
                 z_all = self.codec_up.roundtrip(z_all, base=base,
                                                 present=base_present)
             um = s.upload_mask(z_all)
-            fresh = s.aggregate_masked(z_all, w, um, t)
+            if reduce is None:
+                fresh = s.aggregate_masked(z_all, w, um, t)
+            else:
+                partials = s.partial_aggregate(z_all, w, um, t)
+        if reduce is not None:  # two phases: the shards' moments summed, then finalized
+            if um is not None:
+                partials["uploaded"] = self._uploaded(um, w, miss_f)
+            partials = reduce(partials)
+            uploaded = partials.pop("uploaded", None)
+            fresh = s.finalize_aggregate(partials, t)
         if not self.codec_down.is_identity:  # decoded broadcast (see rounds.py)
             fresh = self.codec_down.roundtrip(fresh, base=base,
                                               present=base_present)
@@ -336,7 +363,13 @@ class ScannedFederatedDistillation(FederatedDistillation):
         sp = distill(server_params, x_round, teacher, c.lr_dist, c.distill_steps)
         return dict(miss=miss, miss_f=miss_f, n_req=miss_f.sum(), um=um, base=base,
                     base_present=base_present, z_tx=z_tx, z_all=z_all, fresh=fresh,
-                    teacher=teacher, cache=cache, server_params=sp)
+                    teacher=teacher, cache=cache, server_params=sp, uploaded=uploaded)
+
+    @staticmethod
+    def _uploaded(um: torch.Tensor, count: torch.Tensor, miss_f: torch.Tensor) -> torch.Tensor:
+        """The entries the reporting clients (``count``, float32 0/1) upload
+        among the requested samples (``miss_f``) under upload mask ``um``."""
+        return (um.to(torch.float32) * count[:, None] * miss_f[None, :]).sum()
 
     def _round_bytes(self, r: Dict[str, Any], count: torch.Tensor, catch_up,
                      n_up=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -346,14 +379,17 @@ class ScannedFederatedDistillation(FederatedDistillation):
         arrivals, never their staleness weights), ``catch_up`` the
         catch-up bytes, ``n_up`` each reporter's requested samples (default
         this round's request count; the async engine's dispatch-time
-        mean).  An upload mask (Selective-FD) gates the uplink only."""
+        mean).  An upload mask (Selective-FD) gates the uplink only; the
+        uploaded count is ``r["uploaded"]`` where the round summed it over
+        shards."""
         c, s = self.cfg, self.strategy
         n_clients = count.sum()
         if n_up is None:
             n_up = r["n_req"]
         if r["um"] is not None:  # Selective-FD: the mask gates the uplink only
-            uploaded = (r["um"].to(torch.float32) * count[:, None]
-                        * r["miss_f"][None, :]).sum()
+            uploaded = r["uploaded"]
+            if uploaded is None:
+                uploaded = self._uploaded(r["um"], count, r["miss_f"])
             n_up = uploaded / torch.clamp_min(n_clients, 1.0)
         return comm_lib.distillation_round_cost_device(
             n_clients=n_clients,
@@ -382,15 +418,18 @@ class ScannedFederatedDistillation(FederatedDistillation):
     def _telemetry_device(self, totals: obs_device.RoundTelemetry, t: int,
                           part: torch.Tensor, any_p: torch.Tensor, *, miss, base,
                           base_present, z_tx, z_all, fresh, last_sync, uplink,
-                          downlink, catch_up):
+                          downlink, catch_up, w=None, group=None):
         """(the round's telemetry row, the leg's running totals): the row of
         :meth:`_telemetry_row` (with ``telemetry_hook``), zeroed unless
         ``any_p``, as the host loop's total-outage row is.  What the
-        analyzer's obs pass traces on fake CUDA tensors."""
+        analyzer's obs pass traces on fake CUDA tensors.  ``part`` is the
+        full-width participation; the sharded engine passes its shard's
+        weights ``w`` (the rows of ``z_tx``/``z_all``) and ``group``."""
+        part_f = part.to(torch.float32)
         gauges = self._telemetry_gauges(
-            t, part.to(torch.float32), miss=miss, base_present=base_present,
+            t, part_f if w is None else w, miss=miss, base_present=base_present,
             z_tx=z_tx, z_srv=self._server_view(z_tx, z_all, base, base_present),
-            fresh=fresh)
+            fresh=fresh, n_part=part_f.sum(), group=group)
         tel = obs_device.gate(self._telemetry_row(
             t, self._telemetry_counters(t, part, last_sync), gauges,
             uplink=uplink, downlink=downlink, catch_up=catch_up), any_p)

@@ -1,0 +1,198 @@
+"""Device meshes over ``torch.distributed`` (counterpart of
+``repro.launch.mesh``).
+
+A JAX mesh names the devices of one program.  Here a mesh names the
+ranks of a process group: rank ``r`` sits at the row-major coordinates
+``unravel_index(r, shape)`` and drives ``cuda:(r % device_count)``.  The
+only axis anything reduces over is ``"data"``, the axis the sharded engine
+partitions clients over, so a :class:`Mesh` carries the process group of
+this rank's data axis: the ranks that differ from it in the ``"data"``
+coordinate alone.  Ranks that differ along any other axis (``"model"``,
+``"pod"``) hold the same clients and compute the same thing.
+
+The constructors read the default process group, which must be
+initialised; a mesh whose size differs from its world size raises
+``ValueError``, so do the production meshes (16x16 = 256 ranks, 2x16x16
+= 512) on a smaller world.  :func:`run_world` starts a world of ``n``
+ranks on this machine (tests, ``chip_smoke.py``); :func:`world_of_one`
+makes the calling process a world of one.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import os
+import pickle
+import shutil
+import tempfile
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = ["CLIENT_AXIS", "Mesh", "make_mesh", "make_test_mesh", "make_production_mesh",
+           "mesh_axis_sizes", "rank_device", "all_reduce_sum", "run_world", "world_of_one"]
+
+CLIENT_AXIS = "data"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A mesh over the default process group: its shape and axis names,
+    this rank's coordinates, and the process group of this rank's
+    ``"data"`` axis (None for a mesh without one)."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    coords: Tuple[int, ...]
+    group: Any = None
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate along ``name``."""
+        return self.coords[self.axis_names.index(name)]
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """The mesh of ``shape`` over the default process group, whose world
+    size must be ``prod(shape)``.  Every rank must call it (the data-axis
+    groups are created collectively, in the same order on every rank)."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs an initialised torch.distributed process group")
+    world = dist.get_world_size()
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs {int(np.prod(shape))} "
+                         f"ranks, but the process group has {world}")
+    rank = dist.get_rank()
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    group = None
+    if CLIENT_AXIS in axis_names:
+        a = axis_names.index(CLIENT_AXIS)
+        if shape[a] == world:
+            group = dist.group.WORLD
+        else:  # one group per coordinate of the other axes, created by every rank
+            others = [range(s) for i, s in enumerate(shape) if i != a]
+            for rest in itertools.product(*others):
+                ranks = [int(np.ravel_multi_index(rest[:a] + (d,) + rest[a:], shape))
+                         for d in range(shape[a])]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    group = g
+    return Mesh(shape, axis_names, coords, group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production pod's 16x16 mesh ("data", "model"), or 2x16x16
+    ("pod", "data", "model") across two pods."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def make_test_mesh(data: int = 2, model: int = 4) -> Mesh:
+    """A small ("data", "model") mesh for tests."""
+    return make_mesh((data, model), ("data", "model"))
+
+
+def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def rank_device(device) -> torch.device:
+    """``device`` for this rank: a bare ``"cuda"`` becomes ``cuda:(rank %
+    device_count)``; anything else is returned as it is."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    return dev
+
+
+def all_reduce_sum(flat: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``flat`` over ``group`` in place and return it.  Gloo takes a
+    CUDA tensor by staging it through host memory and waiting for the
+    copies on its own thread; that wait is the collective's, so on the
+    gloo backend alone the call runs with CUDA's sync debug mode off (a
+    device engine's rounds run it at "error").  NCCL keeps the mode."""
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            dist.all_reduce(flat, group=group)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    else:
+        dist.all_reduce(flat, group=group)
+    return flat
+
+
+@contextlib.contextmanager
+def world_of_one(backend: str):
+    """Make this process a world of one over ``backend`` ("nccl" or
+    "gloo") for the block, rendezvous through a file in a temporary
+    directory; the group is destroyed after."""
+    tmp = tempfile.mkdtemp(prefix="repro_torch_world_")
+    try:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(rank: int, n: int, backend: str, tmp: str, threads: Optional[int],
+               fn: Callable, args: tuple) -> None:
+    if threads is not None:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=n)
+    try:
+        out = fn(*args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_world(n: int, fn: Callable, *args, backend: str = "gloo",
+              threads: Optional[int] = 1, during: Optional[Callable[[], Any]] = None,
+              timeout: float = 300.0):
+    """Run ``fn(*args)`` on each rank of a new world of ``n`` processes
+    (the ``spawn`` start method; ``backend`` over a ``file://``
+    rendezvous in a fresh temporary directory, so concurrent worlds never
+    share a port) and return the ranks' results, rank 0 first.  ``fn``
+    and its results must pickle; each rank runs ``torch.set_num_threads(
+    threads)`` first.  ``during()``, if given, runs in this process while
+    the ranks run, and its result is returned second.  A rank that raises
+    fails the call (the others are stopped); so does a world still running
+    ``timeout`` seconds after it started (``TimeoutError``, every rank
+    stopped)."""
+    tmp = tempfile.mkdtemp(prefix="repro_torch_world_")
+    try:
+        deadline = time.monotonic() + timeout
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, args=(n, backend, tmp, threads, fn, args), nprocs=n, join=False,
+            start_method="spawn")
+        try:
+            side = during() if during is not None else None
+        finally:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                        p.join()
+                    raise TimeoutError(f"a world of {n} ranks ran past {timeout} s")
+        results = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"result{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return (results, side) if during is not None else results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -17,9 +17,11 @@ so host-loop and device-engine counter stacks are equal, and equal to the
 reference's.  Float gauges that average over participants reduce in
 another order on each engine and are held allclose, not equal.
 
-The reference's ``axis_name`` arguments (a ``psum`` over the client mesh
-axis) belong to its sharded engine, which the port has not yet; they are
-left out here.
+The participant gauges take the reference's ``axis_name`` as ``group``:
+on the sharded engine (:mod:`repro_torch.fl.shard_engine`) ``z`` and the
+weights are the shard's own clients, and the weighted sum is all-reduced
+over the data axis's process group before the division by the global
+participant count.
 
 Every helper takes tensors on any device.  ``t`` is a host int (the
 engines pass it so) and enters only through tensor arithmetic; a count
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import era as era_lib
+from repro_torch.launch.mesh import all_reduce_sum
 
 __all__ = [
     "STALENESS_BUCKETS",
@@ -217,12 +220,16 @@ def staleness_histogram(part: torch.Tensor, last_sync: torch.Tensor, t: int,
 # gauge math (participant reductions)
 # ---------------------------------------------------------------------------
 
-def participant_mean(z: torch.Tensor, part_f: torch.Tensor, n_part) -> torch.Tensor:
+def participant_mean(z: torch.Tensor, part_f: torch.Tensor, n_part,
+                     group=None) -> torch.Tensor:
     """Mean of ``z`` (clients, ...) over participating clients; ``n_part``
     (a tensor or a number) is the participant count.  The division is by
     a float32 tensor on ``z``'s device, a true division on every
-    device."""
+    device.  With ``group`` the rows are one shard's and the weighted sum
+    is all-reduced over it first (``n_part`` is the global count)."""
     zs = torch.tensordot(part_f.to(_F32), z.to(_F32), dims=([0], [0]))
+    if group is not None:
+        zs = all_reduce_sum(zs, group)
     return zs / torch.clamp_min(as_f32(n_part, zs), 1.0)
 
 
@@ -233,16 +240,19 @@ def mean_entropy(p: torch.Tensor) -> torch.Tensor:
 
 
 def codec_error_mean(z_post: torch.Tensor, z_pre: torch.Tensor,
-                     part_f: torch.Tensor, n_part) -> torch.Tensor:
+                     part_f: torch.Tensor, n_part, group=None) -> torch.Tensor:
     """Mean absolute uplink quantization error |decoded - transmitted| over
     participating clients' entries (0 for identity codecs).  The entries a
     client sends, ``prod(shape[1:])``, are a host count multiplied into
     the participant count on the device, as in the reference; the
     division is then by a tensor, so no ``tensor / number`` (which the
-    card computes as a multiply by the reciprocal) enters."""
+    card computes as a multiply by the reciprocal) enters.  ``group`` as
+    in :func:`participant_mean`."""
     z_post, z_pre = z_post.to(_F32), z_pre.to(_F32)
     w = part_f.to(_F32).reshape((-1,) + (1,) * (z_post.dim() - 1))
     err = torch.sum(torch.abs(z_post - z_pre) * w)
+    if group is not None:
+        err = all_reduce_sum(err, group)
     m = float(np.prod(z_post.shape[1:]))
     return err / torch.clamp_min(as_f32(n_part, err) * m, 1.0)
 

@@ -280,8 +280,11 @@ def test_run_method_active_engine(method):
 
 
 def test_run_method_refuses_the_engines_still_to_port():
-    with pytest.raises(NotImplementedError):
-        P.run_method("scarlet", P.FLConfig(**BASE), engine="shard", device="cpu")
+    # the sharded engine is ported: with no process group it runs a world
+    # of one on the CPU (gloo), the device engine's ledger
+    h = P.run_method("scarlet", P.FLConfig(**BASE), engine="shard", device="cpu")
+    np.testing.assert_array_equal(_ledger(h), _ledger(P.run_method(
+        "scarlet", P.FLConfig(**BASE), engine="scan", device="cpu")))
     # the async engine is ported: it runs, and refuses COMET as the others do
     h = P.run_method("scarlet", P.FLConfig(**BASE), engine="async", device="cpu")
     assert len(h.ledger.rounds) == BASE["rounds"]

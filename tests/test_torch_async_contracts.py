@@ -232,8 +232,9 @@ def test_run_method_async(method):
         assert _ledger(hf) == _ledger(h)
     with pytest.raises(ValueError, match="scan-safe"):
         P.run_method("comet", P.FLConfig(**BASE), engine="async", device="cpu")
-    with pytest.raises(NotImplementedError):
-        P.run_method("scarlet", P.FLConfig(**BASE), engine="shard", device="cpu")
+    # the sharded engine is ported: a world of one on the CPU (gloo)
+    h = P.run_method("scarlet", P.FLConfig(**BASE), engine="shard", device="cpu")
+    assert len(h.ledger.rounds) == BASE["rounds"]
 
 
 def test_zero_round_leg():

@@ -223,6 +223,30 @@ def test_device_engine_runs_without_host_sync(dev, fused):
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_shard_engine_world_of_one_on_the_card(dev, fused):
+    """``run_method(engine="shard")`` on the card with no process group: a
+    world of one over NCCL, its rounds under the sync guard, its ledger the
+    device engine's bit for bit; per-op: qdq once a round and ERA plain on
+    the summed mean; fused: fused_round once a round (sharpen=False)."""
+    import torch.distributed as dist
+
+    cfg = pfl.FLConfig(**_SMALL, fused_round=fused)
+    ops.reset_launches()
+    h = pfl.run_method("scarlet", cfg, engine="shard", cache_duration=2, beta=1.5,
+                       device=dev)
+    got = ops.launches()
+    assert not dist.is_initialized() and torch.cuda.get_sync_debug_mode() == 0
+    hs = pfl.run_method("scarlet", cfg, engine="scan", cache_duration=2, beta=1.5,
+                        device=dev)
+    assert [(r.uplink, r.downlink) for r in h.ledger.rounds] == \
+        [(r.uplink, r.downlink) for r in hs.ledger.rounds]
+    n = _SMALL["rounds"]
+    assert got["fused_round" if fused else "quantize_dequantize"] == n
+    assert got["enhanced_era_fused"] == 0
+    assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
+
+
 @pytest.mark.parametrize("method", ["cfd", "selective_fd", "mean"])
 def test_comparison_methods_run_on_the_card_without_host_sync(dev, method):
     """CFD's uplink launches the qdq kernel once a round (identity codec);
