@@ -55,12 +55,24 @@ itself, each ledger bit for bit the device engine's; worlds of 2 and 4
 ranks spawned on the one card over gloo with CUDA tensors (NCCL refuses
 two ranks on a device), every rank's ledger and replicated state equal,
 with launches, ms/round, device peak and each all-reduce's time per
-rank; and the qdq and fused-round kernels at each world's per-rank
-shapes.
+rank, and each path's device peak per rank at n = 4 at most 0.30 of
+n = 1's; and the qdq and fused-round kernels at each world's per-rank
+shapes.  Then the paper's FL launcher (phase 4l,
+``repro_torch.launch.fl_train``): SCARLET and CFD for 20 rounds on the
+card and on the CPU (per-round ledgers bit for bit, accuracies within one
+test sample, the ERA and qdq kernels counted on the path and held against
+their plain versions on the inputs the path gave them), the launcher at
+its defaults (300 rounds) and with ``--telemetry`` (its trace through
+``python -m repro_torch.obs validate``), and its configuration for 300
+rounds on the fused device engine and the async engine (staleness decay
+0.5), whose final accuracies are findings.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
-attention kernel once per layer, and then the soft-label library's
+attention kernel once per layer, then its KV-cache decode (phase
+4c-decode: the 384 tokens teacher-forced through ``decode_step`` at a
+device position with no host sync, every position's logits against the
+prefill's, then 32 greedy tokens timed), and then the soft-label library's
 kernel seams at full width (``repro_torch.core`` with ``impl="kernel"``):
 ``aggregate_soft_labels`` over the paper's (100, 1000, 10) stack with
 SCARLET's adaptive beta computed on the card, ``enhanced_era`` over
@@ -76,7 +88,8 @@ that computes on the host and the replicated carry keyed on a
 shard-local slice), the fixture kernels against their plain versions, the
 misaligned plan faulting in a child process, and the contract pass's
 verdicts confirmed by CUDA graph capture in another.
-Last come the reduced whisper configuration on the card and on the CPU.
+Last come the reduced whisper configuration's prefill and decode on the
+card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
 mode itself), so a host sync inside a round fails the run.  A small
@@ -95,6 +108,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from typing import Optional
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -329,6 +343,27 @@ ASYNC_RESTORE_AT = 5
 # at phase 3's tolerances, timed.
 SHARD_WORLDS = (2, 4)
 SHARD_TIMED = 20
+# A rank's device peak is the growth of a run above what its process held
+# before it.  A spawned rank's first matrix products allocate cuBLAS's
+# workspaces, one a thread that multiplies (the rank's own and autograd's
+# backward thread), which live as long as the process and do not depend on
+# K: shard_rank makes them (warm_cublas) before it measures, and logs
+# their bytes.  Then the client state is a rank's K/n share: at n = 4 each
+# path's peak may be at most SHARD_PEAK_RATIO of n = 1's (K/n = 0.25 of the
+# clients, plus the replicated server state).
+SHARD_PEAK_RATIO = 0.30
+# Phase 4l: the launcher (repro_torch.launch.fl_train) for LAUNCHER_ROUNDS
+# rounds on the card and on the CPU, then at its defaults; the ERA and qdq
+# kernels on the inputs the card's runs gave them (and on random inputs of
+# the same shapes) against their plain versions at ERA_ATOL / QDQ_ATOL;
+# the launcher's configuration on the fused device engine and the async
+# engine for its 300 rounds, the async engine under Poisson contacts at
+# LAUNCHER_TRAFFIC[0] a tick and latency uniform on 0..LAUNCHER_TRAFFIC[1]
+# windows (phase 4j's, without its churn, which names clients of the
+# slice), at staleness decay LAUNCHER_DECAY.
+LAUNCHER_ROUNDS = 20
+LAUNCHER_TRAFFIC = (ASYNC_RATE, ASYNC_MAX_DELAY)
+LAUNCHER_DECAY = 0.5
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -377,6 +412,28 @@ BF16_STEP = 2.0 ** -7
 # ~0.1 between any two float32 implementations (tests/test_torch_whisper.py).
 WHISPER_SMALL_S = 128
 WHISPER_SMALL_ATOL = 1e-4
+# Phase 4c-decode: whisper-large-v3's KV-cache decode at full width, on
+# phase 4c's weights tempered (see WHISPER_SMALL_ATOL) and its batch: the
+# WHISPER_S prompt tokens teacher-forced through registry.decode_step one
+# position a step at a device position, under sync debug "error", then
+# DECODE_GEN greedy tokens, the next token staying on the card.  Each
+# step's logits are held against the tempered prefill's at its position
+# (the flash kernel in the decoder's self-attention).  Both paths keep the
+# residual stream in bfloat16 and round every product and attention output
+# to it; they add in other orders (a (4, D) product against a (1536, D)
+# one; the plain float32 score chain against flash's online softmax), so
+# an element may round to its neighbouring bfloat16 value (2^-8 of it) at
+# each of the 2 x 32 residual updates of a layer stack.  Such flips add
+# like a random walk, sqrt(64) x 2^-8: the logits are held to DECODE_RTOL
+# = 2^-5 of the largest prefill logit.  The greedy token (the argmax) must
+# agree at DECODE_ARGMAX_SHARE of the positions: a position whose top two
+# logits lie closer than that error may flip.
+DECODE_GEN = 32
+DECODE_RTOL = 2.0 ** -5
+DECODE_ARGMAX_SHARE = 0.95
+# The reduced float32 whisper's decode, card vs CPU: DECODE_SMALL_S
+# positions teacher-forced on both, each step's logits to WHISPER_SMALL_ATOL.
+DECODE_SMALL_S = 32
 
 # Per-row Enhanced ERA, kernel vs plain version: float32 to ERA_ATOL (the
 # row sums run in other orders); bfloat16 bit for bit the float32
@@ -2344,6 +2401,18 @@ def run_shard_engine(device, label: str, fused: bool) -> dict:
     return r
 
 
+def warm_cublas(device) -> int:
+    """One float32 product and its backward on ``device``: cuBLAS's
+    workspaces of this thread and of autograd's device thread, allocated
+    once a process.  Returns the bytes they hold."""
+    before = torch.cuda.memory_allocated(device)
+    a = torch.ones(8, 8, device=device, requires_grad=True)
+    (a @ a).sum().backward()
+    del a
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device) - before
+
+
 def shard_rank(n: int) -> dict:
     """A rank of a gloo world of ``n`` on the card: both paths, as
     numpy and numbers."""
@@ -2352,7 +2421,7 @@ def shard_rank(n: int) -> dict:
     device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
     torch.cuda.init()  # a fresh process: the allocator's statistics exist from here
     torch.cuda.set_device(device)
-    out = {}
+    out = {"workspaces": warm_cublas(device)}
     for path, fused in (("per-op", False), ("fused", True)):
         r = run_shard_engine(device, f"shard n={n} rank {dist.get_rank()} {path} (gloo)",
                              fused)
@@ -2457,14 +2526,23 @@ def run_shard(device, card: str, device_runs: dict) -> dict:
                 f"every rank bit for bit={same_state} (vs (a): max_abs_err {vs_one!r}); "
                 f"launches {[r['launches'] for r in rs]}; ms/round "
                 f"{[round(r['per_round_ms'], 3) for r in rs]}; device peak per rank "
-                f"{[r['peak'] for r in rs]} B; all-reduce ms by packed size "
-                f"{rs[0]['all_reduce_ms']} ({card})")
+                f"{[r['peak'] for r in rs]} B (over n=1's "
+                f"{max(r['peak'] for r in rs) / one[path]['peak']:.4f}; cuBLAS workspaces "
+                f"made before, {[r['workspaces'] for r in ranks]} B); all-reduce ms by "
+                f"packed size {rs[0]['all_reduce_ms']} ({card})")
             for r in rs:
                 check_launches(r["launches"], {"fused_round": SLICE_ROUNDS} if path == "fused"
                                else {"quantize_dequantize": SLICE_ROUNDS})
             if not (same_ledger and same_state):
                 raise AssertionError(f"phase 4k (b) n={n} {path}: ranks differ")
             worlds[(n, path)] = rs
+    for path in ("per-op", "fused"):
+        ratio = max(r["peak"] for r in worlds[(SHARD_WORLDS[-1], path)]) / one[path]["peak"]
+        log(f"phase 4k (b) {path}: device peak per rank at n={SHARD_WORLDS[-1]} over n=1's "
+            f"{ratio:.4f} (at most {SHARD_PEAK_RATIO}) ({card})")
+        if ratio > SHARD_PEAK_RATIO:
+            raise AssertionError(f"phase 4k (b) {path}: a rank's peak at n="
+                                 f"{SHARD_WORLDS[-1]} is {ratio:.4f} of n=1's")
     kern = check_shard_kernels(device, card)
     log("phase 4k: ms/round (host clock, rounds 2-10, one eval) shard "
         + ", ".join(f"{p} n=1 {one[p]['per_round_ms']:.3f}" for p in one)
@@ -2476,6 +2554,204 @@ def run_shard(device, card: str, device_runs: dict) -> dict:
         + f" B; all-reduce n=1 (nccl) ms by packed size {one['per-op']['all_reduce_ms']} ({card})")
     log(f"phase 4k: {time.perf_counter() - t0:.3f} s ({card})")
     return dict(one=one, worlds=worlds, kernels=kern)
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the paper's FL launcher (repro_torch.launch.fl_train)
+# ---------------------------------------------------------------------------
+
+def _launch(argv: list, out: str) -> dict:
+    """``fl_train.main(argv + ["--out", out])``, the launch counts set to 0
+    just before and read just after: its JSON history and the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fl_train
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fl_train.main(argv + ["--out", out])
+    secs = time.perf_counter() - t0
+    launches = ops.launches()
+    method = argv[argv.index("--method") + 1] if "--method" in argv else "scarlet"
+    with open(os.path.join(out, f"{method}_a0.05_p1.0_s0.json")) as f:
+        return dict(json.load(f), launches=launches, secs=secs, out=out)
+
+
+def _ledger(h: dict) -> str:
+    """A launcher history's per-round ledger fields, as JSON text."""
+    return json.dumps([h["history"][k] for k in ("rounds", "cumulative_mb", "comm")])
+
+
+def _accs(h: dict) -> list:
+    return h["history"]["server_acc"] + h["history"]["client_acc"]
+
+
+@contextmanager
+def record_inputs(store: dict):
+    """Within the block, each call of ``kernels.ops.enhanced_era_fused`` and
+    ``kernels.ops.quantize_dequantize`` (where the strategies and codecs
+    reach the kernels) keeps a copy of its first input at each (kernel,
+    shape, beta or bits) in ``store``, then calls the kernel."""
+    from repro_torch.kernels import ops
+
+    names = ("enhanced_era_fused", "quantize_dequantize")
+    kept = {n: getattr(ops, n) for n in names}
+
+    def recording(name, fn):
+        def call(z, arg, *a, **kw):
+            store.setdefault((name, tuple(z.shape), arg), z.detach().clone())
+            return fn(z, arg, *a, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, recording(n, kept[n]))
+    try:
+        yield store
+    finally:
+        for n in names:
+            setattr(ops, n, kept[n])
+
+
+def check_launcher_kernels(device, card: str, inputs: dict) -> dict:
+    """Phase 4l (a): the ERA and qdq kernels on each input the launcher's
+    card runs gave them (``record_inputs``) and on a random stack of the
+    same shape, against their plain versions: ERA to ERA_ATOL, qdq to
+    QDQ_ATOL with zero level flips; each timed at its shape."""
+    from repro_torch.kernels import era_kernel, quant_kernel
+    from repro_torch.launch import fl_train
+
+    beta = fl_train.METHOD_DEFAULTS["scarlet"]["beta"]
+    got_kernels = {(name, arg) for name, _, arg in inputs}
+    if got_kernels != {("enhanced_era_fused", beta), ("quantize_dequantize", 1)}:
+        raise AssertionError(f"phase 4l (a): the launcher's runs reached {got_kernels}, not "
+                             f"the ERA kernel at beta={beta} and the 1-bit qdq")
+    rng = np.random.default_rng(16)
+    errs = {"enhanced_era_fused": 0.0, "quantize_dequantize": 0.0}
+    for (name, shape, arg), z in inputs.items():
+        if name == "enhanced_era_fused":
+            fn, plain, atol = (era_kernel.enhanced_era_fused,
+                               era_kernel.enhanced_era_fused_plain, ERA_ATOL)
+            n_out = z[0].numel()
+            # bytes: the stack read once, the teacher written once
+            b, why = bound_ms(4.0 * (z.numel() + n_out), z.numel() + 9.0 * n_out)
+        else:
+            fn, plain, atol = (quant_kernel.quantize_dequantize,
+                               quant_kernel.quantize_dequantize_plain, QDQ_ATOL)
+            b, why = bound_ms(4.0 * 2 * z.numel(), 11.0 * z.numel())
+        for label, x in (("the path's input", z), ("random", _probs(rng, shape, device))):
+            got, want = fn(x, arg), plain(x, arg)
+            _sync(device)
+            err = float((got - want).abs().max())
+            flips = _level_flips(got, want, x, arg) if name == "quantize_dequantize" else 0
+            if not (bool(torch.isfinite(got).all()) and err <= atol and flips == 0):
+                raise AssertionError(f"phase 4l (a) {name} {shape} ({label}): max_abs_err "
+                                     f"{err} > {atol} or {flips} level flips")
+            errs[name] = max(errs[name], err)
+        ms, pms = cuda_ms(lambda: fn(z, arg)), cuda_ms(lambda: plain(z, arg))
+        log(f"time launcher {name} {shape} {'beta' if name == 'enhanced_era_fused' else 'bits'}"
+            f"={arg}: ms={ms!r} plain_ms={pms!r} bound_ms={b!r} by {why} ({card})")
+    log(f"phase 4l (a): the ERA and qdq kernels on the launcher's inputs at "
+        f"{sorted((n, s, a) for n, s, a in inputs)} and on random stacks of those shapes: "
+        f"max_abs_err {errs} (atol ERA {ERA_ATOL}, qdq {QDQ_ATOL} with zero level flips) ok")
+    return errs
+
+
+def run_launcher(device, card: str) -> dict:
+    """Phase 4l: (a) ``fl_train.main`` for LAUNCHER_ROUNDS rounds on the card
+    and on the CPU, SCARLET and CFD: the per-round ledger bit for bit,
+    accuracies within one test sample, ``enhanced_era_fused`` once a round
+    on SCARLET's path and qdq once a round on CFD's, counted on the card's
+    run; each kernel on the inputs the card's run gave it, against its
+    plain version (``check_launcher_kernels``).  (b) The launcher at its
+    defaults (300 rounds of SCARLET), and again with ``--telemetry``: the
+    same ledger, the Chrome trace through ``python -m repro_torch.obs
+    validate``.  (c) The launcher's configuration for its 300 rounds
+    through the fused device engine (the per-op engine repeats the host
+    loop's accuracies) and the async engine under LAUNCHER_TRAFFIC at
+    staleness decay LAUNCHER_DECAY: their final accuracies beside (b)'s,
+    findings and not gates.  Returns the kernels' worst errors too."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="fl_train_")
+    try:
+        return _run_launcher(device, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_launcher(device, card: str, tmp: str) -> dict:
+    from repro_torch.fl import ArrivalProcess, LatencyModel, TrafficModel, run_method
+    from repro_torch.launch import fl_train
+
+    t_phase = time.perf_counter()
+    n_test = None
+    out, inputs = {}, {}
+    for method, kernel in (("scarlet", "enhanced_era_fused"), ("cfd", "quantize_dequantize")):
+        argv = ["--method", method, "--rounds", str(LAUNCHER_ROUNDS)]
+        with record_inputs(inputs):
+            g = _launch(argv + ["--device", "cuda"], os.path.join(tmp, method, "cuda"))
+        c = _launch(argv + ["--device", "cpu"], os.path.join(tmp, method, "cpu"))
+        cfg = fl_train.config_from_args(fl_train.build_parser().parse_args(argv))
+        n_test = max(cfg.private_size // 5, 200)  # the synthetic test set
+        acc_err = max(abs(a - b) for a, b in zip(_accs(g), _accs(c)))
+        same = _ledger(g) == _ledger(c)
+        log(f"phase 4l (a) fl_train {method} {LAUNCHER_ROUNDS} rounds, cuda vs cpu: per-round "
+            f"ledger bit for bit={same}; accuracy max diff={acc_err!r} (one test sample = "
+            f"{1.0 / n_test!r}); final server_acc cuda {g['history']['final_server_acc']!r} "
+            f"cpu {c['history']['final_server_acc']!r}; launches cuda {g['launches']} cpu "
+            f"{c['launches']}; wall {g['wall_s']:.3f} / {c['wall_s']:.3f} s ({card})")
+        check_launches(g["launches"], {kernel: LAUNCHER_ROUNDS})
+        check_launches(c["launches"], {})
+        if not same or acc_err > 1.0 / n_test + 1e-6:
+            raise AssertionError(f"phase 4l (a) {method}: cuda and cpu launcher runs differ")
+        out[method] = g
+    errs = check_launcher_kernels(device, card, inputs)
+    # (b) the defaults, and with the span trace
+    d = _launch(["--device", "cuda"], os.path.join(tmp, "defaults"))
+    t = _launch(["--device", "cuda", "--telemetry"], os.path.join(tmp, "telemetry"))
+    trace = os.path.join(t["out"], "scarlet_a0.05_p1.0_s0.trace.json")
+    v = subprocess.run([sys.executable, "-m", "repro_torch.obs", "validate", trace],
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=os.path.join(
+                           os.path.dirname(os.path.abspath(__file__)), "src")))
+    rounds = d["history"]["rounds"][-1]
+    log(f"phase 4l (b) fl_train at its defaults: {rounds} rounds of scarlet, "
+        f"{d['secs']:.3f} s ({d['wall_s']:.3f} s in run_method, "
+        f"{d['wall_s'] / rounds * 1e3:.3f} ms/round); final server_acc "
+        f"{d['history']['final_server_acc']!r} client_acc "
+        f"{d['history']['final_client_acc']!r}; cumulative "
+        f"{d['history']['comm']['cumulative_total']!r} B; launches {d['launches']}; "
+        f"--telemetry: ledger equal={_ledger(t) == _ledger(d)}, "
+        f"{t['history']['telemetry']['rounds']} telemetry rows, trace validate rc "
+        f"{v.returncode}: {v.stdout.strip()} ({card})")
+    check_launches(d["launches"], {"enhanced_era_fused": rounds})
+    if (v.returncode != 0 or _ledger(t) != _ledger(d)
+            or t["history"]["telemetry"]["rounds"] != rounds):
+        raise AssertionError(f"phase 4l (b): telemetry run or trace failed: {v.stdout} "
+                             f"{v.stderr}")
+    # (c) the same configuration on the device and async engines
+    ap = fl_train.build_parser()
+    cfg = fl_train.config_from_args(ap.parse_args([]))
+    kw = dict(fl_train.METHOD_DEFAULTS["scarlet"])
+    traffic = TrafficModel(arrivals=ArrivalProcess("poisson", rate=LAUNCHER_TRAFFIC[0]),
+                           latency=LatencyModel("uniform", lo=0, hi=LAUNCHER_TRAFFIC[1]),
+                           seed=ASYNC_SEED)
+    finals = {"host loop (the launcher)": (d["history"]["final_server_acc"],
+                                           d["history"]["final_client_acc"])}
+    for label, ekw in (("device engine fused", dict(engine="scan", fused_round=True)),
+                       (f"async decay {LAUNCHER_DECAY}",
+                        dict(engine="async", traffic=traffic, staleness_decay=LAUNCHER_DECAY))):
+        t0 = time.perf_counter()
+        h = run_method("scarlet", cfg, device=device, **ekw, **kw)
+        finals[label] = (h.final_server_acc, h.final_client_acc)
+        log(f"phase 4l (c) {cfg.rounds} rounds of the launcher's configuration, {label}: "
+            f"final server_acc {h.final_server_acc!r} client_acc {h.final_client_acc!r}; "
+            f"cumulative {h.ledger.summary()['cumulative_total']!r} B; "
+            f"{time.perf_counter() - t0:.3f} s ({card})")
+    log(f"phase 4l (c): final (server, client) accuracies after {cfg.rounds} rounds "
+        f"{finals} (findings, not gates; one test sample = {1.0 / n_test!r})")
+    log(f"phase 4l: {time.perf_counter() - t_phase:.3f} s ({card})")
+    return dict(runs=out, defaults=d, finals=finals, errs=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -2827,6 +3103,17 @@ def run_whisper(device) -> dict:
 # phase 4d: the soft-label library's kernel seams at full width
 # ---------------------------------------------------------------------------
 
+@contextmanager
+def sync_error():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
 def _row_sum_err(p: torch.Tensor) -> float:
     return float((p.sum(-1) - 1.0).abs().max())
 
@@ -2855,16 +3142,13 @@ def run_library(device, wh: dict) -> dict:
 
     # the path: counts set to 0 just before, read just after
     ops.reset_launches()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_error():
         t0 = time.perf_counter()
         beta = scarlet._adaptive_beta(torch.mean(z, 0))
         agg = core.aggregate_soft_labels(z, "enhanced_era", beta=beta, impl="kernel")
         sharp = core.enhanced_era(soft, BETA, impl="kernel")
         loss = core.soft_cross_entropy(student, teacher, impl="kernel")
         t_issue = time.perf_counter() - t0
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     _sync(device)
     launches = ops.launches()
     log(f"library: launches {launches} (host issue {t_issue * 1e3:.3f} ms under sync "
@@ -2900,6 +3184,165 @@ def run_library(device, wh: dict) -> dict:
     if not ok:
         raise AssertionError("the soft-label library's results are wrong")
     return dict(launches=launches, loss=float(loss))
+
+
+# ---------------------------------------------------------------------------
+# phase 4c-decode: whisper-large-v3's KV-cache decode at full width
+# ---------------------------------------------------------------------------
+
+def _decode_steps(cfg, params, cache, tokens, pos, logits_out=None):
+    """Teacher-force ``tokens`` (B, S) through ``registry.decode_step`` from
+    the device position ``pos`` (each step's logits into ``logits_out``
+    (B, S, V) when given); returns the cache, the next position and the
+    last step's logits."""
+    from repro_torch.models import registry
+
+    lg = None
+    for i in range(tokens.shape[1]):
+        lg, cache = registry.decode_step(cfg, params, cache, tokens[:, i:i + 1], pos)
+        if logits_out is not None:
+            logits_out[:, i] = lg
+        pos = pos + 1
+    return cache, pos, lg
+
+
+def run_whisper_decode(device, card: str, wh: dict) -> dict:
+    """Phase 4c-decode (see DECODE_RTOL): parity with the tempered prefill
+    at every prompt position, greedy generation timed (host clock and CUDA
+    events), the device-busy share of one profiled step, the cache's
+    bytes; no kernel launched by decode."""
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry, whisper
+
+    cfg = CONFIG
+    t_phase = time.perf_counter()
+    params = tempered(cm.tree_map(lambda t: t, wh["params"]))  # new tensors where scaled
+    batch = make_batch(cfg, WHISPER_B, WHISPER_S, seed=WHISPER_SEED, device=device)
+    ops.reset_launches()
+    want = registry.prefill(cfg, params, batch)
+    check_launches(ops.launches(), {"flash_attention": cfg.n_layers})
+    cache = registry.init_decode_cache(cfg, WHISPER_B, WHISPER_S + DECODE_GEN, device=device)
+    cache["xk"], cache["xv"] = whisper.precompute_cross_kv(
+        cfg, params, whisper.encode(cfg, params, batch["audio_embeds"]))
+    cache_bytes = {n: t.numel() * t.element_size() for n, t in cache.items()}
+    got = torch.empty_like(want)
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    _sync(device)
+
+    # the prompt, teacher-forced, counted, no host sync
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with sync_error():
+        cache, pos, lg = _decode_steps(cfg, params, cache, batch["tokens"], pos, got)
+        tok = lg.argmax(-1, keepdim=True)
+    _sync(device)
+    tf_ms = (time.perf_counter() - t0) * 1e3 / WHISPER_S
+    launches = ops.launches()
+    check_launches(launches, {})
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    per_pos = (got - want).abs().amax(dim=(0, 2))
+    share = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"phase 4c-decode: {WHISPER_S} positions teacher-forced through decode_step "
+        f"(B={WHISPER_B}, a device position, sync debug 'error'): logits max_abs_err "
+        f"{err!r} against the tempered prefill's (flash) at every position, max |logit| "
+        f"{scale!r}, tolerance DECODE_RTOL x max = {DECODE_RTOL * scale!r}; worst position "
+        f"{int(per_pos.argmax())}, error at positions 0/{WHISPER_S // 2}/{WHISPER_S - 1} "
+        f"{[float(per_pos[i]) for i in (0, WHISPER_S // 2, WHISPER_S - 1)]}; greedy token "
+        f"equal at {share!r} of the positions (at least {DECODE_ARGMAX_SHARE}); launches "
+        f"{launches}; {tf_ms:.3f} ms a step (host clock, synchronized at the end) ({card})")
+    if not (bool(torch.isfinite(got).all()) and err <= DECODE_RTOL * scale
+            and share >= DECODE_ARGMAX_SHARE):
+        raise AssertionError(f"phase 4c-decode: decode differs from the prefill: err {err}, "
+                             f"argmax share {share}")
+
+    # greedy generation, the next token staying on the card
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gen = []
+    t0 = time.perf_counter()
+    with sync_error():
+        start.record()
+        for _ in range(DECODE_GEN):
+            lg, cache = registry.decode_step(cfg, params, cache, tok, pos)
+            tok = lg.argmax(-1, keepdim=True)
+            gen.append(tok)
+            pos = pos + 1
+        end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / DECODE_GEN
+    event_ms = start.elapsed_time(end) / DECODE_GEN
+    gen = torch.cat(gen, dim=1)
+    if int(pos) != WHISPER_S + DECODE_GEN or int(gen.min()) < 0 or \
+            int(gen.max()) >= cfg.padded_vocab or not bool(torch.isfinite(lg).all()):
+        raise AssertionError("phase 4c-decode: generation out of range")
+
+    # one profiled step: the device's busy share of an unprofiled step
+    busy = profiled_step_busy(
+        lambda: registry.decode_step(cfg, params, cache, tok, pos - 1), device, event_ms)
+    log(f"phase 4c-decode: greedy generation of {DECODE_GEN} tokens x {WHISPER_B} "
+        f"sequences at positions {WHISPER_S}..{WHISPER_S + DECODE_GEN - 1}: {host_ms:.3f} "
+        f"ms/token (host clock), {event_ms:.3f} ms/token (CUDA events), "
+        f"{WHISPER_B * 1e3 / host_ms:.1f} tokens/s over the batch; one profiled step: device "
+        f"busy {busy['busy_ms']!r} ms of the unprofiled {event_ms!r} ms = {busy['share']!r} "
+        f"(the profiled step took {busy['wall_ms']!r} ms by host clock), "
+        f"{busy['kernels']} kernels; cache {sum(cache_bytes.values())} B {cache_bytes} "
+        f"(max_len {WHISPER_S + DECODE_GEN}, {cfg.param_dtype}); first generated "
+        f"{gen[0, :8].tolist()} ({card})")
+    log(f"phase 4c-decode: the profiled step's kernels by class (count, device ms): "
+        f"{busy['classes']}")
+    log(f"phase 4c-decode: the profiled step's {len(busy['top'])} costliest kernel names "
+        f"(count, device ms, name): {busy['top']}")
+    log(f"phase 4c-decode: {time.perf_counter() - t_phase:.3f} s ({card})")
+    return dict(err=err, scale=scale, share=share, host_ms=host_ms, event_ms=event_ms,
+                busy=busy, cache_bytes=cache_bytes)
+
+
+# Kernel classes of a profiled step, by the first pattern a kernel's name
+# matches (the functor in ATen's template names the operation: a dtype
+# conversion or a permuted copy is an elementwise kernel of a copy
+# functor; cuBLAS's matrix products are gemm, gemv or nvjet kernels)
+KERNEL_CLASSES = (("cat", "CatArray"), ("copy", "copy|memcpy"),
+                  ("matmul", "gemm|gemv|nvjet|cutlass|xmma"), ("softmax", "softmax"),
+                  ("reduction", "reduce"), ("index", "index|scatter|gather"),
+                  ("elementwise", "elementwise"))
+
+
+def profiled_step_busy(step, device, step_ms: float) -> dict:
+    """One call of ``step`` under ``torch.profiler`` (CPU and CUDA): the
+    summed device time of its kernels (busy), busy over ``step_ms`` (the
+    same step's time unprofiled: the profiler's own host work slows the
+    profiled step, wall), the kernels by KERNEL_CLASSES and the costliest
+    kernel names, each with its count and device ms."""
+    import re
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step()  # warm
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time for a decode step")
+    busy = sum(e.device_time for e in kernels) / 1e3
+    classes, names = defaultdict(lambda: [0, 0.0]), defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        cls = next((c for c, pat in KERNEL_CLASSES if re.search(pat, e.name, re.I)), "other")
+        for d, key in ((classes, cls), (names, e.name[:100])):
+            d[key][0] += 1
+            d[key][1] += e.device_time / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(busy_ms=busy, wall_ms=wall, share=busy / step_ms, kernels=len(kernels),
+                classes={c: (n, round(ms, 4)) for c, (n, ms) in
+                         sorted(classes.items(), key=lambda kv: -kv[1][1])},
+                top=[(n, round(ms, 4), name) for name, (n, ms) in top])
 
 
 # ---------------------------------------------------------------------------
@@ -3159,6 +3602,39 @@ def check_whisper_cuda_vs_cpu() -> float:
         f"max |logit| {float(want.abs().max())!r}, flash launches {n}")
     if n != cfg.n_layers or not bool(torch.isfinite(got).all()) or err > WHISPER_SMALL_ATOL:
         raise AssertionError(f"whisper small cuda vs cpu: err {err}, launches {n}")
+    return err
+
+
+def check_decode_cuda_vs_cpu() -> float:
+    """Phase 5b: the reduced float32 whisper's decode on the card and on
+    the CPU, DECODE_SMALL_S positions teacher-forced from the same tempered
+    weights and cache, each step's logits to WHISPER_SMALL_ATOL."""
+    from repro_torch.configs.whisper_large_v3 import CONFIG
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry, whisper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CONFIG.reduced()
+    p = tempered(registry.init(cfg, torch.Generator().manual_seed(WHISPER_SEED), device="cpu"))
+    batch = make_batch(cfg, 2, DECODE_SMALL_S, seed=WHISPER_SEED, device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        d = torch.device(dev)
+        pd = cm.tree_map(lambda t: t.to(d), p)
+        cache = registry.init_decode_cache(cfg, 2, DECODE_SMALL_S, device=d)
+        cache["xk"], cache["xv"] = whisper.precompute_cross_kv(
+            cfg, pd, whisper.encode(cfg, pd, batch["audio_embeds"].to(d)))
+        logits = torch.empty(2, DECODE_SMALL_S, cfg.padded_vocab, device=d)
+        _decode_steps(cfg, pd, cache, batch["tokens"].to(d),
+                      torch.zeros((), dtype=torch.int64, device=d), logits)
+        outs[dev] = logits.cpu()
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    log(f"whisper small ({cfg.name}, float32) decode, {DECODE_SMALL_S} positions, cuda vs "
+        f"cpu: logits max_abs_err={err!r} (atol {WHISPER_SMALL_ATOL}), max |logit| "
+        f"{float(outs['cpu'].abs().max())!r}")
+    if not bool(torch.isfinite(outs["cuda"]).all()) or err > WHISPER_SMALL_ATOL:
+        raise AssertionError(f"whisper small decode cuda vs cpu: err {err}")
     return err
 
 
@@ -3430,10 +3906,17 @@ def main() -> int:
     # 4k. the client-sharded engine: a world of one over NCCL against 4b,
     # worlds of 2 and 4 on the card over gloo, its kernels at their shapes
     run_shard(dev, card, {"per-op": perop, "fused": fused})
+    # 4l. the paper's FL launcher, card vs CPU, its defaults, its configuration
+    # on the device and async engines for 300 rounds
+    la = run_launcher(dev, card)
+    errs["era"] = max(errs["era"], la["errs"]["enhanced_era_fused"])
+    errs["qdq"] = max(errs["qdq"], la["errs"]["quantize_dequantize"])
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width
     lib = run_library(dev, wh)
+    # 4c-decode. whisper's KV-cache decode at full width against the prefill
+    run_whisper_decode(dev, card, wh)
     del wh["logits"], wh["params"]
     # 4e. the static analyzer on the card
     an = run_analysis(dev)
@@ -3442,8 +3925,9 @@ def main() -> int:
     check_small_cuda_vs_cpu("scan")
     check_small_methods_cuda_vs_cpu()
     check_options_cuda_vs_cpu(opts["host loop"], tel["on"]["host loop"])
-    # 5b. the reduced whisper prefill, card vs CPU
+    # 5b. the reduced whisper prefill and decode, card vs CPU
     check_whisper_cuda_vs_cpu()
+    check_decode_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the
     # run of the path it serves (ERA and qdq: the host loop; fused_round:
     # the fused device engine; flash_attention: one whisper prefill;

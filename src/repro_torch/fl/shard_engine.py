@@ -10,7 +10,10 @@ shard-s clients are ``offset_c + s * kloc_c .. offset_c + (s + 1) *
 kloc_c``): their parameters, private and eval shards and schedules.  Only
 those go to the card, so a rank's device memory for client state is
 O(K / n).  Ranks along any other mesh axis hold the same clients and
-compute the same thing.
+compute the same thing.  What a rank holds beside them does not depend
+on K: the replicated server state below, and its process's cuBLAS
+workspaces (32 MiB a thread that multiplies on Hopper: the rank's own and
+autograd's backward thread), which its first matrix products allocate.
 
 Everything server-side (the cache, the teacher, the server's parameters,
 the public data, ``last_sync`` and the round's full-width participation)

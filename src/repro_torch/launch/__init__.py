@@ -1,1 +1,3 @@
-"""Inputs for the port's model entry points (``specs.make_batch``)."""
+"""Launchers and inputs of the port: the model entry points' batches
+(``specs.make_batch``), meshes and worlds of ranks (``mesh``) and the
+paper's FL launcher (``fl_train``)."""

@@ -10,7 +10,7 @@ parameter trees carry across one to one (``models/convert.py``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -81,26 +81,37 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (x * torch.rsqrt(var + eps) * (1.0 + weight.float())).to(dt)
 
 
-def flash_eligible(q: torch.Tensor, k: torch.Tensor, causal: bool) -> bool:
+def flash_eligible(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   q_offset: Union[torch.Tensor, int] = 0,
+                   kv_len: Union[torch.Tensor, int, None] = None) -> bool:
     """The reference's test for the flash kernel (``common.attention``
     under ``ATTN_IMPL="pallas"``): plain causal self-attention over a
-    sequence that is a multiple of 128, head dim a multiple of 8.  The
-    port's attention has no softcap, window, KV-length or query-offset
-    arguments (no ported model passes them), so those parts of the test
-    hold."""
+    sequence that is a multiple of 128, head dim a multiple of 8, no
+    KV-length limit and a query offset of 0 as a Python int.  So a decode
+    step (``kv_len`` set, a device ``q_offset``) never takes the kernel.
+    The port's attention has no softcap or window argument (no ported
+    model passes them), so those parts of the test hold."""
     Sq, dh = q.shape[1], q.shape[3]
-    return causal and Sq == k.shape[1] and Sq % 128 == 0 and dh % 8 == 0
+    return (causal and kv_len is None and isinstance(q_offset, int) and q_offset == 0
+            and Sq == k.shape[1] and Sq % 128 == 0 and dh % 8 == 0)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, chunk_q: int = 0) -> torch.Tensor:
+              causal: bool = True, q_offset: Union[torch.Tensor, int] = 0,
+              kv_len: Union[torch.Tensor, int, None] = None,
+              chunk_q: int = 0) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, dh), k and v (B, Sk, Hkv, dh).
 
-    An eligible call (:func:`flash_eligible`) goes to the flash kernel
-    (``ops.flash_attention``).  Otherwise the plain path of the reference:
-    float32 scores, masked to -1e30, softmax in float32, the output cast to
-    q's type; ``chunk_q`` runs the query rows in chunks of that size."""
-    if flash_eligible(q, k, causal):
+    The query rows sit at positions ``q_offset + arange(Sq)`` (for the
+    causal mask); ``kv_len`` keeps the keys at positions below it (the
+    valid prefix of a decode cache).  Each may be a Python int or a 0-d
+    integer tensor on q's device, which is read on the device only (no
+    host sync).  An eligible call (:func:`flash_eligible`) goes to the
+    flash kernel (``ops.flash_attention``).  Otherwise the plain path of
+    the reference: float32 scores, masked to -1e30, softmax in float32, the
+    output cast to q's type; ``chunk_q`` runs the query rows in chunks of
+    that size."""
+    if flash_eligible(q, k, causal, q_offset, kv_len):
         return ops.flash_attention(q, k, v, causal=True)
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -115,11 +126,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = torch.ones((q_blk.shape[1], Sk), dtype=torch.bool, device=q.device)
         if causal:
             mask &= k_pos[None, :] <= q_pos[:, None]
+        if kv_len is not None:
+            mask &= k_pos[None, :] < kv_len
         s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bgrqk,bkgd->bqgrd", p, vf).to(q.dtype)
 
-    q_positions = torch.arange(Sq, device=q.device)
+    q_positions = q_offset + torch.arange(Sq, device=q.device)
     if chunk_q and Sq % chunk_q == 0 and Sq > chunk_q:
         out = torch.cat([block(qg[:, i:i + chunk_q], q_positions[i:i + chunk_q])
                          for i in range(0, Sq, chunk_q)], dim=1)

@@ -3,8 +3,11 @@
 ``params_from_numpy(cfg, tree)`` takes the reference's parameter tree
 (nested dicts of arrays from ``repro.models.registry.init``, as numpy)
 and returns the port's parameters with the same names, shapes and
-dtypes, so the tests run both packages on the same weights.  Nothing
-here imports the JAX package: the caller converts its arrays to numpy.
+dtypes, so the tests run both packages on the same weights.
+``cache_from_numpy(cfg, cache)`` does the same for a decode cache (the
+dict of arrays of ``repro.models.registry.init_decode_cache`` and
+``decode_step``).  Nothing here imports the JAX package: the caller
+converts its arrays to numpy.
 """
 from __future__ import annotations
 
@@ -49,3 +52,22 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cuda") -> 
     parameters on ``device``, cast to ``cfg.param_dtype``."""
     specs = module_for(cfg).param_specs(cfg)
     return _convert(specs, tree, cm.dtype_of(cfg.param_dtype), resolve_device(device))
+
+
+def cache_from_numpy(cfg: ModelConfig, cache: Dict[str, Any],
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's decode cache (``k``, ``v``, ``xk``, ``xv`` as numpy)
+    as the port's on ``device``, in ``cfg.param_dtype``; the batch and
+    length come from ``cache["k"]``."""
+    dev = resolve_device(device)
+    B, max_len = np.shape(cache["k"])[1:3]
+    want = module_for(cfg).init_decode_cache(cfg, B, max_len, torch.device("meta"))
+    if set(cache) != set(want):
+        raise ValueError(f"cache entries {sorted(cache)}, expected {sorted(want)}")
+    out = {}
+    for name, w in want.items():
+        t = _tensor(cache[name])
+        if t.shape != w.shape:
+            raise ValueError(f"cache[{name!r}]: shape {tuple(t.shape)}, expected {tuple(w.shape)}")
+        out[name] = t.to(device=dev, dtype=w.dtype)
+    return out

@@ -1,14 +1,19 @@
 """Uniform model API over families (the port of
-``repro.models.registry``): ``init`` and ``prefill`` are the entry
-points.  Only the encoder-decoder family (whisper) is ported; any other
-family raises NotImplementedError naming it.
+``repro.models.registry``): ``init`` and ``prefill`` (the full
+sequence), ``init_decode_cache``, ``cache_axes`` and ``decode_step`` (one
+token a step against a KV cache) are the entry points.  Only the
+encoder-decoder family (whisper) is ported; any other family raises
+NotImplementedError naming it.
 
 ``batch`` holds ``tokens`` (B, S) and ``audio_embeds`` (B, encoder_len,
-d_model), as ``launch.specs.make_batch`` makes them.
+d_model), as ``launch.specs.make_batch`` makes them.  A decode cache is
+written in place by ``decode_step``; whisper's cross-attention entries
+(``xk``, ``xv``) are the caller's to fill from
+``whisper.precompute_cross_kv``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -37,10 +42,38 @@ def prefill(cfg: ModelConfig, params: cm.Params, batch: Dict[str, torch.Tensor])
     """Full-sequence forward returning logits (B, S, V), on the device of
     the parameters."""
     mod = module_for(cfg)
-    dev = params["embed"].device
-    for name in ("tokens", "audio_embeds"):
-        if batch[name].device != dev:
-            raise ValueError(f"batch[{name!r}] is on {batch[name].device}, "
-                             f"the parameters on {dev}")
+    _check_device(params["embed"].device,
+                  **{f"batch[{n!r}]": batch[n] for n in ("tokens", "audio_embeds")})
     logits, _ = mod.forward(cfg, params, batch["tokens"], batch["audio_embeds"])
     return logits
+
+
+def _check_device(dev: torch.device, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the parameters on {dev}")
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """A zero decode cache for ``batch`` sequences of up to ``max_len``
+    tokens on ``device`` (the card by default; raises without one)."""
+    return module_for(cfg).init_decode_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def cache_axes(cfg: ModelConfig, shape_name: str = "") -> Dict[str, Tuple]:
+    return module_for(cfg).cache_axes(cfg, shape_name)
+
+
+def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, pos: Union[torch.Tensor, int]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token a sequence at position ``pos`` (a Python int or a 0-d
+    integer tensor): the logits (B, V) float32 and the cache, updated in
+    place and returned.  ``token``, the cache and a tensor ``pos`` must be
+    on the parameters' device."""
+    dev = params["embed"].device
+    _check_device(dev, token=token, **{f"cache[{n!r}]": t for n, t in cache.items()})
+    if isinstance(pos, torch.Tensor):
+        _check_device(dev, pos=pos)
+    return module_for(cfg).decode_step(cfg, params, cache, token, pos)

@@ -1,5 +1,6 @@
 """Whisper-large-v3-style encoder-decoder (arXiv:2212.04356), the port of
-``repro.models.whisper``'s full-sequence forward.
+``repro.models.whisper``: the full-sequence forward and the KV-cache
+decode step.
 
 The mel-spectrogram and conv feature extractor is a stub, as in the
 reference: the encoder takes precomputed audio frame embeddings
@@ -11,12 +12,18 @@ flash kernel at every layer when the decoder length is a multiple of
 128; the encoder's and the cross-attention stay on the plain path, as in
 the reference.
 
-Not ported: ``decode_step``, ``init_decode_cache``,
-``precompute_cross_kv`` and ``lm_loss``.
+Decode (``init_decode_cache``, ``precompute_cross_kv``, ``cache_axes``,
+``decode_step``) runs one token a step against a cache of every layer's
+self-attention keys and values and the encoder's cross-attention keys
+and values, which the caller fills from ``precompute_cross_kv``.  Its
+attention passes ``kv_len``, so it never takes the flash kernel, as in
+the reference.  ``decode_step`` writes the cache in place.
+
+Not ported: ``lm_loss``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -137,3 +144,73 @@ def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(cm.logits_dtype(cfg))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zeros in ``param_dtype``: ``k``, ``v`` (L, B, max_len, Hkv, dh) for
+    the decoder's self-attention and ``xk``, ``xv`` (L, B, encoder_len,
+    Hkv, dh) for its cross-attention."""
+    dt = cm.dtype_of(cfg.param_dtype)
+    Ld, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.dh
+    self_kv = (Ld, batch, max_len, Hkv, dh)
+    cross_kv = (Ld, batch, cfg.encoder_len, Hkv, dh)
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, shape in (("k", self_kv), ("v", self_kv),
+                                ("xk", cross_kv), ("xv", cross_kv))}
+
+
+def precompute_cross_kv(cfg: ModelConfig, params: cm.Params,
+                        enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of every decoder layer over the
+    encoder states ``enc`` (B, S, D): two (L, B, S, Hkv, dh) tensors, each
+    layer's the product the forward's cross-attention computes."""
+    return tuple(torch.stack([cm.project(enc, w) for w in params["decoder"][name]])
+                 for name in ("xwk", "xwv"))
+
+
+def cache_axes(cfg: ModelConfig, shape_name: str = "") -> Dict[str, Tuple]:
+    """Logical axes of each cache entry, the reference's tuples."""
+    kv = ("layers", "batch", None, "kv", None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv}
+
+
+def _position(pos: Union[torch.Tensor, int], device: torch.device) -> torch.Tensor:
+    """``pos`` as a (1,) int64 index on ``device``: a fill for a Python int,
+    a reshape of a device tensor (no host-to-device copy, no sync)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(torch.int64)
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
+def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor, pos: Union[torch.Tensor, int]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder token a sequence: ``token`` (B, 1) at position ``pos``
+    (a Python int or a 0-d integer tensor on the parameters' device) ->
+    the logits (B, V) in float32 and the cache.  Each layer's new key and
+    value row is written into ``cache["k"]``, ``cache["v"]`` at ``pos`` in
+    place (``index_copy_``), and the same dict is returned; attention
+    reads positions ``<= pos``.  A device ``pos`` is never read on the
+    host, so a step makes no host sync."""
+    at = _position(pos, token.device)
+    kv_len = pos + 1
+    x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = x + params["dec_pos"].index_select(0, at)[None].to(x.dtype)
+    for i, lp in enumerate(_layers(params["decoder"])):
+        k_l, v_l = cache["k"][i], cache["v"][i]
+        h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
+        k_l.index_copy_(1, at, k.to(k_l.dtype))
+        v_l.index_copy_(1, at, v.to(v_l.dtype))
+        o = cm.attention(q, k_l, v_l, causal=False, q_offset=pos, kv_len=kv_len)
+        x = x + cm.project_out(o, lp["wo"])
+        h = cm.rms_norm(x, lp["lnx"], cfg.norm_eps)
+        q = cm.project(h, lp["xwq"])
+        o = cm.attention(q, cache["xk"][i], cache["xv"][i], causal=False)
+        x = x + cm.project_out(o, lp["xwo"])
+        h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"].T).to(torch.float32)
+    return logits[:, 0], cache

@@ -139,6 +139,25 @@ def test_shard_matches_the_device_engine(world, name):
             np.testing.assert_array_equal(world["ranks"][1][name]["held"][coh][k], v[n:])
 
 
+@pytest.mark.parametrize("name", list(CELLS))
+def test_no_full_width_client_tensor_stays_on_a_rank(world, name):
+    """After the run, every tensor a rank's engine holds that has a client
+    axis has the shard's K/2 clients on it: the clients' parameters and
+    their private, validation and test arrays.  No tensor keeps all K
+    (the replicated ``last_sync`` is host numpy)."""
+    K = world["cases"][name]["cfg"]["n_clients"]
+    client = ("client_params", "xs", "ys", "mask", "xts", "yts", "tmask",
+              "train_mask_c", "val_mask_c", "xs_c", "ys_c", "xts_c", "yts_c",
+              "tmask_c", "_lr_k", "_steps_k")
+    for rank in world["ranks"]:
+        census = rank[name]["census"]
+        assert not [(p, s) for p, s in census if s and s[0] == K], name
+        held = [(p, s) for p, s in census if p.split(".")[1].split("[")[0] in client]
+        assert held and all(s[0] < K for _, s in held), held
+        assert sum(s[0] for p, s in held if p.startswith("eng.client_params[")
+                   and p.endswith(".b0")) == K // 2
+
+
 @pytest.mark.parametrize("name", list(REF_CELLS))
 def test_shard_matches_the_reference_scan_engine(world, name):
     c = world["cases"][name]

@@ -111,10 +111,33 @@ def outcome(eng, hist, clients=None) -> Dict[str, Any]:
     return out
 
 
+def tensor_census(obj, path: str = "eng", out=None, seen=None) -> List[tuple]:
+    """(path, shape) of every tensor reachable from ``obj`` through the
+    attributes of the port's objects, dicts, lists and tuples."""
+    out = [] if out is None else out
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return out
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        out.append((path, tuple(obj.shape)))
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            tensor_census(v, f"{path}.{k}", out, seen)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            tensor_census(v, f"{path}[{i}]", out, seen)
+    elif hasattr(obj, "__dict__") and type(obj).__module__.startswith("repro_torch"):
+        for k, v in vars(obj).items():
+            tensor_census(v, f"{path}.{k}", out, seen)
+    return out
+
+
 def shard_outcome(c: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     eng = build(c, "shard", mesh)
     hist = run(eng, c)
-    return outcome(eng, hist, eng.state_dict()["client_params"])
+    census = tensor_census(eng)  # before state_dict's gather
+    return dict(outcome(eng, hist, eng.state_dict()["client_params"]), census=census)
 
 
 def run_cases(cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
