@@ -78,6 +78,15 @@ kernel seams at full width (``repro_torch.core`` with ``impl="kernel"``):
 SCARLET's adaptive beta computed on the card, ``enhanced_era`` over
 whisper's vocabulary as soft-labels, and ``soft_cross_entropy`` over the
 prefill's logits, all under ``torch.cuda.set_sync_debug_mode("error")``.
+Then the Jamba hybrid and Mamba2 (phase 4m): jamba-v0.1-52b at its
+published widths, one block of 8 sublayers deep (random weights from a
+seed, bfloat16), prefills 2 x 4096 tokens with its attention through the
+flash kernel at head dim 128 (GQA 32:8), held there against the kernel's
+plain version and timed beside SDPA, and counts the entries its MoE
+sublayers drop; then decodes 512 teacher-forced positions on q/k-tempered
+weights against the prefill, with no host sync; then mamba2-1.3b at full
+size prefills 2 x 2048 tokens and decodes 256 positions, held against
+the prefill in float32.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
@@ -88,8 +97,8 @@ that computes on the host and the replicated carry keyed on a
 shard-local slice), the fixture kernels against their plain versions, the
 misaligned plan faulting in a child process, and the contract pass's
 verdicts confirmed by CUDA graph capture in another.
-Last come the reduced whisper configuration's prefill and decode on the
-card and on the CPU.
+Last come the reduced whisper, jamba and mamba2 configurations' prefill
+and decode on the card and on the CPU.
 The device engine runs its rounds under
 ``torch.cuda.set_sync_debug_mode("error")`` (it sets and restores the
 mode itself), so a host sync inside a round fails the run.  A small
@@ -434,6 +443,64 @@ DECODE_ARGMAX_SHARE = 0.95
 # The reduced float32 whisper's decode, card vs CPU: DECODE_SMALL_S
 # positions teacher-forced on both, each step's logits to WHISPER_SMALL_ATOL.
 DECODE_SMALL_S = 32
+# Phase 4m: the Jamba hybrid and Mamba2 at full width.  (a)
+# jamba-v0.1-52b at its published widths, one block of the 32 layers
+# (JAMBA_LAYERS = attn_layer_period: attention, 7 Mamba2 mixers, 4 dense
+# and 4 MoE FFNs of 16 experts, top-2; 12.73e9 parameters, 26.5 GB in
+# bfloat16; two blocks and their float32 draws would not fit the card's 80
+# GB), random weights from a CUDA generator, prefill B = 2, S = 4096: one
+# warm-up, then the median of JAMBA_TIMED by the host clock; the flash
+# kernel at exactly the prefill's attention, (2, 4096, 32, 8, 128)
+# bfloat16, held against its plain version on the inputs the path gives it
+# (one bfloat16 step, as in phase 3) and timed beside SDPA.  (b) Decode on
+# (a)'s weights with wq and wk scaled by JAMBA_QK_SCALE (see
+# WHISPER_SMALL_ATOL: as drawn, the fan-in rule gives scores of standard
+# deviation in the hundreds): JAMBA_DECODE_S tokens teacher-forced through
+# registry.decode_step at a device position under sync debug "error",
+# each step's logits held against the prefill's at its position.  The
+# prefill drops the entries past an expert's capacity; a decode step of B
+# tokens never does, so where the published capacity_factor drops any,
+# the comparison prefill runs at capacity_factor = n_experts / top_k
+# (capacity for every token).  Both paths keep the residual stream in
+# bfloat16; the prefill's conv runs in bfloat16, the decode's in float32,
+# and the SSD chunk form sums in another order than the recurrence, so an
+# element may round to its neighbouring bfloat16 value at each of the 16
+# residual updates.  A token whose second and third experts lie closer
+# than that rounding may route to another expert in one path: its logits
+# then move by up to a few per cent of the largest.  So each position's
+# logits are held to JAMBA_DECODE_RTOL of the largest prefill logit at
+# JAMBA_DECODE_SHARE of the positions and to JAMBA_FLIP_RTOL at every
+# position; the greedy token must agree at DECODE_ARGMAX_SHARE.  (c)
+# mamba2-1.3b at full size (48 layers), prefill B = 2, S = MAMBA_S and
+# MAMBA_DECODE_S decode steps timed in bfloat16.  In bfloat16 its 48
+# random layers amplify a one-ulp rounding flip of the residual stream
+# (0.4 %) into O(10 %) of the logits: the prefill at ssm_chunk 256 against
+# MAMBA_SMALL_CHUNK, the same sums in another order, differed by 0.153 of
+# logits up to 1.19 on the card, and tools/ssd_depth_sweep.py on the CPU
+# grows that gap from 0.5 % at 2 layers to 22 % at 48.  So the
+# bfloat16 errors are printed, and both checks are held on the same
+# weights in float32 (TF32 off), where the chunk sizes agreed to 8.5e-5 of
+# the largest logit at 48 layers on the CPU: chunk 256 against
+# MAMBA_SMALL_CHUNK (8 against 32 chunks: the recurrence between chunks)
+# and every decode position against the prefill to MAMBA_F32_RTOL = 2^-10
+# of the largest logit, ten times that.  No kernel runs in (c).  (d) The
+# reduced float32 configurations on
+# the card and on the CPU (TF32 off): REDUCED_S-position prefills and
+# REDUCED_DECODE steps each, logits to WHISPER_SMALL_ATOL.
+JAMBA_LAYERS = 8
+JAMBA_B, JAMBA_S = 2, 4096
+JAMBA_SEED = 0
+JAMBA_TIMED = 3
+JAMBA_QK_SCALE = 1 / 8
+JAMBA_DECODE_S = 512
+JAMBA_DECODE_RTOL = 2.0 ** -5
+JAMBA_DECODE_SHARE = 0.98
+JAMBA_FLIP_RTOL = 2.0 ** -2
+MAMBA_B, MAMBA_S = 2, 2048
+MAMBA_DECODE_S = 256
+MAMBA_SMALL_CHUNK = 64
+MAMBA_F32_RTOL = 2.0 ** -10
+REDUCED_S, REDUCED_DECODE = 128, 16
 
 # Per-row Enhanced ERA, kernel vs plain version: float32 to ERA_ATOL (the
 # row sums run in other orders); bfloat16 bit for bit the float32
@@ -3346,6 +3413,351 @@ def profiled_step_busy(step, device, step_ms: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: the Jamba hybrid and Mamba2 at full width
+# ---------------------------------------------------------------------------
+
+def jamba_cfg():
+    """jamba-v0.1-52b at its published widths, one block deep."""
+    import dataclasses
+
+    from repro_torch.configs.jamba_v01_52b import CONFIG
+
+    return dataclasses.replace(CONFIG, n_layers=JAMBA_LAYERS)
+
+
+def _moe_drops(cfg, params, tokens) -> list:
+    """The entries each MoE sublayer of a prefill drops, in order."""
+    from repro_torch.models import jamba
+
+    routing = []
+    jamba.forward(cfg, params, tokens, routing=routing)
+    return [int(r["dropped"]) for r in routing]
+
+
+def _timed_prefill(cfg, params, batch, device, want_launches: dict, label: str):
+    """One warm-up, then JAMBA_TIMED prefills by the host clock, the first
+    counted (the kernels' launches of one prefill, checked); the logits,
+    the launches, the median ms and the device's peak bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    registry.prefill(cfg, params, batch)  # warm-up
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = registry.prefill(cfg, params, batch)
+    _sync(device)
+    times = [time.perf_counter() - t0]
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    log(f"{label}: launches of one prefill {launches}")
+    check_launches(launches, want_launches)
+    B, S = batch["tokens"].shape
+    want_shape = (B, S, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape or logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"expected {want_shape} float32, finite")
+    for _ in range(JAMBA_TIMED - 1):
+        t0 = time.perf_counter()
+        registry.prefill(cfg, params, batch)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    busy = profiled_step_busy(lambda: registry.prefill(cfg, params, batch), device, ms)
+    log(f"{label}: prefill B={B} S={S}: {ms:.3f} ms median of "
+        f"{[round(t * 1e3, 3) for t in times]} ms (host clock, synchronized, after one "
+        f"warm-up), {B * S / (ms / 1e3):.1f} tokens/s; logits {want_shape} float32 finite, "
+        f"max |logit| {float(logits.abs().max())!r}; device peak {peak} B above the "
+        f"{base} B held before it; one profiled prefill: device busy {busy['busy_ms']!r} ms "
+        f"of the unprofiled {ms!r} = {busy['share']!r}, {busy['kernels']} kernels")
+    log(f"{label}: the profiled prefill's kernels by class (count, device ms): "
+        f"{busy['classes']}")
+    log(f"{label}: its {len(busy['top'])} costliest kernel names (count, device ms, name): "
+        f"{busy['top']}")
+    return logits, launches, ms, peak
+
+
+def hold_decode(label: str, device, card: str, cfg, params, tokens, want,
+                tol=(JAMBA_DECODE_RTOL, JAMBA_DECODE_SHARE, JAMBA_FLIP_RTOL)) -> dict:
+    """Teacher-force ``tokens`` (B, S) through ``registry.decode_step``
+    from zero caches at a device position under sync debug "error" (a host
+    sync raises), no kernel launched; each position's logits against
+    ``want`` (B, S, V), the prefill's.  ``tol`` = (rtol, share, flip): a
+    ``share`` of the positions within ``rtol`` of the largest prefill
+    logit, every one within ``flip`` of it, the greedy token equal at
+    DECODE_ARGMAX_SHARE; ``tol=None`` prints the errors and holds nothing
+    but the launches and the absence of a host sync.  Then the
+    device-busy share of one profiled step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    B, S = tokens.shape
+    cache = registry.init_decode_cache(cfg, B, S, device=device)
+    cache_bytes = {n: t.numel() * t.element_size() for n, t in cache.items()}
+    got = torch.empty_like(want)
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with sync_error():
+        start.record()
+        cache, pos, _ = _decode_steps(cfg, params, cache, tokens, pos, got)
+        end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / S
+    event_ms = start.elapsed_time(end) / S
+    launches = ops.launches()
+    check_launches(launches, {})
+    rtol, share_min, flip = tol or (JAMBA_DECODE_RTOL, 0.0, math.inf)
+    scale = float(want.abs().max())
+    per_pos = (got - want).abs().amax(dim=(0, 2))
+    err = float(per_pos.max())
+    within = float((per_pos <= rtol * scale).float().mean())
+    share = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    busy = profiled_step_busy(
+        lambda: registry.decode_step(cfg, params, cache, tokens[:, -1:], pos - 1), device,
+        event_ms)
+    ok = (bool(torch.isfinite(got).all()) and err <= flip * scale and within >= share_min
+          and (tol is None or share >= DECODE_ARGMAX_SHARE))
+    held = ("not held (see MAMBA_F32_RTOL)" if tol is None else
+            f"at least {share_min} of them, every one within {flip} x max, greedy at least "
+            f"{DECODE_ARGMAX_SHARE}")
+    log(f"{label}: {S} positions x B={B} teacher-forced through decode_step ({cfg.param_dtype}, "
+        f"a device position, sync debug 'error', no host sync): logits max_abs_err {err!r} "
+        f"against the prefill's, max |logit| {scale!r}; {within!r} of the positions within "
+        f"{rtol!r} x max = {rtol * scale!r} ({held}); worst position "
+        f"{int(per_pos.argmax())}, errors at 0/{S // 2}/{S - 1} "
+        f"{[float(per_pos[i]) for i in (0, S // 2, S - 1)]}; greedy token equal at {share!r}; "
+        f"kernel launches {launches}; {host_ms:.3f} ms/token (host clock), {event_ms:.3f} "
+        f"ms/token (CUDA events), {B * 1e3 / host_ms:.1f} tokens/s over the batch; cache "
+        f"{sum(cache_bytes.values())} B {cache_bytes}; one profiled step: device busy "
+        f"{busy['busy_ms']!r} ms of the unprofiled {event_ms!r} ms = {busy['share']!r}, "
+        f"{busy['kernels']} kernels {'ok' if ok else 'FAIL'} ({card})")
+    log(f"{label}: the profiled step's kernels by class (count, device ms): {busy['classes']}")
+    log(f"{label}: its {len(busy['top'])} costliest kernel names (count, device ms, name): "
+        f"{busy['top']}")
+    if not ok:
+        raise AssertionError(f"{label}: decode differs from the prefill: err {err}, "
+                             f"share within {within}, argmax share {share}")
+    return dict(err=err, scale=scale, within=within, share=share, host_ms=host_ms,
+                event_ms=event_ms, busy=busy, cache_bytes=cache_bytes)
+
+
+def run_jamba(device, card: str) -> dict:
+    """Phase 4m (a): the full-width block's prefill, its MoE drop counts,
+    and the flash kernel at the prefill's attention against its plain
+    version, timed beside SDPA."""
+    from repro_torch.kernels import attn_kernel
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import jamba, registry
+
+    cfg = jamba_cfg()
+    nb = cfg.n_layers // cfg.attn_layer_period
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=device).manual_seed(JAMBA_SEED),
+                           device=device)
+    batch = make_batch(cfg, JAMBA_B, JAMBA_S, seed=JAMBA_SEED, device=device)
+    _sync(device)
+    log(f"phase 4m (a): {cfg.name}, {cfg.n_layers} of 32 layers ({nb} block), d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_experts} experts of {cfg.expert_d_ff} top-{cfg.top_k}, d_inner "
+        f"{cfg.d_inner}, {cfg.n_ssm_heads} SSM heads of {cfg.ssm_head_dim}, N "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+        f"{cm.n_params(params)} parameters, {torch.cuda.memory_allocated(device)} B on the "
+        f"card, set up in {time.perf_counter() - t0:.3f} s")
+    logits, launches, ms, peak = _timed_prefill(
+        cfg, params, batch, device, {"flash_attention": nb}, "phase 4m (a) jamba")
+    del logits
+    drops = _moe_drops(cfg, params, batch["tokens"])
+    C = cm.moe_capacity(JAMBA_B * JAMBA_S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    log(f"phase 4m (a): MoE entries dropped by each of the {len(drops)} MoE sublayers at "
+        f"capacity_factor {cfg.capacity_factor} (C = {C} of {JAMBA_B * JAMBA_S * cfg.top_k} "
+        f"entries over {cfg.n_experts} experts): {drops}")
+
+    # the flash kernel on the prefill's own attention inputs
+    x = params["embed"][batch["tokens"].long()].to(cm.dtype_of(cfg.compute_dtype))
+    q, k, v = jamba._qkv(cfg, cm.layer(params["blocks"], 0), x,
+                         torch.arange(JAMBA_S, device=device))
+    del x
+    got = attn_kernel.flash_attention(q, k, v, causal=True)
+    want = attn_kernel.flash_attention_plain(q, k, v, True, 0)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = (bool((diff <= BF16_STEP * want.float().abs().clamp_min(1.0)).all())
+          and bool(torch.isfinite(got).all()) and got.dtype == torch.bfloat16)
+    del got, want, diff
+    B, S, H, d = q.shape
+    Hkv = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # bytes: q, k, v read once and o written once, bfloat16; operations:
+    # q.k and p.v, 2 d each, over the S(S+1)/2 causal pairs of each row
+    # and head
+    pairs = B * H * S * (S + 1) // 2
+    b, why = bound_ms(2.0 * (2 * B * S * H * d + 2 * B * S * Hkv * d), 4.0 * d * pairs,
+                      BF16_OPS_PER_S)
+    flash = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/attn_kernel.py:80", launches=launches["flash_attention"],
+        max_abs_err=err, ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: attn_kernel.flash_attention_plain(q, k, v, True, 0),
+                         batches=5, per_batch=2),
+        bound_ms=b, bound_by=why,
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        shape=f"jamba-v0.1-52b prefill {(B, S, H, Hkv, d)} bfloat16")
+    log(f"phase 4m (a): flash_attention at the prefill's attention {(B, S, H, Hkv, d)} "
+        f"bfloat16 causal {attn_kernel.launch_plan(q, k, v, q).kernel}: max_abs_err={err!r} "
+        f"(one bf16 step, 2^-7 * max(|want|, 1)) {'ok' if ok else 'FAIL'}; ms={flash['ms']!r} "
+        f"plain_ms={flash['plain_ms']!r} sdpa_ms={flash['library_ms']!r} "
+        f"bound_ms={b!r} by {why} ({card})")
+    if not ok:
+        raise AssertionError(f"flash_attention at jamba's shape: max_abs_err {err}")
+    return dict(params=params, launches=launches, ms=ms, peak=peak, drops=drops, flash=flash)
+
+
+def run_jamba_decode(device, card: str, ja: dict) -> dict:
+    """Phase 4m (b): decode on (a)'s weights, q/k tempered, against the
+    prefill (at capacity for every token where the published capacity
+    drops any)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import registry
+
+    cfg = jamba_cfg()
+    blocks = ja["params"]["blocks"]
+    params = dict(ja["params"], blocks=dict(blocks, wq=blocks["wq"] * JAMBA_QK_SCALE,
+                                            wk=blocks["wk"] * JAMBA_QK_SCALE))
+    tokens = make_batch(cfg, JAMBA_B, JAMBA_DECODE_S, seed=JAMBA_SEED + 1,
+                        device=device)["tokens"]
+    drops = _moe_drops(cfg, params, tokens)
+    ref = cfg if not any(drops) else dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    ops.reset_launches()
+    want = registry.prefill(ref, params, {"tokens": tokens})
+    check_launches(ops.launches(), {"flash_attention": cfg.n_layers // cfg.attn_layer_period})
+    log(f"phase 4m (b): the S={JAMBA_DECODE_S} prefill (flash) on q/k scaled by "
+        f"{JAMBA_QK_SCALE}: MoE entries dropped at capacity_factor {cfg.capacity_factor}: "
+        f"{drops}; decode held against the prefill at capacity_factor {ref.capacity_factor}")
+    out = hold_decode("phase 4m (b) jamba decode", device, card, cfg, params, tokens, want)
+    return dict(out, drops=drops, capacity_factor=ref.capacity_factor)
+
+
+def run_mamba2(device, card: str) -> dict:
+    """Phase 4m (c): mamba2-1.3b at full size in bfloat16: prefill and
+    decode timed, decode's errors printed; then the same weights in float32
+    (TF32 off): the prefill at two chunk sizes and decode held against it
+    to MAMBA_F32_RTOL.  No kernel."""
+    import dataclasses
+
+    from repro_torch.configs.mamba2_1_3b import CONFIG
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+
+    cfg = CONFIG
+    torch.cuda.empty_cache()
+    params = registry.init(cfg, torch.Generator(device=device).manual_seed(JAMBA_SEED),
+                           device=device)
+    batch = make_batch(cfg, MAMBA_B, MAMBA_S, seed=JAMBA_SEED, device=device)
+    log(f"phase 4m (c): {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.n_ssm_heads} SSM heads of {cfg.ssm_head_dim}, N "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+        f"{cm.n_params(params)} parameters")
+    logits, launches, ms, peak = _timed_prefill(cfg, params, batch, device, {},
+                                                "phase 4m (c) mamba2")
+    n = MAMBA_DECODE_S
+    tokens = batch["tokens"][:, :n]
+    small = registry.prefill(dataclasses.replace(cfg, ssm_chunk=MAMBA_SMALL_CHUNK), params,
+                             batch)
+    log(f"phase 4m (c): bfloat16 prefill at chunk {MAMBA_SMALL_CHUNK} against chunk "
+        f"{cfg.ssm_chunk}: logits max_abs_err {float((small - logits).abs().max())!r}, max "
+        f"|logit| {float(logits.abs().max())!r} (not held: see MAMBA_F32_RTOL)")
+    del small
+    out = hold_decode("phase 4m (c) mamba2 decode", device, card, cfg, params, tokens,
+                      logits[:, :n].contiguous(), tol=None)
+    del logits
+
+    # the same weights in float32, full-precision products
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        params = cm.tree_map(lambda t: t.float(), params)
+        want = registry.prefill(f32, params, batch)
+        scale = float(want.abs().max())
+        err = float((registry.prefill(dataclasses.replace(f32, ssm_chunk=MAMBA_SMALL_CHUNK),
+                                      params, batch) - want).abs().max())
+        log(f"phase 4m (c): float32 prefill at chunk {MAMBA_SMALL_CHUNK} against chunk "
+            f"{cfg.ssm_chunk}: logits max_abs_err {err!r} (MAMBA_F32_RTOL x max = "
+            f"{MAMBA_F32_RTOL * scale!r})")
+        if err > MAMBA_F32_RTOL * scale:
+            raise AssertionError(f"mamba2 float32 prefill differs across chunk sizes: {err}")
+        f32_out = hold_decode("phase 4m (c) mamba2 float32 decode", device, card, f32, params,
+                              tokens, want[:, :n].contiguous(),
+                              tol=(MAMBA_F32_RTOL, 1.0, MAMBA_F32_RTOL))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return dict(out, launches=launches, ms=ms, peak=peak, f32=f32_out)
+
+
+def check_reduced_hybrids_cuda_vs_cpu() -> dict:
+    """Phase 5c: the reduced float32 jamba (q/k / 8) and mamba2 on the card
+    and on the CPU from the same weights, TF32 off: REDUCED_S-position
+    prefills (jamba's attention through the flash kernel on the card, its
+    plain version on the CPU) and REDUCED_DECODE decode steps, logits to
+    WHISPER_SMALL_ATOL."""
+    from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA
+    from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for full, flash in ((JAMBA, 1), (MAMBA, 0)):
+        cfg = full.reduced()
+        p = registry.init(cfg, torch.Generator().manual_seed(JAMBA_SEED), device="cpu")
+        if "blocks" in p:
+            for n in ("wq", "wk"):
+                p["blocks"][n] = p["blocks"][n] * JAMBA_QK_SCALE
+        tokens = make_batch(cfg, 2, REDUCED_S, seed=JAMBA_SEED, device="cpu")["tokens"]
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            d = torch.device(dev)
+            pd = cm.tree_map(lambda t: t.to(d), p)
+            ops.reset_launches()
+            prefill = registry.prefill(cfg, pd, {"tokens": tokens.to(d)})
+            if dev == "cuda":
+                _sync(d)
+                check_launches(ops.launches(), {"flash_attention": flash})
+            cache = registry.init_decode_cache(cfg, 2, REDUCED_DECODE, device=d)
+            dec = torch.empty(2, REDUCED_DECODE, cfg.padded_vocab, device=d)
+            _decode_steps(cfg, pd, cache, tokens[:, :REDUCED_DECODE].to(d),
+                          torch.zeros((), dtype=torch.int64, device=d), dec)
+            outs[dev] = (prefill.cpu(), dec.cpu())
+        e_pre = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+        e_dec = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+        log(f"{cfg.name} (float32) cuda vs cpu: prefill S={REDUCED_S} logits "
+            f"max_abs_err={e_pre!r}, {REDUCED_DECODE} decode steps max_abs_err={e_dec!r} "
+            f"(atol {WHISPER_SMALL_ATOL}), max |logit| {float(outs['cpu'][0].abs().max())!r}, "
+            f"flash launches {flash}")
+        if not (bool(torch.isfinite(outs["cuda"][0]).all()) and e_pre <= WHISPER_SMALL_ATOL
+                and e_dec <= WHISPER_SMALL_ATOL):
+            raise AssertionError(f"{cfg.name} cuda vs cpu: {e_pre}, {e_dec}")
+        errs[cfg.name] = (e_pre, e_dec)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: the static analyzer on the card
 # ---------------------------------------------------------------------------
 
@@ -3769,7 +4181,8 @@ def kernel_report(launches: dict, errs: dict) -> list:
         plain_ms=cuda_ms(lambda: attn_kernel.flash_attention_plain(q, k, v, True, 0)),
         bound_ms=b, bound_by=why,
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))))
+            qt, kt, vt, is_causal=True)),
+        shape=f"whisper-large-v3 decoder {(B, S, H, H, d)} bfloat16"))
     # the same shape at other head dims, beside SDPA at the same shape and
     # dtype; the float32 bound counts the kernel's three tf32 passes
     for dt, dims in FLASH_TIMED_DIMS.items():
@@ -3918,6 +4331,12 @@ def main() -> int:
     # 4c-decode. whisper's KV-cache decode at full width against the prefill
     run_whisper_decode(dev, card, wh)
     del wh["logits"], wh["params"]
+    # 4m. jamba-v0.1-52b (one block at full width) and mamba2-1.3b: prefill
+    # through the flash kernel at d = 128, decode against the prefill
+    ja = run_jamba(dev, card)
+    run_jamba_decode(dev, card, ja)
+    del ja["params"]
+    run_mamba2(dev, card)
     # 4e. the static analyzer on the card
     an = run_analysis(dev)
     # 5. card vs CPU on a small configuration, both engines
@@ -3928,21 +4347,26 @@ def main() -> int:
     # 5b. the reduced whisper prefill and decode, card vs CPU
     check_whisper_cuda_vs_cpu()
     check_decode_cuda_vs_cpu()
+    # 5c. the reduced jamba and mamba2, card vs CPU
+    check_reduced_hybrids_cuda_vs_cpu()
     # 6. kernel times and the kernel line: each kernel's launches from the
     # run of the path it serves (ERA and qdq: the host loop; fused_round:
     # the fused device engine; flash_attention: one whisper prefill;
     # enhanced_era and distill_loss: the library at full width; the
-    # fixture kernels: the analyzer's selftest)
+    # fixture kernels: the analyzer's selftest; flash_attention again at
+    # jamba's shape: one jamba prefill)
     launches = dict(sl["launches"], fused_round=fused["launches"]["fused_round"],
                     flash_attention=wh["launches"]["flash_attention"],
                     enhanced_era=lib["launches"]["enhanced_era"],
                     distill_loss=lib["launches"]["distill_loss"],
                     **{k: an["launches"][k] for k in FIXTURE_REPLACES})
     kernels = kernel_report(launches, dict(errs, **an["errs"]))
+    kernels.append(ja["flash"])
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "
         f"per-op {perop['per_round_ms']:.3f} ms/round; whisper-large-v3 prefill "
-        f"({WHISPER_B},{WHISPER_S}) {wh['ms']:.3f} ms")
+        f"({WHISPER_B},{WHISPER_S}) {wh['ms']:.3f} ms; jamba-v0.1-52b one-block prefill "
+        f"({JAMBA_B},{JAMBA_S}) {ja['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

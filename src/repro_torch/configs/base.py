@@ -83,6 +83,20 @@ class ModelConfig:
         rule; the port keeps it so both packages hold the same shapes)."""
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def d_inner(self) -> int:
+        """The Mamba2 mixer's inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def expert_d_ff(self) -> int:
+        """An expert's hidden width (``moe_d_ff``, else ``d_ff``)."""
+        return self.moe_d_ff or self.d_ff
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (blocks), d_model<=256, <=4 experts."""
         changes = dict(
@@ -104,7 +118,7 @@ class ModelConfig:
         if self.n_experts:
             changes["n_experts"] = min(self.n_experts, 4)
             changes["top_k"] = min(self.top_k, 2)
-            changes["moe_d_ff"] = min(self.moe_d_ff or self.d_ff, 256)
+            changes["moe_d_ff"] = min(self.expert_d_ff, 256)
             changes["n_shared_experts"] = min(self.n_shared_experts, 1)
         if self.ssm_state:
             changes["ssm_state"] = min(self.ssm_state, 64)

@@ -26,12 +26,14 @@ import pickle
 import shutil
 import tempfile
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.spawn import ProcessException
 
 __all__ = ["CLIENT_AXIS", "Mesh", "make_mesh", "make_test_mesh", "make_production_mesh",
            "mesh_axis_sizes", "rank_device", "all_reduce_sum", "run_world", "world_of_one"]
@@ -155,10 +157,37 @@ def _rank_main(rank: int, n: int, backend: str, tmp: str, threads: Optional[int]
                             rank=rank, world_size=n)
     try:
         out = fn(*args)
+    except BaseException as e:
+        # stamped before the teardown below: a failing rank's teardown is
+        # what makes its peers' collectives fail after it
+        stamp = time.monotonic()
+        with open(os.path.join(tmp, f"error{rank}.pkl"), "wb") as f:
+            pickle.dump((stamp, f"{type(e).__name__}: {e}", traceback.format_exc()), f)
+        raise
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"result{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _first_error(tmp: str, n: int, joined: ProcessException) -> ProcessException:
+    """The error of the rank that raised first (the earliest monotonic
+    stamp of the ranks' records), naming that rank and carrying its
+    message and traceback; ``joined`` (the error the join saw) when no
+    rank left a record, as for a rank that died without raising."""
+    records = []
+    for r in range(n):
+        path = os.path.join(tmp, f"error{r}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                records.append((*pickle.load(f), r))
+    if not records:
+        return joined
+    _, message, trace, rank = min(records)
+    later = sorted(r for *_, r in records if r != rank)
+    return torch.multiprocessing.ProcessRaisedException(
+        f"rank {rank} of {n} raised first ({message}); ranks that raised after it: "
+        f"{later}\n\n-- rank {rank}'s traceback:\n{trace}", rank, joined.error_pid)
 
 
 def run_world(n: int, fn: Callable, *args, backend: str = "gloo",
@@ -171,9 +200,13 @@ def run_world(n: int, fn: Callable, *args, backend: str = "gloo",
     and its results must pickle; each rank runs ``torch.set_num_threads(
     threads)`` first.  ``during()``, if given, runs in this process while
     the ranks run, and its result is returned second.  A rank that raises
-    fails the call (the others are stopped); so does a world still running
-    ``timeout`` seconds after it started (``TimeoutError``, every rank
-    stopped)."""
+    fails the call (the others are stopped) with a
+    ``ProcessRaisedException`` that names the rank that raised first by
+    the monotonic clock and carries its message and traceback, whichever
+    rank the join saw fail first (peers waiting in a collective fail after
+    it, in any order); the join's exception is its cause.  A world still
+    running ``timeout`` seconds after it started raises ``TimeoutError``,
+    every rank stopped."""
     tmp = tempfile.mkdtemp(prefix="repro_torch_world_")
     try:
         deadline = time.monotonic() + timeout
@@ -183,12 +216,15 @@ def run_world(n: int, fn: Callable, *args, backend: str = "gloo",
         try:
             side = during() if during is not None else None
         finally:
-            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
-                if time.monotonic() >= deadline:
-                    for p in ctx.processes:
-                        p.kill()
-                        p.join()
-                    raise TimeoutError(f"a world of {n} ranks ran past {timeout} s")
+            try:
+                while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+                    if time.monotonic() >= deadline:
+                        for p in ctx.processes:
+                            p.kill()
+                            p.join()
+                        raise TimeoutError(f"a world of {n} ranks ran past {timeout} s")
+            except ProcessException as joined:
+                raise _first_error(tmp, n, joined) from joined
         results = []
         for r in range(n):
             with open(os.path.join(tmp, f"result{r}.pkl"), "rb") as f:

@@ -1,5 +1,5 @@
 """Concrete input batches for the model entry points (the port's
-``repro.launch.specs.make_batch``, encoder-decoder branch).
+``repro.launch.specs.make_batch`` for the ported families).
 
 The audio frontend is a stub, as in the reference: ``audio_embeds``
 arrive as precomputed frame embeddings.  Tokens and embeddings come from
@@ -20,16 +20,16 @@ from repro_torch.kernels.runtime import resolve_device
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """``tokens`` (batch, seq) int32 and ``audio_embeds`` (batch,
-    encoder_len, d_model) in the compute dtype, on ``device``."""
+    """``tokens`` (batch, seq) int32 and, for the encoder-decoder family,
+    ``audio_embeds`` (batch, encoder_len, d_model) in the compute dtype, on
+    ``device``."""
     require_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(dev)
-    audio = rng.normal(size=(batch, cfg.encoder_len, cfg.d_model))
-    return {
-        "tokens": toks,
-        "audio_embeds": torch.from_numpy(audio).to(
-            device=dev, dtype=getattr(torch, cfg.compute_dtype)),
-    }
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(dev)}
+    if cfg.family == "encdec":
+        audio = rng.normal(size=(batch, cfg.encoder_len, cfg.d_model))
+        out["audio_embeds"] = torch.from_numpy(audio).to(
+            device=dev, dtype=getattr(torch, cfg.compute_dtype))
+    return out

@@ -1,7 +1,8 @@
 """Shared model machinery of the port (the subset of
 ``repro.models.common`` that the ported models run): parameter
 initialisation with the reference's scales, RMS norm, the logits dtype,
-and attention with the reference's routing to the flash kernel.
+RoPE, attention with the reference's routing to the flash kernel, SwiGLU
+and the sort-based token-choice MoE FFN.
 
 Parameters are nested dicts of tensors in the reference's layout (per
 layer weights stacked on a leading layer axis), so the JAX package's
@@ -13,6 +14,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -24,7 +26,8 @@ Specs = Dict[str, Any]
 def spec(shape: Tuple[int, ...], scale: Optional[float] = None,
          init: str = "normal") -> Tuple[Tuple[int, ...], Optional[float], str]:
     """One parameter: ``init`` is "normal" (times ``scale``; by default
-    ``1/sqrt(shape[-2])``, the reference's fan-in rule) or "zeros"."""
+    ``1/sqrt(shape[-2])``, the reference's fan-in rule), "zeros" or
+    "ones"."""
     return tuple(shape), scale, init
 
 
@@ -43,15 +46,22 @@ def init_params(specs: Specs, generator: torch.Generator, dtype: torch.dtype,
             out[name] = init_params(s, generator, dtype, device)
             continue
         shape, scale, init = s
-        if init == "zeros":
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        if init in ("zeros", "ones"):
+            out[name] = (torch.zeros if init == "zeros" else torch.ones)(
+                shape, dtype=dtype, device=device)
             continue
         if scale is None:
-            scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+            scale = fan_in_scale(shape)
         val = torch.randn(shape, generator=generator, device=generator.device,
                           dtype=torch.float32) * scale
         out[name] = val.to(device=device, dtype=dtype)
     return out
+
+
+def fan_in_scale(shape: Tuple[int, ...]) -> float:
+    """The reference's default scale of a normal parameter:
+    ``1/sqrt(shape[-2])`` (``shape[-1]`` for a vector)."""
+    return 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
 
 
 def tree_map(fn, params: Params) -> Params:
@@ -63,6 +73,30 @@ def tree_map(fn, params: Params) -> Params:
 
 def n_params(params: Params) -> int:
     return sum(n_params(t) if isinstance(t, dict) else t.numel() for t in params.values())
+
+
+def layer(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s views of weights stacked on a leading layer axis
+    (nested dicts included)."""
+    return {n: layer(w, i) if isinstance(w, dict) else w[i] for n, w in stacked.items()}
+
+
+def layers(stacked: Params):
+    """Every layer's views of weights stacked on a leading layer axis."""
+    first = stacked[next(iter(stacked))]
+    while isinstance(first, dict):
+        first = first[next(iter(first))]
+    for i in range(first.shape[0]):
+        yield layer(stacked, i)
+
+
+def position(pos: Union[torch.Tensor, int], device: torch.device) -> torch.Tensor:
+    """A decode step's ``pos`` as a (1,) int64 index on ``device``: a fill
+    for a Python int, a reshape of a device tensor (no host-to-device
+    copy, no sync)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(torch.int64)
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -79,6 +113,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * (1.0 + weight.float())).to(dt)
+
+
+def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split (not interleaved) rotary embedding of x (B, S, H, dh) at
+    ``positions`` (S,) or (B, S), with float32 angles; back in x's type."""
+    dh = x.shape[-1]
+    ang = positions[..., None].float() * rope_freqs(dh, theta, x.device)
+    if ang.dim() == 2:  # (S, dh/2): the same positions for every row
+        ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def flash_eligible(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -151,3 +201,83 @@ def project_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``: o (B, S, H, dh) by w (H, dh, D)."""
     H, dh, D = w.shape
     return o.reshape(*o.shape[:-2], H * dh) @ w.reshape(H * dh, D)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``silu(x w1) * (x w3)``, then by w2; products in the operands' type."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def sorted_top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row and their indices, largest first, ties
+    to the lower index (``jax.lax.top_k``'s order): a stable descending
+    sort, never ``torch.topk``."""
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k]
+
+
+def moe_capacity(T: int, n_experts: int, top_k: int, capacity_factor: float) -> int:
+    """Slots an expert: ``max(ceil(T k / E cf), k)`` rounded up to a
+    multiple of 8, as the reference sizes its dispatch buffer."""
+    C = max(int(math.ceil(T * top_k / n_experts * capacity_factor)), top_k)
+    return (C + 7) // 8 * 8
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+            w2: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+            routing: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based token-choice MoE with capacity (the reference's
+    ``moe_ffn`` without its all-to-all branch): x (B, S, D), router (D, E),
+    w1 and w3 (E, D, F), w2 (E, F, D) -> (output (B, S, D), the Switch-style
+    load-balance loss, float32).
+
+    Each token's top-k experts by float32 router probabilities (gates
+    renormalised over the k); the T k (token, expert) entries sorted by
+    expert, stably; an expert keeps its first C entries
+    (:func:`moe_capacity`) and drops the rest, whose rows go to a spare
+    last row of the dispatch buffer that no expert reads.  The expert
+    products are batched matrix products in x's type; the gated outputs
+    are added back to their tokens in x's type.  If ``routing`` is a list,
+    a dict is appended to it: ``eidx`` (T, k), ``keep`` (T k,) in sorted
+    order, ``capacity`` C and ``dropped``, a device count (no host sync)."""
+    B, S, D = x.shape
+    E = router.shape[1]
+    T = B * S
+    xt = x.reshape(T, D)
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate, eidx = sorted_top_k(probs, top_k)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+
+    assign = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    assign.scatter_add_(1, eidx, torch.ones_like(gate))
+    aux = E * torch.mean(assign.mean(0) * probs.mean(0))
+
+    C = moe_capacity(T, E, top_k, capacity_factor)
+    flat_e = eidx.reshape(-1)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    # not torch.bincount, which reads the largest index on the host
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * top_k, device=x.device) - starts[sorted_e]
+    keep = pos_in_e < C
+    token_of = sort_idx // top_k
+    buf_idx = sorted_e * C + pos_in_e.clamp(0, C - 1)
+    safe_idx = torch.where(keep, buf_idx, E * C)   # dropped -> the spare row
+
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, safe_idx, xt[token_of])
+    ebuf = buf[:E * C].view(E, C, D)
+    h = torch.bmm(ebuf, w1)
+    g = torch.bmm(ebuf, w3)
+    y = torch.bmm(F.silu(h) * g, w2).reshape(E * C, D)
+
+    y_tok = torch.where(keep[:, None], y[buf_idx], torch.zeros((), dtype=y.dtype,
+                                                                 device=y.device))
+    gate_sorted = gate.reshape(-1)[sort_idx].to(x.dtype)
+    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+    out.index_add_(0, token_of, y_tok * gate_sorted[:, None])
+    if routing is not None:
+        routing.append(dict(eidx=eidx, keep=keep, capacity=C, dropped=(~keep).sum()))
+    return out.reshape(B, S, D), aux

@@ -56,11 +56,18 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cuda") -> 
 
 def cache_from_numpy(cfg: ModelConfig, cache: Dict[str, Any],
                      device="cuda") -> Dict[str, torch.Tensor]:
-    """The reference's decode cache (``k``, ``v``, ``xk``, ``xv`` as numpy)
-    as the port's on ``device``, in ``cfg.param_dtype``; the batch and
-    length come from ``cache["k"]``."""
+    """The reference's decode cache (whisper's ``k``, ``v``, ``xk``, ``xv``;
+    jamba's ``k``, ``v``, ``ssm``, ``conv``; mamba2's ``ssm``, ``conv``; as
+    numpy) as the port's on ``device``, each entry in the port's type for
+    it; the batch and length come from ``cache["k"]``, else the batch from
+    ``cache["ssm"]`` (a state of constant size)."""
     dev = resolve_device(device)
-    B, max_len = np.shape(cache["k"])[1:3]
+    if "k" in cache:
+        B, max_len = np.shape(cache["k"])[1:3]
+    elif "ssm" in cache:
+        B, max_len = np.shape(cache["ssm"])[1], 0
+    else:
+        raise ValueError(f"cache entries {sorted(cache)} hold neither 'k' nor 'ssm'")
     want = module_for(cfg).init_decode_cache(cfg, B, max_len, torch.device("meta"))
     if set(cache) != set(want):
         raise ValueError(f"cache entries {sorted(cache)}, expected {sorted(want)}")

@@ -1,15 +1,15 @@
 """Uniform model API over families (the port of
 ``repro.models.registry``): ``init`` and ``prefill`` (the full
 sequence), ``init_decode_cache``, ``cache_axes`` and ``decode_step`` (one
-token a step against a KV cache) are the entry points.  Only the
-encoder-decoder family (whisper) is ported; any other family raises
-NotImplementedError naming it.
+token a step against a decode cache) are the entry points.  The
+encoder-decoder (whisper), hybrid (jamba) and SSM (mamba2) families are
+ported; any other family raises NotImplementedError naming it.
 
-``batch`` holds ``tokens`` (B, S) and ``audio_embeds`` (B, encoder_len,
-d_model), as ``launch.specs.make_batch`` makes them.  A decode cache is
-written in place by ``decode_step``; whisper's cross-attention entries
-(``xk``, ``xv``) are the caller's to fill from
-``whisper.precompute_cross_kv``.
+``batch`` holds ``tokens`` (B, S), and for the encoder-decoder family
+``audio_embeds`` (B, encoder_len, d_model), as ``launch.specs.make_batch``
+makes them.  A decode cache is written in place by ``decode_step``;
+whisper's cross-attention entries (``xk``, ``xv``) are the caller's to
+fill from ``whisper.precompute_cross_kv``.
 """
 from __future__ import annotations
 
@@ -21,9 +21,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import require_ported
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models import whisper
+from repro_torch.models import jamba, mamba2, whisper
 
-_FAMILY = {"encdec": whisper}
+_FAMILY = {"encdec": whisper, "hybrid": jamba, "ssm": mamba2}
 
 
 def module_for(cfg: ModelConfig):
@@ -42,9 +42,9 @@ def prefill(cfg: ModelConfig, params: cm.Params, batch: Dict[str, torch.Tensor])
     """Full-sequence forward returning logits (B, S, V), on the device of
     the parameters."""
     mod = module_for(cfg)
-    _check_device(params["embed"].device,
-                  **{f"batch[{n!r}]": batch[n] for n in ("tokens", "audio_embeds")})
-    logits, _ = mod.forward(cfg, params, batch["tokens"], batch["audio_embeds"])
+    names = ("tokens", "audio_embeds") if cfg.family == "encdec" else ("tokens",)
+    _check_device(params["embed"].device, **{f"batch[{n!r}]": batch[n] for n in names})
+    logits, _ = mod.forward(cfg, params, *(batch[n] for n in names))
     return logits
 
 

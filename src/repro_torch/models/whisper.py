@@ -86,13 +86,6 @@ def init(cfg: ModelConfig, generator: torch.Generator,
                           cm.dtype_of(cfg.param_dtype), device)
 
 
-def _layers(stacked: cm.Params):
-    """The per-layer views of weights stacked on a leading layer axis."""
-    n = next(iter(stacked.values())).shape[0]
-    for i in range(n):
-        yield {name: w[i] for name, w in stacked.items()}
-
-
 def _mlp(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     return F.gelu(h @ w_in, approximate="tanh") @ w_out
 
@@ -101,7 +94,7 @@ def encode(cfg: ModelConfig, params: cm.Params, audio_embeds: torch.Tensor) -> t
     """audio_embeds: (B, enc_len, D) stub frontend output -> encoder states."""
     x = audio_embeds.to(cm.dtype_of(cfg.compute_dtype))
     x = x + params["enc_pos"][None, : x.shape[1]].to(x.dtype)
-    for lp in _layers(params["encoder"]):
+    for lp in cm.layers(params["encoder"]):
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
         o = cm.attention(q, k, v, causal=False)
@@ -139,7 +132,7 @@ def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
     x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     chunk_q = 1024 if S >= 8192 else 0
-    for lp in _layers(params["decoder"]):
+    for lp in cm.layers(params["decoder"]):
         x = _dec_layer(cfg, lp, x, enc, chunk_q)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(cm.logits_dtype(cfg))
@@ -175,14 +168,6 @@ def cache_axes(cfg: ModelConfig, shape_name: str = "") -> Dict[str, Tuple]:
     return {"k": kv, "v": kv, "xk": kv, "xv": kv}
 
 
-def _position(pos: Union[torch.Tensor, int], device: torch.device) -> torch.Tensor:
-    """``pos`` as a (1,) int64 index on ``device``: a fill for a Python int,
-    a reshape of a device tensor (no host-to-device copy, no sync)."""
-    if isinstance(pos, torch.Tensor):
-        return pos.reshape(1).to(torch.int64)
-    return torch.full((1,), pos, dtype=torch.int64, device=device)
-
-
 def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tensor],
                 token: torch.Tensor, pos: Union[torch.Tensor, int]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -193,11 +178,11 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     place (``index_copy_``), and the same dict is returned; attention
     reads positions ``<= pos``.  A device ``pos`` is never read on the
     host, so a step makes no host sync."""
-    at = _position(pos, token.device)
+    at = cm.position(pos, token.device)
     kv_len = pos + 1
     x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
     x = x + params["dec_pos"].index_select(0, at)[None].to(x.dtype)
-    for i, lp in enumerate(_layers(params["decoder"])):
+    for i, lp in enumerate(cm.layers(params["decoder"])):
         k_l, v_l = cache["k"][i], cache["v"][i]
         h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))

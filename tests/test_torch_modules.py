@@ -473,6 +473,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert store.gather(0, np.arange(2))["w0"].device.type == "cpu"
     h = pfl.run_method("scarlet", cfg, cache_duration=2, device="cpu")
     assert h.ledger.summary()["rounds"] == 2.0
+    # the model families: whisper's, jamba's and mamba2's entry points
+    from repro_torch.configs import registry as creg
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import convert, registry
+
+    for name in ("whisper-large-v3", "jamba-v0.1-52b", "mamba2-1.3b"):
+        mcfg = creg.get(name).reduced()
+        for call in (lambda: registry.init(mcfg, torch.Generator()),
+                     lambda: make_batch(mcfg, 1, 8),
+                     lambda: registry.init_decode_cache(mcfg, 1, 8),
+                     lambda: convert.params_from_numpy(mcfg, {}),
+                     lambda: convert.cache_from_numpy(mcfg, {})):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        cache = registry.init_decode_cache(mcfg, 1, 8, device="cpu")
+        assert all(t.device.type == "cpu" for t in cache.values())
+        assert make_batch(mcfg, 1, 8, device="cpu")["tokens"].device.type == "cpu"
 
 
 def test_unported_options_raise():

@@ -176,8 +176,23 @@ def test_a_world_past_its_timeout_is_stopped():
 
 def test_a_failing_rank_fails_the_run():
     """Rank 2 raises before its engine's first collective: the others,
-    waiting in it, fail or are stopped, and the call raises whichever
-    error came first."""
+    waiting in it, fail after it or are stopped, and the call raises rank
+    2's error, whichever failure the join saw first."""
     with pytest.raises(torch.multiprocessing.ProcessRaisedException,
-                       match="rank 2 fails|closed by peer"):
+                       match="rank 2 fails") as info:
         mesh_lib.run_world(3, W.fail_on_rank_two)
+    assert str(info.value).startswith("rank 2 of 3 raised first")
+    assert info.value.error_index == 2
+
+
+def test_the_error_names_the_rank_that_raised_first():
+    """Rank 1 raises first but lingers; rank 0 raises a second later and
+    exits, so the join sees rank 0's failure first.  The call still names
+    rank 1, with rank 0 among the ranks that raised after it."""
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException,
+                       match="rank 1 fails first") as info:
+        mesh_lib.run_world(2, W.fail_early_and_late)
+    msg = str(info.value)
+    assert msg.startswith("rank 1 of 2 raised first") and "after it: [0]" in msg
+    assert "rank 0 fails later" not in msg
+    assert isinstance(info.value.__cause__, torch.multiprocessing.ProcessRaisedException)

@@ -259,8 +259,8 @@ def test_unported_families_raise_naming_the_family():
     dense = ModelConfig(name="granite-like", family="dense")
     with pytest.raises(NotImplementedError, match="'dense'"):
         registry.init(dense, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="'hybrid'"):
-        make_batch(dataclasses.replace(dense, family="hybrid"), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        make_batch(dataclasses.replace(dense, family="moe"), 1, 8, device="cpu")
     with pytest.raises(KeyError):
         creg.get("granite-3-2b")
 

@@ -283,3 +283,17 @@ def hang():
     import time
 
     time.sleep(3600)
+
+
+def fail_early_and_late():
+    """Rank 1 raises at once but its process lingers 3 s (a non-daemon
+    thread holds its exit); rank 0 raises 1 s later and exits at once, so
+    the join sees rank 0 fail first."""
+    import threading
+    import time
+
+    if dist.get_rank() == 1:
+        threading.Thread(target=time.sleep, args=(3.0,)).start()
+        raise RuntimeError("rank 1 fails first")
+    time.sleep(1.0)
+    raise RuntimeError("rank 0 fails later")
