@@ -87,6 +87,16 @@ sublayers drop; then decodes 512 teacher-forced positions on q/k-tempered
 weights against the prefill, with no host sync; then mamba2-1.3b at full
 size prefills 2 x 2048 tokens and decodes 256 positions, held against
 the prefill in float32.
+Then LM training (phase 4n, ``repro_torch.launch.train``): granite-3-2b
+at its published widths and depth (2.64e9 parameters, bfloat16, random
+weights from a seed) takes 5 steps of ``train_step`` (the loss, its
+backward through the flash kernel's differentiable Function, AdamW) at
+B = 8, S = 128, every parameter's gradient finite and nonzero on step 1,
+then one step with activation checkpointing; the Function against
+autograd through the kernel's plain version at that attention shape and
+in float32; one step of each ported family's reduced float32
+configuration on the card and on the CPU; and the launcher's default
+run, whose loss must improve.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
@@ -501,6 +511,56 @@ MAMBA_DECODE_S = 256
 MAMBA_SMALL_CHUNK = 64
 MAMBA_F32_RTOL = 2.0 ** -10
 REDUCED_S, REDUCED_DECODE = 128, 16
+# Phase 4n: LM training (repro_torch.launch.train).  (a) granite-3-2b,
+# the launcher's default architecture, at its published widths and all
+# 40 layers (2.64e9 parameters in bfloat16; random weights from a CUDA
+# generator), TRAIN_STEPS steps of launch.train.train_step with the
+# launcher's AdamW (weight decay 0.01, lr TRAIN_LR, bfloat16 moments) at
+# B = TRAIN_B, S = TRAIN_S on make_batch's tokens (the launcher's own
+# token_stream builds two (V, V) float64 bigram tables, 19.3 GB each at V
+# = 49155): the losses finite, every parameter's gradient of step 1
+# finite and nonzero in every layer (a detached attention leaves wq, wk
+# and wv without one), every parameter changed, flash launched once a
+# layer a step; ms/step by CUDA events over steps 2..TRAIN_STEPS, the
+# device peak; then one more step with remat (each layer's flash launches
+# again in the recompute).  (b) attn_kernel.flash_attention_diff at
+# granite's attention shape TRAIN_ATTN (bfloat16) and at TRAIN_ATTN_F32
+# (float32, a window) against autograd through flash_attention_plain on
+# the same inputs and cotangent: the forward to one bfloat16 step
+# (BF16_STEP, as phase 3) or FLASH_F32_ATOL; dq, dk, dv to two bfloat16
+# steps of each gradient's largest value (both compute in float32 and
+# round once, but autograd through the plain version also rounds the
+# repeated heads' dk and dv to bfloat16 before it sums each group of H /
+# Hkv), or TRAIN_GRAD_RTOL of it in float32 (the same float32 recompute in
+# another order of operations).
+# (c) The reduced float32 configuration of each family (TRAIN_FAMILIES;
+# q and k projections tempered, see WHISPER_SMALL_ATOL), one train_step
+# on the card and on the CPU from the same weights and batch, TF32 off:
+# the loss, each parameter's gradient and AdamW's moments m and v after
+# the step (each relative to the leaf's norm; m and v are linear and
+# quadratic in g, with no eps) and the whole parameter tree after the
+# step (relative to its norm) to TRAIN_STEP_RTOL; the flash launches of
+# each family's step.  Each parameter leaf after the step is printed, not
+# held: AdamW moves an element by
+# lr g / (|g| + eps), so where |g| is near eps = 1e-8 the step follows
+# g's rounding, and a zero-initialised leaf (a norm, conv_b, dt_bias) is
+# nothing but its step (on the H100, the reduced mamba2's conv_b, whose
+# gradients reach down to 2.6e-8, came out 7.8e-4 of its norm apart; on
+# the CPU its float32 gradients lie up to 20 % from float64's there).
+# (d) python -m repro_torch.launch.train --steps TRAIN_LAUNCHER_STEPS on
+# the card, in process: its last line says "improved".
+TRAIN_B, TRAIN_S = 8, 128
+TRAIN_STEPS = 5
+TRAIN_SEED = 0
+TRAIN_LR = 1e-3
+TRAIN_ATTN = (8, 128, 32, 8, 64)
+TRAIN_ATTN_F32 = (2, 256, 8, 2, 64, 64)
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_STEP_RTOL = 1e-4
+TRAIN_FAMILIES = (("granite-3-2b", 2), ("gemma2-27b", 0), ("grok-1-314b", 2),
+                  ("kimi-k2-1t-a32b", 2), ("internvl2-26b", 2), ("whisper-large-v3", 2),
+                  ("jamba-v0.1-52b", 1), ("mamba2-1.3b", 0))
+TRAIN_LAUNCHER_STEPS = 20
 
 # Per-row Enhanced ERA, kernel vs plain version: float32 to ERA_ATOL (the
 # row sums run in other orders); bfloat16 bit for bit the float32
@@ -3582,7 +3642,7 @@ def run_jamba(device, card: str) -> dict:
 
     # the flash kernel on the prefill's own attention inputs
     x = params["embed"][batch["tokens"].long()].to(cm.dtype_of(cfg.compute_dtype))
-    q, k, v = jamba._qkv(cfg, cm.layer(params["blocks"], 0), x,
+    q, k, v = jamba._qkv(cfg, next(cm.layers(params["blocks"])), x,
                          torch.arange(JAMBA_S, device=device))
     del x
     got = attn_kernel.flash_attention(q, k, v, causal=True)
@@ -3725,10 +3785,8 @@ def check_reduced_hybrids_cuda_vs_cpu() -> dict:
     errs = {}
     for full, flash in ((JAMBA, 1), (MAMBA, 0)):
         cfg = full.reduced()
-        p = registry.init(cfg, torch.Generator().manual_seed(JAMBA_SEED), device="cpu")
-        if "blocks" in p:
-            for n in ("wq", "wk"):
-                p["blocks"][n] = p["blocks"][n] * JAMBA_QK_SCALE
+        p = tempered(registry.init(cfg, torch.Generator().manual_seed(JAMBA_SEED),
+                                   device="cpu"))
         tokens = make_batch(cfg, 2, REDUCED_S, seed=JAMBA_SEED, device="cpu")["tokens"]
         outs = {}
         for dev in ("cpu", "cuda"):
@@ -3755,6 +3813,352 @@ def check_reduced_hybrids_cuda_vs_cpu() -> dict:
             raise AssertionError(f"{cfg.name} cuda vs cpu: {e_pre}, {e_dec}")
         errs[cfg.name] = (e_pre, e_dec)
     return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4n: LM training
+# ---------------------------------------------------------------------------
+
+def _leaf_items(tree, prefix=""):
+    for n, t in tree.items():
+        if isinstance(t, dict):
+            yield from _leaf_items(t, f"{prefix}{n}/")
+        else:
+            yield prefix + n, t
+
+
+def _check_grads(cfg, grads) -> int:
+    """Every gradient finite and, for a leaf stacked on the layer axis,
+    nonzero in every layer; returns the leaves checked."""
+    n = 0
+    for name, g in _leaf_items(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"phase 4n (a): gradient of {name} is not finite")
+        per = g.flatten(1).abs().amax(1) if g.dim() > 1 and g.shape[0] == cfg.n_layers \
+            else g.abs().amax().reshape(1)
+        if not bool((per > 0).all()):
+            raise AssertionError(f"phase 4n (a): gradient of {name} is zero in layers "
+                                 f"{torch.nonzero(per == 0).flatten().tolist()}")
+        n += 1
+    return n
+
+
+def run_train_full(device, card: str) -> dict:
+    """Phase 4n (a): granite-3-2b at full width, TRAIN_STEPS steps of
+    train_step, then one with remat."""
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+    from repro_torch.optim import Optimizer, get
+
+    cfg = CONFIG
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=device).manual_seed(TRAIN_SEED),
+                           device=device)
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED, device=device)
+    batch["labels"] = batch["tokens"]
+    opt = get("adamw", weight_decay=0.01)
+    state = opt.init(params)
+    _sync(device)
+    n_params = cm.n_params(params)
+    log(f"phase 4n (a): {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.param_dtype}; {n_params} "
+        f"parameters; AdamW moments {state['m']['embed'].dtype}; "
+        f"{torch.cuda.memory_allocated(device)} B on the card, set up in "
+        f"{time.perf_counter() - t0:.3f} s")
+    seen, upd = {}, []
+
+    def spy(grads, st, p, lr):  # keeps step 1's gradients, times each update
+        if not seen:
+            seen["grads"] = grads
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = opt.update(grads, st, p, lr)
+        ev[1].record()
+        upd.append(ev)
+        return out
+
+    spied = Optimizer(opt.init, spy)
+    losses, launches, ms_host, ms_event = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    for step in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        start.record()
+        loss, new, state = train.train_step(cfg, spied, params, state, batch, TRAIN_LR)
+        end.record()
+        end.synchronize()
+        ms_host.append((time.perf_counter() - t0) * 1e3)
+        ms_event.append(start.elapsed_time(end))
+        launches.append(ops.launches())
+        losses.append(float(loss))
+        if step == 0:
+            n_leaves = _check_grads(cfg, seen["grads"])
+            seen["grads"] = None
+            same = [n for (n, a), (_, b) in zip(_leaf_items(params), _leaf_items(new))
+                    if torch.equal(a, b)]
+            if same:
+                raise AssertionError(f"phase 4n (a): step 1 left {same} unchanged")
+        params = new
+    peak = torch.cuda.max_memory_allocated(device) - base
+    for got in launches:
+        check_launches(got, {"flash_attention": cfg.n_layers})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 4n (a): losses {losses}")
+    ms = statistics.median(ms_event[1:])
+    upd_ms = statistics.median(a.elapsed_time(b) for a, b in upd[1:])
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6.0 * n_params * tokens
+    log(f"phase 4n (a): {TRAIN_STEPS} train_step at B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}: "
+        f"losses {losses}; step 1: {n_leaves} gradients finite and nonzero in every layer, "
+        f"every parameter changed; flash launches a step "
+        f"{[x['flash_attention'] for x in launches]} (all kernels {launches[0]}); ms/step "
+        f"{ms!r} median of steps 2-{TRAIN_STEPS} by CUDA events {[round(x, 3) for x in ms_event]}"
+        f" (host clock {[round(x, 3) for x in ms_host]}), of which the AdamW update "
+        f"{upd_ms!r} ms (median, {[round(a.elapsed_time(b), 3) for a, b in upd]}) and the loss "
+        f"with its backward {ms - upd_ms!r}; {tokens / (ms / 1e3):.1f} tokens/s; 6 N tokens = "
+        f"{flops:.4e} FLOP a step = {flops / (ms / 1e3) / BF16_OPS_PER_S!r} of the bf16 peak "
+        f"({flops / ((ms - upd_ms) / 1e3) / BF16_OPS_PER_S!r} over the loss and backward "
+        f"alone); device peak {peak} B above the {base} B of parameters and optimizer state, "
+        f"{torch.cuda.memory_reserved(device)} B reserved, "
+        f"{torch.cuda.memory_stats(device)['num_alloc_retries']} allocation retries ({card})")
+    busy = profiled_step_busy(lambda: train.train_step(cfg, opt, params, state, batch, TRAIN_LR),
+                              device, ms)
+    log(f"phase 4n (a): one profiled step: device busy {busy['busy_ms']!r} ms of the "
+        f"unprofiled {ms!r} = {busy['share']!r}, {busy['kernels']} kernels; by class (count, "
+        f"device ms): {busy['classes']}; the {len(busy['top'])} costliest kernel names: "
+        f"{busy['top']}")
+    # two steps with remat: the first pays checkpoint's one-time setup
+    remat_ms = []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launches()
+        start.record()
+        loss, params, state = train.train_step(cfg, opt, params, state, batch, TRAIN_LR,
+                                               remat=True)
+        end.record()
+        end.synchronize()
+        remat_ms.append(start.elapsed_time(end))
+        remat = ops.launches()
+        remat_peak = torch.cuda.max_memory_allocated(device) - base
+        check_launches(remat, {"flash_attention": 2 * cfg.n_layers})
+        if not math.isfinite(float(loss)):
+            raise AssertionError("phase 4n (a): the remat step's loss is not finite")
+    log(f"phase 4n (a): two more steps with remat ({cfg.remat_policy}): loss {float(loss)!r}, "
+        f"flash launches {remat['flash_attention']} a step (forward and recompute), "
+        f"{remat_ms} ms (CUDA events), device peak {remat_peak} B above the same base, "
+        f"{torch.cuda.memory_stats(device)['num_alloc_retries']} allocation retries in all "
+        f"({card})")
+    return dict(losses=losses, ms=ms, upd_ms=upd_ms, ms_event=ms_event, peak=peak,
+                remat_peak=remat_peak, remat_ms=remat_ms, busy=busy,
+                launches=sum(x["flash_attention"] for x in launches), n_params=n_params)
+
+
+def _fwd_bwd(fn, q, k, v, do):
+    """(output, dq, dk, dv) of ``fn`` for the cotangent ``do``."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(q, k, v)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+def check_flash_diff(device, card: str, train_launches: int) -> dict:
+    """Phase 4n (b): flash_attention_diff against autograd through the
+    plain version at granite's training shape (bfloat16) and at
+    TRAIN_ATTN_F32 (float32, a window), times by CUDA events; the kernel
+    line's training entry."""
+    from repro_torch.kernels import attn_kernel
+
+    rng = np.random.default_rng(21)
+    out = {}
+    for B, S, H, Hkv, d, window, dtype in (TRAIN_ATTN + (0, torch.bfloat16),
+                                           TRAIN_ATTN_F32 + (torch.float32,)):
+        q, k, v = attn_inputs(rng, B, S, S, H, Hkv, d, dtype, device)
+        do = torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(np.float32)).to(device, dtype)
+        diff_fn = lambda a, b, c: attn_kernel.flash_attention_diff(a, b, c, True, window)  # noqa: E731
+        plain_fn = lambda a, b, c: attn_kernel.flash_attention_plain(a, b, c, True, window)  # noqa: E731
+        got, want = _fwd_bwd(diff_fn, q, k, v, do), _fwd_bwd(plain_fn, q, k, v, do)
+        _sync(device)
+        errs, ok = [], True
+        for i, (g, w) in enumerate(zip(got, want)):
+            e = (g.float() - w.float()).abs()
+            errs.append(float(e.max()))
+            if i == 0:
+                ok &= bool((e <= BF16_STEP * w.float().abs().clamp_min(1.0)).all()) \
+                    if dtype == torch.bfloat16 else errs[-1] <= FLASH_F32_ATOL
+            else:
+                scale = float(w.float().abs().max())
+                ok &= errs[-1] <= (2 * BF16_STEP if dtype == torch.bfloat16
+                                   else TRAIN_GRAD_RTOL) * scale
+            ok &= bool(torch.isfinite(g).all()) and g.dtype == dtype
+        # times: forward (the kernel), backward (the recompute) alone on a
+        # kept graph, beside autograd through the plain version and SDPA
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o_diff = diff_fn(qg, kg, vg)
+        o_plain = plain_fn(qg, kg, vg)
+        t = dict(
+            ms=cuda_ms(lambda: attn_kernel.flash_attention(q, k, v, True, window)),
+            plain_ms=cuda_ms(lambda: attn_kernel.flash_attention_plain(q, k, v, True, window)),
+            bwd_ms=cuda_ms(lambda: torch.autograd.grad(o_diff, (qg, kg, vg), do,
+                                                       retain_graph=True)),
+            bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(o_plain, (qg, kg, vg), do,
+                                                             retain_graph=True)))
+        if not window:  # SDPA has no window
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            o_sdpa = sdpa()
+            t.update(library_ms=cuda_ms(sdpa),
+                     bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
+                         o_sdpa, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)))
+            del qt, kt, vt, o_sdpa
+        # bytes: q, k, v read and o written once (forward); q, k, v, do read
+        # and dq, dk, dv written once (backward); operations over the causal
+        # pairs inside the window: q.k and p.v, 2 d each (forward; in float32
+        # the kernel's three tf32 passes at the tf32 rate, as phase 6); the
+        # recomputed q.k, dV, dP, dQ, dK, 2 d each (backward, in float32 at
+        # the float32 rate: the plain recompute's products, TF32 off)
+        pairs = sum(min(i + 1, window or i + 1) for i in range(S)) * B * H
+        isz = q.element_size()
+        qb, kb = B * S * H * d * isz, B * S * Hkv * d * isz
+        if dtype == torch.bfloat16:
+            fwd = bound_ms(2 * qb + 2 * kb, 4.0 * d * pairs, BF16_OPS_PER_S)
+            bwd = bound_ms(3 * qb + 4 * kb, 10.0 * d * pairs, BF16_OPS_PER_S)
+        else:
+            fwd = bound_ms(2 * qb + 2 * kb, TF32_PASSES * 4.0 * d * pairs, TF32_OPS_PER_S)
+            bwd = bound_ms(3 * qb + 4 * kb, 10.0 * d * pairs, FP32_OPS_PER_S)
+        (t["bound_ms"], t["bound_by"]), (t["bwd_bound_ms"], t["bwd_bound_by"]) = fwd, bwd
+        shape = (B, S, H, Hkv, d)
+        log(f"phase 4n (b): flash_attention_diff {shape} window {window} {str(dtype)[6:]} "
+            f"against autograd through flash_attention_plain: max_abs_err out/dq/dk/dv "
+            f"{errs} {'ok' if ok else 'FAIL'}; times (ms, CUDA events): {t} ({card})")
+        if not ok:
+            raise AssertionError(f"phase 4n (b): flash_attention_diff at {shape}: {errs}")
+        out[str(dtype)[6:]] = dict(t, errs=errs, shape=shape)
+        del q, k, v, do, qg, kg, vg, o_diff, o_plain
+    bf = out["bfloat16"]
+    flash = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/attn_kernel.py:80", launches=train_launches,
+        max_abs_err=bf["errs"][0], ms=bf["ms"], plain_ms=bf["plain_ms"],
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"], library_ms=bf["library_ms"],
+        shape=f"granite-3-2b training {bf['shape']} bfloat16, {TRAIN_STEPS} steps",
+        bwd_route="plain PyTorch recompute (flash_attention_bwd_plain)",
+        bwd_ms=bf["bwd_ms"], bwd_plain_ms=bf["bwd_plain_ms"],
+        bwd_library_ms=bf["bwd_library_ms"], bwd_bound_ms=bf["bwd_bound_ms"],
+        bwd_max_abs_err=max(bf["errs"][1:]))
+    return dict(out, flash=flash)
+
+
+def check_train_cuda_vs_cpu(card: str) -> dict:
+    """Phase 4n (c): one train_step of each family's reduced float32
+    configuration on the card and on the CPU, TF32 off."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+    from repro_torch.optim import Optimizer, get
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, flash in TRAIN_FAMILIES:
+        cfg = ARCHS[name].reduced()
+        p = tempered(registry.init(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                                   device="cpu"))
+        batch = make_batch(cfg, 2, 128 - cfg.n_patches, seed=TRAIN_SEED, device="cpu")
+        batch["labels"] = batch["tokens"]
+        opt = get("adamw", weight_decay=0.01)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            d = torch.device(dev)
+            pd = cm.tree_map(lambda t: t.to(d), p)
+            grads = []
+            spied = Optimizer(opt.init, lambda g, *a: grads.append(g) or opt.update(g, *a))
+            ops.reset_launches()
+            loss, new, state = train.train_step(cfg, spied, pd, opt.init(pd),
+                                                {n: t.to(d) for n, t in batch.items()}, TRAIN_LR)
+            _sync(d)
+            moments = {"m": state["m"], "v": state["v"]}
+            res[dev] = (float(loss), dict(_leaf_items(cm.tree_map(lambda t: t.cpu(), new))),
+                        dict(_leaf_items(cm.tree_map(lambda t: t.cpu(), grads[0]))),
+                        ops.launches(),
+                        dict(_leaf_items(cm.tree_map(lambda t: t.cpu(), moments))))
+        check_launches(res["cuda"][3], {"flash_attention": flash})
+        loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+
+        def rel(a, b):
+            return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+        grad_err = {n: rel(res["cuda"][2][n], g) for n, g in res["cpu"][2].items()}
+        leaf_err = {n: rel(res["cuda"][1][n], t) for n, t in res["cpu"][1].items()}
+        mom_err = {n: rel(res["cuda"][4][n], t) for n, t in res["cpu"][4].items()}
+        tree_err = math.sqrt(sum(float((res["cuda"][1][n].double() - t.double()).square().sum())
+                                 for n, t in res["cpu"][1].items())
+                             / sum(float(t.double().square().sum())
+                                   for t in res["cpu"][1].values()))
+        g_worst, p_worst, m_worst = (max(e, key=e.get) for e in (grad_err, leaf_err, mom_err))
+        ok = (math.isfinite(res["cuda"][0]) and loss_err <= TRAIN_STEP_RTOL
+              and grad_err[g_worst] <= TRAIN_STEP_RTOL and mom_err[m_worst] <= TRAIN_STEP_RTOL
+              and tree_err <= TRAIN_STEP_RTOL)
+        log(f"phase 4n (c) {cfg.name} (float32) one train_step cuda vs cpu: loss "
+            f"{res['cuda'][0]!r} vs {res['cpu'][0]!r} (relative {loss_err!r}); gradients: "
+            f"worst leaf |cuda - cpu| / |cpu| {grad_err[g_worst]!r} ({g_worst}); AdamW's "
+            f"moments: worst leaf {mom_err[m_worst]!r} ({m_worst}); parameters "
+            f"after the AdamW step: the whole tree {tree_err!r}, worst leaf "
+            f"{leaf_err[p_worst]!r} ({p_worst}, not held: see TRAIN_STEP_RTOL) (gate "
+            f"{TRAIN_STEP_RTOL}); flash launches {flash} {'ok' if ok else 'FAIL'} ({card})")
+        if not ok:
+            raise AssertionError(f"phase 4n (c) {cfg.name}: loss {loss_err}, gradients "
+                                 f"{grad_err[g_worst]}, moments {mom_err[m_worst]}, "
+                                 f"parameters {tree_err}")
+        out[name] = dict(loss_err=loss_err, grad_err=grad_err[g_worst],
+                         mom_err=mom_err[m_worst], tree_err=tree_err,
+                         leaf_err=leaf_err[p_worst], flash=flash)
+    return out
+
+
+def run_train_launcher(card: str) -> dict:
+    """Phase 4n (d): the launcher at its defaults on the card, in process."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--steps", str(TRAIN_LAUNCHER_STEPS)])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    launches = ops.launches()
+    log(f"phase 4n (d): python -m repro_torch.launch.train --steps {TRAIN_LAUNCHER_STEPS} "
+        f"(in process, {wall:.3f} s, launches {launches}):")
+    for ln in lines:
+        log(f"  {ln}")
+    if not lines or "(improved)" not in lines[-1]:
+        raise AssertionError("phase 4n (d): the launcher's loss did not improve")
+    return dict(lines=lines, launches=launches)
+
+
+def run_train(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    full = run_train_full(device, card)
+    diff = check_flash_diff(device, card, full["launches"])
+    small = check_train_cuda_vs_cpu(card)
+    launcher = run_train_launcher(card)
+    log(f"phase 4n: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(full=full, diff=diff, small=small, launcher=launcher)
 
 
 # ---------------------------------------------------------------------------
@@ -3983,11 +4387,12 @@ def run_analysis(device) -> dict:
 # ---------------------------------------------------------------------------
 
 def tempered(params: dict) -> dict:
-    """``params`` with the q and k projections scaled by 1/8 (see
-    WHISPER_SMALL_ATOL)."""
-    for part, names in (("encoder", ("wq", "wk")), ("decoder", ("wq", "wk", "xwq", "xwk"))):
-        for n in names:
-            params[part][n] = params[part][n] / 8
+    """``params`` with the q and k projections (whisper's cross-attention's
+    too) of every family scaled by 1/8 (see WHISPER_SMALL_ATOL)."""
+    for part in ("layers", "blocks", "encoder", "decoder"):
+        for n in ("wq", "wk", "xwq", "xwk"):
+            if n in params.get(part, {}):
+                params[part][n] = params[part][n] / 8
     return params
 
 
@@ -4337,6 +4742,9 @@ def main() -> int:
     run_jamba_decode(dev, card, ja)
     del ja["params"]
     run_mamba2(dev, card)
+    # 4n. LM training: granite-3-2b at full width, the differentiable flash
+    # Function, every family's step card vs CPU, the launcher's default
+    tr = run_train(dev, card)
     # 4e. the static analyzer on the card
     an = run_analysis(dev)
     # 5. card vs CPU on a small configuration, both engines
@@ -4362,11 +4770,13 @@ def main() -> int:
                     **{k: an["launches"][k] for k in FIXTURE_REPLACES})
     kernels = kernel_report(launches, dict(errs, **an["errs"]))
     kernels.append(ja["flash"])
+    kernels.append(tr["diff"]["flash"])
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "
         f"per-op {perop['per_round_ms']:.3f} ms/round; whisper-large-v3 prefill "
         f"({WHISPER_B},{WHISPER_S}) {wh['ms']:.3f} ms; jamba-v0.1-52b one-block prefill "
-        f"({JAMBA_B},{JAMBA_S}) {ja['ms']:.3f} ms")
+        f"({JAMBA_B},{JAMBA_S}) {ja['ms']:.3f} ms; granite-3-2b train_step ({TRAIN_B},{TRAIN_S}) "
+        f"{tr['full']['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,15 @@ launches the kernel for a CUDA tensor; there is no other path.
   its strides are multiples of 16 bytes: :func:`_readable` copies any
   other view, in both dtypes.
 
+Training goes through :func:`flash_attention_diff`, the counterpart of
+the reference's ``flash_attention_diff`` (``attn_kernel.py:166-212``): a
+``torch.autograd.Function`` whose forward is :func:`flash_attention` (the
+kernel on the card, the plain version on the CPU) and whose backward is
+the reference's recompute (:func:`flash_attention_bwd_plain`, plain
+PyTorch, as the reference's is jnp).  The bare :func:`flash_attention`
+raises on the card when autograd would need a gradient through it
+(``runtime.forward_only``): its result would be cut from the graph.
+
 Both follow the oracle ``repro.kernels.ref.flash_attention``: scores
 ``q . k`` in float32 scaled by ``1/sqrt(d)`` (the Pallas kernel scales q
 before the product, the oracle divides the scores, the kernels fold the
@@ -49,6 +58,7 @@ softmax of equal scores: the mean of v over all Sk keys.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import re
 import subprocess
@@ -57,7 +67,8 @@ import torch
 
 from repro_torch.kernels import runtime
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "COL_BLOCK",
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_diff",
+           "flash_attention_bwd_plain", "HEAD_DIMS", "COL_BLOCK",
            "F32_HEAD_DIMS", "F32_COL_BLOCK", "BF16_KERNELS", "F32_KERNELS", "instantiation",
            "launch_plan", "smem_bytes", "sass_opcodes", "analysis_cases"]
 
@@ -133,6 +144,19 @@ def smem_bytes(dtype: torch.dtype, d: int) -> int:
     return 1024 + 2 * BLOCK_Q[dtype] * D * tiles + 8 * tiles
 
 
+def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """The (Sq, Sk) keys each query keeps: j <= i if causal, j > i -
+    window for a nonzero window."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, d), k and v (B, Sk, Hkv, d) -> (B, Sq, H, d) in q's
@@ -143,14 +167,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = v.repeat_interleave(H // Hkv, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
     s = s / torch.sqrt(torch.tensor(float(dh), device=q.device))
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s,
+                    torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
 
@@ -234,6 +252,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    runtime.forward_only("flash_attention", q, k, v,
+                         hint="use flash_attention_diff for a differentiable result")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     B, Sq, H, d = q.shape
@@ -254,6 +274,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              do: torch.Tensor, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``do`` (B, Sq, H, d): the reference's recompute (``_flash_bwd``,
+    ``attn_kernel.py:179-209``).  Float32 scores q.k / sqrt(d) over the
+    keys repeated onto the H query heads, masked to -1e30, softmax, then
+    dV = P^T dO, dP = dO V^T, delta = rowsum(P dP), dS = P (dP - delta)
+    / sqrt(d), dQ = dS K, dK = dS^T Q; dk and dv summed back onto the Hkv
+    heads, each cast to its input's type."""
+    B, Sq, H, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    kr = k.repeat_interleave(rep, dim=2).float()
+    vr = v.repeat_interleave(rep, dim=2).float()
+    qf = q.float()
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s,
+                    torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    dof = do.float()
+    dv_r = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk_r = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk = dk_r.reshape(B, Sk, Hkv, rep, d).sum(3)
+    dv = dv_r.reshape(B, Sk, Hkv, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashDiff(torch.autograd.Function):
+    """Forward :func:`flash_attention` (run with grad mode off, so the
+    kernel launches on the card), backward :func:`flash_attention_bwd_plain`
+    from the saved (q, k, v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, do, ctx.causal, ctx.window), None, None)
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """:func:`flash_attention` that autograd differentiates: the kernel's
+    forward (counted as one launch), the reference's recompute backward.
+    Under activation checkpointing the forward runs again in the
+    recompute, a second launch."""
+    _check(q, k, v, window)
+    return _FlashDiff.apply(q, k, v, causal, window)
 
 
 # The instructions that say which kernel the card runs: HGMMA (wgmma),

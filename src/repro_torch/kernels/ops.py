@@ -9,15 +9,19 @@ Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors."""
 import torch
 
-from repro_torch.kernels import distill_kernel, era_kernel, fixture_kernel
-from repro_torch.kernels.attn_kernel import flash_attention  # noqa: F401
+from repro_torch.kernels import attn_kernel, distill_kernel, era_kernel, fixture_kernel
 from repro_torch.kernels.era_kernel import enhanced_era_fused  # noqa: F401
 from repro_torch.kernels.quant_kernel import quantize_dequantize  # noqa: F401
 from repro_torch.kernels.round_kernel import fused_round  # noqa: F401
 
-KERNELS = (enhanced_era_fused, quantize_dequantize, fused_round, flash_attention,
+KERNELS = (enhanced_era_fused, quantize_dequantize, fused_round, attn_kernel.flash_attention,
            era_kernel.enhanced_era, distill_kernel.distill_loss, fixture_kernel.copy_vec4,
            fixture_kernel.scale, fixture_kernel.copy_smem)
+
+
+# The model zoo's flash attention: the kernel forward (one launch) and the
+# reference's recompute backward; with no gradient needed it builds no graph.
+flash_attention = attn_kernel.flash_attention_diff
 
 
 def enhanced_era(z_mean: torch.Tensor, beta) -> torch.Tensor:

@@ -87,16 +87,17 @@ def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def forward_only(what: str, *inputs) -> None:
+def forward_only(what: str, *inputs,
+                 hint: str = "use impl='torch' for a differentiable result") -> None:
     """Raise if autograd would need a gradient through kernel ``what``.
     The kernel has no backward, as the reference's Pallas kernel has none
     (``jax.grad`` through it fails); a result silently detached from the
-    graph would give wrong gradients instead."""
+    graph would give wrong gradients instead.  ``hint`` names the
+    differentiable way in the message."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
         raise RuntimeError(
-            f"{what}: the kernel has no backward; call it under torch.no_grad() "
-            "or use impl='torch' for a differentiable result")
+            f"{what}: the kernel has no backward; call it under torch.no_grad() or {hint}")
 
 
 def nvcc() -> str:

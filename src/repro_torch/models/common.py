@@ -1,8 +1,9 @@
 """Shared model machinery of the port (the subset of
 ``repro.models.common`` that the ported models run): parameter
-initialisation with the reference's scales, RMS norm, the logits dtype,
-RoPE, attention with the reference's routing to the flash kernel, SwiGLU
-and the sort-based token-choice MoE FFN.
+initialisation with the reference's scales, activation checkpointing
+(``remat_wrap``), the next-token cross-entropy, RMS norm, softcapping, the
+logits dtype, RoPE, attention with the reference's routing to the flash
+kernel, SwiGLU and the sort-based token-choice MoE FFN.
 
 Parameters are nested dicts of tensors in the reference's layout (per
 layer weights stacked on a leading layer axis), so the JAX package's
@@ -10,11 +11,14 @@ parameter trees carry across one to one (``models/convert.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 
@@ -64,30 +68,43 @@ def fan_in_scale(shape: Tuple[int, ...]) -> float:
     return 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
 
 
-def tree_map(fn, params: Params) -> Params:
+def tree_map(fn, params: Params, *rest: Params) -> Params:
     """``fn`` applied to every tensor of a nested parameter dict (e.g.
-    ``tree_map(lambda t: t.to("cuda"), params)``)."""
-    return {n: tree_map(fn, t) if isinstance(t, dict) else fn(t)
-            for n, t in params.items()}
+    ``tree_map(lambda t: t.to("cuda"), params)``), with the matching
+    leaves of each of ``rest`` (dicts of the same structure) as further
+    arguments."""
+    return {n: tree_map(fn, t, *(r[n] for r in rest)) if isinstance(t, dict)
+            else fn(t, *(r[n] for r in rest)) for n, t in params.items()}
+
+
+def first_leaf(params: Params) -> Any:
+    """The first leaf of a nested dict, in its order."""
+    while isinstance(params, dict):
+        params = params[next(iter(params))]
+    return params
 
 
 def n_params(params: Params) -> int:
     return sum(n_params(t) if isinstance(t, dict) else t.numel() for t in params.values())
 
 
-def layer(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s views of weights stacked on a leading layer axis
-    (nested dicts included)."""
-    return {n: layer(w, i) if isinstance(w, dict) else w[i] for n, w in stacked.items()}
+def _unbind(stacked: Params) -> Dict[str, Any]:
+    return {n: _unbind(w) if isinstance(w, dict) else w.unbind(0) for n, w in stacked.items()}
+
+
+def _pick(parts: Dict[str, Any], i: int) -> Params:
+    return {n: _pick(w, i) if isinstance(w, dict) else w[i] for n, w in parts.items()}
 
 
 def layers(stacked: Params):
-    """Every layer's views of weights stacked on a leading layer axis."""
-    first = stacked[next(iter(stacked))]
-    while isinstance(first, dict):
-        first = first[next(iter(first))]
-    for i in range(first.shape[0]):
-        yield layer(stacked, i)
+    """Every layer's views of weights stacked on a leading layer axis
+    (nested dicts included), taken by one ``unbind`` a leaf: autograd then
+    stacks the layers' gradients once, where a view a layer (``w[i]``)
+    has its backward write a zero gradient of the whole stack for every
+    layer and add them up (L times the stack's bytes)."""
+    parts = _unbind(stacked)
+    for i in range(len(first_leaf(parts))):
+        yield _pick(parts, i)
 
 
 def position(pos: Union[torch.Tensor, int], device: torch.device) -> torch.Tensor:
@@ -97,6 +114,50 @@ def position(pos: Union[torch.Tensor, int], device: torch.device) -> torch.Tenso
     if isinstance(pos, torch.Tensor):
         return pos.reshape(1).to(torch.int64)
     return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
+# The matrix products whose outputs each selective policy saves (the
+# counterparts of jax.checkpoint_policies.dots_saveable and
+# dots_with_no_batch_dims_saveable); everything else is recomputed.
+_aten = torch.ops.aten
+_SAVED_PRODUCTS = {
+    "dots_saveable": {_aten.mm.default, _aten.addmm.default, _aten.bmm.default},
+    "dots_with_no_batch_dims_saveable": {_aten.mm.default, _aten.addmm.default},
+}
+
+
+def remat_wrap(body, policy_name: str):
+    """``body`` under activation checkpointing with the reference's named
+    policy (``remat_wrap``, ``jax.checkpoint``): "none" is ``body``
+    itself; "nothing_saveable" saves only the inputs and recomputes the
+    whole body in the backward; "dots_saveable" also saves the outputs of
+    the matrix products (``mm``, ``addmm``, ``bmm``),
+    "dots_with_no_batch_dims_saveable" those of ``mm`` and ``addmm``.  A
+    flash attention inside the body launches again in the recompute."""
+    if policy_name == "none":
+        return body
+    if policy_name == "nothing_saveable":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    saved = _SAVED_PRODUCTS[policy_name]
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(
+        checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts, policy))
+
+
+def next_token_ce(cfg, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of position t's logits against label t + 1,
+    float32.  ``cfg.ce_impl`` "logp" takes the float32 log-softmax;
+    "lse" takes logsumexp minus the picked logit (no (B, S, V) float32
+    log-probabilities)."""
+    l32 = logits[:, :-1].float()
+    labels = labels[:, 1:].long()[..., None]
+    if cfg.ce_impl == "lse":
+        return (torch.logsumexp(l32, dim=-1) - l32.gather(-1, labels)[..., 0]).mean()
+    return -torch.log_softmax(l32, dim=-1).gather(-1, labels)[..., 0].mean()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -113,6 +174,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     x = x.float()
     var = x.square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * (1.0 + weight.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)``; ``x`` itself for a zero cap."""
+    return cap * torch.tanh(x / cap) if cap else x
 
 
 def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
@@ -133,54 +199,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def flash_eligible(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    q_offset: Union[torch.Tensor, int] = 0,
-                   kv_len: Union[torch.Tensor, int, None] = None) -> bool:
+                   kv_len: Union[torch.Tensor, int, None] = None,
+                   window: Union[torch.Tensor, int] = 0, cap: float = 0.0) -> bool:
     """The reference's test for the flash kernel (``common.attention``
-    under ``ATTN_IMPL="pallas"``): plain causal self-attention over a
+    under ``ATTN_IMPL="pallas"``, ``common.py:185-190``): plain causal
+    self-attention without a softcap, a window that is a Python int, a
     sequence that is a multiple of 128, head dim a multiple of 8, no
     KV-length limit and a query offset of 0 as a Python int.  So a decode
-    step (``kv_len`` set, a device ``q_offset``) never takes the kernel.
-    The port's attention has no softcap or window argument (no ported
-    model passes them), so those parts of the test hold."""
+    step (``kv_len`` set, a device ``q_offset``) never takes the kernel,
+    nor does a softcapped layer (gemma2)."""
     Sq, dh = q.shape[1], q.shape[3]
-    return (causal and kv_len is None and isinstance(q_offset, int) and q_offset == 0
-            and Sq == k.shape[1] and Sq % 128 == 0 and dh % 8 == 0)
+    return (causal and not cap and kv_len is None and isinstance(q_offset, int)
+            and q_offset == 0 and isinstance(window, int) and Sq == k.shape[1]
+            and Sq % 128 == 0 and dh % 8 == 0)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, q_offset: Union[torch.Tensor, int] = 0,
+              causal: bool = True, window: int = 0, cap: float = 0.0,
+              q_offset: Union[torch.Tensor, int] = 0,
               kv_len: Union[torch.Tensor, int, None] = None,
-              chunk_q: int = 0) -> torch.Tensor:
+              chunk_q: int = 0, score_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, dh), k and v (B, Sk, Hkv, dh).
 
     The query rows sit at positions ``q_offset + arange(Sq)`` (for the
-    causal mask); ``kv_len`` keeps the keys at positions below it (the
-    valid prefix of a decode cache).  Each may be a Python int or a 0-d
-    integer tensor on q's device, which is read on the device only (no
-    host sync).  An eligible call (:func:`flash_eligible`) goes to the
-    flash kernel (``ops.flash_attention``).  Otherwise the plain path of
-    the reference: float32 scores, masked to -1e30, softmax in float32, the
-    output cast to q's type; ``chunk_q`` runs the query rows in chunks of
-    that size."""
-    if flash_eligible(q, k, causal, q_offset, kv_len):
-        return ops.flash_attention(q, k, v, causal=True)
+    causal mask and the window); ``kv_len`` keeps the keys at positions
+    below it (the valid prefix of a decode cache).  Each may be a Python
+    int or a 0-d integer tensor on q's device, which is read on the device
+    only (no host sync).  A positive ``window`` (a Python int) keeps the
+    keys j > i - window; ``cap`` softcaps the scores.  An eligible call
+    (:func:`flash_eligible`) goes to the flash kernel
+    (``ops.flash_attention``, differentiable).
+    Otherwise the plain path of the reference: scores in ``score_dtype``
+    (float32 by default), softcapped, masked to -1e30, softmax in
+    ``score_dtype``, the output cast to q's type; ``chunk_q`` runs the
+    query rows in chunks of that size."""
+    if flash_eligible(q, k, causal, q_offset, kv_len, window, cap):
+        return ops.flash_attention(q, k, v, causal=True, **({"window": window} if window else {}))
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     R = H // Hkv
     qg = q.reshape(B, Sq, Hkv, R, dh)
     scale = 1.0 / math.sqrt(dh)
-    kf, vf = k.float(), v.float()
+    ks, vs = k.to(score_dtype), v.to(score_dtype)
     k_pos = torch.arange(Sk, device=q.device)
 
     def block(q_blk: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
-        s = torch.einsum("bqgrd,bkgd->bgrqk", q_blk.float(), kf) * scale
+        s = softcap(torch.einsum("bqgrd,bkgd->bgrqk", q_blk.to(score_dtype), ks) * scale, cap)
         mask = torch.ones((q_blk.shape[1], Sk), dtype=torch.bool, device=q.device)
         if causal:
             mask &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
         if kv_len is not None:
             mask &= k_pos[None, :] < kv_len
-        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+        s = torch.where(mask, s, torch.full((), -1e30, dtype=score_dtype, device=q.device))
         p = torch.softmax(s, dim=-1)
-        return torch.einsum("bgrqk,bkgd->bqgrd", p, vf).to(q.dtype)
+        return torch.einsum("bgrqk,bkgd->bqgrd", p, vs).to(q.dtype)
 
     q_positions = q_offset + torch.arange(Sq, device=q.device)
     if chunk_q and Sq % chunk_q == 0 and Sq > chunk_q:

@@ -14,11 +14,14 @@ Decode (``init_decode_cache``, ``cache_axes``, ``decode_step``) runs one
 token a step against the attention layers' k/v cache and the mixers'
 recurrent and conv states, all written in place.
 
-Not ported: ``lm_loss``.
+``lm_loss`` is the next-token cross-entropy plus ``router_aux_coef``
+times the MoE sublayers' load-balance loss; ``forward(..., remat=True)``
+checkpoints each block under ``cfg.remat_policy``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -79,21 +82,28 @@ def init(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> 
     return cm.init_params(param_specs(cfg), generator, cm.dtype_of(cfg.param_dtype), device)
 
 
-def _ffn(cfg: ModelConfig, bp: cm.Params, x: torch.Tensor, sub: int,
+def _ffn(cfg: ModelConfig, fp: cm.Params, x: torch.Tensor,
          routing: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The FFN after sublayer ``sub``: dense on even, MoE on odd; returns
-    (x + FFN, its auxiliary loss)."""
-    if sub % cfg.moe_every == 0:
-        i = sub // 2
-        h = cm.rms_norm(x, bp["ffn_ln"][i], cfg.norm_eps)
-        return (x + cm.swiglu(h, bp["w1"][i], bp["w3"][i], bp["w2"][i]),
+    """x + the FFN of weights ``fp`` (one of :func:`_ffns`: dense SwiGLU or
+    the MoE) and its auxiliary loss."""
+    if "router" not in fp:
+        h = cm.rms_norm(x, fp["ffn_ln"], cfg.norm_eps)
+        return (x + cm.swiglu(h, fp["w1"], fp["w3"], fp["w2"]),
                 torch.zeros((), dtype=torch.float32, device=x.device))
-    i = (sub - 1) // 2
-    h = cm.rms_norm(x, bp["moe_ln"][i], cfg.norm_eps)
-    y, aux = cm.moe_ffn(h, bp["router"][i], bp["mw1"][i], bp["mw3"][i], bp["mw2"][i],
+    h = cm.rms_norm(x, fp["moe_ln"], cfg.norm_eps)
+    y, aux = cm.moe_ffn(h, fp["router"], fp["mw1"], fp["mw3"], fp["mw2"],
                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                         routing=routing)
     return x + y, aux
+
+
+def _ffns(cfg: ModelConfig, bp: cm.Params) -> list:
+    """The FFN weights after each of the block's sublayers, in order: dense
+    on even sublayers, MoE on odd (views by ``common.layers``)."""
+    dense = cm.layers({n: bp[n] for n in ("ffn_ln", "w1", "w3", "w2")})
+    moe = cm.layers({n: bp[n] for n in ("moe_ln", "router", "mw1", "mw3", "mw2")})
+    return [next(dense) if sub % cfg.moe_every == 0 else next(moe)
+            for sub in range(cfg.attn_layer_period)]
 
 
 def _qkv(cfg: ModelConfig, bp: cm.Params, x: torch.Tensor, positions: torch.Tensor):
@@ -103,33 +113,47 @@ def _qkv(cfg: ModelConfig, bp: cm.Params, x: torch.Tensor, positions: torch.Tens
             cm.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _mixers(cfg: ModelConfig, bp: cm.Params):
+def _mixers(bp: cm.Params):
     """(j, the mixer's parameters, its norm) for the block's mixers."""
-    mp = bp["mamba"]
-    for j in range(_block_counts(cfg)[1]):
-        yield j, {n: w[j] for n, w in mp.items() if n != "ln"}, mp["ln"][j]
+    for j, mp in enumerate(cm.layers(bp["mamba"])):
+        yield j, mp, mp.pop("ln")
+
+
+def _block(cfg: ModelConfig, x: torch.Tensor, bp: cm.Params, positions: torch.Tensor,
+           chunk_q: int, routing: Optional[list]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block over the whole sequence: (x, its MoE sublayers' summed
+    load-balance loss)."""
+    ffns = _ffns(cfg, bp)
+    q, k, v = _qkv(cfg, bp, x, positions)
+    x = x + cm.project_out(cm.attention(q, k, v, causal=True, chunk_q=chunk_q), bp["wo"])
+    x, aux = _ffn(cfg, ffns[0], x, routing)
+    for j, mp, ln in _mixers(bp):
+        x = x + m2.mixer_forward(cfg, mp, cm.rms_norm(x, ln, cfg.norm_eps))
+        x, a = _ffn(cfg, ffns[j + 1], x, routing)
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
-            routing: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            routing: Optional[list] = None,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> logits (B, S, V) in the logits dtype and the sum of
     the MoE sublayers' load-balance losses (float32).  ``routing``, if a
     list, receives each MoE sublayer's routing in order
-    (``common.moe_ffn``)."""
+    (``common.moe_ffn``; again in the backward's recompute under
+    ``remat``)."""
     x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     chunk_q = 1024 if S >= 8192 else 0
+    body = functools.partial(_block, cfg, positions=positions, chunk_q=chunk_q,
+                             routing=routing)
+    if remat:
+        body = cm.remat_wrap(body, cfg.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in cm.layers(params["blocks"]):
-        q, k, v = _qkv(cfg, bp, x, positions)
-        x = x + cm.project_out(cm.attention(q, k, v, causal=True, chunk_q=chunk_q), bp["wo"])
-        x, a = _ffn(cfg, bp, x, 0, routing)
+        x, a = body(x, bp)
         aux = aux + a
-        for j, mp, ln in _mixers(cfg, bp):
-            x = x + m2.mixer_forward(cfg, mp, cm.rms_norm(x, ln, cfg.norm_eps))
-            x, a = _ffn(cfg, bp, x, j + 1, routing)
-            aux = aux + a
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].T).to(cm.logits_dtype(cfg)), aux
 
@@ -179,13 +203,22 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
         v_l.index_copy_(1, at, v.to(v_l.dtype))
         o = cm.attention(q, k_l, v_l, causal=False, q_offset=pos, kv_len=pos + 1)
         x = x + cm.project_out(o, bp["wo"])
-        x, _ = _ffn(cfg, bp, x, 0)
-        for j, mp, ln in _mixers(cfg, bp):
+        ffns = _ffns(cfg, bp)
+        x, _ = _ffn(cfg, ffns[0], x)
+        for j, mp, ln in _mixers(bp):
             out, ssm, conv = m2.mixer_decode(cfg, mp, cache["ssm"][b, j], cache["conv"][b, j],
                                              cm.rms_norm(x, ln, cfg.norm_eps))
             cache["ssm"][b, j].copy_(ssm)
             cache["conv"][b, j].copy_(conv)
             x = x + out
-            x, _ = _ffn(cfg, bp, x, j + 1)
+            x, _ = _ffn(cfg, ffns[j + 1], x)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].T).to(torch.float32)[:, 0], cache
+
+
+def lm_loss(cfg: ModelConfig, params: cm.Params, batch: Dict[str, Any],
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``cfg.router_aux_coef`` times the
+    load-balance loss (float32)."""
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat)
+    return cm.next_token_ce(cfg, logits, batch["labels"]) + cfg.router_aux_coef * aux

@@ -9,11 +9,13 @@ order).  Decode keeps the recurrent state (B, nh, N, hd) in float32 and a
 ring of the last k - 1 conv inputs in ``param_dtype``.  The mixer is
 reused by the Jamba hybrid (``models/jamba.py``).
 
-Not ported: ``lm_loss``.
+``lm_loss`` is the next-token cross-entropy; ``forward(..., remat=True)``
+checkpoints each layer under ``cfg.remat_policy``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -96,7 +98,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     cb = Cc @ Bc.transpose(-1, -2)                    # (B, nc, i, j)
     causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
     att = (a_h[..., :, None] - a_h[..., None, :]).masked_fill_(~causal, float("-inf"))
-    att = att.exp_().mul_(cb[:, :, None])             # (B, nc, nh, i, j)
+    # exp_ keeps its result for the backward: the product is a new tensor
+    att = att.exp_() * cb[:, :, None]                 # (B, nc, nh, i, j)
     xh = x_dt.transpose(2, 3)                         # (B, nc, nh, Q, hd)
     y = att @ xh                                      # (B, nc, nh, i, hd)
     del att
@@ -203,13 +206,20 @@ def _mixer(lp: cm.Params) -> cm.Params:
     return {n: w for n, w in lp.items() if n != "ln"}
 
 
-def forward(cfg: ModelConfig, params: cm.Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params) -> torch.Tensor:
+    return x + mixer_forward(cfg, _mixer(lp), cm.rms_norm(x, lp["ln"], cfg.norm_eps))
+
+
+def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> logits (B, S, V) in the logits dtype and a zero
     auxiliary loss."""
     x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    body = functools.partial(_layer, cfg)
+    if remat:
+        body = cm.remat_wrap(body, cfg.remat_policy)
     for lp in cm.layers(params["layers"]):
-        x = x + mixer_forward(cfg, _mixer(lp), cm.rms_norm(x, lp["ln"], cfg.norm_eps))
+        x = body(x, lp)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(cm.logits_dtype(cfg))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -244,3 +254,10 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
         x = x + out
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].T).to(torch.float32)[:, 0], cache
+
+
+def lm_loss(cfg: ModelConfig, params: cm.Params, batch: Dict[str, Any],
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32)."""
+    logits, _ = forward(cfg, params, batch["tokens"], remat=remat)
+    return cm.next_token_ce(cfg, logits, batch["labels"])

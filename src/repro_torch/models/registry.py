@@ -1,19 +1,21 @@
 """Uniform model API over families (the port of
-``repro.models.registry``): ``init`` and ``prefill`` (the full
-sequence), ``init_decode_cache``, ``cache_axes`` and ``decode_step`` (one
-token a step against a decode cache) are the entry points.  The
+``repro.models.registry``): ``init``, ``loss_fn`` (the training loss) and
+``prefill`` (the full sequence), ``init_decode_cache``, ``cache_axes`` and
+``decode_step`` (one token a step against a decode cache) are the entry
+points.  The dense, MoE and VLM (``models/transformer.py``),
 encoder-decoder (whisper), hybrid (jamba) and SSM (mamba2) families are
 ported; any other family raises NotImplementedError naming it.
 
-``batch`` holds ``tokens`` (B, S), and for the encoder-decoder family
-``audio_embeds`` (B, encoder_len, d_model), as ``launch.specs.make_batch``
-makes them.  A decode cache is written in place by ``decode_step``;
-whisper's cross-attention entries (``xk``, ``xv``) are the caller's to
-fill from ``whisper.precompute_cross_kv``.
+``batch`` holds ``tokens`` (B, S) and, for ``loss_fn``, ``labels`` (B,
+S); the VLM family adds ``patch_embeds`` (B, n_patches, d_model) and the
+encoder-decoder family ``audio_embeds`` (B, encoder_len, d_model), as
+``launch.specs.make_batch`` makes them.  A decode cache is written in
+place by ``decode_step``; whisper's cross-attention entries (``xk``,
+``xv``) are the caller's to fill from ``whisper.precompute_cross_kv``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
@@ -21,10 +23,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import require_ported
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models import jamba, mamba2, whisper
+from repro_torch.models import jamba, mamba2, transformer, whisper
 
-_FAMILY = {"encdec": whisper, "hybrid": jamba, "ssm": mamba2}
-
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "encdec": whisper, "hybrid": jamba, "ssm": mamba2}
 
 def module_for(cfg: ModelConfig):
     return _FAMILY[require_ported(cfg).family]
@@ -38,13 +40,28 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> cm.Para
     return module_for(cfg).init(cfg, generator, resolve_device(device))
 
 
+def loss_fn(cfg: ModelConfig, params: cm.Params, batch: Dict[str, Any],
+            remat: bool = True) -> torch.Tensor:
+    """The family's ``lm_loss``: the mean next-token cross-entropy (plus
+    the MoE load-balance term), float32; ``remat`` checkpoints each layer
+    under ``cfg.remat_policy``."""
+    _check_device(params["embed"].device, **{f"batch[{n!r}]": t for n, t in batch.items()})
+    return module_for(cfg).lm_loss(cfg, params, batch, remat=remat)
+
+
 def prefill(cfg: ModelConfig, params: cm.Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward returning logits (B, S, V), on the device of
-    the parameters."""
+    """Full-sequence forward returning logits (B, S, V) (the VLM's: B, P +
+    S, V, its patch positions first, where the batch has
+    ``patch_embeds``), on the device of the parameters."""
     mod = module_for(cfg)
-    names = ("tokens", "audio_embeds") if cfg.family == "encdec" else ("tokens",)
-    _check_device(params["embed"].device, **{f"batch[{n!r}]": batch[n] for n in names})
-    logits, _ = mod.forward(cfg, params, *(batch[n] for n in names))
+    if cfg.family == "encdec":
+        args = (batch["tokens"], batch["audio_embeds"])
+    elif cfg.family == "vlm":
+        args = (batch["tokens"], batch.get("patch_embeds"))
+    else:
+        args = (batch["tokens"],)
+    _check_device(params["embed"].device, **{f"batch[{n!r}]": t for n, t in batch.items()})
+    logits, _ = mod.forward(cfg, params, *args)
     return logits
 
 

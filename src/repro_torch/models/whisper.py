@@ -19,11 +19,14 @@ and values, which the caller fills from ``precompute_cross_kv``.  Its
 attention passes ``kv_len``, so it never takes the flash kernel, as in
 the reference.  ``decode_step`` writes the cache in place.
 
-Not ported: ``lm_loss``.
+``lm_loss`` is the next-token cross-entropy of the forward's logits;
+``forward(..., remat=True)`` checkpoints each encoder and decoder layer
+under ``cfg.remat_policy`` (``common.remat_wrap``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+import functools
+from typing import Any, Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -90,21 +93,29 @@ def _mlp(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tens
     return F.gelu(h @ w_in, approximate="tanh") @ w_out
 
 
-def encode(cfg: ModelConfig, params: cm.Params, audio_embeds: torch.Tensor) -> torch.Tensor:
+def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params) -> torch.Tensor:
+    h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    o = cm.attention(q, k, v, causal=False)
+    x = x + cm.project_out(o, lp["wo"])
+    h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+
+
+def encode(cfg: ModelConfig, params: cm.Params, audio_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """audio_embeds: (B, enc_len, D) stub frontend output -> encoder states."""
     x = audio_embeds.to(cm.dtype_of(cfg.compute_dtype))
     x = x + params["enc_pos"][None, : x.shape[1]].to(x.dtype)
+    body = functools.partial(_enc_layer, cfg)
+    if remat:
+        body = cm.remat_wrap(body, cfg.remat_policy)
     for lp in cm.layers(params["encoder"]):
-        h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
-        o = cm.attention(q, k, v, causal=False)
-        x = x + cm.project_out(o, lp["wo"])
-        h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+        x = body(x, lp)
     return cm.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
-def _dec_layer(cfg: ModelConfig, lp: cm.Params, x: torch.Tensor, enc: torch.Tensor,
+def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params, enc: torch.Tensor,
                chunk_q: int) -> torch.Tensor:
     """One decoder layer over the whole sequence (the reference's
     ``self_kv is None`` branch): causal self-attention, cross-attention
@@ -123,17 +134,20 @@ def _dec_layer(cfg: ModelConfig, lp: cm.Params, x: torch.Tensor, enc: torch.Tens
 
 
 def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
-            audio_embeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            audio_embeds: torch.Tensor, remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) and audio_embeds (B, enc_len, D) -> logits (B, S, V)
     and a zero auxiliary loss, as the reference returns them.  The logits
     are a product in the compute dtype, cast to the logits dtype after."""
-    enc = encode(cfg, params, audio_embeds)
+    enc = encode(cfg, params, audio_embeds, remat=remat)
     S = tokens.shape[1]
     x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     chunk_q = 1024 if S >= 8192 else 0
+    body = functools.partial(_dec_layer, cfg, enc=enc, chunk_q=chunk_q)
+    if remat:
+        body = cm.remat_wrap(body, cfg.remat_policy)
     for lp in cm.layers(params["decoder"]):
-        x = _dec_layer(cfg, lp, x, enc, chunk_q)
+        x = body(x, lp)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(cm.logits_dtype(cfg))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -199,3 +213,10 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(torch.float32)
     return logits[:, 0], cache
+
+
+def lm_loss(cfg: ModelConfig, params: cm.Params, batch: Dict[str, Any],
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of the decoder's logits (float32)."""
+    logits, _ = forward(cfg, params, batch["tokens"], batch["audio_embeds"], remat=remat)
+    return cm.next_token_ce(cfg, logits, batch["labels"])

@@ -646,6 +646,97 @@ def test_whisper_prefill_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,d,window,dtype", [
+    (8, 128, 32, 8, 64, 0, torch.bfloat16),   # granite-3-2b's training shape
+    (2, 256, 8, 2, 64, 64, torch.float32),
+    (1, 130, 4, 1, 96, 7, torch.bfloat16),
+])
+def test_flash_diff_matches_autograd_through_plain(dev, B, S, H, Hkv, d, window, dtype):
+    """The differentiable Function on the card: one kernel launch a
+    forward, the output within one bf16 step (f32: 1e-5) of the plain
+    version, dq, dk, dv within two bf16 steps of each gradient's largest
+    value (f32: 1e-5 of it) of autograd through the plain version."""
+    rng = np.random.default_rng(S + d)
+    ins = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+           for s in ((B, S, H, d), (B, S, Hkv, d), (B, S, Hkv, d))]
+    do = torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(np.float32)).to(dev, dtype)
+    outs = []
+    for fn in (attn_kernel.flash_attention_diff, attn_kernel.flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_(True) for t in ins)
+        ops.reset_launches()
+        o = fn(q, k, v, True, window)
+        launches = ops.launches()["flash_attention"]
+        o.backward(do)
+        torch.cuda.synchronize()
+        outs.append((o.detach(), q.grad, k.grad, v.grad, launches))
+    assert outs[0][4] == 1 and outs[1][4] == 0
+    _assert_attn_close(outs[0][0], outs[1][0])
+    step = 2 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for g, w in zip(outs[0][1:4], outs[1][1:4]):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=step * float(w.float().abs().max()))
+
+
+def test_bare_flash_kernel_refuses_a_gradient_on_the_card(dev):
+    """No path returns a detached result: the bare wrapper raises on a
+    grad-requiring input; ``ops.flash_attention`` (the models' route)
+    takes the Function and its gradients reach q, k and v."""
+    q = torch.randn(1, 128, 4, 64, device=dev, requires_grad=True)
+    k, v = (torch.randn(1, 128, 2, 64, device=dev, requires_grad=True) for _ in range(2))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="flash_attention_diff"):
+        attn_kernel.flash_attention(q, k, v)
+    assert ops.launches()["flash_attention"] == 0
+    with torch.no_grad():
+        attn_kernel.flash_attention(q, k, v)
+    o = ops.flash_attention(q, k, v, causal=True, window=32)
+    assert type(o.grad_fn).__name__ == "_FlashDiffBackward"
+    o.sum().backward()
+    assert ops.launches()["flash_attention"] == 2
+    assert all(bool(t.grad.abs().amax() > 0) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(dev, remat):
+    """One launch.train.train_step of the reduced granite (float32, TF32
+    off, q/k / 8): flash once a layer (twice with remat), the loss and the
+    parameters after the AdamW step within 1e-4 of the CPU's (relative,
+    the leaf's norm; chip_smoke.py phase 4n (c))."""
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.launch import train
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+    from repro_torch.optim import get
+
+    cfg = CONFIG.reduced()
+    p = registry.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for n in ("wq", "wk"):
+        p["layers"][n] = p["layers"][n] / 8
+    b = make_batch(cfg, 2, 128, seed=1, device="cpu")
+    b["labels"] = b["tokens"]
+    opt = get("adamw", weight_decay=0.01)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for d in ("cpu", dev):
+            pd = cm.tree_map(lambda t: t.to(d), p)
+            ops.reset_launches()
+            loss, new, _ = train.train_step(cfg, opt, pd, opt.init(pd),
+                                            {n: t.to(d) for n, t in b.items()}, 1e-3,
+                                            remat=remat)
+            res[str(d)] = (float(loss), cm.tree_map(lambda t: t.cpu(), new), ops.launches())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert res["cuda"][2]["flash_attention"] == cfg.n_layers * (2 if remat else 1)
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-4)
+    for n in res["cpu"][1]["layers"]:
+        a, w = res["cuda"][1]["layers"][n], res["cpu"][1]["layers"][n]
+        assert float((a - w).norm() / w.norm()) <= 1e-4, n
+
+
 # ---------------------------------------------------------------------------
 # Per-row Enhanced ERA and the distillation loss: each kernel against its
 # plain version over chip_smoke.py's phase-3 cases.

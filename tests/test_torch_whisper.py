@@ -256,13 +256,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_families_raise_naming_the_family():
-    dense = ModelConfig(name="granite-like", family="dense")
-    with pytest.raises(NotImplementedError, match="'dense'"):
-        registry.init(dense, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        make_batch(dataclasses.replace(dense, family="moe"), 1, 8, device="cpu")
+    """The CNN's family is the one the port's model registry lacks."""
+    cnn = ModelConfig(name="resnet-like", family="resnet")
+    with pytest.raises(NotImplementedError, match="'resnet'"):
+        registry.init(cnn, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="'resnet'"):
+        make_batch(cnn, 1, 8, device="cpu")
     with pytest.raises(KeyError):
-        creg.get("granite-3-2b")
+        creg.get("resnet20-cifar")
 
 
 def test_prefill_refuses_a_batch_on_another_device(weights):
