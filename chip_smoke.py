@@ -97,6 +97,15 @@ autograd through the kernel's plain version at that attention shape and
 in float32; one step of each ported family's reduced float32
 configuration on the card and on the CPU; and the launcher's default
 run, whose loss must improve.
+Then the last model modules (phase 4o): ResNet-20 at its published
+widths on a batch of 128 CIFAR-shaped images, its logits and the
+gradients of mean(logits^2) on the card against the CPU's (float32 and
+float64), timed with TF32 off and on; and jamba-v0.1-52b's MoE layer at
+full width through ``common.moe_ffn`` under ``MOE_A2A_MESH`` (the
+all-to-all expert-parallel dispatch, ``repro_torch.models.moe_a2a``) on
+a world of one over NCCL and on the ("data", "model") meshes (2, 1),
+(4, 1) and (2, 2) over gloo on the one card, against the single-device
+``moe_ffn`` without drops, with each rank's drops recounted on the host.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
@@ -135,16 +144,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
+from repro_torch.launch.roofline import HW_PRESETS  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet; the port's hardware model,
+# repro_torch.launch.roofline's "h100_sxm"): HBM3 bandwidth and the
 # float32 rate outside the tensor cores.  The bound of a kernel is the
 # larger of bytes / HBM rate and operations / float32 rate.
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = HW_PRESETS["h100_sxm"].hbm_bw
 FP32_OPS_PER_S = 67e12
 # ... and the dense tensor-core rates, the peaks for attention's products:
 # bfloat16 for bfloat16 inputs; tf32 for float32 inputs, whose kernel
 # takes each product as three tf32 products (3xTF32), so its bound counts
 # all three passes at the tf32 rate and no share of it reads over 100 %.
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = HW_PRESETS["h100_sxm"].peak_flops
 TF32_OPS_PER_S = 494.7e12
 TF32_PASSES = 3
 
@@ -561,6 +573,75 @@ TRAIN_FAMILIES = (("granite-3-2b", 2), ("gemma2-27b", 0), ("grok-1-314b", 2),
                   ("kimi-k2-1t-a32b", 2), ("internvl2-26b", 2), ("whisper-large-v3", 2),
                   ("jamba-v0.1-52b", 1), ("mamba2-1.3b", 0))
 TRAIN_LAUNCHER_STEPS = 20
+# Phase 4o: the last model modules.  (a) ResNet-20 (repro_torch.models.
+# resnet, the paper's client/server model, Table III) at its published
+# widths 16/32/64 (0.27e6 parameters, float32, random weights from a
+# seed) on a CIFAR-shaped batch of RESNET_B standard-normal 32x32x3
+# images from a seed.  The FL system never builds the CNN, so no run of
+# the repository fixes a batch: RESNET_B is a stand-in.  The forward's
+# logits, the loss mean(logits^2) and its gradients on the card (cuDNN's
+# convolutions, TF32 off) and on the CPU from the same weights: the
+# logits to RESNET_RTOL of their norm; in float64 on both sides (the
+# GroupNorm statistics stay float32, as the model writes them) the logits
+# and every leaf's gradient to RESNET_RTOL of its norm; the card's float32
+# gradients to RESNET_F32_GRAD_RTOL of each leaf's norm from the CPU's
+# float64 ones, printed beside the CPU's own float32 distance (GroupNorm's
+# backward subtracts nearly equal terms, so a float32 gradient of this
+# network lies about 1e-4 of a leaf's norm from the float64 one on either
+# device).  Then ms per forward and per forward + backward by CUDA events
+# (TF32 off and on), the device peak above what the process held before
+# (earlier phases leave tensors alive) and one profiled step.
+RESNET_B = 128
+RESNET_SEED = 0
+RESNET_RTOL = 1e-4
+RESNET_F32_GRAD_RTOL = 1e-3
+RESNET_TIMED = 20
+# (b) The all-to-all MoE (repro_torch.models.moe_a2a) at full width:
+# jamba-v0.1-52b's MoE layer (D = 4096, F = 14336, E = 16, top_k = 2,
+# bfloat16; weights drawn by common.init_params from a CUDA generator at
+# A2A_SEED, so every rank of a world draws the same bits), the global
+# batch A2A_B x A2A_S of standard normals, called through common.moe_ffn
+# with MOE_A2A_MESH set: on a world of one over NCCL in this process, and
+# on ("data", "model") meshes A2A_MESHES over gloo on the one card (NCCL
+# refuses two ranks on a device).  At capacity factor 8 nothing drops:
+# the ranks' outputs, gathered in data order, equal the single-device
+# moe_ffn of the whole batch to A2A_RTOL of its largest magnitude (both
+# round the expert products to bfloat16, whose accumulation order may
+# differ with the products' row counts, and the (2, 2) mesh sums two
+# bfloat16 halves of each output: two bfloat16 steps, BF16_STEP), and the aux loss
+# equals the mean of the single-device loss over each data coordinate's
+# rows (the reference's pmean of local losses) to A2A_AUX_RTOL.  At the
+# default 1.25 and at 1.0 each rank's dropped count equals a host recount
+# from its routing (random routing at this width fills no expert past 1.25
+# of its share, so 1.0, where about half the experts overflow, is the
+# case that drops; the gate also fails if no rank drops there).  The
+# gradients through the exchanges: at cf 8 each rank's share of the loss
+# sum(out c) + A2A_AUX_WEIGHT aux (c a float32 cotangent drawn after x;
+# its rows' term and 1 / n of the aux term, divided over the M ranks along
+# "model") is differentiated with respect to its rows of x and the
+# router; the x gradients summed over "model" and gathered, and the
+# router gradients summed over every rank, equal the single-device
+# moe_ffn's gradients of sum(out c) + A2A_AUX_WEIGHT times the mean of
+# the aux losses of the data coordinates' row blocks to A2A_GRAD_RTOL of
+# each one's largest magnitude (four bfloat16 steps: a token's gradient
+# adds its k expert paths and its routing path in bfloat16, in another
+# order on each side; a wrong transpose is off by the whole gradient).
+# A2A_AUX_WEIGHT gives the aux term a visible share of the router
+# gradient (per unit weight its gradient is far smaller than the output
+# term's).  Each rank's ms per call at 1.25, its two all-to-alls' ms and
+# bytes (2 E cap_e D 2 B), its device peak above what it held before
+# drawing the layer (forward calls only) and the ms of the gradient
+# step are printed; the world of one's call is profiled.
+A2A_B, A2A_S = 4, 1024
+A2A_SEED = 0
+A2A_MESHES = ((2, 1), (4, 1), (2, 2))
+A2A_FACTORS = (8.0, 1.25, 1.0)
+A2A_DEFAULT_CF = 1.25
+A2A_RTOL = 2.0 ** -6
+A2A_AUX_RTOL = 1e-5
+A2A_GRAD_RTOL = 2.0 ** -5
+A2A_AUX_WEIGHT = 1000.0
+A2A_TIMED = 5
 
 # Per-row Enhanced ERA, kernel vs plain version: float32 to ERA_ATOL (the
 # row sums run in other orders); bfloat16 bit for bit the float32
@@ -4162,6 +4243,341 @@ def run_train(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: ResNet-20 and the all-to-all MoE
+# ---------------------------------------------------------------------------
+
+def _resnet_pass(params, images):
+    """Logits, loss mean(logits^2) and the gradient tree of one forward and
+    backward, on the device of ``params`` (a copy that requires grad)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import resnet
+
+    p = cm.tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    logits = resnet.apply(p, images)
+    loss = (logits ** 2).mean()
+    loss.backward()
+    return logits.detach(), loss.detach(), cm.tree_map(lambda t: t.grad, p)
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| over its norm, by dotted name."""
+    return {n: float((g.cpu().double() - w.cpu().double()).abs().max() / w.double().norm())
+            for (n, g), (_, w) in zip(_leaf_items(got), _leaf_items(want))}
+
+
+def run_resnet(device, card: str) -> dict:
+    """Phase 4o (a): ResNet-20 at its published widths, card vs CPU, then
+    timed."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import resnet
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    params, _ = resnet.init(torch.Generator().manual_seed(RESNET_SEED), device="cpu")
+    n_params = cm.n_params(params)
+    x = torch.from_numpy(np.random.default_rng(RESNET_SEED).standard_normal(
+        (RESNET_B, 32, 32, 3)).astype(np.float32))
+    runs = {}
+    for dev, dt in (("cpu", torch.float32), ("cpu", torch.float64),
+                    (device, torch.float32), (device, torch.float64)):
+        runs[(str(dev), dt)] = _resnet_pass(cm.tree_map(lambda t: t.to(dev, dt), params),
+                                            x.to(dev, dt))
+    cpu32, cpu64 = runs[("cpu", torch.float32)], runs[("cpu", torch.float64)]
+    card32, card64 = runs[(str(device), torch.float32)], runs[(str(device), torch.float64)]
+    logit_err = float((card32[0].cpu() - cpu32[0]).abs().max() / cpu32[0].norm())
+    logit_err64 = float((card64[0].cpu() - cpu64[0]).abs().max() / cpu64[0].norm())
+    loss_err = abs(float(card32[1]) - float(cpu32[1])) / abs(float(cpu32[1]))
+    g64 = _rel_errs(card64[2], cpu64[2])
+    g32 = _rel_errs(card32[2], cpu64[2])
+    g32_cpu = _rel_errs(cpu32[2], cpu64[2])
+    worst = max(g32, key=g32.get)
+    log(f"phase 4o (a) resnet20-cifar ({n_params} parameters, widths 16/32/64) B={RESNET_B} "
+        f"32x32x3, TF32 off, card vs cpu: float32 logits max_abs_err/norm {logit_err!r}, loss "
+        f"rel err {loss_err!r}; float64 logits {logit_err64!r}, gradients worst "
+        f"{max(g64.values())!r} (gate {RESNET_RTOL}); card float32 gradients vs cpu float64 "
+        f"worst {g32[worst]!r} ({worst}; gate {RESNET_F32_GRAD_RTOL}), the cpu's own float32 "
+        f"worst {max(g32_cpu.values())!r} ({max(g32_cpu, key=g32_cpu.get)}) ({card})")
+    finite = all(bool(torch.isfinite(t).all()) for _, t in _leaf_items(card32[2]))
+    if not (finite and bool(torch.isfinite(card32[0]).all()) and card32[0].shape == (RESNET_B, 10)
+            and logit_err <= RESNET_RTOL and logit_err64 <= RESNET_RTOL
+            and max(g64.values()) <= RESNET_RTOL
+            and max(g32.values()) <= RESNET_F32_GRAD_RTOL):
+        raise AssertionError(f"phase 4o (a): resnet card vs cpu: logits {logit_err}, "
+                             f"{logit_err64}, gradients f64 {max(g64.values())}, f32 "
+                             f"{max(g32.values())}")
+    del runs, card32, card64
+    base = torch.cuda.memory_allocated(device)
+    p = cm.tree_map(lambda t: t.to(device), params)
+    pg = cm.tree_map(lambda t: t.detach().clone().requires_grad_(), p)
+    xd = x.to(device)
+
+    def fwd_bwd():
+        (resnet.apply(pg, xd) ** 2).mean().backward()
+
+    times = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: resnet.apply(p, xd), batches=5, per_batch=RESNET_TIMED)
+        torch.cuda.reset_peak_memory_stats(device)
+        both = cuda_ms(fwd_bwd, batches=5, per_batch=RESNET_TIMED)
+        times[tf32] = (fwd, both, torch.cuda.max_memory_allocated(device) - base)
+    busy = profiled_step_busy(fwd_bwd, device, times[True][1])
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    log(f"phase 4o (a) resnet20-cifar B={RESNET_B}: ms per forward / forward+backward "
+        f"(CUDA events, medians of 5 batches of {RESNET_TIMED}): TF32 off "
+        f"{times[False][0]!r} / {times[False][1]!r}, TF32 on {times[True][0]!r} / "
+        f"{times[True][1]!r}; device peak (forward+backward, above what the process held before) {times[False][2]} B; one "
+        f"profiled forward+backward (TF32 on): device busy {busy['busy_ms']!r} ms "
+        f"({busy['share']:.3f} of the timed one), {busy['kernels']} kernels; by class "
+        f"{busy['classes']}; top {busy['top']} ({card})")
+    return dict(logit_err=logit_err, grad_err64=max(g64.values()), grad_err32=g32[worst],
+                times=times)
+
+
+def a2a_layer(device) -> tuple:
+    """jamba-v0.1-52b's MoE layer (router, w1, w3, w2; bfloat16) drawn on
+    ``device`` from A2A_SEED, the global batch x (A2A_B, A2A_S, D) and
+    the gradient gate's float32 cotangent of x's shape."""
+    from repro_torch.models import common as cm
+
+    cfg = jamba_cfg()
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    gen = torch.Generator(device=device).manual_seed(A2A_SEED)
+    w = cm.init_params({"router": cm.spec((D, E)), "w1": cm.spec((E, D, Fe)),
+                        "w3": cm.spec((E, D, Fe)), "w2": cm.spec((E, Fe, D))},
+                       gen, torch.bfloat16, device)
+    x = torch.randn(A2A_B, A2A_S, D, generator=gen, device=device).to(torch.bfloat16)
+    ct = torch.randn(A2A_B, A2A_S, D, generator=gen, device=device)
+    return cfg, x, (w["router"], w["w1"], w["w3"], w["w2"]), ct
+
+
+def a2a_grads(x, w, ct, top_k: int, n: int, M: int = 1) -> dict:
+    """The gradients, float32 on the CPU, of ``(sum(out ct) +
+    A2A_AUX_WEIGHT aux / n) / M`` with respect to x and the router, out
+    and aux those of ``common.moe_ffn`` at cf 8 (under ``MOE_A2A_MESH``
+    when the caller set it: then x and ct are this rank's rows), and the
+    ms of the step by the host clock (:func:`a2a_grad_ref` is the
+    single-device reference)."""
+    from repro_torch.models import common as cm
+
+    xg = x.detach().clone().requires_grad_()
+    rg = w[0].detach().clone().requires_grad_()
+    _sync(x.device)
+    t0 = time.perf_counter()
+    y, aux = cm.moe_ffn(xg, rg, *w[1:], top_k=top_k, capacity_factor=8.0)
+    (((y.float() * ct).sum() + A2A_AUX_WEIGHT * aux / n) / M).backward()
+    _sync(x.device)
+    return dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu(),
+                ms=(time.perf_counter() - t0) * 1e3)
+
+
+def a2a_grad_ref(x, w, ct, top_k: int, n: int) -> dict:
+    """The single-device gradients that the ranks of a data axis of ``n``
+    add up to: of ``sum(out ct) + A2A_AUX_WEIGHT mean_d aux_d`` with
+    respect to x and the router, out the single-device ``moe_ffn`` of the
+    whole batch at cf 8 and aux_d the routing's aux loss of the d-th of n
+    row blocks (the ranks' pmean)."""
+    from repro_torch.models import common as cm
+
+    xg = x.detach().clone().requires_grad_()
+    rg = w[0].detach().clone().requires_grad_()
+    y, _ = cm.moe_ffn(xg, rg, *w[1:], top_k=top_k, capacity_factor=8.0)
+    b, D = x.shape[0] // n, x.shape[-1]
+    aux = sum(cm.moe_route(xg[d * b:(d + 1) * b].reshape(-1, D), rg, top_k)[2]
+              for d in range(n)) / n
+    ((y.float() * ct).sum() + A2A_AUX_WEIGHT * aux).backward()
+    return dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu())
+
+
+def _fingerprint(ts) -> list:
+    return [float(t.sum(dtype=torch.float32)) for t in ts]
+
+
+def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, profile: bool = False) -> dict:
+    """``common.moe_ffn`` under ``MOE_A2A_MESH = mesh`` on this rank's rows
+    of ``x``: at each of A2A_FACTORS its output (CPU), aux, routing and
+    dropped count; at A2A_DEFAULT_CF, A2A_TIMED calls timed by the host
+    clock and one more with each all-to-all synchronised and timed; the
+    device peak of these calls above ``base`` (what the process held
+    before it drew the layer); then :func:`a2a_grads` on the rank's rows
+    of ``ct``.  ``profile`` adds a profiled call's busy time."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+
+    sizes = mesh_lib.mesh_axis_sizes(mesh)
+    n = sizes["data"]
+    b = x.shape[0] // n
+    xs = x[mesh.axis_index("data") * b:][:b]
+    out = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    cm.MOE_A2A_MESH = mesh
+    try:
+        for cf in A2A_FACTORS:
+            routing = []
+            y, aux = cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf, routing=routing)
+            r = routing[0]
+            out[cf] = dict(y=y.cpu(), aux=float(aux), eidx=r["eidx"].cpu().numpy(),
+                           cap=r["capacity"], dropped=int(r["dropped"]))
+        cf = A2A_DEFAULT_CF
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(A2A_TIMED):
+            cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3 / A2A_TIMED
+        busy = profiled_step_busy(lambda: cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf),
+                                  device, ms) if profile else None
+        a2a_ms, plain = [], mesh_lib.all_to_all
+
+        def timed(t, group):
+            _sync(device)
+            t1 = time.perf_counter()
+            o = plain(t, group)
+            _sync(device)
+            a2a_ms.append((time.perf_counter() - t1) * 1e3)
+            return o
+
+        mesh_lib.all_to_all = timed
+        try:
+            cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf)
+        finally:
+            mesh_lib.all_to_all = plain
+        peak = torch.cuda.max_memory_allocated(device) - base
+        grads = a2a_grads(xs, w, ct[mesh.axis_index("data") * b:][:b], top_k, n,
+                          sizes["model"])
+    finally:
+        cm.MOE_A2A_MESH = None
+    E, D = w[0].shape[1], x.shape[-1]
+    return dict(out=out, ms=ms, a2a_ms=a2a_ms, a2a_bytes=2 * E * out[cf]["cap"] * D * 2,
+                peak=peak, coords=mesh.coords, busy=busy, grads=grads)
+
+
+def a2a_rank(device_type: str, top_k: int, fingerprint: list) -> list:
+    """A rank of the gloo world on ``device_type`` (the card: all ranks on
+    it): the layer drawn again from A2A_SEED (its fingerprint must be the
+    parent's), then :func:`a2a_calls` on each of A2A_MESHES of this world's
+    size."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    device = mesh_lib.rank_device(device_type)
+    if device.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.set_device(device)
+        warm_cublas(device)
+    base = torch.cuda.memory_allocated(device)
+    _, x, w, ct = a2a_layer(device)
+    if _fingerprint((x, ct) + w) != fingerprint:
+        raise AssertionError(f"rank {dist.get_rank()}: the layer drawn from A2A_SEED differs")
+    return [a2a_calls(mesh_lib.make_mesh(shape, ("data", "model")), x, w, ct, top_k, device,
+                      base)
+            for shape in A2A_MESHES if shape[0] * shape[1] == dist.get_world_size()]
+
+
+def hold_a2a(label: str, ranks: list, ref: dict, shape, card: str) -> None:
+    """The gates of phase 4o (b) on one mesh's ranks (see A2A_RTOL)."""
+    n = shape[0]
+    by_coord = {r["coords"][0]: r for r in ranks if r["coords"][1] == 0}
+    got = torch.cat([by_coord[d]["out"][8.0]["y"] for d in range(n)])
+    want = ref["y"]
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    aux_want = ref["aux"][n]
+    aux_err = max(abs(r["out"][8.0]["aux"] - aux_want) for r in ranks) / abs(aux_want)
+    replicas = all(torch.equal(r["out"][8.0]["y"], by_coord[r["coords"][0]]["out"][8.0]["y"])
+                   for r in ranks)
+    drops = {}
+    for cf in A2A_FACTORS[1:]:
+        drops[cf] = []
+        for r in ranks:
+            o = r["out"][cf]
+            counts = np.bincount(o["eidx"].ravel(), minlength=ref["E"])
+            drops[cf].append((o["dropped"], int(np.maximum(counts - o["cap"], 0).sum())))
+    dropping = sum(a for a, _ in drops[min(A2A_FACTORS)]) > 0
+    gx = torch.cat([sum(r["grads"]["x"] for r in ranks if r["coords"][0] == d)
+                    for d in range(n)])
+    g_err = {k: float((g - ref["grads"][n][k]).abs().max())
+             / float(ref["grads"][n][k].abs().max())
+             for k, g in (("x", gx), ("router", sum(r["grads"]["router"] for r in ranks)))}
+    cf = A2A_DEFAULT_CF
+    log(f"phase 4o (b) {label}: cf 8 vs single-device moe_ffn: max_abs_err {err!r} of max "
+        f"|out| {scale!r} (gate {A2A_RTOL} x), aux rel err {aux_err!r} (gate {A2A_AUX_RTOL}), "
+        f"replicas along model equal={replicas}; dropped (device, host recount) per rank by "
+        f"cf {drops}; at cf {cf}: ms per call {[round(r['ms'], 3) for r in ranks]}; "
+        f"all-to-all ms {[[round(t, 3) for t in r['a2a_ms']] for r in ranks]}, "
+        f"{ranks[0]['a2a_bytes']} B a rank a call (cap_e {ranks[0]['out'][cf]['cap']}); "
+        f"device peak per rank above what it held before drawing the layer "
+        f"{[r['peak'] for r in ranks]} B; gradients at cf 8 vs single-device moe_ffn: "
+        f"max_abs_err / max |grad| {g_err} (gate {A2A_GRAD_RTOL}), ms per forward + "
+        f"backward {[round(r['grads']['ms'], 3) for r in ranks]} ({card})")
+    if ranks[0]["busy"] is not None:
+        b = ranks[0]["busy"]
+        log(f"phase 4o (b) {label}: one profiled call at cf {cf}: device busy "
+            f"{b['busy_ms']!r} ms of {ranks[0]['ms']!r} ({b['share']:.3f}), {b['kernels']} "
+            f"kernels; by class {b['classes']}; top {b['top']} ({card})")
+    if not (err <= A2A_RTOL * scale and aux_err <= A2A_AUX_RTOL and replicas
+            and all(a == b for d in drops.values() for a, b in d) and dropping
+            and all(e <= A2A_GRAD_RTOL for e in g_err.values())
+            and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"phase 4o (b) {label}: err {err}, aux {aux_err}, drops {drops}, "
+                             f"gradients {g_err}")
+
+
+def run_moe_a2a(device, card: str) -> dict:
+    """Phase 4o (b): the single-device reference, a world of one over
+    NCCL, then the gloo worlds of A2A_MESHES."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    cfg, x, w, ct = a2a_layer(device)
+    fingerprint = _fingerprint((x, ct) + w)
+    y, aux = cm.moe_ffn(x, *w, top_k=cfg.top_k, capacity_factor=8.0)
+    ref = dict(y=y.cpu(), E=cfg.n_experts, aux={1: float(aux)},
+               grads={n: a2a_grad_ref(x, w, ct, cfg.top_k, n)
+                      for n in sorted({1} | {s[0] for s in A2A_MESHES})})
+    for n in sorted({s[0] for s in A2A_MESHES}):
+        b = A2A_B // n
+        ref["aux"][n] = float(np.mean([float(cm.moe_ffn(x[d * b:(d + 1) * b], *w,
+                                                        top_k=cfg.top_k,
+                                                        capacity_factor=8.0)[1])
+                                       for d in range(n)]))
+    del y
+    log(f"phase 4o (b): {cfg.name}'s MoE layer (D {cfg.d_model}, F {cfg.expert_d_ff}, E "
+        f"{cfg.n_experts}, top_k {cfg.top_k}, bfloat16), x ({A2A_B}, {A2A_S}, {cfg.d_model})")
+    out = {}
+    with mesh_lib.world_of_one("nccl" if device.type == "cuda" else "gloo"):
+        one = a2a_calls(mesh_lib.make_mesh((1, 1), ("data", "model")), x, w, ct, cfg.top_k,
+                        device, base, profile=device.type == "cuda")
+        hold_a2a(f"world of one ({dist.get_backend()})", [one], ref, (1, 1), card)
+        out[(1, 1)] = [one]
+    del x, w, ct
+    torch.cuda.empty_cache()
+    for n in sorted({s[0] * s[1] for s in A2A_MESHES}):
+        ranks = mesh_lib.run_world(n, a2a_rank, device.type, cfg.top_k, fingerprint,
+                                   backend="gloo",
+                                   threads=None, timeout=900.0)
+        for i, shape in enumerate(s for s in A2A_MESHES if s[0] * s[1] == n):
+            rs = [r[i] for r in ranks]
+            hold_a2a(f"mesh {shape} (gloo, CUDA tensors)", rs, ref, shape, card)
+            out[shape] = rs
+    return out
+
+
+def run_last_modules(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    rn = run_resnet(device, card)
+    a2a = run_moe_a2a(device, card)
+    log(f"phase 4o: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(resnet=rn, a2a=a2a)
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: the static analyzer on the card
 # ---------------------------------------------------------------------------
 
@@ -4745,6 +5161,9 @@ def main() -> int:
     # 4n. LM training: granite-3-2b at full width, the differentiable flash
     # Function, every family's step card vs CPU, the launcher's default
     tr = run_train(dev, card)
+    # 4o. ResNet-20 card vs CPU; jamba's MoE layer through the all-to-all
+    # dispatch on worlds of 1, 2 and 4
+    run_last_modules(dev, card)
     # 4e. the static analyzer on the card
     an = run_analysis(dev)
     # 5. card vs CPU on a small configuration, both engines

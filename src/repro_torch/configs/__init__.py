@@ -1,2 +1,3 @@
-"""Model configurations of the port: ``ModelConfig`` and the
-configurations whose model is ported (``registry``)."""
+"""Model configurations of the port: ``ModelConfig``, the assigned input
+shapes (``base``) and every configuration of the JAX package
+(``registry``)."""

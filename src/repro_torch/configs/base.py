@@ -1,5 +1,7 @@
-"""Model configuration dataclass (the port's copy of
-``repro.configs.base.ModelConfig``, same fields and defaults).
+"""Model configuration dataclass and the assigned input shapes (the
+port's copy of ``repro.configs.base``: ``ModelConfig`` with the same
+fields, defaults and parameter counts, ``InputShape``, ``INPUT_SHAPES``
+and ``SHAPES_BY_NAME``).
 
 Each configuration module exports ``CONFIG``, the exact full-size
 configuration; :meth:`ModelConfig.reduced` returns the smoke-test variant
@@ -9,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -97,6 +100,47 @@ class ModelConfig:
         """An expert's hidden width (``moe_d_ff``, else ``d_ff``)."""
         return self.moe_d_ff or self.d_ff
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS and FedAvg comm):
+        the reference's formula, family by family; a family without one
+        (the ResNet's) counts the embeddings alone, as there."""
+        D, V = self.d_model, self.padded_vocab
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        total = emb
+        H, Hkv, dh = self.n_heads, self.n_kv_heads, self.dh
+        attn = D * H * dh + 2 * D * Hkv * dh + H * dh * D
+        dense_ffn = 3 * D * self.d_ff
+        moe_ffn = self.n_experts * 3 * D * self.expert_d_ff + D * self.n_experts
+        shared = self.n_shared_experts * 3 * D * self.expert_d_ff
+        di, ns, nh = self.d_inner, self.ssm_state, self.n_ssm_heads
+        ssm = D * (2 * di + 2 * ns + nh) + (di + 2 * ns) * self.ssm_conv_kernel + di * D + 2 * nh
+        if self.family in ("dense", "vlm"):
+            total += self.n_layers * (attn + dense_ffn)
+        elif self.family == "moe":
+            total += self.n_layers * (attn + moe_ffn + shared)
+        elif self.family == "ssm":
+            total += self.n_layers * ssm
+        elif self.family == "hybrid":
+            n_attn = self.n_layers // max(self.attn_layer_period, 1)
+            n_moe = self.n_layers // max(self.moe_every, 1)
+            total += (n_attn * attn + (self.n_layers - n_attn) * ssm + n_moe * moe_ffn
+                      + (self.n_layers - n_moe) * dense_ffn)
+        elif self.family == "encdec":
+            enc = self.n_encoder_layers * (attn + dense_ffn)
+            dec = self.n_layers * (2 * attn + dense_ffn)  # self + cross
+            total += enc + dec + self.encoder_len * D  # learned enc pos
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: the top_k and shared experts
+        only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        n_moe = (self.n_layers // max(self.moe_every, 1) if self.family == "hybrid"
+                 else self.n_layers)
+        inactive = n_moe * (self.n_experts - self.top_k) * 3 * self.d_model * self.expert_d_ff
+        return int(self.param_count() - inactive)
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (blocks), d_model<=256, <=4 experts."""
         changes = dict(
@@ -132,3 +176,23 @@ class ModelConfig:
         if self.sliding_window:
             changes["sliding_window"] = 64
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """An assigned (name, seq_len, global_batch, mode) input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in INPUT_SHAPES}

@@ -1,5 +1,5 @@
 """Concrete input batches for the model entry points (the port's
-``repro.launch.specs.make_batch`` for the ported families).
+``repro.launch.specs.make_batch``).
 
 The vision and audio frontends are stubs, as in the reference:
 ``patch_embeds`` and ``audio_embeds`` arrive as precomputed patch and
@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import require_ported
 from repro_torch.kernels.runtime import resolve_device
 
 
@@ -26,7 +25,6 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
     family ``audio_embeds`` (batch, encoder_len, d_model), both standard
     normals in the compute dtype, on ``device``.  (The training labels are
     the tokens, as in the reference's batch.)"""
-    require_ported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     out = {"tokens": torch.from_numpy(

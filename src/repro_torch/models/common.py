@@ -3,7 +3,8 @@
 initialisation with the reference's scales, activation checkpointing
 (``remat_wrap``), the next-token cross-entropy, RMS norm, softcapping, the
 logits dtype, RoPE, attention with the reference's routing to the flash
-kernel, SwiGLU and the sort-based token-choice MoE FFN.
+kernel, SwiGLU and the sort-based token-choice MoE FFN, with its
+expert-parallel all-to-all branch (``MOE_A2A_MESH``, ``models/moe_a2a.py``).
 
 Parameters are nested dicts of tensors in the reference's layout (per
 layer weights stacked on a leading layer axis), so the JAX package's
@@ -25,6 +26,12 @@ from repro_torch.kernels import ops
 Params = Dict[str, Any]
 # name -> (shape, scale or None, init) or a nested dict of the same
 Specs = Dict[str, Any]
+
+# The reference's switch for the expert-parallel MoE (``common.py:28``): a
+# ``launch.mesh.Mesh`` with a "data" axis sends ``moe_ffn`` through
+# ``moe_a2a.moe_ffn_a2a`` on every rank of it; None runs the single-device
+# dispatch.
+MOE_A2A_MESH = None
 
 
 def spec(shape: Tuple[int, ...], scale: Optional[float] = None,
@@ -297,11 +304,47 @@ def moe_capacity(T: int, n_experts: int, top_k: int, capacity_factor: float) -> 
     return (C + 7) // 8 * 8
 
 
+def moe_route(xt: torch.Tensor, router: torch.Tensor,
+              top_k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token-choice routing of xt (T, D) over router (D, E): ``(gate,
+    eidx, aux)``, each token's top-k experts (T, k) by float32 router
+    probabilities with their gates renormalised over the k, and the
+    Switch-style load-balance loss of these T tokens (float32)."""
+    T, E = xt.shape[0], router.shape[1]
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate, eidx = sorted_top_k(probs, top_k)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    assign = torch.zeros((T, E), dtype=torch.float32, device=xt.device)
+    assign.scatter_add_(1, eidx, torch.ones_like(gate))
+    return gate, eidx, E * torch.mean(assign.mean(0) * probs.mean(0))
+
+
+def moe_slots(eidx: torch.Tensor, n_experts: int, capacity: int) -> Tuple[torch.Tensor, ...]:
+    """The dispatch slots of the T k (token, expert) entries of eidx (T,
+    k) at ``capacity`` slots an expert: ``(order, keep, slot, safe)``.
+    ``order`` sorts the flat entries by expert, stably; in that order an
+    expert keeps its first ``capacity`` entries (``keep``), entry i goes to
+    slot ``slot[i]`` = expert x capacity + its position (clamped for the
+    dropped), and ``safe`` sends the dropped to slot E x capacity, a spare
+    row that no expert reads.  Counts by ``index_add_``, not
+    ``torch.bincount``, which reads the largest index on the host."""
+    flat_e = eidx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=eidx.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    pos = torch.arange(flat_e.numel(), device=eidx.device) - (torch.cumsum(counts, 0)
+                                                             - counts)[sorted_e]
+    keep = pos < capacity
+    slot = sorted_e * capacity + pos.clamp(0, capacity - 1)
+    return order, keep, slot, torch.where(keep, slot, n_experts * capacity)
+
+
 def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
             routing: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based token-choice MoE with capacity (the reference's
-    ``moe_ffn`` without its all-to-all branch): x (B, S, D), router (D, E),
+    ``moe_ffn``): x (B, S, D), router (D, E),
     w1 and w3 (E, D, F), w2 (E, F, D) -> (output (B, S, D), the Switch-style
     load-balance loss, float32).
 
@@ -313,32 +356,28 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.T
     products are batched matrix products in x's type; the gated outputs
     are added back to their tokens in x's type.  If ``routing`` is a list,
     a dict is appended to it: ``eidx`` (T, k), ``keep`` (T k,) in sorted
-    order, ``capacity`` C and ``dropped``, a device count (no host sync)."""
+    order, ``capacity`` C and ``dropped``, a device count (no host sync).
+
+    With :data:`MOE_A2A_MESH` set and E divisible by its "data" axis, the
+    call is ``moe_a2a.moe_ffn_a2a`` on that mesh instead, as in the
+    reference: every rank calls it with its own rows of the batch as x
+    (the reference's condition that B divides over the axis is the
+    caller's split), and gets its rows' output and the data-axis mean of
+    the aux loss."""
     B, S, D = x.shape
     E = router.shape[1]
+    if MOE_A2A_MESH is not None and E % dict(zip(MOE_A2A_MESH.axis_names,
+                                                  MOE_A2A_MESH.shape)).get("data", 1) == 0:
+        from repro_torch.models import moe_a2a
+
+        return moe_a2a.moe_ffn_a2a(x, router, w1, w3, w2, top_k=top_k, mesh=MOE_A2A_MESH,
+                                   capacity_factor=capacity_factor, routing=routing)
     T = B * S
     xt = x.reshape(T, D)
-    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
-    gate, eidx = sorted_top_k(probs, top_k)
-    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
-
-    assign = torch.zeros((T, E), dtype=torch.float32, device=x.device)
-    assign.scatter_add_(1, eidx, torch.ones_like(gate))
-    aux = E * torch.mean(assign.mean(0) * probs.mean(0))
-
+    gate, eidx, aux = moe_route(xt, router, top_k)
     C = moe_capacity(T, E, top_k, capacity_factor)
-    flat_e = eidx.reshape(-1)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
-    # not torch.bincount, which reads the largest index on the host
-    counts = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * top_k, device=x.device) - starts[sorted_e]
-    keep = pos_in_e < C
+    sort_idx, keep, buf_idx, safe_idx = moe_slots(eidx, E, C)
     token_of = sort_idx // top_k
-    buf_idx = sorted_e * C + pos_in_e.clamp(0, C - 1)
-    safe_idx = torch.where(keep, buf_idx, E * C)   # dropped -> the spare row
 
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, safe_idx, xt[token_of])

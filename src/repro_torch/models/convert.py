@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models.registry import module_for
+from repro_torch.models.registry import module_for, param_layout
 
 
 def _tensor(a) -> torch.Tensor:
@@ -49,9 +49,10 @@ def _convert(specs: cm.Specs, tree: Dict[str, Any], dtype, device, path=""):
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cuda") -> cm.Params:
     """The reference's parameter tree for ``cfg`` as the port's
-    parameters on ``device``, cast to ``cfg.param_dtype``."""
-    specs = module_for(cfg).param_specs(cfg)
-    return _convert(specs, tree, cm.dtype_of(cfg.param_dtype), resolve_device(device))
+    parameters on ``device``, in the type ``registry.param_layout`` gives
+    (``cfg.param_dtype``; float32 for the ResNet)."""
+    specs, dtype = param_layout(cfg)
+    return _convert(specs, tree, dtype, resolve_device(device))
 
 
 def cache_from_numpy(cfg: ModelConfig, cache: Dict[str, Any],

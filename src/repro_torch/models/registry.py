@@ -3,8 +3,10 @@
 ``prefill`` (the full sequence), ``init_decode_cache``, ``cache_axes`` and
 ``decode_step`` (one token a step against a decode cache) are the entry
 points.  The dense, MoE and VLM (``models/transformer.py``),
-encoder-decoder (whisper), hybrid (jamba) and SSM (mamba2) families are
-ported; any other family raises NotImplementedError naming it.
+encoder-decoder (whisper), hybrid (jamba) and SSM (mamba2) families
+have entries; any other family (the ResNet's, ``models/resnet.py``, an
+image classifier with its own ``init`` / ``apply``) raises the
+reference's ``ValueError`` naming it.
 
 ``batch`` holds ``tokens`` (B, S) and, for ``loss_fn``, ``labels`` (B,
 S); the VLM family adds ``patch_embeds`` (B, n_patches, d_model) and the
@@ -20,16 +22,29 @@ from typing import Any, Dict, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import require_ported
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models import jamba, mamba2, transformer, whisper
+from repro_torch.models import jamba, mamba2, resnet, transformer, whisper
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "encdec": whisper, "hybrid": jamba, "ssm": mamba2}
 
+
 def module_for(cfg: ModelConfig):
-    return _FAMILY[require_ported(cfg).family]
+    try:
+        return _FAMILY[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}") from None
+
+
+def param_layout(cfg: ModelConfig) -> Tuple[cm.Specs, torch.dtype]:
+    """``cfg``'s parameter specs and the type its parameters are held in:
+    its family module's specs in ``cfg.param_dtype``, or the ResNet's in
+    float32, the type the reference draws it in whatever the
+    configuration says."""
+    if cfg.family == "resnet":
+        return resnet.param_specs(cfg), torch.float32
+    return module_for(cfg).param_specs(cfg), cm.dtype_of(cfg.param_dtype)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> cm.Params:

@@ -1117,3 +1117,25 @@ def test_async_engine_runs_without_host_sync(dev, fused):
     assert [(r.uplink, r.downlink) for r in h.ledger.rounds] == \
         [(r.uplink, r.downlink) for r in hc.ledger.rounds]
     np.testing.assert_array_equal(eng.last_plan.arrive, cpu.last_plan.arrive)
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (31, 27)], ids=["32x32", "31x27"])
+def test_resnet20_forward_card_equals_cpu(dev, hw):
+    """ResNet-20's logits on the card (cuDNN's convolutions, TF32 off)
+    against the CPU's from the same weights and images, to 1e-4 of their
+    norm; on 31x27 the stride-2 convolutions pad (1, 1)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import resnet
+
+    p, _ = resnet.init(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, *hw, 3))
+                         .astype(np.float32))
+    want = resnet.apply(p, x)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = resnet.apply(cm.tree_map(lambda t: t.to(dev), p), x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * float(want.norm()))

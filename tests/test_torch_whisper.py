@@ -256,14 +256,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_families_raise_naming_the_family():
-    """The CNN's family is the one the port's model registry lacks."""
-    cnn = ModelConfig(name="resnet-like", family="resnet")
-    with pytest.raises(NotImplementedError, match="'resnet'"):
+    """The CNN's configuration is in the port's registry, as in the
+    reference's; the model registry has no entry for its family and
+    raises the reference's ValueError (``repro/models/registry.py``)."""
+    cnn = creg.get("resnet20-cifar")
+    assert (cnn.name, cnn.family) == ("resnet20-cifar", "resnet")
+    with pytest.raises(ValueError, match="unknown family 'resnet' for resnet20-cifar"):
         registry.init(cnn, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="'resnet'"):
-        make_batch(cnn, 1, 8, device="cpu")
-    with pytest.raises(KeyError):
-        creg.get("resnet20-cifar")
+    with pytest.raises(ValueError, match="unknown family 'resnet' for resnet-like"):
+        registry.prefill(ModelConfig(name="resnet-like", family="resnet"), {}, {})
 
 
 def test_prefill_refuses_a_batch_on_another_device(weights):
