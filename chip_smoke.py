@@ -106,6 +106,14 @@ all-to-all expert-parallel dispatch, ``repro_torch.models.moe_a2a``) on
 a world of one over NCCL and on the ("data", "model") meshes (2, 1),
 (4, 1) and (2, 2) over gloo on the one card, against the single-device
 ``moe_ffn`` without drops, with each rank's drops recounted on the host.
+Then the production dry run (phase 4p, ``repro_torch.launch.dryrun``):
+granite-3-2b's phase 4n step traced as a world of one on fake CUDA
+tensors, its predicted memory plan, matrix-product FLOPs and flash
+launches held against the real step's device peak, ``FlopCounterMode``
+and launch count; then granite-3-2b and kimi-k2-1t-a32b at train_4k under
+fsdp as one rank of a fake world of 256, each rank's parameter bytes
+against the sharding's arithmetic and each recorded flash launch plan
+through the launch lint.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
@@ -4578,6 +4586,165 @@ def run_last_modules(device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4p: the production dry run
+# ---------------------------------------------------------------------------
+
+# Phase 4p: the production dry run (repro_torch.launch.dryrun: the step
+# traced as one rank of a fake world on fake CUDA tensors, its shardings
+# propagated by DTensor, its counts and memory plan by
+# launch/trace_analysis.py).  (a) A world of one: granite-3-2b's phase 4n
+# step (B = TRAIN_B, S = TRAIN_S; remat and AdamW with bfloat16 moments,
+# as the dry run builds the step) traced on the mesh (1, 1), then run for
+# real: the predicted bytes_per_device (arguments + temporary peak +
+# outputs) within DRY_MEM_RTOL of the real step's device peak above what
+# the process held before its arguments, the trace's peak of live bytes
+# within DRY_PEAK_RTOL of it, its matrix-product FLOPs within
+# DRY_FLOPS_RTOL of FlopCounterMode over the real step (which cannot see
+# the flash kernel: the kernel's FLOPs are the trace's kernel_flops,
+# apart), and its recorded flash launches equal to the real step's launch
+# count.  (b) DRY_COMBOS at train_4k under fsdp on the production mesh
+# 16x16 (256 fake ranks): status ok, a rank's parameter bytes equal to the
+# sharding's own arithmetic, and every recorded flash launch plan through
+# analysis/launch_checks.py without an error.
+DRY_MEM_RTOL = 0.15
+DRY_PEAK_RTOL = 0.05
+DRY_FLOPS_RTOL = 0.01
+DRY_COMBOS = ("granite-3-2b", "kimi-k2-1t-a32b")
+
+
+def run_dry_world_of_one(device, card: str) -> dict:
+    """Phase 4p (a): the dry run of phase 4n's step against the step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import registry
+    from repro_torch.optim import get
+
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    summ, meta = dryrun.trace_one(cfg, InputShape("phase 4n", TRAIN_S, TRAIN_B, "train"),
+                                  (1, 1), "fsdp", device=device)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    params = registry.init(cfg, torch.Generator(device=device).manual_seed(TRAIN_SEED),
+                           device=device)
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, seed=TRAIN_SEED, device=device)
+    batch["labels"] = batch["tokens"]
+    opt = get("adamw", state_dtype="bfloat16")
+    state = opt.init(params)
+    warm = train.train_step(cfg, opt, params, state, batch, dryrun.LR, remat=True)
+    del warm
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        loss, new, _ = train.train_step(cfg, opt, params, state, batch, dryrun.LR, remat=True)
+    _sync(device)
+    real = torch.cuda.max_memory_allocated(device) - base
+    launches = ops.launches()["flash_attention"]
+    flops = fc.get_total_flops()
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"phase 4p (a): loss {float(loss)}")
+    del params, state, new, batch
+    torch.cuda.empty_cache()
+    mm = summ.dot_flops - summ.kernel_flops
+    log(f"phase 4p (a): {cfg.name} train step B={TRAIN_B} S={TRAIN_S} on the mesh (1, 1), "
+        f"traced on fake CUDA tensors in {trace_s:.3f} s ({summ.n_ops} ops): predicted "
+        f"bytes_per_device {summ.bytes_per_device!r} B (arguments {summ.argument_bytes!r}, "
+        f"temp {summ.temp_bytes!r}, outputs {summ.output_bytes!r}), peak of live bytes "
+        f"{summ.peak_bytes!r}; the real step's peak above the process's {base} B: {real} B "
+        f"(predicted / real {summ.bytes_per_device / real:.4f}, live peak / real "
+        f"{summ.peak_bytes / real:.4f}); matrix-product FLOPs {mm!r} predicted, "
+        f"FlopCounterMode {flops} (ratio {mm / flops:.6f}), flash kernel FLOPs "
+        f"{summ.kernel_flops!r}; flash launches {len(meta['flash_plans'])} recorded, {launches} "
+        f"launched ({card})")
+    if abs(summ.bytes_per_device / real - 1) > DRY_MEM_RTOL:
+        raise AssertionError(f"phase 4p (a): predicted {summ.bytes_per_device} B, the step "
+                             f"took {real} B (tolerance {DRY_MEM_RTOL})")
+    if abs(summ.peak_bytes / real - 1) > DRY_PEAK_RTOL:
+        raise AssertionError(f"phase 4p (a): live peak {summ.peak_bytes} B, the step took "
+                             f"{real} B (tolerance {DRY_PEAK_RTOL})")
+    if abs(mm / flops - 1) > DRY_FLOPS_RTOL:
+        raise AssertionError(f"phase 4p (a): {mm} FLOPs predicted, {flops} counted")
+    if len(meta["flash_plans"]) != launches or launches != 2 * cfg.n_layers:
+        raise AssertionError(f"phase 4p (a): {len(meta['flash_plans'])} flash launches "
+                             f"recorded, {launches} made, {2 * cfg.n_layers} expected")
+    return dict(predicted=summ.bytes_per_device, peak=summ.peak_bytes, real=real, flops=flops,
+                predicted_flops=mm, launches=launches, trace_s=trace_s)
+
+
+class _ProductionMesh:
+    """The 16x16 ("data", "model") mesh's axis names and sizes."""
+
+    axis_names = ("data", "model")
+    shape = (16, 16)
+
+
+def _spec_leaves(specs, shards):
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            yield from _spec_leaves(v, shards[k])
+        else:
+            yield v[0], shards[k]
+
+
+def run_dry_production(card: str) -> dict:
+    """Phase 4p (b): the dry run at production scale on fake CUDA tensors."""
+    import tempfile
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+
+    out = {}
+    for arch in DRY_COMBOS:
+        with tempfile.TemporaryDirectory() as tmp:
+            r = dryrun.run_combo(arch, "train_4k", False, "fsdp", tmp, device="cuda",
+                                 verbose=False)
+        if r["status"] != "ok":
+            raise AssertionError(f"phase 4p (b): {arch} train_4k fsdp 16x16: {r['error']}\n"
+                                 f"{r['traceback']}")
+        cfg = ARCHS[arch]
+        specs, dtype = registry.param_layout(cfg)
+        mesh = _ProductionMesh()
+        shards = sh.param_shardings(registry.param_axes(cfg), specs, mesh, "fsdp")
+        want = sum(math.prod(sh.local_shape(shape, spec, mesh)) for shape, spec in
+                   _spec_leaves(specs, shards)) * torch.empty((), dtype=dtype).element_size()
+        errors = [f for f in r["launch_findings"] if f.startswith("[ERROR")]
+        log(f"phase 4p (b): {arch} x train_4k (16x16, fsdp, fake CUDA): "
+            f"{r['bytes_per_device'] / 1e9:.3f} GB a device (peak alive "
+            f"{r['peak_bytes'] / 1e9:.3f} GB; parameters {r['param_bytes_per_device']!r} B, "
+            f"the sharding's arithmetic {want} B), terms compute {r['compute_s'] * 1e3:.3f} "
+            f"ms, memory {r['memory_s'] * 1e3:.3f} ms (unfused eager bytes), collective "
+            f"{r['collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, useful "
+            f"{r['useful_flops_ratio']:.4f}, collectives {r['collective_counts']}, flash "
+            f"launches {r['flash_launches']} (lint: {r['launch_findings'] or 'pass'}), "
+            f"replicated fallbacks {r['fallbacks']}, traced in {r['compile_s']:.3f} s ({card})")
+        if r["param_bytes_per_device"] != want:
+            raise AssertionError(f"phase 4p (b): {arch}: {r['param_bytes_per_device']} "
+                                 f"parameter bytes a rank, the sharding says {want}")
+        if errors or not r["flash_launches"]:
+            raise AssertionError(f"phase 4p (b): {arch}: {r['flash_launches']} flash launches, "
+                                 f"lint errors {errors}")
+        out[arch] = r
+    return out
+
+
+def run_dry_run(device, card: str) -> dict:
+    t0 = time.perf_counter()
+    one = run_dry_world_of_one(device, card)
+    prod = run_dry_production(card)
+    log(f"phase 4p: {time.perf_counter() - t0:.3f} s ({card})")
+    return dict(one=one, production=prod)
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: the static analyzer on the card
 # ---------------------------------------------------------------------------
 
@@ -5164,6 +5331,9 @@ def main() -> int:
     # 4o. ResNet-20 card vs CPU; jamba's MoE layer through the all-to-all
     # dispatch on worlds of 1, 2 and 4
     run_last_modules(dev, card)
+    # 4p. the production dry run: a world of one against the real step, and
+    # granite-3-2b and kimi-k2-1t-a32b at train_4k on 256 fake ranks
+    run_dry_run(dev, card)
     # 4e. the static analyzer on the card
     an = run_analysis(dev)
     # 5. card vs CPU on a small configuration, both engines

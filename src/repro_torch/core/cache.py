@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels.runtime import divide
 
 __all__ = ["NEWLY_CACHED", "CACHED", "EXPIRED", "CacheState", "init_cache",
-           "normalize_cache_duration", "miss_mask", "cached_at",
+           "normalize_cache_duration", "miss_mask", "request_list", "cached_at",
            "signals_for_round", "assemble_teacher", "update_global_cache",
            "update_local_cache", "pack_queue", "unpack_queue",
            "CatchUpPackage", "make_catch_up", "apply_catch_up",
@@ -113,6 +113,16 @@ def miss_mask(cache: CacheState, idx: torch.Tensor, t: int, D: int, *,
         hazard = torch.clamp(divide(age.to(torch.float32) - 1.0, D), 0.0, 1.0)
         return ~(present & ~(u < hazard))
     return ~(present & (age <= D))
+
+
+def request_list(cache: CacheState, idx: torch.Tensor, t: int,
+                 D: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(miss_mask, I_req) for round t (Alg. 3's request list): the mask of
+    :func:`miss_mask` and ``I_req = idx[miss]``, the requested sample ids
+    in ``idx``'s order.  ``I_req``'s length depends on the data (a host
+    sync on the card): the engines consume the mask."""
+    m = miss_mask(cache, idx, t, D)
+    return m, idx[m]
 
 
 def cached_at(cache: CacheState, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

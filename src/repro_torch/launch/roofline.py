@@ -16,10 +16,13 @@ default, and the legacy constants ``PEAK_FLOPS``, ``HBM_BW`` and
 
 The reference's other half reads XLA's compiled HLO text
 (``collective_bytes``, ``compute_roofline`` through
-``launch/hlo_analysis.py``) and has no port: no XLA program exists here.
-``compute_roofline_from_summary`` takes any summary object with the
-fields ``dot_flops``, ``collective_bytes``, ``collective_by_kind``,
-``collective_counts`` and ``residual_while_loops``.
+``launch/hlo_analysis.py``).  Its counterpart here is
+``launch/trace_analysis.py``, which counts the same quantities on the
+port's own step traced over fake tensors; its ``TraceSummary`` feeds
+``compute_roofline_from_summary``, which takes any summary object with
+the fields ``dot_flops``, ``collective_bytes``, ``collective_by_kind``,
+``collective_counts`` and ``residual_while_loops`` (the dry run,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 

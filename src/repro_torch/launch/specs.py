@@ -1,5 +1,10 @@
-"""Concrete input batches for the model entry points (the port's
-``repro.launch.specs.make_batch``).
+"""Input specs and concrete input batches for the model entry points
+(the port of ``repro.launch.specs``).
+
+``input_specs`` (``train_specs``, ``decode_specs``) gives the
+reference's shapes and dtypes as ``(shape, dtype)`` pairs, allocating
+nothing: the dry run's stand-ins for a step's inputs.  ``make_batch``
+materialises a small concrete batch.
 
 The vision and audio frontends are stubs, as in the reference:
 ``patch_embeds`` and ``audio_embeds`` arrive as precomputed patch and
@@ -9,13 +14,47 @@ packages get identical inputs from the same seed.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES_BY_NAME, InputShape, ModelConfig
 from repro_torch.kernels.runtime import resolve_device
+
+TensorSpec = Tuple[Tuple[int, ...], torch.dtype]
+
+
+def train_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+    """``tokens`` and ``labels`` (batch, seq) int32, and the family's stub
+    frontend input in the compute dtype (:func:`stub_shape`)."""
+    specs = {"tokens": ((batch, seq), torch.int32), "labels": ((batch, seq), torch.int32)}
+    stub = stub_shape(cfg, batch)
+    if stub:
+        specs[stub[0]] = (stub[1], getattr(torch, cfg.compute_dtype))
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, batch: int, seq: int) -> Tuple[Any, ...]:
+    """(token, pos, cache) specs of a decode step: token (batch, 1) int32,
+    pos () int32, and each entry of ``registry.init_decode_cache(cfg,
+    batch, seq)``, made on the meta device so that a multi-terabyte cache
+    is never allocated."""
+    from repro_torch.models import registry
+
+    cache = registry.init_decode_cache(cfg, batch, seq, device="meta")
+    return (((batch, 1), torch.int32), ((), torch.int32),
+            {n: (tuple(t.shape), t.dtype) for n, t in cache.items()})
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape | str):
+    """``train_specs`` for a train or prefill shape, ``decode_specs`` for a
+    decode shape, at its global batch and sequence length."""
+    if isinstance(shape, str):
+        shape = SHAPES_BY_NAME[shape]
+    if shape.mode in ("train", "prefill"):
+        return train_specs(cfg, shape.global_batch, shape.seq_len)
+    return decode_specs(cfg, shape.global_batch, shape.seq_len)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

@@ -4,7 +4,11 @@ initialisation with the reference's scales, activation checkpointing
 (``remat_wrap``), the next-token cross-entropy, RMS norm, softcapping, the
 logits dtype, RoPE, attention with the reference's routing to the flash
 kernel, SwiGLU and the sort-based token-choice MoE FFN, with its
-expert-parallel all-to-all branch (``MOE_A2A_MESH``, ``models/moe_a2a.py``).
+expert-parallel all-to-all branch (``MOE_A2A_MESH``, ``models/moe_a2a.py``)
+and its dispatch buffer's sharding pin (``MOE_DISPATCH_SPEC``).  The
+model code also runs on DTensors (the dry run, ``launch/dryrun.py``):
+attention then runs on each rank's shard (the flash kernel where
+eligible), and so does the per-row body of a model (``on_batch_rows``).
 
 Parameters are nested dicts of tensors in the reference's layout (per
 layer weights stacked on a leading layer axis), so the JAX package's
@@ -32,6 +36,14 @@ Specs = Dict[str, Any]
 # ``moe_a2a.moe_ffn_a2a`` on every rank of it; None runs the single-device
 # dispatch.
 MOE_A2A_MESH = None
+
+# The reference's pin of the MoE dispatch buffer's sharding
+# (``common.py:24``): a spec of the (E, C, D) buffer, one entry a dim
+# (None, a mesh axis name or a tuple of names), e.g. ("data", None,
+# "model").  When the buffer is a DTensor, ``moe_ffn`` redistributes it to
+# that spec's placements (``with_sharding_constraint``'s counterpart);
+# otherwise it does nothing.
+MOE_DISPATCH_SPEC = None
 
 
 def spec(shape: Tuple[int, ...], scale: Optional[float] = None,
@@ -161,10 +173,16 @@ def next_token_ce(cfg, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     "lse" takes logsumexp minus the picked logit (no (B, S, V) float32
     log-probabilities)."""
     l32 = logits[:, :-1].float()
-    labels = labels[:, 1:].long()[..., None]
+    labels = labels[:, 1:].long()
+
+    def picked(x):  # x[b, s, labels[b, s]]; nll_loss's rule keeps a sharded batch
+        return -F.nll_loss(x.flatten(0, 1), labels.flatten(), reduction="none").view(labels.shape)
+
     if cfg.ce_impl == "lse":
-        return (torch.logsumexp(l32, dim=-1) - l32.gather(-1, labels)[..., 0]).mean()
-    return -torch.log_softmax(l32, dim=-1).gather(-1, labels)[..., 0].mean()
+        nll = torch.logsumexp(l32, dim=-1) - picked(l32)
+    else:
+        nll = -picked(torch.log_softmax(l32, dim=-1))
+    return shard_batch(nll).mean()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -173,6 +191,19 @@ def dtype_of(name: str) -> torch.dtype:
 
 def logits_dtype(cfg) -> torch.dtype:
     return torch.float32 if cfg.fp32_logits else dtype_of(cfg.compute_dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``table`` (V, D) at ``tokens``, in ``dtype``: the
+    embedding lookup.  A DTensor table is gathered whole first (a
+    vocab-sharded lookup leaves partial rows whose mask DTensor keeps only
+    until the next op) and the rows come out batch sharded
+    (:func:`shard_batch`)."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+    return shard_batch(F.embedding(tokens.long(), table)).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -235,11 +266,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only (no host sync).  A positive ``window`` (a Python int) keeps the
     keys j > i - window; ``cap`` softcaps the scores.  An eligible call
     (:func:`flash_eligible`) goes to the flash kernel
-    (``ops.flash_attention``, differentiable).
+    (``ops.flash_attention``, differentiable).  DTensor inputs run on
+    each rank's shard (:func:`_sharded_attention`), the flash kernel
+    where eligible.
     Otherwise the plain path of the reference: scores in ``score_dtype``
     (float32 by default), softcapped, masked to -1e30, softmax in
     ``score_dtype``, the output cast to q's type; ``chunk_q`` runs the
     query rows in chunks of that size."""
+    if is_dtensor(q):
+        return _sharded_attention(
+            q, k, v, functools.partial(
+                attention, causal=causal, window=window, cap=cap, q_offset=_local(q_offset),
+                kv_len=_local(kv_len), chunk_q=chunk_q, score_dtype=score_dtype))
     if flash_eligible(q, k, causal, q_offset, kv_len, window, cap):
         return ops.flash_attention(q, k, v, causal=True, **({"window": window} if window else {}))
     B, Sq, H, dh = q.shape
@@ -270,6 +308,156 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = block(qg, q_positions)
     return out.reshape(B, Sq, H, dh)
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (a sharded tensor of the dry run)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def zeros_on(like: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Zeros of ``shape`` in ``like``'s type and device; for a DTensor
+    ``like``, replicated over its mesh (what a plain tensor is to the
+    DTensors it meets), so that later ops can shard it."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(torch.zeros(shape, dtype=like.dtype, device=like.device),
+                              mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _batch_placements(mesh, batch: int) -> list:
+    """DTensor placements of a tensor whose dim 0 is the batch: sharded
+    over ("pod", "data") where it divides, replicated on every other mesh
+    dim (the reference's ``batch_spec``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names or ())
+    size = dict(zip(names, mesh.shape))
+    out = [Replicate()] * mesh.ndim
+    bnames = [n for n in ("pod", "data") if size.get(n, 1) > 1]
+    if bnames and batch % math.prod(size[n] for n in bnames) == 0:
+        for n in bnames:
+            out[names.index(n)] = Shard(0)
+    return out
+
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or for a DTensor, ``x`` redistributed to batch
+    sharding (:func:`_batch_placements`): the layout the residual stream
+    keeps between layers, and its gradient with it (the counterpart of a
+    sharding constraint; left to itself DTensor's op-by-op choice drifts,
+    e.g. to the embedding table's sharding)."""
+    if not is_dtensor(x):
+        return x
+    placements = _batch_placements(x.device_mesh, x.shape[0])
+    y = x.redistribute(x.device_mesh, placements)
+    if y.requires_grad:
+        # the gradient takes the same layout (DTensor propagates forward
+        # only: a loss's gradient would otherwise spread replicated)
+        y.register_hook(lambda g: g.redistribute(g.device_mesh, placements))
+    return y
+
+
+def _local_a2a(a2a, x, router, w1, w3, w2):
+    """The all-to-all MoE on each rank's shard of DTensor inputs
+    (``local_map``): x's rows of the batch, the router and the full expert
+    stacks (replicated, as ``moe_ffn_a2a`` takes them) -> the rows'
+    output, batch sharded, and the aux loss, replicated."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows, full = _batch_placements(mesh, x.shape[0]), [Replicate()] * mesh.ndim
+    return local_map(a2a, out_placements=(rows, full),
+                     in_placements=(rows, full, full, full, full), device_mesh=mesh,
+                     redistribute_inputs=True)(x, router, w1, w3, w2)
+
+
+def _flash_placements(q, k):
+    """(q's placements, k's and v's, k's and v's gradient placements, the
+    local query heads' first KV head as a function of the model rank or
+    None) for the flash kernel on each rank's shard: the batch over
+    ("pod", "data") where it divides, the query heads over "model" where
+    they divide and each rank's heads fall in whole KV groups or whole
+    parts of one, the KV heads over "model" where they divide too.  Where
+    the query heads are split and the KV heads are not, every rank holds
+    all KV heads and its gradient of them is a partial sum."""
+    from torch.distributed.tensor import Partial, Shard
+
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    size = dict(zip(names, mesh.shape))
+    H, Hkv = q.shape[2], k.shape[2]
+    qp = _batch_placements(mesh, q.shape[0])
+    kp = list(qp)
+    kgrad, first_kv = list(kp), None
+    m = size.get("model", 1)
+    if m > 1 and H % m == 0:
+        Hl, R = H // m, H // Hkv
+        if Hkv % m == 0:
+            qp[names.index("model")] = kp[names.index("model")] = Shard(2)
+            kgrad = list(kp)
+        elif R % Hl == 0 or Hl % R == 0:
+            qp[names.index("model")] = Shard(2)
+            kgrad[names.index("model")] = Partial()
+            first_kv = (lambda r: r * Hl // R, max(Hl // R, 1))
+    return qp, kp, kgrad, first_kv
+
+
+def _local(x):
+    """A replicated DTensor scalar (a decode step's position) as this
+    rank's tensor; anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _sharded_attention(q, k, v, local_attention):
+    """``local_attention(q, k, v)`` on each rank's shard of DTensors q, k,
+    v (``local_map``): the query and KV shards of
+    :func:`_flash_placements`, the output sharded as the queries.  Where
+    the query heads are split over "model" and the KV heads are not, a
+    rank's query heads ``r Hl .. (r + 1) Hl - 1`` (``Hl = H / model``,
+    ``r`` its model coordinate) read KV heads ``h // (H / Hkv)``: the
+    local body takes those KV heads, not the first."""
+    from torch.distributed.tensor.experimental import local_map
+
+    qp, kp, kgrad, first_kv = _flash_placements(q, k)
+    mesh = q.device_mesh
+
+    def body(ql, kl, vl):
+        if first_kv is not None:
+            at, n = first_kv
+            j = at(mesh.get_local_rank("model"))
+            kl, vl = kl[:, :, j:j + n], vl[:, :, j:j + n]
+        return local_attention(ql, kl, vl)
+
+    return local_map(body, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kgrad, kgrad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def on_batch_rows(fn, rows, shared):
+    """``fn(*rows, *shared)`` on each rank's rows of the batch
+    (``local_map``): ``rows`` DTensors whose dim 0 is the batch, batch
+    sharded (:func:`_batch_placements`) and replicated over every other
+    mesh dim, ``shared`` (parameters) replicated; the one output batch
+    sharded.  A rank's gradient of a shared input covers its rows alone,
+    a partial sum over the batch's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = rows[0].device_mesh
+    rp = _batch_placements(mesh, rows[0].shape[0])
+    full = [Replicate()] * mesh.ndim
+    partial = [Partial() if p.is_shard() else Replicate() for p in rp]
+    return local_map(fn, out_placements=rp,
+                     in_placements=(rp,) * len(rows) + (full,) * len(shared),
+                     in_grad_placements=(rp,) * len(rows) + (partial,) * len(shared),
+                     device_mesh=mesh, redistribute_inputs=True)(*rows, *shared)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -363,15 +551,20 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.T
     reference: every rank calls it with its own rows of the batch as x
     (the reference's condition that B divides over the axis is the
     caller's split), and gets its rows' output and the data-axis mean of
-    the aux loss."""
+    the aux loss.  With :data:`MOE_DISPATCH_SPEC` set and DTensor inputs,
+    the (E, C, D) dispatch buffer is redistributed to that spec before the
+    expert products."""
     B, S, D = x.shape
     E = router.shape[1]
     if MOE_A2A_MESH is not None and E % dict(zip(MOE_A2A_MESH.axis_names,
                                                   MOE_A2A_MESH.shape)).get("data", 1) == 0:
         from repro_torch.models import moe_a2a
 
-        return moe_a2a.moe_ffn_a2a(x, router, w1, w3, w2, top_k=top_k, mesh=MOE_A2A_MESH,
-                                   capacity_factor=capacity_factor, routing=routing)
+        a2a = functools.partial(moe_a2a.moe_ffn_a2a, top_k=top_k, mesh=MOE_A2A_MESH,
+                                capacity_factor=capacity_factor, routing=routing)
+        if is_dtensor(x):
+            return _local_a2a(a2a, x, router, w1, w3, w2)
+        return a2a(x, router, w1, w3, w2)
     T = B * S
     xt = x.reshape(T, D)
     gate, eidx, aux = moe_route(xt, router, top_k)
@@ -379,9 +572,14 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.T
     sort_idx, keep, buf_idx, safe_idx = moe_slots(eidx, E, C)
     token_of = sort_idx // top_k
 
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf = zeros_on(xt, (E * C + 1, D))
     buf.index_copy_(0, safe_idx, xt[token_of])
     ebuf = buf[:E * C].view(E, C, D)
+    if MOE_DISPATCH_SPEC is not None and is_dtensor(ebuf):
+        from repro_torch.launch.sharding import placements
+
+        ebuf = ebuf.redistribute(ebuf.device_mesh, placements(MOE_DISPATCH_SPEC,
+                                                              ebuf.device_mesh))
     h = torch.bmm(ebuf, w1)
     g = torch.bmm(ebuf, w3)
     y = torch.bmm(F.silu(h) * g, w2).reshape(E * C, D)
@@ -389,7 +587,7 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.T
     y_tok = torch.where(keep[:, None], y[buf_idx], torch.zeros((), dtype=y.dtype,
                                                                  device=y.device))
     gate_sorted = gate.reshape(-1)[sort_idx].to(x.dtype)
-    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+    out = zeros_on(xt, (T, D))
     out.index_add_(0, token_of, y_tok * gate_sorted[:, None])
     if routing is not None:
         routing.append(dict(eidx=eidx, keep=keep, capacity=C, dropped=(~keep).sum()))

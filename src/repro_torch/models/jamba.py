@@ -78,6 +78,27 @@ def param_specs(cfg: ModelConfig) -> cm.Specs:
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Every parameter's logical axis names, the tree the reference's
+    ``init`` returns beside its parameters (the structure of
+    :func:`param_specs`): a mixer's are the Mamba2 mixer's with its flat
+    layer axis split into ("layers", None)."""
+    mamba = {n: ("layers", None) + ax[1:] for n, ax in m2.mixer_axes().items()}
+    mamba["ln"] = ("layers", None, None)
+    sub = ("layers", None)
+    blocks = {
+        "attn_ln": ("layers", None), "wq": ("layers", "embed", "heads", None),
+        "wk": ("layers", "embed", "kv", None), "wv": ("layers", "embed", "kv", None),
+        "wo": ("layers", "heads", None, "embed"), "mamba": mamba,
+        "ffn_ln": sub + (None,), "w1": sub + ("embed", "ffn"), "w3": sub + ("embed", "ffn"),
+        "w2": sub + ("ffn", "embed"), "moe_ln": sub + (None,),
+        "router": sub + ("embed", None), "mw1": sub + ("experts", "embed", "ffn"),
+        "mw3": sub + ("experts", "embed", "ffn"), "mw2": sub + ("experts", "ffn", "embed"),
+    }
+    return {"embed": ("vocab", "embed"), "blocks": blocks, "final_norm": (None,),
+            "lm_head": ("vocab", "embed")}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> cm.Params:
     return cm.init_params(param_specs(cfg), generator, cm.dtype_of(cfg.param_dtype), device)
 
@@ -88,13 +109,13 @@ def _ffn(cfg: ModelConfig, fp: cm.Params, x: torch.Tensor,
     the MoE) and its auxiliary loss."""
     if "router" not in fp:
         h = cm.rms_norm(x, fp["ffn_ln"], cfg.norm_eps)
-        return (x + cm.swiglu(h, fp["w1"], fp["w3"], fp["w2"]),
+        return (cm.shard_batch(x + cm.swiglu(h, fp["w1"], fp["w3"], fp["w2"])),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     h = cm.rms_norm(x, fp["moe_ln"], cfg.norm_eps)
     y, aux = cm.moe_ffn(h, fp["router"], fp["mw1"], fp["mw3"], fp["mw2"],
                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                         routing=routing)
-    return x + y, aux
+    return cm.shard_batch(x + y), aux
 
 
 def _ffns(cfg: ModelConfig, bp: cm.Params) -> list:
@@ -125,10 +146,11 @@ def _block(cfg: ModelConfig, x: torch.Tensor, bp: cm.Params, positions: torch.Te
     load-balance loss)."""
     ffns = _ffns(cfg, bp)
     q, k, v = _qkv(cfg, bp, x, positions)
-    x = x + cm.project_out(cm.attention(q, k, v, causal=True, chunk_q=chunk_q), bp["wo"])
+    x = cm.shard_batch(x + cm.project_out(cm.attention(q, k, v, causal=True, chunk_q=chunk_q),
+                                          bp["wo"]))
     x, aux = _ffn(cfg, ffns[0], x, routing)
     for j, mp, ln in _mixers(bp):
-        x = x + m2.mixer_forward(cfg, mp, cm.rms_norm(x, ln, cfg.norm_eps))
+        x = cm.shard_batch(x + m2.mixer_forward(cfg, mp, cm.rms_norm(x, ln, cfg.norm_eps)))
         x, a = _ffn(cfg, ffns[j + 1], x, routing)
         aux = aux + a
     return x, aux
@@ -142,7 +164,7 @@ def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
     list, receives each MoE sublayer's routing in order
     (``common.moe_ffn``; again in the backward's recompute under
     ``remat``)."""
-    x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     chunk_q = 1024 if S >= 8192 else 0
@@ -195,14 +217,14 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     replaced, all in place; the same dict is returned.  A device ``pos`` is
     never read on the host, so a step makes no host sync."""
     at = cm.position(pos, token.device)
-    x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], token, cm.dtype_of(cfg.compute_dtype))
     for b, bp in enumerate(cm.layers(params["blocks"])):
         k_l, v_l = cache["k"][b], cache["v"][b]
         q, k, v = _qkv(cfg, bp, x, at)
         k_l.index_copy_(1, at, k.to(k_l.dtype))
         v_l.index_copy_(1, at, v.to(v_l.dtype))
         o = cm.attention(q, k_l, v_l, causal=False, q_offset=pos, kv_len=pos + 1)
-        x = x + cm.project_out(o, bp["wo"])
+        x = cm.shard_batch(x + cm.project_out(o, bp["wo"]))
         ffns = _ffns(cfg, bp)
         x, _ = _ffn(cfg, ffns[0], x)
         for j, mp, ln in _mixers(bp):
@@ -210,7 +232,7 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
                                              cm.rms_norm(x, ln, cfg.norm_eps))
             cache["ssm"][b, j].copy_(ssm)
             cache["conv"][b, j].copy_(conv)
-            x = x + out
+            x = cm.shard_batch(x + out)
             x, _ = _ffn(cfg, ffns[j + 1], x)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].T).to(torch.float32)[:, 0], cache

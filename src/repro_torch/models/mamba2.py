@@ -50,6 +50,16 @@ def mixer_specs(cfg: ModelConfig, L: int) -> cm.Specs:
     }
 
 
+def mixer_axes() -> Dict[str, Tuple]:
+    """The logical axis names of :func:`mixer_specs`' parameters."""
+    return {"in_z": ("layers", "embed", "ffn"), "in_x": ("layers", "embed", "ffn"),
+            "in_B": ("layers", "embed", None), "in_C": ("layers", "embed", None),
+            "in_dt": ("layers", "embed", "heads"), "conv_w": ("layers", None, "ffn"),
+            "conv_b": ("layers", "ffn"), "dt_bias": ("layers", "heads"),
+            "A_log": ("layers", "heads"), "D_skip": ("layers", "heads"),
+            "norm": ("layers", "ffn"), "out": ("layers", "ffn", "embed")}
+
+
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along the sequence, x (B, S, Cd), w (k, Cd):
     k unrolled taps in x's type, as the reference computes it."""
@@ -123,21 +133,31 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     return y.transpose(2, 3).reshape(B_, S, nh, hd).to(x.dtype), h
 
 
-def mixer_forward(cfg: ModelConfig, lp: cm.Params, u: torch.Tensor) -> torch.Tensor:
-    """The full-sequence mixer, u (B, S, D) -> (B, S, D): projections,
-    the causal conv and SiLU in the compute type, dt = softplus(dt +
-    dt_bias) in float32, A = -exp(A_log), the SSD scan, the D skip, the
-    gated RMS norm and the out projection."""
-    B_, S, _ = u.shape
+def _core(cfg: ModelConfig, x, Bm, Cm, dt, conv_w, conv_b, dt_bias, A_log, D_skip):
+    """The mixer between its projections: the causal conv and SiLU in the
+    compute type, dt = softplus(dt + dt_bias) in float32, A = -exp(A_log),
+    the SSD scan and the D skip -> (B, S, d_inner)."""
+    B_, S = x.shape[:2]
     di, N, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    z, x, Bm, Cm, dt = _split_proj(lp, u)
-    xbc = F.silu(_conv_causal(torch.cat([x, Bm, Cm], dim=-1), lp["conv_w"], lp["conv_b"]))
+    xbc = F.silu(_conv_causal(torch.cat([x, Bm, Cm], dim=-1), conv_w, conv_b))
     x, Bm, Cm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
-    dt = F.softplus(dt.float() + lp["dt_bias"].float())
-    A = -torch.exp(lp["A_log"].float())
+    dt = F.softplus(dt.float() + dt_bias.float())
+    A = -torch.exp(A_log.float())
     xs = x.reshape(B_, S, nh, hd)
     y, _ = ssd_chunked(xs, dt, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S))
-    y = (y + xs * lp["D_skip"][None, None, :, None].to(y.dtype)).reshape(B_, S, di)
+    return (y + xs * D_skip[None, None, :, None].to(y.dtype)).reshape(B_, S, di)
+
+
+def mixer_forward(cfg: ModelConfig, lp: cm.Params, u: torch.Tensor) -> torch.Tensor:
+    """The full-sequence mixer, u (B, S, D) -> (B, S, D): projections,
+    the core (:func:`_core`; on DTensors each rank's rows of the batch,
+    ``common.on_batch_rows``), the gated RMS norm and the out
+    projection."""
+    z, x, Bm, Cm, dt = _split_proj(lp, u)
+    rows, shared = (x, Bm, Cm, dt), tuple(lp[n] for n in ("conv_w", "conv_b", "dt_bias",
+                                                          "A_log", "D_skip"))
+    core = functools.partial(_core, cfg)
+    y = cm.on_batch_rows(core, rows, shared) if cm.is_dtensor(u) else core(*rows, *shared)
     y = cm.rms_norm(y * F.silu(z), lp["norm"], cfg.norm_eps)
     return y @ lp["out"]
 
@@ -198,6 +218,14 @@ def param_specs(cfg: ModelConfig) -> cm.Specs:
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Every parameter's logical axis names, the tree the reference's
+    ``init`` returns beside its parameters (the structure of
+    :func:`param_specs`)."""
+    return {"embed": ("vocab", "embed"), "layers": {"ln": ("layers", None), **mixer_axes()},
+            "final_norm": (None,), "lm_head": ("vocab", "embed")}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> cm.Params:
     return cm.init_params(param_specs(cfg), generator, cm.dtype_of(cfg.param_dtype), device)
 
@@ -207,14 +235,15 @@ def _mixer(lp: cm.Params) -> cm.Params:
 
 
 def _layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params) -> torch.Tensor:
-    return x + mixer_forward(cfg, _mixer(lp), cm.rms_norm(x, lp["ln"], cfg.norm_eps))
+    return cm.shard_batch(x + mixer_forward(cfg, _mixer(lp),
+                                            cm.rms_norm(x, lp["ln"], cfg.norm_eps)))
 
 
 def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> logits (B, S, V) in the logits dtype and a zero
     auxiliary loss."""
-    x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
     body = functools.partial(_layer, cfg)
     if remat:
         body = cm.remat_wrap(body, cfg.remat_policy)
@@ -245,13 +274,13 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     """One token a sequence (``pos`` unused: the state is the history) ->
     the logits (B, V) float32 and the cache, updated in place."""
     del pos
-    x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], token, cm.dtype_of(cfg.compute_dtype))
     for i, lp in enumerate(cm.layers(params["layers"])):
         h = cm.rms_norm(x, lp["ln"], cfg.norm_eps)
         out, ssm, conv = mixer_decode(cfg, _mixer(lp), cache["ssm"][i], cache["conv"][i], h)
         cache["ssm"][i].copy_(ssm)
         cache["conv"][i].copy_(conv)
-        x = x + out
+        x = cm.shard_batch(x + out)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].T).to(torch.float32)[:, 0], cache
 

@@ -1,6 +1,7 @@
 """Uniform model API over families (the port of
-``repro.models.registry``): ``init``, ``loss_fn`` (the training loss) and
-``prefill`` (the full sequence), ``init_decode_cache``, ``cache_axes`` and
+``repro.models.registry``): ``init``, ``param_axes`` (each parameter's
+logical axes), ``loss_fn`` (the training loss) and ``prefill`` (the
+full sequence), ``init_decode_cache``, ``cache_axes`` and
 ``decode_step`` (one token a step against a decode cache) are the entry
 points.  The dense, MoE and VLM (``models/transformer.py``),
 encoder-decoder (whisper), hybrid (jamba) and SSM (mamba2) families
@@ -45,6 +46,14 @@ def param_layout(cfg: ModelConfig) -> Tuple[cm.Specs, torch.dtype]:
     if cfg.family == "resnet":
         return resnet.param_specs(cfg), torch.float32
     return module_for(cfg).param_specs(cfg), cm.dtype_of(cfg.param_dtype)
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axis names of every parameter of ``cfg`` (e.g.
+    ``("layers", "embed", "heads", None)``), a tree of the structure of
+    its parameters: the axes the reference's ``registry.init`` returns,
+    which ``launch/sharding.py`` maps onto a mesh."""
+    return module_for(cfg).param_axes(cfg)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> cm.Params:

@@ -75,6 +75,27 @@ def param_specs(cfg: ModelConfig) -> cm.Specs:
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Every parameter's logical axis names, the tree the reference's
+    ``init`` returns beside its parameters (the structure of
+    :func:`param_specs`)."""
+    att = ("layers", "embed", "heads", None)
+    kv = ("layers", "embed", "kv", None)
+    layers = {"ln1": ("layers", None), "wq": att, "wk": kv, "wv": kv,
+              "wo": ("layers", "heads", None, "embed"), "ln2": ("layers", None)}
+    if cfg.n_experts:
+        ex_in, ex_out = ("layers", "experts", "embed", "ffn"), ("layers", "experts", "ffn", "embed")
+        layers.update(router=("layers", "embed", None), w1=ex_in, w3=ex_in, w2=ex_out)
+        if cfg.n_shared_experts:
+            layers.update(sw1=("layers", "embed", "ffn"), sw3=("layers", "embed", "ffn"),
+                          sw2=("layers", "ffn", "embed"))
+    else:
+        layers.update(w1=("layers", "embed", "ffn"), w3=("layers", "embed", "ffn"),
+                      w2=("layers", "ffn", "embed"))
+    return {"embed": ("vocab", "embed"), "layers": layers, "final_norm": (None,),
+            "lm_head": ("vocab", "embed")}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator, device: torch.device) -> cm.Params:
     return cm.init_params(param_specs(cfg), generator, cm.dtype_of(cfg.param_dtype), device)
 
@@ -91,13 +112,13 @@ def _ffn(cfg: ModelConfig, lp: cm.Params, x: torch.Tensor) -> Tuple[torch.Tensor
     experts) and the MoE's load-balance loss (zero for a dense layer)."""
     h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if not cfg.n_experts:
-        return (x + cm.swiglu(h, lp["w1"], lp["w3"], lp["w2"]),
+        return (cm.shard_batch(x + cm.swiglu(h, lp["w1"], lp["w3"], lp["w2"])),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     y, aux = cm.moe_ffn(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor)
     if cfg.n_shared_experts:
         y = y + cm.swiglu(h, lp["sw1"], lp["sw3"], lp["sw2"])
-    return x + y, aux
+    return cm.shard_batch(x + y), aux
 
 
 def _layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params, window: int,
@@ -107,7 +128,7 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params, window: int,
     score = torch.float32 if cfg.attn_f32 else cm.dtype_of(cfg.compute_dtype)
     o = cm.attention(q, k, v, causal=True, window=window, cap=cfg.attn_softcap,
                      chunk_q=chunk_q, score_dtype=score)
-    return _ffn(cfg, lp, x + cm.project_out(o, lp["wo"]))
+    return _ffn(cfg, lp, cm.shard_batch(x + cm.project_out(o, lp["wo"])))
 
 
 def _logits(cfg: ModelConfig, params: cm.Params, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -122,7 +143,7 @@ def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
     VLM's stub patch embeddings) -> logits (B, P + S, V) in the logits
     dtype, softcapped by ``final_softcap``, and the MoE layers' summed
     load-balance loss (float32)."""
-    x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
@@ -168,7 +189,7 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     layer's window.  A device ``pos`` is never read on the host, so a
     step makes no host sync."""
     at = cm.position(pos, token.device)
-    x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], token, cm.dtype_of(cfg.compute_dtype))
     for i, (lp, w) in enumerate(zip(cm.layers(params["layers"]), layer_windows(cfg).tolist())):
         k_l, v_l = cache["k"][i], cache["v"][i]
         q, k, v = _qkv(cfg, lp, x, at)
@@ -176,7 +197,7 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
         v_l.index_copy_(1, at, v.to(v_l.dtype))
         o = cm.attention(q, k_l, v_l, causal=False, window=w, cap=cfg.attn_softcap,
                          q_offset=pos, kv_len=pos + 1)
-        x, _ = _ffn(cfg, lp, x + cm.project_out(o, lp["wo"]))
+        x, _ = _ffn(cfg, lp, cm.shard_batch(x + cm.project_out(o, lp["wo"])))
     return _logits(cfg, params, x, torch.float32)[:, 0], cache
 
 

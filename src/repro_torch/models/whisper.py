@@ -83,6 +83,22 @@ def param_specs(cfg: ModelConfig) -> cm.Specs:
     }
 
 
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Every parameter's logical axis names, the tree the reference's
+    ``init`` returns beside its parameters (the structure of
+    :func:`param_specs`)."""
+    ln = ("layers", None)
+    q, kv = ("layers", "embed", "heads", None), ("layers", "embed", "kv", None)
+    o = ("layers", "heads", None, "embed")
+    mlp = {"mlp_in": ("layers", "embed", "ffn"), "mlp_out": ("layers", "ffn", "embed")}
+    encoder = {"ln1": ln, "wq": q, "wk": kv, "wv": kv, "wo": o, "ln2": ln, **mlp}
+    decoder = {"ln1": ln, "wq": q, "wk": kv, "wv": kv, "wo": o, "lnx": ln, "xwq": q,
+               "xwk": kv, "xwv": kv, "xwo": o, "ln2": ln, **mlp}
+    return {"embed": ("vocab", "embed"), "enc_pos": (None, "embed"),
+            "dec_pos": (None, "embed"), "encoder": encoder, "enc_final_norm": (None,),
+            "decoder": decoder, "final_norm": (None,), "lm_head": ("vocab", "embed")}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: torch.device) -> cm.Params:
     return cm.init_params(param_specs(cfg), generator,
@@ -97,9 +113,9 @@ def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params) -> torch.Tensor
     h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
     o = cm.attention(q, k, v, causal=False)
-    x = x + cm.project_out(o, lp["wo"])
+    x = cm.shard_batch(x + cm.project_out(o, lp["wo"]))
     h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+    return cm.shard_batch(x + _mlp(h, lp["mlp_in"], lp["mlp_out"]))
 
 
 def encode(cfg: ModelConfig, params: cm.Params, audio_embeds: torch.Tensor,
@@ -123,14 +139,14 @@ def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: cm.Params, enc: torch.Tens
     h = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = (cm.project(h, lp[w]) for w in ("wq", "wk", "wv"))
     o = cm.attention(q, k, v, causal=True, chunk_q=chunk_q)
-    x = x + cm.project_out(o, lp["wo"])
+    x = cm.shard_batch(x + cm.project_out(o, lp["wo"]))
     h = cm.rms_norm(x, lp["lnx"], cfg.norm_eps)
     q = cm.project(h, lp["xwq"])
     xk, xv = cm.project(enc, lp["xwk"]), cm.project(enc, lp["xwv"])
     o = cm.attention(q, xk, xv, causal=False)
-    x = x + cm.project_out(o, lp["xwo"])
+    x = cm.shard_batch(x + cm.project_out(o, lp["xwo"]))
     h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+    return cm.shard_batch(x + _mlp(h, lp["mlp_in"], lp["mlp_out"]))
 
 
 def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
@@ -140,7 +156,7 @@ def forward(cfg: ModelConfig, params: cm.Params, tokens: torch.Tensor,
     are a product in the compute dtype, cast to the logits dtype after."""
     enc = encode(cfg, params, audio_embeds, remat=remat)
     S = tokens.shape[1]
-    x = params["embed"][tokens.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], tokens, cm.dtype_of(cfg.compute_dtype))
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     chunk_q = 1024 if S >= 8192 else 0
     body = functools.partial(_dec_layer, cfg, enc=enc, chunk_q=chunk_q)
@@ -194,7 +210,7 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
     host, so a step makes no host sync."""
     at = cm.position(pos, token.device)
     kv_len = pos + 1
-    x = params["embed"][token.long()].to(cm.dtype_of(cfg.compute_dtype))
+    x = cm.embed(params["embed"], token, cm.dtype_of(cfg.compute_dtype))
     x = x + params["dec_pos"].index_select(0, at)[None].to(x.dtype)
     for i, lp in enumerate(cm.layers(params["decoder"])):
         k_l, v_l = cache["k"][i], cache["v"][i]
@@ -203,13 +219,13 @@ def decode_step(cfg: ModelConfig, params: cm.Params, cache: Dict[str, torch.Tens
         k_l.index_copy_(1, at, k.to(k_l.dtype))
         v_l.index_copy_(1, at, v.to(v_l.dtype))
         o = cm.attention(q, k_l, v_l, causal=False, q_offset=pos, kv_len=kv_len)
-        x = x + cm.project_out(o, lp["wo"])
+        x = cm.shard_batch(x + cm.project_out(o, lp["wo"]))
         h = cm.rms_norm(x, lp["lnx"], cfg.norm_eps)
         q = cm.project(h, lp["xwq"])
         o = cm.attention(q, cache["xk"][i], cache["xv"][i], causal=False)
-        x = x + cm.project_out(o, lp["xwo"])
+        x = cm.shard_batch(x + cm.project_out(o, lp["xwo"]))
         h = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(h, lp["mlp_in"], lp["mlp_out"])
+        x = cm.shard_batch(x + _mlp(h, lp["mlp_in"], lp["mlp_out"]))
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"].T).to(torch.float32)
     return logits[:, 0], cache
