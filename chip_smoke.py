@@ -104,8 +104,11 @@ float64), timed with TF32 off and on; and jamba-v0.1-52b's MoE layer at
 full width through ``common.moe_ffn`` under ``MOE_A2A_MESH`` (the
 all-to-all expert-parallel dispatch, ``repro_torch.models.moe_a2a``) on
 a world of one over NCCL and on the ("data", "model") meshes (2, 1),
-(4, 1) and (2, 2) over gloo on the one card, against the single-device
-``moe_ffn`` without drops, with each rank's drops recounted on the host.
+(4, 1) and (2, 2) over gloo on the one card, each rank holding only its
+shards of the expert stacks (their bytes gated), against the
+single-device ``moe_ffn`` without drops (outputs, aux and the gradients,
+the shards' against their slices), with each rank's drops recounted on
+the host.
 Then the production dry run (phase 4p, ``repro_torch.launch.dryrun``):
 granite-3-2b's phase 4n step traced as a world of one on fake CUDA
 tensors, its predicted memory plan, matrix-product FLOPs and flash
@@ -113,7 +116,10 @@ launches held against the real step's device peak, ``FlopCounterMode``
 and launch count; then granite-3-2b and kimi-k2-1t-a32b at train_4k under
 fsdp as one rank of a fake world of 256, each rank's parameter bytes
 against the sharding's arithmetic and each recorded flash launch plan
-through the launch lint.
+through the launch lint; then kimi-k2-1t-a32b at train_4k under the
+ep-a2a variant (the all-to-all MoE on 16x16): its routed-expert bytes a
+rank against the arithmetic, no all-gather or all-reduce of an expert
+stack, its all-to-all bytes against the prediction.
 Then the static analyzer (``python -m repro_torch.analysis``) runs on the
 card: the card's limits against ``runtime.HOPPER``, the strict pass with
 the compiled kernels' attributes (the active-set pass among them), the
@@ -611,7 +617,11 @@ RESNET_TIMED = 20
 # batch A2A_B x A2A_S of standard normals, called through common.moe_ffn
 # with MOE_A2A_MESH set: on a world of one over NCCL in this process, and
 # on ("data", "model") meshes A2A_MESHES over gloo on the one card (NCCL
-# refuses two ranks on a device).  At capacity factor 8 nothing drops:
+# refuses two ranks on a device).  Each rank draws the layer, checks its
+# fingerprint, keeps only its shards of the stacks (moe_a2a.expert_shard:
+# E / n experts, F / M columns) and frees the full draw; its stack bytes
+# must be exactly the full stacks' 5,637,144,576 B / (n M).  At capacity
+# factor 8 nothing drops:
 # the ranks' outputs, gathered in data order, equal the single-device
 # moe_ffn of the whole batch to A2A_RTOL of its largest magnitude (both
 # round the expert products to bfloat16, whose accumulation order may
@@ -626,20 +636,24 @@ RESNET_TIMED = 20
 # gradients through the exchanges: at cf 8 each rank's share of the loss
 # sum(out c) + A2A_AUX_WEIGHT aux (c a float32 cotangent drawn after x;
 # its rows' term and 1 / n of the aux term, divided over the M ranks along
-# "model") is differentiated with respect to its rows of x and the
-# router; the x gradients summed over "model" and gathered, and the
-# router gradients summed over every rank, equal the single-device
+# "model") is differentiated with respect to its rows of x, the router
+# and its shards; the x gradients summed over "model" and gathered, and
+# the router gradients summed over every rank, equal the single-device
 # moe_ffn's gradients of sum(out c) + A2A_AUX_WEIGHT times the mean of
-# the aux losses of the data coordinates' row blocks to A2A_GRAD_RTOL of
-# each one's largest magnitude (four bfloat16 steps: a token's gradient
-# adds its k expert paths and its routing path in bfloat16, in another
-# order on each side; a wrong transpose is off by the whole gradient).
+# the aux losses of the data coordinates' row blocks, and each rank's
+# shards' gradients equal their slices of the single-device stack
+# gradients (kept on the card in bfloat16 and shared with the ranks
+# through CUDA IPC, so no host holds a float32 copy), each to
+# A2A_GRAD_RTOL of its largest magnitude (four bfloat16 steps: a token's
+# gradient adds its k expert paths and its routing path in bfloat16, in
+# another order on each side; a wrong transpose is off by the whole
+# gradient).
 # A2A_AUX_WEIGHT gives the aux term a visible share of the router
 # gradient (per unit weight its gradient is far smaller than the output
 # term's).  Each rank's ms per call at 1.25, its two all-to-alls' ms and
 # bytes (2 E cap_e D 2 B), its device peak above what it held before
-# drawing the layer (forward calls only) and the ms of the gradient
-# step are printed; the world of one's call is profiled.
+# drawing the layer (forward calls only, its shards held) and the ms of
+# the gradient step are printed; the world of one's call is profiled.
 A2A_B, A2A_S = 4, 1024
 A2A_SEED = 0
 A2A_MESHES = ((2, 1), (4, 1), (2, 2))
@@ -4360,56 +4374,81 @@ def a2a_layer(device) -> tuple:
     return cfg, x, (w["router"], w["w1"], w["w3"], w["w2"]), ct
 
 
-def a2a_grads(x, w, ct, top_k: int, n: int, M: int = 1) -> dict:
-    """The gradients, float32 on the CPU, of ``(sum(out ct) +
-    A2A_AUX_WEIGHT aux / n) / M`` with respect to x and the router, out
-    and aux those of ``common.moe_ffn`` at cf 8 (under ``MOE_A2A_MESH``
-    when the caller set it: then x and ct are this rank's rows), and the
-    ms of the step by the host clock (:func:`a2a_grad_ref` is the
-    single-device reference)."""
+def a2a_grads(x, w, ct, top_k: int, n: int, M: int = 1, d_ff=None, mesh=None,
+              ref_stacks=None) -> dict:
+    """The gradients of ``(sum(out ct) + A2A_AUX_WEIGHT aux / n) / M`` with
+    respect to x and the router (float32, on the CPU) and to the stacks
+    ``w[1:]``, out and aux those of ``common.moe_ffn`` at cf 8 (under
+    ``MOE_A2A_MESH`` when the caller set it: then x and ct are this rank's
+    rows, ``w[1:]`` its shards and ``d_ff`` the global F), and the ms of
+    the step by the host clock.  With ``ref_stacks`` (the single-device
+    gradients of the full stacks, :func:`a2a_grad_ref`), each shard's
+    gradient is held against its slice of them (``expert_shard`` on
+    ``mesh``): the max abs difference over the slice's largest magnitude,
+    by the "stacks" key (the stacks' gradients stay on the card)."""
     from repro_torch.models import common as cm
+    from repro_torch.models.moe_a2a import expert_shard
 
     xg = x.detach().clone().requires_grad_()
     rg = w[0].detach().clone().requires_grad_()
+    ws = [t.detach().requires_grad_() for t in w[1:]]
     _sync(x.device)
     t0 = time.perf_counter()
-    y, aux = cm.moe_ffn(xg, rg, *w[1:], top_k=top_k, capacity_factor=8.0)
+    y, aux = cm.moe_ffn(xg, rg, *ws, top_k=top_k, capacity_factor=8.0, d_ff=d_ff)
     (((y.float() * ct).sum() + A2A_AUX_WEIGHT * aux / n) / M).backward()
     _sync(x.device)
-    return dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu(),
-                ms=(time.perf_counter() - t0) * 1e3)
+    out = dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu(),
+               ms=(time.perf_counter() - t0) * 1e3)
+    if ref_stacks is not None:
+        out["stacks"] = {}
+        for k, g, want in zip(("w1", "w3", "w2"), (t.grad for t in ws),
+                              expert_shard(*ref_stacks, mesh)):
+            err = max(float((g[i].float() - want[i].float()).abs().max())
+                      for i in range(g.shape[0]))
+            out["stacks"][k] = err / float(want.abs().max())
+    return out
 
 
-def a2a_grad_ref(x, w, ct, top_k: int, n: int) -> dict:
+def a2a_grad_ref(x, w, ct, top_k: int, n: int, stacks: bool = False) -> dict:
     """The single-device gradients that the ranks of a data axis of ``n``
     add up to: of ``sum(out ct) + A2A_AUX_WEIGHT mean_d aux_d`` with
-    respect to x and the router, out the single-device ``moe_ffn`` of the
-    whole batch at cf 8 and aux_d the routing's aux loss of the d-th of n
-    row blocks (the ranks' pmean)."""
+    respect to x and the router (float32, on the CPU), out the
+    single-device ``moe_ffn`` of the whole batch at cf 8 and aux_d the
+    routing's aux loss of the d-th of n row blocks (the ranks' pmean);
+    with ``stacks``, by the "stacks" key also the gradients of the three
+    full stacks, bfloat16 on the card (the aux term does not reach them,
+    so they are the same for every n)."""
     from repro_torch.models import common as cm
 
     xg = x.detach().clone().requires_grad_()
     rg = w[0].detach().clone().requires_grad_()
-    y, _ = cm.moe_ffn(xg, rg, *w[1:], top_k=top_k, capacity_factor=8.0)
+    ws = [t.detach().requires_grad_(stacks) for t in w[1:]]
+    y, _ = cm.moe_ffn(xg, rg, *ws, top_k=top_k, capacity_factor=8.0)
     b, D = x.shape[0] // n, x.shape[-1]
     aux = sum(cm.moe_route(xg[d * b:(d + 1) * b].reshape(-1, D), rg, top_k)[2]
               for d in range(n)) / n
     ((y.float() * ct).sum() + A2A_AUX_WEIGHT * aux).backward()
-    return dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu())
+    out = dict(x=xg.grad.float().cpu(), router=rg.grad.float().cpu())
+    if stacks:
+        out["stacks"] = tuple(t.grad for t in ws)
+    return out
 
 
 def _fingerprint(ts) -> list:
     return [float(t.sum(dtype=torch.float32)) for t in ts]
 
 
-def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, profile: bool = False) -> dict:
+def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, d_ff: int, ref_stacks,
+              profile: bool = False) -> dict:
     """``common.moe_ffn`` under ``MOE_A2A_MESH = mesh`` on this rank's rows
-    of ``x``: at each of A2A_FACTORS its output (CPU), aux, routing and
+    of ``x`` and its shards ``w[1:]`` of the stacks (global FFN width
+    ``d_ff``): at each of A2A_FACTORS its output (CPU), aux, routing and
     dropped count; at A2A_DEFAULT_CF, A2A_TIMED calls timed by the host
     clock and one more with each all-to-all synchronised and timed; the
     device peak of these calls above ``base`` (what the process held
     before it drew the layer); then :func:`a2a_grads` on the rank's rows
-    of ``ct``.  ``profile`` adds a profiled call's busy time."""
+    of ``ct``, its shards' gradients held against ``ref_stacks``.
+    ``profile`` adds a profiled call's busy time."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import common as cm
 
@@ -4417,13 +4456,17 @@ def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, profile: bool = Fal
     n = sizes["data"]
     b = x.shape[0] // n
     xs = x[mesh.axis_index("data") * b:][:b]
+
+    def call(cf, routing=None):
+        return cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf, routing=routing, d_ff=d_ff)
+
     out = {}
     torch.cuda.reset_peak_memory_stats(device)
     cm.MOE_A2A_MESH = mesh
     try:
         for cf in A2A_FACTORS:
             routing = []
-            y, aux = cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf, routing=routing)
+            y, aux = call(cf, routing)
             r = routing[0]
             out[cf] = dict(y=y.cpu(), aux=float(aux), eidx=r["eidx"].cpu().numpy(),
                            cap=r["capacity"], dropped=int(r["dropped"]))
@@ -4431,11 +4474,10 @@ def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, profile: bool = Fal
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(A2A_TIMED):
-            cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf)
+            call(cf)
         _sync(device)
         ms = (time.perf_counter() - t0) * 1e3 / A2A_TIMED
-        busy = profiled_step_busy(lambda: cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf),
-                                  device, ms) if profile else None
+        busy = profiled_step_busy(lambda: call(cf), device, ms) if profile else None
         a2a_ms, plain = [], mesh_lib.all_to_all
 
         def timed(t, group):
@@ -4448,24 +4490,44 @@ def a2a_calls(mesh, x, w, ct, top_k: int, device, base: int, profile: bool = Fal
 
         mesh_lib.all_to_all = timed
         try:
-            cm.moe_ffn(xs, *w, top_k=top_k, capacity_factor=cf)
+            call(cf)
         finally:
             mesh_lib.all_to_all = plain
         peak = torch.cuda.max_memory_allocated(device) - base
         grads = a2a_grads(xs, w, ct[mesh.axis_index("data") * b:][:b], top_k, n,
-                          sizes["model"])
+                          sizes["model"], d_ff, mesh, ref_stacks)
     finally:
         cm.MOE_A2A_MESH = None
     E, D = w[0].shape[1], x.shape[-1]
     return dict(out=out, ms=ms, a2a_ms=a2a_ms, a2a_bytes=2 * E * out[cf]["cap"] * D * 2,
-                peak=peak, coords=mesh.coords, busy=busy, grads=grads)
+                peak=peak, coords=mesh.coords, busy=busy, grads=grads,
+                stack_bytes=sum(t.numel() * t.element_size() for t in w[1:]),
+                shard_shapes=[tuple(t.shape) for t in w[1:]])
 
 
-def a2a_rank(device_type: str, top_k: int, fingerprint: list) -> list:
+def a2a_shards(device, mesh, fingerprint: list) -> tuple:
+    """The layer drawn again from A2A_SEED on ``device`` (its fingerprint
+    must be ``fingerprint``), of which this rank keeps x, the cotangent,
+    the router and its shards of the stacks on ``mesh``
+    (``expert_shard``'s copies): the full stacks are freed before it
+    returns.  -> (cfg, x, (router, w1, w3, w2), ct)."""
+    from repro_torch.models.moe_a2a import expert_shard
+
+    cfg, x, w, ct = a2a_layer(device)
+    if _fingerprint((x, ct) + w) != fingerprint:
+        raise AssertionError(f"mesh {mesh.shape} at {mesh.coords}: the layer drawn from "
+                             f"A2A_SEED differs")
+    w = (w[0],) + expert_shard(*w[1:], mesh)
+    torch.cuda.empty_cache()
+    return cfg, x, w, ct
+
+
+def a2a_rank(device_type: str, top_k: int, fingerprint: list, ref_stacks: list) -> list:
     """A rank of the gloo world on ``device_type`` (the card: all ranks on
-    it): the layer drawn again from A2A_SEED (its fingerprint must be the
-    parent's), then :func:`a2a_calls` on each of A2A_MESHES of this world's
-    size."""
+    it): for each of A2A_MESHES of this world's size, :func:`a2a_shards`
+    then :func:`a2a_calls`.  ``ref_stacks`` holds the parent's
+    single-device stack gradients, shared through CUDA IPC (no copy); the
+    rank empties it when done, releasing them to the parent."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as mesh_lib
@@ -4475,18 +4537,23 @@ def a2a_rank(device_type: str, top_k: int, fingerprint: list) -> list:
         torch.cuda.init()
         torch.cuda.set_device(device)
         warm_cublas(device)
-    base = torch.cuda.memory_allocated(device)
-    _, x, w, ct = a2a_layer(device)
-    if _fingerprint((x, ct) + w) != fingerprint:
-        raise AssertionError(f"rank {dist.get_rank()}: the layer drawn from A2A_SEED differs")
-    return [a2a_calls(mesh_lib.make_mesh(shape, ("data", "model")), x, w, ct, top_k, device,
-                      base)
-            for shape in A2A_MESHES if shape[0] * shape[1] == dist.get_world_size()]
+    out = []
+    for shape in A2A_MESHES:
+        if shape[0] * shape[1] != dist.get_world_size():
+            continue
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        base = torch.cuda.memory_allocated(device)
+        cfg, x, w, ct = a2a_shards(device, mesh, fingerprint)
+        out.append(a2a_calls(mesh, x, w, ct, top_k, device, base, cfg.expert_d_ff, ref_stacks))
+        del x, w, ct
+        torch.cuda.empty_cache()
+    ref_stacks.clear()
+    return out
 
 
 def hold_a2a(label: str, ranks: list, ref: dict, shape, card: str) -> None:
     """The gates of phase 4o (b) on one mesh's ranks (see A2A_RTOL)."""
-    n = shape[0]
+    n, M = shape
     by_coord = {r["coords"][0]: r for r in ranks if r["coords"][1] == 0}
     got = torch.cat([by_coord[d]["out"][8.0]["y"] for d in range(n)])
     want = ref["y"]
@@ -4509,16 +4576,22 @@ def hold_a2a(label: str, ranks: list, ref: dict, shape, card: str) -> None:
     g_err = {k: float((g - ref["grads"][n][k]).abs().max())
              / float(ref["grads"][n][k].abs().max())
              for k, g in (("x", gx), ("router", sum(r["grads"]["router"] for r in ranks)))}
+    for k in ("w1", "w3", "w2"):
+        g_err[k] = max(r["grads"]["stacks"][k] for r in ranks)
+    stack_bytes = [r["stack_bytes"] for r in ranks]
     cf = A2A_DEFAULT_CF
-    log(f"phase 4o (b) {label}: cf 8 vs single-device moe_ffn: max_abs_err {err!r} of max "
-        f"|out| {scale!r} (gate {A2A_RTOL} x), aux rel err {aux_err!r} (gate {A2A_AUX_RTOL}), "
-        f"replicas along model equal={replicas}; dropped (device, host recount) per rank by "
-        f"cf {drops}; at cf {cf}: ms per call {[round(r['ms'], 3) for r in ranks]}; "
-        f"all-to-all ms {[[round(t, 3) for t in r['a2a_ms']] for r in ranks]}, "
-        f"{ranks[0]['a2a_bytes']} B a rank a call (cap_e {ranks[0]['out'][cf]['cap']}); "
-        f"device peak per rank above what it held before drawing the layer "
-        f"{[r['peak'] for r in ranks]} B; gradients at cf 8 vs single-device moe_ffn: "
-        f"max_abs_err / max |grad| {g_err} (gate {A2A_GRAD_RTOL}), ms per forward + "
+    log(f"phase 4o (b) {label}: each rank's expert shards {ranks[0]['shard_shapes']}, "
+        f"{stack_bytes} B (the full stacks {ref['stack_bytes']} B / {n * M}: "
+        f"{ref['stack_bytes'] // (n * M)}); cf 8 vs single-device moe_ffn: max_abs_err "
+        f"{err!r} of max |out| {scale!r} (gate {A2A_RTOL} x), aux rel err {aux_err!r} (gate "
+        f"{A2A_AUX_RTOL}), replicas along model equal={replicas}; dropped (device, host "
+        f"recount) per rank by cf {drops}; at cf {cf}: ms per call "
+        f"{[round(r['ms'], 3) for r in ranks]}; all-to-all ms "
+        f"{[[round(t, 3) for t in r['a2a_ms']] for r in ranks]}, {ranks[0]['a2a_bytes']} B a "
+        f"rank a call (cap_e {ranks[0]['out'][cf]['cap']}); device peak per rank above what it "
+        f"held before drawing the layer {[r['peak'] for r in ranks]} B; gradients at cf 8 vs "
+        f"single-device moe_ffn (the stacks' a rank's shard against its slice, the worst "
+        f"rank): max_abs_err / max |grad| {g_err} (gate {A2A_GRAD_RTOL}), ms per forward + "
         f"backward {[round(r['grads']['ms'], 3) for r in ranks]} ({card})")
     if ranks[0]["busy"] is not None:
         b = ranks[0]["busy"]
@@ -4528,52 +4601,64 @@ def hold_a2a(label: str, ranks: list, ref: dict, shape, card: str) -> None:
     if not (err <= A2A_RTOL * scale and aux_err <= A2A_AUX_RTOL and replicas
             and all(a == b for d in drops.values() for a, b in d) and dropping
             and all(e <= A2A_GRAD_RTOL for e in g_err.values())
+            and stack_bytes == [ref["stack_bytes"] // (n * M)] * len(ranks)
             and bool(torch.isfinite(got.float()).all())):
         raise AssertionError(f"phase 4o (b) {label}: err {err}, aux {aux_err}, drops {drops}, "
-                             f"gradients {g_err}")
+                             f"gradients {g_err}, stack bytes {stack_bytes}")
 
 
 def run_moe_a2a(device, card: str) -> dict:
     """Phase 4o (b): the single-device reference, a world of one over
-    NCCL, then the gloo worlds of A2A_MESHES."""
+    NCCL, then the gloo worlds of A2A_MESHES, each rank on its shards of
+    the stacks; the single-device stack gradients stay on the card, shared
+    with the ranks through CUDA IPC."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import common as cm
 
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(device)
     cfg, x, w, ct = a2a_layer(device)
     fingerprint = _fingerprint((x, ct) + w)
     y, aux = cm.moe_ffn(x, *w, top_k=cfg.top_k, capacity_factor=8.0)
     ref = dict(y=y.cpu(), E=cfg.n_experts, aux={1: float(aux)},
-               grads={n: a2a_grad_ref(x, w, ct, cfg.top_k, n)
+               stack_bytes=sum(t.numel() * t.element_size() for t in w[1:]),
+               grads={n: a2a_grad_ref(x, w, ct, cfg.top_k, n, stacks=n == 1)
                       for n in sorted({1} | {s[0] for s in A2A_MESHES})})
+    ref_stacks = ref["grads"][1].pop("stacks")
     for n in sorted({s[0] for s in A2A_MESHES}):
         b = A2A_B // n
         ref["aux"][n] = float(np.mean([float(cm.moe_ffn(x[d * b:(d + 1) * b], *w,
                                                         top_k=cfg.top_k,
                                                         capacity_factor=8.0)[1])
                                        for d in range(n)]))
-    del y
+    del y, x, w, ct
     log(f"phase 4o (b): {cfg.name}'s MoE layer (D {cfg.d_model}, F {cfg.expert_d_ff}, E "
         f"{cfg.n_experts}, top_k {cfg.top_k}, bfloat16), x ({A2A_B}, {A2A_S}, {cfg.d_model})")
     out = {}
     with mesh_lib.world_of_one("nccl" if device.type == "cuda" else "gloo"):
-        one = a2a_calls(mesh_lib.make_mesh((1, 1), ("data", "model")), x, w, ct, cfg.top_k,
-                        device, base, profile=device.type == "cuda")
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        torch.cuda.empty_cache()
+        one_base = torch.cuda.memory_allocated(device)
+        _, x, w, ct = a2a_shards(device, mesh, fingerprint)
+        one = a2a_calls(mesh, x, w, ct, cfg.top_k, device, one_base, cfg.expert_d_ff,
+                        ref_stacks, profile=device.type == "cuda")
         hold_a2a(f"world of one ({dist.get_backend()})", [one], ref, (1, 1), card)
         out[(1, 1)] = [one]
-    del x, w, ct
+        del x, w, ct
     torch.cuda.empty_cache()
     for n in sorted({s[0] * s[1] for s in A2A_MESHES}):
         ranks = mesh_lib.run_world(n, a2a_rank, device.type, cfg.top_k, fingerprint,
-                                   backend="gloo",
+                                   list(ref_stacks), backend="gloo",
                                    threads=None, timeout=900.0)
         for i, shape in enumerate(s for s in A2A_MESHES if s[0] * s[1] == n):
             rs = [r[i] for r in ranks]
             hold_a2a(f"mesh {shape} (gloo, CUDA tensors)", rs, ref, shape, card)
             out[shape] = rs
+    del ref_stacks
+    if device.type == "cuda":
+        torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4605,11 +4690,18 @@ def run_last_modules(device, card: str) -> dict:
 # count.  (b) DRY_COMBOS at train_4k under fsdp on the production mesh
 # 16x16 (256 fake ranks): status ok, a rank's parameter bytes equal to the
 # sharding's own arithmetic, and every recorded flash launch plan through
-# analysis/launch_checks.py without an error.
+# analysis/launch_checks.py without an error.  Then DRY_A2A_ARCH at
+# train_4k under the ep-a2a variant (the ep scheme with the all-to-all MoE,
+# common.MOE_A2A_MESH on 16x16): status ok, a rank's routed-expert bytes
+# equal to n_layers x 3 (E / 16) D (F / 16) x 2 B and to the sharding's
+# arithmetic, no all-gather or all-reduce of an expert stack or a shard of
+# one (dryrun.stack_collectives), every flash plan through the lint; its
+# all-to-all bytes are printed beside E cap_e D 2 B an exchange.
 DRY_MEM_RTOL = 0.15
 DRY_PEAK_RTOL = 0.05
 DRY_FLOPS_RTOL = 0.01
 DRY_COMBOS = ("granite-3-2b", "kimi-k2-1t-a32b")
+DRY_A2A_ARCH = "kimi-k2-1t-a32b"
 
 
 def run_dry_world_of_one(device, card: str) -> dict:
@@ -4693,6 +4785,76 @@ def _spec_leaves(specs, shards):
             yield v[0], shards[k]
 
 
+def _expert_arithmetic(cfg, scheme: str) -> int:
+    """A rank's bytes of the routed experts' stacks on 16x16 under
+    ``scheme``, by the sharding's own arithmetic."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+
+    specs, dtype = registry.param_layout(cfg)
+    axes, mesh = registry.param_axes(cfg)["layers"], _ProductionMesh()
+    return sum(math.prod(sh.local_shape(specs["layers"][k][0], sh.spec_for_param(
+        axes[k], specs["layers"][k][0], mesh, scheme), mesh)) for k in ("w1", "w3", "w2")) \
+        * torch.empty((), dtype=dtype).element_size()
+
+
+def run_dry_a2a(card: str) -> dict:
+    """Phase 4p (b), the all-to-all MoE: DRY_A2A_ARCH at train_4k under
+    the ep-a2a variant (the ep scheme, ``common.MOE_A2A_MESH`` on 16x16)."""
+    import tempfile
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.models.moe_a2a import a2a_capacity
+
+    arch, cfg = DRY_A2A_ARCH, ARCHS[DRY_A2A_ARCH]
+    with tempfile.TemporaryDirectory() as tmp:
+        r = dryrun.run_combo(arch, "train_4k", False, "ep", tmp, device="cuda", verbose=False,
+                             variant="ep-a2a", moe_a2a=True)
+    if r["status"] != "ok":
+        raise AssertionError(f"phase 4p (b): {arch} train_4k ep-a2a 16x16: {r['error']}\n"
+                             f"{r['traceback']}")
+    n, M = _ProductionMesh.shape
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    size = torch.empty((), dtype=registry.param_layout(cfg)[1]).element_size()
+    want = cfg.n_layers * 3 * (E // n) * D * (Fe // M) * size
+    by_sharding = _expert_arithmetic(cfg, "ep")
+    T = 256 // n * 4096
+    each = E * a2a_capacity(T, E, cfg.top_k, cfg.capacity_factor) * D * size
+    a2a = {k: v for k, v in r["collective_shapes"].items() if k.startswith("all-to-all")}
+    moved = r["collective_by_kind_gb"].get("all-to-all", 0.0) * 1e9
+    count = r["collective_counts"].get("all-to-all", 0)
+    errors = [f for f in r["launch_findings"] if f.startswith("[ERROR")]
+    log(f"phase 4p (b): {arch} x train_4k (16x16, ep-a2a, fake CUDA): "
+        f"{r['bytes_per_device'] / 1e9:.3f} GB a device (peak alive "
+        f"{r['peak_bytes'] / 1e9:.3f} GB; parameters {r['param_bytes_per_device']!r} B, of "
+        f"them routed experts {r['expert_param_bytes_per_device']!r} B, the arithmetic "
+        f"{cfg.n_layers} x 3 x {E // n} x {D} x {Fe // M} x {size} = {want} B, the sharding's "
+        f"{by_sharding} B), terms compute {r['compute_s'] * 1e3:.3f} ms, memory "
+        f"{r['memory_s'] * 1e3:.3f} ms (unfused eager bytes), collective "
+        f"{r['collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, useful "
+        f"{r['useful_flops_ratio']:.4f}, collectives {r['collective_counts']} "
+        f"({r['collective_by_kind_gb']} GB); all-to-all {count} x, {moved!r} B, "
+        f"{moved / max(count, 1)!r} B each (predicted E cap_e D {size} = {each} B each, "
+        f"{cfg.n_layers} layers x 6 (forward, remat recompute, backward; there and back) = "
+        f"{cfg.n_layers * 6} x), by shape {a2a}; all-gathers and all-reduces of an expert "
+        f"stack {r['stack_collectives'] or 'none'}; flash launches {r['flash_launches']} "
+        f"(lint: {r['launch_findings'] or 'pass'}), replicated fallbacks {r['fallbacks']}, "
+        f"traced in {r['compile_s']:.3f} s ({card})")
+    if not (r["expert_param_bytes_per_device"] == want == by_sharding):
+        raise AssertionError(f"phase 4p (b): {arch} ep-a2a: "
+                             f"{r['expert_param_bytes_per_device']} routed-expert bytes a rank, "
+                             f"the arithmetic says {want}, the sharding {by_sharding}")
+    if r["stack_collectives"] or not count:
+        raise AssertionError(f"phase 4p (b): {arch} ep-a2a: stack collectives "
+                             f"{r['stack_collectives']}, {count} all-to-alls")
+    if errors or not r["flash_launches"]:
+        raise AssertionError(f"phase 4p (b): {arch} ep-a2a: {r['flash_launches']} flash "
+                             f"launches, lint errors {errors}")
+    return r
+
+
 def run_dry_production(card: str) -> dict:
     """Phase 4p (b): the dry run at production scale on fake CUDA tensors."""
     import tempfile
@@ -4740,6 +4902,7 @@ def run_dry_run(device, card: str) -> dict:
     t0 = time.perf_counter()
     one = run_dry_world_of_one(device, card)
     prod = run_dry_production(card)
+    prod["ep-a2a"] = run_dry_a2a(card)
     log(f"phase 4p: {time.perf_counter() - t0:.3f} s ({card})")
     return dict(one=one, production=prod)
 

@@ -64,8 +64,8 @@ from repro_torch.models import registry
 from repro_torch.obs.trace import now as _now
 from repro_torch.optim import get as get_opt
 
-__all__ = ["SKIPS", "COMBO_OVERRIDES", "MESH_AXES", "mesh_shape_of", "trace_one", "run_combo",
-           "main"]
+__all__ = ["SKIPS", "COMBO_OVERRIDES", "MESH_AXES", "mesh_shape_of", "trace_one",
+           "stack_collectives", "run_combo", "main"]
 
 # (arch, shape) combos skipped with reasons (the reference's)
 SKIPS: Dict[tuple, str] = {
@@ -146,14 +146,47 @@ def trace_one(cfg: ModelConfig, shape: InputShape, mesh_shape: Sequence[int], sc
             cm.MOE_A2A_MESH = None
 
 
+def _expert_leaves(axes, params):
+    """The parameters whose logical dims include "experts" (the routed
+    experts' stacks)."""
+    for k, ax in axes.items():
+        if isinstance(ax, dict):
+            yield from _expert_leaves(ax, params[k])
+        elif "experts" in ax:
+            yield params[k]
+
+
+def stack_collectives(shapes: Dict[Tuple[str, tuple, tuple], int], cfg: ModelConfig,
+                      mesh_shape: Sequence[int]) -> Dict[str, int]:
+    """Of a trace's collectives by shape (``TraceSummary.
+    collective_shapes``), the all-gathers and all-reduces whose input or
+    output ends in an expert stack's dims or a rank's shard of them, (e,
+    D, f) or (e, f, D) with e the experts E or E / n and f the FFN dim F
+    or F / M (n and M the "data" and "model" sizes): each as "kind in ->
+    out" with its count.  Empty for a dense model."""
+    if not cfg.n_experts:
+        return {}
+    size = dict(zip(MESH_AXES[len(mesh_shape)], mesh_shape))
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    es = {E, E // size["data"]}
+    fs = {Fe, Fe // size["model"]}
+    stack = {(e, D, f) for e in es for f in fs} | {(e, f, D) for e in es for f in fs}
+    return {f"{kind} {i} -> {o}": n for (kind, i, o), n in shapes.items()
+            if kind in ("all-gather", "all-reduce") and (i[-3:] in stack or o[-3:] in stack)}
+
+
 def _trace_step(cfg, shape, mesh, scheme, optimizer, dev):
     from repro_torch.launch import train
 
     p_specs = _param_specs(cfg)
-    p_shard = sh.param_shardings(registry.param_axes(cfg), p_specs, mesh, scheme)
+    axes = registry.param_axes(cfg)
+    p_shard = sh.param_shardings(axes, p_specs, mesh, scheme)
     params = _sharded(p_specs, p_shard, mesh, dev)
     meta = {"param_bytes_per_device": float(sum(
-        t.numel() * t.element_size() for t in ta.local_tensors(params)))}
+        t.numel() * t.element_size() for t in ta.local_tensors(params))),
+        "expert_param_bytes_per_device": float(sum(
+            t.numel() * t.element_size()
+            for t in ta.local_tensors(list(_expert_leaves(axes, params)))))}
     batch_spec = sh.batch_spec(mesh)
     if shape.mode == "train":
         opt = get_opt(optimizer, state_dtype="bfloat16") if optimizer == "adamw" \
@@ -200,7 +233,10 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, scheme: str,
               moe_a2a: bool = False, device="cuda") -> Dict[str, Any]:
     """Trace one combo and write its JSON artifact (the reference's keys,
     so ``launch/report.py`` reads it, plus ``device``, ``hw``, the
-    rank's ``peak_bytes``, ``param_bytes_per_device``, ``flash_launches``,
+    rank's ``peak_bytes``, ``param_bytes_per_device`` (and of it
+    ``expert_param_bytes_per_device``, the routed experts' stacks),
+    ``collective_shapes`` and of them ``stack_collectives``
+    (:func:`stack_collectives`), ``flash_launches``,
     ``launch_findings`` (what ``analysis/launch_checks.py`` says of the
     recorded launch plans; empty when they pass), ``fallbacks``, the
     ops DTensor could not shard, and ``temp_by_op``, the temporaries alive
@@ -243,6 +279,11 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, scheme: str,
         }
         result.update(peak_bytes=summ.peak_bytes,
                       param_bytes_per_device=meta["param_bytes_per_device"],
+                      expert_param_bytes_per_device=meta["expert_param_bytes_per_device"],
+                      collective_shapes={f"{k} {i} -> {o}": n for (k, i, o), n
+                                         in summ.collective_shapes.items()},
+                      stack_collectives=stack_collectives(summ.collective_shapes, cfg,
+                                                          mesh_shape),
                       flash_launches=len(meta["flash_plans"]),
                       launch_findings=_lint(meta["flash_plans"]), fallbacks=summ.fallbacks,
                       temp_by_op=summ.temp_by_op, n_ops=summ.n_ops)

@@ -21,7 +21,8 @@ therefore a rank's own:
 - **collectives** by kind and count, with the reference's conventions
   (``hlo_analysis.py:1-20``): an all-reduce moves twice its input, an
   all-gather its output, a reduce-scatter its input, an all-to-all its
-  size;
+  size; and counted by kind and shapes (what moved: a parameter
+  gathered whole shows as its shard's shape in, its whole shape out);
 - **the memory plan**: every storage an op makes, from its birth to its
   death (weak references), against the arguments' storages: the output
   bytes (the result's storages that are not arguments'), the temporary
@@ -135,6 +136,8 @@ class TraceSummary:
     collective_bytes: float = 0.0
     collective_by_kind: Dict[str, float] = field(default_factory=dict)
     collective_counts: Dict[str, int] = field(default_factory=dict)
+    # (kind, first input's shape, first output's shape) -> count
+    collective_shapes: Dict[Tuple[str, tuple, tuple], int] = field(default_factory=dict)
     residual_while_loops: int = 0           # the port's layers are a Python loop
     kernel_flops: float = 0.0               # of dot_flops, the kernel launches'
     bytes_accessed: float = 0.0             # unfused eager: each op's in + out
@@ -214,6 +217,7 @@ class _Counter(DispatchMode):
         self.s = TraceSummary()
         self.by_kind: Dict[str, float] = collections.defaultdict(float)
         self.counts: Dict[str, int] = collections.defaultdict(int)
+        self.shapes: Dict[Tuple[str, tuple, tuple], int] = collections.defaultdict(int)
         self.args: Dict[int, Tuple[Any, int]] = {}        # id -> (storage, bytes)
         self.live: Dict[int, Tuple[Any, int, int]] = {}   # id -> (weakref, bytes, serial)
         self.events: List[Tuple[int, int]] = []           # (serial, +bytes | -bytes)
@@ -308,6 +312,8 @@ class _Counter(DispatchMode):
                                  float(sum(_nbytes(t) for t in outs[:1])))
             self.by_kind[kind] += b
             self.counts[kind] += 1
+            self.shapes[(kind, tuple(ins[0].shape) if ins else (),
+                         tuple(outs[0].shape) if outs else ())] += 1
         elif func not in _FREE and not func.is_view:
             if packet in flop_registry:
                 s.dot_flops += float(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -526,6 +532,7 @@ def trace(fn: Callable[[], Any], arguments: Any, device_type: str) -> Tuple[Any,
     s.launches = launches
     s.collective_by_kind = dict(counter.by_kind)
     s.collective_counts = dict(counter.counts)
+    s.collective_shapes = dict(counter.shapes)
     s.collective_bytes = float(sum(counter.by_kind.values()))
     s.fallbacks = dict(fallback.ops)
     return out, s

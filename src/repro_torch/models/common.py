@@ -363,18 +363,60 @@ def shard_batch(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _local_a2a(a2a, x, router, w1, w3, w2):
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward, its cotangent times ``s`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _local_a2a(a2a, split: bool, x, router, w1, w3, w2):
     """The all-to-all MoE on each rank's shard of DTensor inputs
-    (``local_map``): x's rows of the batch, the router and the full expert
-    stacks (replicated, as ``moe_ffn_a2a`` takes them) -> the rows'
-    output, batch sharded, and the aux loss, replicated."""
-    from torch.distributed.tensor import Replicate
+    (``local_map``), with the reference's ``shard_map`` in_specs: x's rows
+    of the batch (:func:`_batch_placements`), the router replicated, the
+    stacks sharded over "data" on the expert dim and, where ``split`` (F
+    splits over "model", ``moe_a2a.ffn_shard_width``), over "model" on the
+    FFN dim, replicated on every other mesh dim.  These are the ep
+    scheme's parameter placements, so nothing moves to meet them.  ->
+    the rows' output, batch sharded, and the aux loss (the mean over the
+    data axis and the pods).
+
+    A replicated output's cotangent reaches every copy, while the body's
+    collectives sum cotangents over the ranks (``moe_a2a``'s doc), so the
+    body takes 1 / M of the output's cotangent and 1 / (n M) of the aux's.
+    Then a rank's gradient of each input is its part of the global one:
+    sharded where the input is, a partial sum on every mesh dim where the
+    input is replicated (the stacks' over "pod" and an unsplit "model", x's
+    over "model", the router's over every dim)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = x.device_mesh
-    rows, full = _batch_placements(mesh, x.shape[0]), [Replicate()] * mesh.ndim
-    return local_map(a2a, out_placements=(rows, full),
-                     in_placements=(rows, full, full, full, full), device_mesh=mesh,
+    names = list(mesh.mesh_dim_names)
+    size = dict(zip(names, mesh.shape))
+    M, n, pods = size.get("model", 1), size["data"], size.get("pod", 1)
+
+    def on(**dims):
+        return [dims.get(a, Replicate()) for a in names]
+
+    rows, full = _batch_placements(mesh, x.shape[0]), on()
+    w_in = on(data=Shard(0), model=Shard(2) if split else Replicate())
+    w_out = on(data=Shard(0), model=Shard(1) if split else Replicate())
+    ins = (rows, full, w_in, w_in, w_out)
+    grads = tuple([Partial() if isinstance(p, Replicate) else p for p in pl] for pl in ins)
+
+    def body(*args):
+        out, aux = a2a(*args)
+        return _ScaleGrad.apply(out, 1.0 / M), _ScaleGrad.apply(aux, 1.0 / (n * M)) / pods
+
+    return local_map(body, out_placements=(rows, on(pod=Partial())), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(x, router, w1, w3, w2)
 
 
@@ -528,9 +570,26 @@ def moe_slots(eidx: torch.Tensor, n_experts: int, capacity: int) -> Tuple[torch.
     return order, keep, slot, torch.where(keep, slot, n_experts * capacity)
 
 
+def _takes_a2a(x: torch.Tensor, n_experts: int) -> bool:
+    """Whether ``moe_ffn`` takes the all-to-all branch: :data:`MOE_A2A_MESH`
+    set, its "data" axis dividing the experts and, for a DTensor x, the
+    batch dividing over the batch's mesh dims (the reference's condition
+    that B divides over "data"; a plain x holds the rank's rows)."""
+    if MOE_A2A_MESH is None:
+        return False
+    if n_experts % dict(zip(MOE_A2A_MESH.axis_names, MOE_A2A_MESH.shape)).get("data", 1):
+        return False
+    if not is_dtensor(x):
+        return True
+    mesh = x.device_mesh
+    return x.shape[0] % math.prod(s for a, s in zip(mesh.mesh_dim_names, mesh.shape)
+                                  if a in ("pod", "data")) == 0
+
+
 def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-            routing: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            routing: Optional[list] = None,
+            d_ff: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based token-choice MoE with capacity (the reference's
     ``moe_ffn``): x (B, S, D), router (D, E),
     w1 and w3 (E, D, F), w2 (E, F, D) -> (output (B, S, D), the Switch-style
@@ -550,21 +609,32 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.T
     call is ``moe_a2a.moe_ffn_a2a`` on that mesh instead, as in the
     reference: every rank calls it with its own rows of the batch as x
     (the reference's condition that B divides over the axis is the
-    caller's split), and gets its rows' output and the data-axis mean of
-    the aux loss.  With :data:`MOE_DISPATCH_SPEC` set and DTensor inputs,
-    the (E, C, D) dispatch buffer is redistributed to that spec before the
-    expert products."""
+    caller's split) and its own shards of the stacks, w1 and w3 (E / n, D,
+    F_loc) and w2 (E / n, F_loc, D) (``moe_a2a.expert_shard``), with
+    ``d_ff`` the global F, which fixes F_loc (a shard's width cannot tell
+    whether F was split); it gets its rows' output and the data-axis mean
+    of the aux loss.  DTensor inputs (the dry run) carry their global
+    shapes and take that branch where the batch divides over the batch's
+    mesh dims, each rank on its shards (:func:`_local_a2a`).  With
+    :data:`MOE_DISPATCH_SPEC` set and DTensor inputs, the (E, C, D)
+    dispatch buffer is redistributed to that spec before the expert
+    products."""
     B, S, D = x.shape
     E = router.shape[1]
-    if MOE_A2A_MESH is not None and E % dict(zip(MOE_A2A_MESH.axis_names,
-                                                  MOE_A2A_MESH.shape)).get("data", 1) == 0:
+    if _takes_a2a(x, E):
         from repro_torch.models import moe_a2a
 
         a2a = functools.partial(moe_a2a.moe_ffn_a2a, top_k=top_k, mesh=MOE_A2A_MESH,
                                 capacity_factor=capacity_factor, routing=routing)
         if is_dtensor(x):
-            return _local_a2a(a2a, x, router, w1, w3, w2)
-        return a2a(x, router, w1, w3, w2)
+            Fd = w1.shape[-1]
+            return _local_a2a(functools.partial(a2a, d_ff=Fd),
+                              moe_a2a.ffn_shard_width(Fd, MOE_A2A_MESH) != Fd,
+                              x, router, w1, w3, w2)
+        if d_ff is None:
+            raise ValueError("under MOE_A2A_MESH the stacks are this rank's shards: pass "
+                             "d_ff, the experts' global FFN width")
+        return a2a(x, router, w1, w3, w2, d_ff=d_ff)
     T = B * S
     xt = x.reshape(T, D)
     gate, eidx, aux = moe_route(xt, router, top_k)

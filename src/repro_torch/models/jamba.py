@@ -114,7 +114,7 @@ def _ffn(cfg: ModelConfig, fp: cm.Params, x: torch.Tensor,
     h = cm.rms_norm(x, fp["moe_ln"], cfg.norm_eps)
     y, aux = cm.moe_ffn(h, fp["router"], fp["mw1"], fp["mw3"], fp["mw2"],
                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                        routing=routing)
+                        routing=routing, d_ff=cfg.expert_d_ff)
     return cm.shard_batch(x + y), aux
 
 

@@ -4,8 +4,8 @@ covering the dense, MoE and VLM families:
 - granite-3-2b / granite-3-8b / phi4-mini (dense GQA + RoPE + SwiGLU);
 - gemma2-27b (alternating local/global attention, logit softcapping);
 - kimi-k2 (MoE 384 experts top-8 + a shared expert), grok-1 (MoE 8
-  experts top-2), through ``common.moe_ffn`` (not the reference's
-  all-to-all branch);
+  experts top-2), through ``common.moe_ffn`` (its all-to-all branch
+  under ``common.MOE_A2A_MESH``, as in the reference);
 - internvl2 (a stub patch-embedding prefix + the dense LM).
 
 Per-layer weights are stacked on a leading layer axis, as in the
@@ -115,7 +115,7 @@ def _ffn(cfg: ModelConfig, lp: cm.Params, x: torch.Tensor) -> Tuple[torch.Tensor
         return (cm.shard_batch(x + cm.swiglu(h, lp["w1"], lp["w3"], lp["w2"])),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     y, aux = cm.moe_ffn(h, lp["router"], lp["w1"], lp["w3"], lp["w2"], top_k=cfg.top_k,
-                        capacity_factor=cfg.capacity_factor)
+                        capacity_factor=cfg.capacity_factor, d_ff=cfg.expert_d_ff)
     if cfg.n_shared_experts:
         y = y + cm.swiglu(h, lp["sw1"], lp["sw3"], lp["sw2"])
     return cm.shard_batch(x + y), aux

@@ -298,3 +298,86 @@ def test_trace_refuses_an_initialised_world():
         with pytest.raises(RuntimeError, match="already initialised"):
             dryrun.trace_one(ARCHS["granite-3-2b"].reduced(), InputShape("t", S, B, "prefill"),
                              MESH, "fsdp", device="cpu")
+
+
+def _a2a_cfg():
+    """Reduced kimi-k2 one layer deep with 8 experts of F = 144: on the
+    mesh (4, 2) a rank holds 2 experts and 72 of their FFN columns, a
+    shape no other tensor of the step ends in."""
+    return dataclasses.replace(ARCHS["kimi-k2-1t-a32b"].reduced(), n_layers=1, n_experts=8,
+                               moe_d_ff=144)
+
+
+def test_ep_a2a_step_holds_each_ranks_expert_shards(monkeypatch):
+    """A reduced MoE train step under the ep scheme through the
+    all-to-all dispatch on a fake world of 8 ((4, 2) over ("data",
+    "model")): every call of ``moe_ffn_a2a`` gets the rank's (E / n, D, F /
+    M) shards; a rank holds 3 (E / n) D (F / M) expert elements a MoE
+    layer, the sharding's arithmetic; no all-gather or all-reduce moves an
+    expert stack or a shard of one; the all-to-alls run; and the stacks'
+    gradients reach the optimizer sharded as the stacks are."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import moe_a2a
+    from repro_torch.models import registry
+
+    cfg, mesh = _a2a_cfg(), (4, 2)
+    (n, M), E, D, Fe = mesh, cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    seen, grads = [], {}
+    real_a2a, real_opt = moe_a2a.moe_ffn_a2a, dryrun.get_opt
+
+    def spy(x, router, w1, w3, w2, **kw):
+        seen.append(tuple(tuple(t.shape) for t in (w1, w3, w2)))
+        return real_a2a(x, router, w1, w3, w2, **kw)
+
+    def get_opt(*a, **kw):
+        opt = real_opt(*a, **kw)
+
+        def update(g, state, params, lr):
+            for k in ("w1", "w3", "w2"):
+                assert isinstance(g["layers"][k], DTensor)
+                grads[k] = [str(p) for p in g["layers"][k].placements]
+            return opt.update(g, state, params, lr)
+
+        return type(opt)(opt.init, update)
+
+    monkeypatch.setattr(moe_a2a, "moe_ffn_a2a", spy)
+    monkeypatch.setattr(dryrun, "get_opt", get_opt)
+    summary, meta = dryrun.trace_one(cfg, InputShape("t", S, B, "train"), mesh, "ep",
+                                     device="cpu", moe_a2a=True)
+    shard = ((E // n, D, Fe // M), (E // n, D, Fe // M), (E // n, Fe // M, D))
+    assert seen and set(seen) == {shard}
+    specs, dtype = registry.param_layout(cfg)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    duck = _DuckMesh(mesh)
+    by_sharding = sum(math.prod(sh.local_shape(
+        specs["layers"][k][0], sh.spec_for_param(registry.param_axes(cfg)["layers"][k],
+                                                  specs["layers"][k][0], duck, "ep"), duck))
+        for k in ("w1", "w3", "w2")) * itemsize
+    assert meta["expert_param_bytes_per_device"] == by_sharding == \
+        cfg.n_layers * 3 * (E // n) * D * (Fe // M) * itemsize
+    assert dryrun.stack_collectives(summary.collective_shapes, cfg, mesh) == {}
+    assert summary.collective_counts.get("all-to-all", 0) >= 2
+    shard_1_3 = [str(p) for p in (torch.distributed.tensor.Shard(1),
+                                  torch.distributed.tensor.Shard(3))]
+    assert grads == {"w1": shard_1_3, "w3": shard_1_3,
+                     "w2": shard_1_3[:1] + [str(torch.distributed.tensor.Shard(2))]}
+
+
+def test_stack_collectives_picks_the_expert_stacks():
+    """On (4, 2) with E 8, D 256, F 144: a stack or shard gathered or
+    summed is named; the shared expert's (L, D, F / M), an all-to-all of a
+    shard's shape and a dense model are not."""
+    cfg = _a2a_cfg()
+    shapes = {("all-gather", (2, 256, 72), (8, 256, 72)): 2,
+              ("all-reduce", (1, 2, 72, 256), (1, 2, 72, 256)): 1,
+              ("all-gather", (8, 256, 72), (8, 256, 144)): 1,
+              ("all-reduce", (1, 256, 72), (1, 256, 72)): 3,
+              ("all-to-all", (2, 256, 72), (2, 256, 72)): 2,
+              ("all-gather", (2, 128, 256), (8, 128, 256)): 1}
+    assert dryrun.stack_collectives(shapes, cfg, (4, 2)) == {
+        "all-gather (2, 256, 72) -> (8, 256, 72)": 2,
+        "all-reduce (1, 2, 72, 256) -> (1, 2, 72, 256)": 1,
+        "all-gather (8, 256, 72) -> (8, 256, 144)": 1}
+    assert dryrun.stack_collectives(shapes, ARCHS["granite-3-2b"].reduced(), (4, 2)) == {}

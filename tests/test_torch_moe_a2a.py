@@ -4,13 +4,17 @@ against the reference's ``repro.models.moe_a2a.moe_ffn_a2a``.
 One gloo world of four ranks on the CPU (spawned once for the module,
 ``torch_moe_worker.a2a_rank``) holds the ("data", "model") meshes (4, 1)
 and (2, 2); each rank runs ``moe_ffn_a2a`` and ``common.moe_ffn`` under
-``MOE_A2A_MESH`` on its rows of the batch.  Meanwhile this process runs
-the reference's ``shard_map`` on ``make_test_mesh(4, 1)`` / ``(2, 2)``
-over the 8 host devices that ``tests/conftest.py`` forces.  Float32 at
-capacity factor 1.25 (a skewed router, so experts overflow and entries
-drop) and 8.0 (nothing drops): the gathered outputs and the aux loss to
-1e-5, and the gradients of a loss of both, summed over the ranks that
-hold a copy of each input, against ``jax.grad`` of the reference.
+``MOE_A2A_MESH`` on its rows of the batch and its shards of the expert
+stacks (``expert_shard``), and ``common.moe_ffn`` on DTensors over a
+``DeviceMesh`` of the same shape (the dry run's seam).  Meanwhile this
+process runs the reference's ``shard_map`` on ``make_test_mesh(4, 1)`` /
+``(2, 2)`` over the 8 host devices that ``tests/conftest.py`` forces.
+Float32 at capacity factor 1.25 (a skewed router, so experts overflow and
+entries drop) and 8.0 (nothing drops): the gathered outputs and the aux
+loss to 1e-5, and the gradients of a loss of both against ``jax.grad`` of
+the reference: a rank's shards' gradients against their slices, x's and
+the router's summed over the ranks that hold a copy.  Full stacks or a
+wrong shard width raise before any collective.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ B, S, D, F, E, TOP_K = 8, 64, 32, 64, 8, 2
 MESHES = ((4, 1), (2, 2))
 FACTORS = (1.25, 8.0)
 CASES = [(m, cf) for m in MESHES for cf in FACTORS]
+IDS = [f"{m[0]}x{m[1]}-cf{cf}" for m, cf in CASES]
 ATOL = 1e-5
 AUX_WEIGHT = 0.7
 
@@ -95,8 +100,7 @@ def _gathered(world, i, route):
 
 
 @pytest.mark.parametrize("route", ["direct", "via"])
-@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=[f"{m[0]}x{m[1]}-cf{cf}"
-                                                               for m, cf in CASES])
+@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=IDS)
 def test_matches_the_reference(world, i, case, route):
     """``moe_ffn_a2a`` itself ("direct") and ``common.moe_ffn`` under
     ``MOE_A2A_MESH`` ("via") equal the reference's shard_map on the same
@@ -108,8 +112,7 @@ def test_matches_the_reference(world, i, case, route):
         assert abs(c[route]["aux"] - want_aux) <= ATOL
 
 
-@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=[f"{m[0]}x{m[1]}-cf{cf}"
-                                                               for m, cf in CASES])
+@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=IDS)
 def test_dropped_counts_match_a_host_recount(world, i, case):
     """Each rank's device count of dropped entries is the host's recount
     from its routing: an expert keeps its first cap_e entries.  Entries
@@ -140,25 +143,125 @@ def test_nothing_dropped_equals_the_single_device_moe(world):
         assert abs(rows[0]["direct"]["aux"] - aux) <= ATOL
 
 
-@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=[f"{m[0]}x{m[1]}-cf{cf}"
-                                                               for m, cf in CASES])
+def _shard_slices(coords, shape):
+    """The slices of w1/w3 and of w2 that the rank at ``coords`` holds on
+    a mesh of ``shape``: its E / n experts and, where M divides F, its F /
+    M columns of the FFN dim."""
+    (d, m), (n, M) = coords, shape
+    e, f = E // n, (F // M if M > 1 and F % M == 0 else F)
+    c = m * f if f != F else 0
+    return ((slice(d * e, (d + 1) * e), slice(None), slice(c, c + f)),
+            (slice(d * e, (d + 1) * e), slice(c, c + f)))
+
+
+@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=IDS)
+def test_each_rank_holds_only_its_shards(world, i, case):
+    """Every rank ran on (E / n, D, F_loc) and (E / n, F_loc, D), F_loc =
+    F / M: a quarter of the stacks on (4, 1) and on (2, 2)."""
+    n, M = case[0]
+    for c in (r["cases"][i] for r in world["ranks"]):
+        assert c["shard_shapes"] == [(E // n, D, F // M), (E // n, D, F // M),
+                                     (E // n, F // M, D)]
+
+
+@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=IDS)
 def test_gradients_match_jax_grad(world, i, case):
     """The gradients through both all-to-alls, the model-axis sum and the
     aux loss's data-axis mean: each rank's gradient of its share of the
-    loss, summed over "model" for its rows of x and over every rank for
-    the router and the stacks (each rank's stack gradient is zero outside
-    its experts and its F / M columns), equal ``jax.grad`` of the
-    reference's loss, each leaf to 1e-5 of its largest magnitude."""
+    loss equals ``jax.grad`` of the reference's loss, each leaf to 1e-5 of
+    its largest magnitude: for its shards of w1, w3 and w2 the matching
+    slices with no sum over ranks, for its rows of x summed over "model",
+    for the router summed over every rank."""
     want = world["ref"][i][2]
     cases = [r["cases"][i] for r in world["ranks"]]
     n = case[0][0]
-    got = {k: sum(c["grads"][k] for c in cases) for k in W.GRAD_LEAVES if k != "x"}
-    got["x"] = np.concatenate([sum(c["grads"]["x"] for c in cases if c["coords"][0] == d)
-                               for d in range(n)])
+    got = {"router": sum(c["grads"]["router"] for c in cases),
+           "x": np.concatenate([sum(c["grads"]["x"] for c in cases if c["coords"][0] == d)
+                                for d in range(n)])}
     for k in W.GRAD_LEAVES:
         scale = float(np.abs(want[k]).max())
         assert scale > 0, k
-        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL * scale, err_msg=k)
+        if k in got:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL * scale, err_msg=k)
+            continue
+        for c in cases:
+            sl = _shard_slices(c["coords"], case[0])[k == "w2"]
+            np.testing.assert_allclose(c["grads"][k], want[k][sl], rtol=0, atol=ATOL * scale,
+                                       err_msg=f"{k} at {c['coords']}")
+
+
+@pytest.mark.parametrize("i,case", list(enumerate(CASES)), ids=IDS)
+def test_dtensor_seam_matches_the_reference(world, i, case):
+    """``common.moe_ffn`` on DTensors (the dry run's ``_local_a2a``) on a
+    ``DeviceMesh`` of the case's shape: the global output and aux, and the
+    gradients of the global loss with respect to all five inputs, equal
+    the reference's at the same tolerances; the stacks' gradients stay
+    sharded as the stacks are (no rank holds a whole stack's gradient)."""
+    want, want_aux, want_grads = world["ref"][i]
+    split = case[0][1] > 1
+    for c in (r["cases"][i] for r in world["ranks"]):
+        got = c["dtensor"]
+        np.testing.assert_allclose(got["out"], want, rtol=0, atol=ATOL)
+        assert abs(got["aux"] - want_aux) <= ATOL
+        for k in W.GRAD_LEAVES:
+            scale = float(np.abs(want_grads[k]).max())
+            np.testing.assert_allclose(got["grads"][k], want_grads[k], rtol=0,
+                                       atol=ATOL * scale, err_msg=k)
+        assert [p[0] for p in got["placements"].values()] == ["Shard(0)"] * 3
+        if split:
+            assert got["placements"] == {"w1": ["Shard(0)", "Shard(2)"],
+                                         "w3": ["Shard(0)", "Shard(2)"],
+                                         "w2": ["Shard(0)", "Shard(1)"]}
+
+
+def _refusals():
+    """(label, call) pairs that must raise ``ValueError`` before any
+    collective: on a (2, 2) mesh a rank's shards are (4, D, F / 2) and (4,
+    F / 2, D)."""
+    from repro_torch.models import moe_a2a
+
+    mesh = mesh_lib.Mesh((2, 2), ("data", "model"), (0, 1))
+    x, router, w1, w3, w2 = (torch.from_numpy(a) for a in _inputs())
+    xs = x[:B // 2]
+    s1, s3, s2 = moe_a2a.expert_shard(w1, w3, w2, mesh)
+
+    def a2a(*w, d_ff=F):
+        return lambda: moe_a2a.moe_ffn_a2a(xs, router, *w, top_k=TOP_K, mesh=mesh, d_ff=d_ff)
+
+    def via():
+        cm.MOE_A2A_MESH = mesh
+        try:
+            cm.moe_ffn(xs, router, s1, s3, s2, top_k=TOP_K)
+        finally:
+            cm.MOE_A2A_MESH = None
+
+    return [("full stacks", a2a(w1, w3, w2)),
+            ("the rank's experts, F unsplit", a2a(w1[:4], w3[:4], w2[:4])),
+            ("F_loc of another F", a2a(s1, s3, s2, d_ff=2 * F)),
+            ("a (4, 1) rank's shards", a2a(*moe_a2a.expert_shard(
+                w1, w3, w2, mesh_lib.Mesh((4, 1), ("data", "model"), (0, 0))))),
+            ("moe_ffn without d_ff", via)]
+
+
+@pytest.mark.parametrize("k", range(5), ids=[lbl for lbl, _ in _refusals()])
+def test_full_stacks_or_a_wrong_shard_width_raise(k):
+    with pytest.raises(ValueError):
+        _refusals()[k][1]()
+
+
+def test_expert_shard_cuts_own_copies():
+    """``expert_shard`` gives each rank of (2, 2) new tensors holding
+    exactly its slices, which together tile the stacks."""
+    from repro_torch.models import moe_a2a
+
+    w = [torch.from_numpy(a) for a in _inputs()[2:]]
+    for d in range(2):
+        for m in range(2):
+            mesh = mesh_lib.Mesh((2, 2), ("data", "model"), (d, m))
+            sl = _shard_slices((d, m), (2, 2))
+            for t, full, s in zip(moe_a2a.expert_shard(*w, mesh), w, (sl[0], sl[0], sl[1])):
+                assert torch.equal(t, full[s])
+                assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
 
 
 def test_mesh_groups_follow_the_axes(world):
