@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments and no PYTHONPATH:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernel libraries (``sm_90a``) from
+It builds the eight CUDA kernel libraries (``sm_90a``) from
 ``src/repro_torch/kernels/csrc``, holds each kernel against its plain
 PyTorch version on the card, and drives both engines of the port at the paper's
 population (100 clients, 1000 public samples a round, 10 classes,
@@ -38,9 +38,9 @@ and full participation, its ledgers bit for bit the device engine's and
 its state close to the device engine's and the host loop's; the ERA, qdq
 and fused-round kernels at every gathered stack size it reached; the
 reference's million-client configuration at K = 10^4 (RAM store) and
-10^6 (memmap store), whose device peak may grow by less than 32 bytes a
-client; and a checkpoint split after 5 rounds, bit for bit.  Then the async
-engine (phase 4j, ``engine="async"``): at the same population under the
+10^6 (memmap store) on the numpy and the jax stream, whose device peak
+may grow by less than 32 bytes a client on each; and a checkpoint split
+after 5 rounds, bit for bit.  Then the async engine (phase 4j, ``engine="async"``): at the same population under the
 default traffic model and a wide window, per-op and fused, bit for bit the
 device engine's ledger; under Poisson arrivals, 0-3 windows of report
 latency and churn, at staleness decay 1.0 and 0.5, each round's bytes
@@ -65,7 +65,15 @@ their plain versions on the inputs the path gave them), the launcher at
 its defaults (300 rounds) and with ``--telemetry`` (its trace through
 ``python -m repro_torch.obs validate``), and its configuration for 300
 rounds on the fused device engine and the async engine (staleness decay
-0.5), whose final accuracies are findings.
+0.5), whose final accuracies are findings.  Then the reference's jax key
+stream (phase 4q, ``repro_torch.core.prng``): the threefry counter-hash
+kernel bit for bit against its plain version on the CPU at the FL path's
+draw shapes (a leg's sort bits over |P| = 10^4 and K = 100, expiry
+uniforms at m = 1000, the 100 clients' MLP init, a 4096-client chunk of
+the active store's init, the keys of 10^6 clients), timed; the slice on
+the device engine under ``rng_backend="jax"``, per-op and fused, its P^t,
+participation and ledger on the card equal to the CPU's; every engine's
+ms/round under both streams with its threefry launches a round.
 It then runs whisper-large-v3's prefill at full width and depth (random
 weights from a seed, 4 requests of 384 decoder tokens over 1500 audio
 frames, bfloat16), whose decoder self-attention goes through the flash
@@ -302,8 +310,11 @@ MIRROR_OUTAGE = (3, 2, 6)  # client, first and last round offline
 # size the runs reach, 1 included, against their plain versions with phase
 # 3's tolerances.  (c) The reference's million-client configuration
 # (benchmarks/active_bench.py:_cfg): ACTIVE_M of K clients a round at each
-# K of ACTIVE_KS, the largest on a memmap store; one warm-up round, then
-# ACTIVE_TIMED timed rounds; the device's peak may grow by less than
+# K of ACTIVE_KS, the largest on a memmap store, on each stream of
+# ACTIVE_STREAMS (the jax stream, the default, draws the participation
+# over K on the card: by selection, a chunk of clients at a time, then
+# conscription's int32 ranks); one warm-up round, then ACTIVE_TIMED timed
+# rounds; on each stream the device's peak may grow by less than
 # ACTIVE_PEAK_PER_CLIENT bytes a client from the smaller K to the larger
 # (int32 last_sync, the bool mask, int32 searchsorted positions and float32
 # counts are about 22).  (d) ACTIVE_RESTORE_AT rounds, a checkpoint, a
@@ -323,6 +334,7 @@ ACTIVE_KS = (10_000, 1_000_000)
 ACTIVE_MEMMAP_FROM = 1_000_000
 ACTIVE_TIMED = 3
 ACTIVE_PEAK_PER_CLIENT = 32
+ACTIVE_STREAMS = ("numpy", "jax")
 ACTIVE_RESTORE_AT = 5
 
 # Phase 4j: the async engine (engine="async"), SCARLET at the slice's
@@ -398,7 +410,11 @@ SHARD_TIMED = 20
 # clients, plus the replicated server state).
 SHARD_PEAK_RATIO = 0.30
 # Phase 4l: the launcher (repro_torch.launch.fl_train) for LAUNCHER_ROUNDS
-# rounds on the card and on the CPU, then at its defaults; the ERA and qdq
+# rounds on the card and on the CPU (the per-round ledger bit for bit; the
+# accuracies within one test sample for the methods of
+# LAUNCHER_FREE_RUN_GATED), its configuration's rounds in lockstep on the
+# two (each round from the card's state; the round's ledger equal, its
+# accuracies within one test sample), then at its defaults; the ERA and qdq
 # kernels on the inputs the card's runs gave them (and on random inputs of
 # the same shapes) against their plain versions at ERA_ATOL / QDQ_ATOL;
 # the launcher's configuration on the fused device engine and the async
@@ -407,8 +423,57 @@ SHARD_PEAK_RATIO = 0.30
 # windows (phase 4j's, without its churn, which names clients of the
 # slice), at staleness decay LAUNCHER_DECAY.
 LAUNCHER_ROUNDS = 20
+# CFD's two free runs are not held to one test sample: at the launcher's
+# configuration float rounding parts them for some initial realizations
+# (CFD's on the key stream, 0.0134 apart; seeds 1 and 3 of the former
+# torch.Generator init too), which its lockstep rounds show is no fault of
+# a round's computation on the card
+LAUNCHER_FREE_RUN_GATED = ("scarlet",)
 LAUNCHER_TRAFFIC = (ASYNC_RATE, ASYNC_MAX_DELAY)
 LAUNCHER_DECAY = 0.5
+# Probabilistic expiry draws a leg's uniforms from the jax key stream
+# whatever the engine's stream: two threefry launches a leg (the rounds'
+# keys, then the uniforms), two legs a run_engine run.
+EXPIRY_LAUNCHES = 4
+# Phase 4q: the jax key stream.  (a) The threefry kernel against its plain
+# version (the CPU copy of the same keys) at STREAM_SHAPES, bit for bit,
+# each timed beside the plain version on the host CPU (the plain hash
+# never takes a CUDA tensor), its bound the larger of the bytes the
+# function moves at the HBM rate (two 32-bit words a key read, one 32-bit
+# word a value written, two a pair: the port's int64 words count as the
+# uint32 words jax's threefry2x32 produces) and THREEFRY_INSTR integer
+# instructions a value at the card's issue rate (ISSUE_PER_S: 132 SMs x 4
+# schedulers x 32 lanes at 1980 MHz, the enhanced_era row's reckoning);
+# the first shape is the kernel line's.  (b) The slice on the device
+# engine under rng_backend="jax", per-op and fused: per-op against fused,
+# the leg's P^t and participation on the card against the CPU's, its first
+# STREAM_CPU_ROUNDS rounds' ledger against a CPU engine's; the threefry
+# launches a leg (STREAM_LEG_KEYS plus two a sort round of P^t).  (c) Each
+# engine's ms/round under both streams (host clock) and threefry launches
+# a round.
+ISSUE_PER_S = 132 * 4 * 32 * 1980e6
+THREEFRY_INSTR = 72  # the hash alone, where the SASS loop is not found
+STREAM_PLAIN_MAX = 10 ** 5  # values past which the plain hash is not timed
+STREAM_SHAPES = (
+    ("P^t sort bits, a leg of 9 round keys over |P| = 10^4", 9, 0, 10000, "bits"),
+    ("participation sort bits, 9 round keys over K = 100", 9, 0, 100, "bits"),
+    ("expiry uniforms, 9 rounds of m = 1000", 9, 0, 1000, "uniform"),
+    ("a leg's round keys fold_in(key, 2..10)", 1, 2, 9, "pair"),
+    ("the clients' keys split(key(seed), K + 1), K = 100", 1, 0, 101, "pair"),
+    ("MLP init, 100 clients: w0 (32, 64)", 100, 0, 2048, "uniform"),
+    ("MLP init, 100 clients: w1 (64, 64)", 100, 0, 4096, "uniform"),
+    ("MLP init, 100 clients: w2 (64, 10)", 100, 0, 640, "uniform"),
+    ("active store init chunk, 4096 clients: split", 4096, 0, 2, "pair"),
+    ("active store init chunk, 4096 clients: w0 (8, 8)", 4096, 0, 64, "uniform"),
+    ("active store init chunk, 4096 clients: w1 (8, 10)", 4096, 0, 80, "uniform"),
+    ("the clients' keys at K = 10^6", 1, 0, 10 ** 6 + 1, "pair"),
+    ("participation at K = 10^6 by selection: one chunk's bits", 1, 0, 1 << 18, "bits"),
+)
+STREAM_LEG_KEYS = 3  # the leg's round keys, their transmit keys, their split
+STREAM_CPU_ROUNDS = 2
+STREAM_ENGINES = (("host loop", "host", False), ("device engine per-op", "scan", False),
+                  ("device engine fused", "scan", True), ("active", "active", False),
+                  ("async", "async", False), ("shard n=1 (nccl)", "shard", False))
 
 # The small configuration run on the card and on the CPU.  The ledger is
 # a function of integer counts and must be equal.  Teachers (the cache
@@ -974,7 +1039,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
                use_cache: Optional[bool] = None, rounds: int = SLICE_ROUNDS,
                scenario=None, probabilistic_expiry: bool = False,
                track_local_caches: bool = False, hook=None, telemetry: bool = False,
-               engine_kw: Optional[dict] = None, **strategy_kw) -> dict:
+               engine_kw: Optional[dict] = None, rng_backend: str = "numpy",
+               **strategy_kw) -> dict:
     """``method`` at the slice's population through the host loop
     (``engine="host"``), the device engine (``"scan"``), the active-set
     engine (``"active"``), the async engine (``"async"``) or the sharded
@@ -986,7 +1052,10 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     the normalized entropies they gate on, for the engines' comparison.
     ``hook(engine)`` runs once the engine is built.  With ``telemetry``
     the run's ``History`` (both legs' ledger and telemetry rows) is kept
-    as ``history``."""
+    as ``history``.  ``rng_backend`` is the draws' stream, ``"numpy"``
+    unless given on every engine: the phases before 4q hold their runs
+    against each other and against ``request_masks``' replay of the numpy
+    P^t stream (the device engines' own default is the jax stream)."""
     from repro_torch.core import era
     from repro_torch.core.comm import CommLedger
     from repro_torch.fl import (ActiveSetFederatedDistillation, AsyncFederatedDistillation,
@@ -1030,7 +1099,8 @@ def run_engine(device, label: str, method: str, engine: str, *, fused: bool = Fa
     t0 = time.perf_counter()
     eng = Engine(cfg, strat, cache_duration=cache_duration, use_cache=use_cache,
                  scenario=scenario, probabilistic_expiry=probabilistic_expiry,
-                 track_local_caches=track_local_caches, device=device, **(engine_kw or {}))
+                 track_local_caches=track_local_caches, rng_backend=rng_backend,
+                 device=device, **(engine_kw or {}))
     _sync(device)
     t_setup = time.perf_counter() - t0
     if hook is not None:
@@ -1166,9 +1236,9 @@ def check_sync_guard() -> None:
     from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
 
     class Syncing(ScannedFederatedDistillation):
-        def _round_device(self, st, t, part, idx, do_eval):
+        def _round_device(self, st, t, part, idx, do_eval, **kw):
             float(part.sum())  # reads the card from the host
-            return super()._round_device(st, t, part, idx, do_eval)
+            return super()._round_device(st, t, part, idx, do_eval, **kw)
 
     eng = Syncing(FLConfig(**SMALL), STRATEGIES["scarlet"](beta=BETA),
                   cache_duration=2, device="cuda")
@@ -1192,8 +1262,8 @@ def request_masks(rounds: int, D: int, seed: int, uniforms=None,
     numpy P^t stream (Generator ``[seed, 17]``, as ``_draw_round`` draws
     it) and Alg. 3's test at full participation: absent, or older than
     ``D`` rounds; with ``uniforms(t)`` (the round's (m,) float32 expiry
-    uniforms), absent or expired where ``u < clip((age - 1) / D, 0, 1)``
-    in float32.  ``expired`` receives each round's count of present
+    uniforms, a tensor on any device or an array), absent or expired where
+    ``u < clip((age - 1) / D, 0, 1)`` in float32.  ``expired`` receives each round's count of present
     entries requested again."""
     m, n_pub = SLICE["public_per_round"], SLICE["public_size"]
     rng = np.random.default_rng([seed, 17])
@@ -1210,7 +1280,9 @@ def request_masks(rounds: int, D: int, seed: int, uniforms=None,
         else:
             age = (t - ts[idx]).astype(f32)
             hazard = np.clip((age - f32(1.0)) / f32(D), f32(0.0), f32(1.0))
-            miss = ~(present[idx] & ~(uniforms(t) < hazard))
+            u = uniforms(t)
+            u = u.cpu().numpy() if torch.is_tensor(u) else u
+            miss = ~(present[idx] & ~(u < hazard))
         if expired is not None:
             expired.append(int((miss & present[idx]).sum()))
         out.append(miss)
@@ -1484,8 +1556,9 @@ def run_engine_options(device, card: str) -> dict:
         r = options_run(device, label, engine, fused,
                         hook=lambda e, rec=rec: watch_frozen(e, rec))
         n = SLICE_ROUNDS
-        check_launches(r["launches"], {"fused_round": n} if fused else
-                       {"enhanced_era_fused": n, "quantize_dequantize": n})
+        check_launches(r["launches"], dict({"fused_round": n} if fused else
+                                           {"enhanced_era_fused": n, "quantize_dequantize": n},
+                                           threefry=EXPIRY_LAUNCHES))
         expired: list = []
         check_codec_ledger(r, lambda n: n * (N - 1) * 8 / 8.0, lambda n: n * N * 4.0,
                            uniforms=r["eng"].expiry_uniforms, expired=expired)
@@ -1535,7 +1608,8 @@ def run_restore(device, card: str, uninterrupted: dict) -> None:
         def make():
             return engine(full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA),
                           cache_duration=CACHE_DURATION, probabilistic_expiry=True,
-                          scenario=het_scenario(), device=device)
+                          scenario=het_scenario(), rng_backend=full["eng"].rng_backend,
+                          device=device)
 
         first = make()
         h1 = first.run(RESTORE_AT)
@@ -1746,7 +1820,8 @@ def telemetry_run(device, label: str, engine: str, fused: bool, telemetry: bool,
                    hook=(lambda e: capture_rows(e, record)) if capture else None,
                    beta=BETA, **kw)
     if device.type == "cuda":
-        check_launches(r["launches"], path_launches(fused, telemetry))
+        check_launches(r["launches"], dict(path_launches(fused, telemetry),
+                                           threefry=0 if stragglers else EXPIRY_LAUNCHES))
     if capture:
         check_recomputed(r, record)
     return r
@@ -2111,9 +2186,10 @@ def check_active_kernels(device, sizes: list, card: str) -> dict:
 
 def run_active_million(device, card: str) -> dict:
     """Phase 4i (c): the reference's million-client configuration at each K
-    of ACTIVE_KS: setup, one warm-up round, ACTIVE_TIMED timed rounds (the
-    leg-end eval pass over all K clients timed apart), the store's bytes
-    and the device's peak against its allocation before the engine."""
+    of ACTIVE_KS on each stream of ACTIVE_STREAMS: setup, one warm-up
+    round, ACTIVE_TIMED timed rounds (the leg-end eval pass over all K
+    clients timed apart), the store's bytes and the device's peak against
+    its allocation before the engine."""
     import gc
     import tempfile
 
@@ -2122,7 +2198,7 @@ def run_active_million(device, card: str) -> dict:
     from repro_torch.kernels import ops
 
     out = {}
-    for K in ACTIVE_KS:
+    for backend, K in [(b, K) for b in ACTIVE_STREAMS for K in ACTIVE_KS]:
         memmap = K >= ACTIVE_MEMMAP_FROM
         cfg = FLConfig(n_clients=K, rounds=ACTIVE_TIMED + 1, private_size=2 * K, **ACTIVE_BENCH)
         gc.collect()
@@ -2134,7 +2210,7 @@ def run_active_million(device, card: str) -> dict:
                 cfg, STRATEGIES["scarlet"](beta=BETA), cache_duration=ACTIVE_BENCH_CACHE,
                 scenario=Scenario(participation=fixed_fraction(ACTIVE_M / K)),
                 store_backing="memmap" if memmap else "ram", store_dir=d if memmap else None,
-                device=device)
+                rng_backend=backend, device=device)
             setup = time.perf_counter() - t0
             sizes, shapes, eval_s = [], [], []
             record_stacks(sizes)(eng)
@@ -2172,7 +2248,8 @@ def run_active_million(device, card: str) -> dict:
             ms = (leg - eval_s[-1]) / ACTIVE_TIMED * 1e3
             del eng
             gc.collect()
-        log(f"active K={K} ({'memmap' if memmap else 'ram'} store, {ACTIVE_M} a round): setup "
+        log(f"active K={K} {backend} stream ({'memmap' if memmap else 'ram'} store, {ACTIVE_M} "
+            f"a round): setup "
             f"{setup:.3f} s; {ms:.3f} ms/round over {ACTIVE_TIMED} rounds (host clock, the "
             f"leg-end eval apart); leg-end eval over all {K} clients {eval_s[-1]:.3f} s; store "
             f"{store_bytes} bytes ({store_bytes / K:.1f} a client); device peak "
@@ -2180,27 +2257,44 @@ def run_active_million(device, card: str) -> dict:
             f"(max_memory_allocated {peak}); ledger {ledger}; ERA shapes {shapes[-ACTIVE_TIMED:]}; "
             f"launches {launches}; accuracies {hist.final_server_acc!r} "
             f"{hist.final_client_acc!r} ({card})")
-        log(f"active K={K}: ms a round by part over {ACTIVE_TIMED} rounds (eval: the leg-end "
-            f"pass over {ACTIVE_TIMED}): {parts_line(spent, leg, ACTIVE_TIMED)} ({card})")
+        log(f"active K={K} {backend}: ms a round by part over {ACTIVE_TIMED} rounds (eval: "
+            f"the leg-end pass over {ACTIVE_TIMED}): {parts_line(spent, leg, ACTIVE_TIMED)} ({card})")
         era_shape = (ACTIVE_M, ACTIVE_BENCH["public_per_round"], ACTIVE_BENCH["n_classes"])
         if not (len(ledger) == ACTIVE_TIMED and all(u > 0 and dn > 0 for u, dn in ledger)):
             raise AssertionError(f"active K={K}: the ledger is not {ACTIVE_TIMED} positive rows")
         if shapes[-ACTIVE_TIMED:] != [era_shape] * ACTIVE_TIMED or sizes[-ACTIVE_TIMED:] != \
                 [ACTIVE_M] * ACTIVE_TIMED:
             raise AssertionError(f"active K={K}: ERA did not run once a round at {era_shape}")
-        check_launches(launches, {"enhanced_era_fused": ACTIVE_TIMED})
+        draws = (0 if backend == "numpy" else
+                 3 + choice_launches(cfg.public_size) + choice_launches(K)) * ACTIVE_TIMED
+        check_launches(launches, {"enhanced_era_fused": ACTIVE_TIMED, "threefry": draws})
         if not (np.isfinite(hist.final_server_acc) and np.isfinite(hist.final_client_acc)):
             raise AssertionError(f"active K={K}: accuracies not finite")
-        out[K] = dict(ms=ms, eval_s=eval_s[-1], setup_s=setup, store_bytes=store_bytes,
-                      peak=peak - before)
+        out[backend, K] = dict(ms=ms, eval_s=eval_s[-1], setup_s=setup,
+                               store_bytes=store_bytes, peak=peak - before)
     lo, hi = ACTIVE_KS
-    per_client = (out[hi]["peak"] - out[lo]["peak"]) / (hi - lo)
-    log(f"active device peak: {out[hi]['peak']} bytes at K={hi} against {out[lo]['peak']} at "
-        f"K={lo}: {per_client!r} bytes a client (limit {ACTIVE_PEAK_PER_CLIENT}) ({card})")
-    if per_client >= ACTIVE_PEAK_PER_CLIENT:
-        raise AssertionError("the active engine's device memory grows with the population")
-    out["peak_per_client"] = per_client
+    for backend in ACTIVE_STREAMS:
+        a, b = out[backend, lo]["peak"], out[backend, hi]["peak"]
+        per_client = (b - a) / (hi - lo)
+        log(f"active device peak, {backend} stream: {b} bytes at K={hi} against {a} at "
+            f"K={lo}: {per_client!r} bytes a client (limit {ACTIVE_PEAK_PER_CLIENT}) ({card})")
+        if per_client >= ACTIVE_PEAK_PER_CLIENT:
+            raise AssertionError(f"the active engine's device memory grows with the "
+                                 f"population on the {backend} stream")
+        out["peak_per_client", backend] = per_client
     return out
+
+
+def choice_launches(n: int) -> int:
+    """Threefry launches of ``prng.choice`` over n items for one key: a
+    split and the sort bits a sort round, or, by selection from
+    SELECT_MIN_N items, a split and two passes over the chunks a round."""
+    from repro_torch.core import prng
+
+    rounds = prng.shuffle_rounds(n)
+    if n < prng.SELECT_MIN_N:
+        return 2 * rounds
+    return rounds * (1 + 2 * -(-n // prng.SELECT_CHUNK))
 
 
 def run_active_restore(device, card: str, uninterrupted: dict) -> None:
@@ -2218,7 +2312,8 @@ def run_active_restore(device, card: str, uninterrupted: dict) -> None:
     def make():
         return ActiveSetFederatedDistillation(full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA),
                                               cache_duration=CACHE_DURATION,
-                                              scenario=active_scenario(), device=device)
+                                              scenario=active_scenario(),
+                                              rng_backend=full["eng"].rng_backend, device=device)
 
     first = make()
     h1 = first.run(ACTIVE_RESTORE_AT)
@@ -2484,7 +2579,8 @@ def run_async_restore(device, card: str, full: dict) -> None:
     def make():
         return AsyncFederatedDistillation(
             full["eng"].cfg, STRATEGIES["scarlet"](beta=BETA, staleness_decay=ASYNC_DECAY),
-            cache_duration=CACHE_DURATION, traffic=async_traffic("async"), device=device)
+            cache_duration=CACHE_DURATION, traffic=async_traffic("async"),
+            rng_backend=full["eng"].rng_backend, device=device)
 
     first = make()
     h1 = first.run(ASYNC_RESTORE_AT)
@@ -2724,19 +2820,20 @@ def run_shard(device, card: str, device_runs: dict) -> dict:
             hold_active(f"shard n=1 {path} vs device engine {path}", r, device_runs[path], 0.0)
             one[path] = r
     for path, fused in (("per-op", False), ("fused", True)):
+        cfg = pfl.FLConfig(**SLICE, rounds=SLICE_ROUNDS, eval_every=SLICE_ROUNDS,
+                           uplink_codec=CODEC, fused_round=fused)
         ops.reset_launches()
-        h = pfl.run_method("scarlet", pfl.FLConfig(**SLICE, rounds=SLICE_ROUNDS,
-                                                    eval_every=SLICE_ROUNDS, uplink_codec=CODEC,
-                                                    fused_round=fused),
-                           engine="shard", cache_duration=CACHE_DURATION, beta=BETA,
-                           device=device)
+        h = pfl.run_method("scarlet", cfg, engine="shard", cache_duration=CACHE_DURATION,
+                           beta=BETA, rng_backend="numpy", device=device)
         launches = ops.launches()
         ledger = [(x.uplink, x.downlink) for x in h.ledger.rounds]
         want = [(x.uplink, x.downlink) for x in device_runs[path]["ledger"]]
         log(f"phase 4k (a): run_method(engine='shard') {path}, a world of one it started "
             f"(NCCL) and tore down: launches {launches}; ledger equal to phase 4b's={ledger == want}")
-        check_launches(launches, {"fused_round": SLICE_ROUNDS} if fused
-                       else {"quantize_dequantize": SLICE_ROUNDS})
+        # the engine's initial parameters are drawn after the count is reset
+        check_launches(launches, dict({"fused_round": SLICE_ROUNDS} if fused
+                                      else {"quantize_dequantize": SLICE_ROUNDS},
+                                      threefry=init_launches(cfg)))
         if ledger != want or dist.is_initialized():
             raise AssertionError(f"phase 4k (a): run_method {path} differs from phase 4b")
     worlds = {}
@@ -2888,9 +2985,10 @@ def check_launcher_kernels(device, card: str, inputs: dict) -> dict:
 def run_launcher(device, card: str) -> dict:
     """Phase 4l: (a) ``fl_train.main`` for LAUNCHER_ROUNDS rounds on the card
     and on the CPU, SCARLET and CFD: the per-round ledger bit for bit,
-    accuracies within one test sample, ``enhanced_era_fused`` once a round
-    on SCARLET's path and qdq once a round on CFD's, counted on the card's
-    run; each kernel on the inputs the card's run gave it, against its
+    accuracies within one test sample (LAUNCHER_FREE_RUN_GATED; each
+    method's rounds in lockstep, ``launcher_lockstep``),
+    ``enhanced_era_fused`` once a round on SCARLET's path and qdq once a
+    round on CFD's, counted on the card's run; each kernel on the inputs the card's run gave it, against its
     plain version (``check_launcher_kernels``).  (b) The launcher at its
     defaults (300 rounds of SCARLET), and again with ``--telemetry``: the
     same ledger, the Chrome trace through ``python -m repro_torch.obs
@@ -2909,6 +3007,44 @@ def run_launcher(device, card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def launcher_lockstep(device, method: str, rounds: int) -> dict:
+    """The launcher's configuration of ``method`` for ``rounds`` rounds on
+    the card and on the CPU in lockstep: before each round the CPU engine
+    takes the card engine's state (``state_dict`` / ``load_state_dict``,
+    the numpy draws replayed), then each runs the round.  Each round must
+    give the same ledger entry and accuracies within one test sample: the
+    card's computation of a round against the CPU's from the same state.
+    Two free-running trajectories are not held to that: at this
+    configuration (ReLU MLPs, lr 0.1, Dirichlet 0.05 shards) float
+    rounding parts them for some initial realizations (the z of the
+    CPU's and the card's clients 1e-3 apart by round 3 from bit-equal
+    initial parameters, for the key stream's and for one of five
+    ``torch.Generator`` seeds, while the others stay within 3e-6).
+    Returns the worst accuracy difference and the rounds compared."""
+    from repro_torch.fl import STRATEGIES, FederatedDistillation
+    from repro_torch.launch import fl_train
+
+    cfg = fl_train.config_from_args(fl_train.build_parser().parse_args(
+        ["--method", method, "--rounds", str(rounds)]))
+    kw = dict(fl_train.METHOD_DEFAULTS[method])
+    D = kw.pop("cache_duration", 0)
+    g, c = (FederatedDistillation(cfg, STRATEGIES[method](**kw), cache_duration=D, device=d)
+            for d in (device, "cpu"))
+    worst = 0.0
+    for t in range(1, rounds + 1):
+        c.load_state_dict(g.state_dict())
+        hg, hc = g.run(1), c.run(1)
+        lg = [(r.uplink, r.downlink) for r in hg.ledger.rounds]
+        lc = [(r.uplink, r.downlink) for r in hc.ledger.rounds]
+        err = max(abs(a - b) for a, b in zip(hg.server_acc + hg.client_acc,
+                                             hc.server_acc + hc.client_acc))
+        worst = max(worst, err)
+        if lg != lc or err > 1.0 / len(c.y_test) + 1e-6:
+            raise AssertionError(f"phase 4l (a) {method} round {t} from the card's state: "
+                                 f"ledger {lg} vs {lc}, accuracies {err} apart")
+    return dict(worst=worst, rounds=rounds, n_test=len(c.y_test))
+
+
 def _run_launcher(device, card: str, tmp: str) -> dict:
     from repro_torch.fl import ArrivalProcess, LatencyModel, TrafficModel, run_method
     from repro_torch.launch import fl_train
@@ -2925,15 +3061,25 @@ def _run_launcher(device, card: str, tmp: str) -> dict:
         n_test = max(cfg.private_size // 5, 200)  # the synthetic test set
         acc_err = max(abs(a - b) for a, b in zip(_accs(g), _accs(c)))
         same = _ledger(g) == _ledger(c)
+        gated = method in LAUNCHER_FREE_RUN_GATED
+        lock = launcher_lockstep(device, method, LAUNCHER_ROUNDS)
         log(f"phase 4l (a) fl_train {method} {LAUNCHER_ROUNDS} rounds, cuda vs cpu: per-round "
-            f"ledger bit for bit={same}; accuracy max diff={acc_err!r} (one test sample = "
-            f"{1.0 / n_test!r}); final server_acc cuda {g['history']['final_server_acc']!r} "
-            f"cpu {c['history']['final_server_acc']!r}; launches cuda {g['launches']} cpu "
-            f"{c['launches']}; wall {g['wall_s']:.3f} / {c['wall_s']:.3f} s ({card})")
-        check_launches(g["launches"], {kernel: LAUNCHER_ROUNDS})
+            f"ledger bit for bit={same}; accuracy max diff over the two runs={acc_err!r} "
+            f"({'gated at one test sample' if gated else 'logged: the trajectories part'}); "
+            f"in lockstep, each round from the card's "
+            f"state: ledger equal and accuracies within {lock['worst']!r} (one test sample = "
+            f"{1.0 / lock['n_test']!r}) over {lock['rounds']} rounds; final server_acc cuda "
+            f"{g['history']['final_server_acc']!r} cpu {c['history']['final_server_acc']!r}; "
+            f"launches cuda {g['launches']} cpu {c['launches']}; wall {g['wall_s']:.3f} / "
+            f"{c['wall_s']:.3f} s ({card})")
+        check_launches(g["launches"], {kernel: LAUNCHER_ROUNDS,
+                                       "threefry": init_launches(cfg)})
         check_launches(c["launches"], {})
-        if not same or acc_err > 1.0 / n_test + 1e-6:
-            raise AssertionError(f"phase 4l (a) {method}: cuda and cpu launcher runs differ")
+        if not same:
+            raise AssertionError(f"phase 4l (a) {method}: cuda and cpu launcher ledgers differ")
+        if gated and acc_err > 1.0 / n_test + 1e-6:
+            raise AssertionError(f"phase 4l (a) {method}: cuda and cpu launcher accuracies "
+                                 f"differ by {acc_err}")
         out[method] = g
     errs = check_launcher_kernels(device, card, inputs)
     # (b) the defaults, and with the span trace
@@ -2945,6 +3091,7 @@ def _run_launcher(device, card: str, tmp: str) -> dict:
                        env=dict(os.environ, PYTHONPATH=os.path.join(
                            os.path.dirname(os.path.abspath(__file__)), "src")))
     rounds = d["history"]["rounds"][-1]
+    cfg_defaults = fl_train.config_from_args(fl_train.build_parser().parse_args([]))
     log(f"phase 4l (b) fl_train at its defaults: {rounds} rounds of scarlet, "
         f"{d['secs']:.3f} s ({d['wall_s']:.3f} s in run_method, "
         f"{d['wall_s'] / rounds * 1e3:.3f} ms/round); final server_acc "
@@ -2954,7 +3101,8 @@ def _run_launcher(device, card: str, tmp: str) -> dict:
         f"--telemetry: ledger equal={_ledger(t) == _ledger(d)}, "
         f"{t['history']['telemetry']['rounds']} telemetry rows, trace validate rc "
         f"{v.returncode}: {v.stdout.strip()} ({card})")
-    check_launches(d["launches"], {"enhanced_era_fused": rounds})
+    check_launches(d["launches"], {"enhanced_era_fused": rounds,
+                                   "threefry": init_launches(cfg_defaults)})
     if (v.returncode != 0 or _ledger(t) != _ledger(d)
             or t["history"]["telemetry"]["rounds"] != rounds):
         raise AssertionError(f"phase 4l (b): telemetry run or trace failed: {v.stdout} "
@@ -2982,6 +3130,214 @@ def _run_launcher(device, card: str, tmp: str) -> dict:
         f"{finals} (findings, not gates; one test sample = {1.0 / n_test!r})")
     log(f"phase 4l: {time.perf_counter() - t_phase:.3f} s ({card})")
     return dict(runs=out, defaults=d, finals=finals, errs=errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 4q: the jax key stream
+# ---------------------------------------------------------------------------
+
+def init_launches(cfg) -> int:
+    """Threefry launches of an engine's initial parameters on the card:
+    ``split(key(seed), K + 1)``, then a split and a normal's uniforms a
+    layer of each cohort's clients and of the server
+    (``models/resnet.init_mlp``)."""
+    from repro_torch.fl.cohorts import resolve_cohorts
+
+    depths = [c.depth for c in resolve_cohorts(cfg)] + [cfg.mlp_depth]
+    return 1 + sum(2 * (d + 1) for d in depths)
+
+
+def cpu_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` on CPU tensors, ms."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def threefry_sass() -> dict:
+    """{kernel: counts} of the built threefry library's machine code
+    (``cuobjdump -sass``): its instructions, the funnel shifts (SHF.L.W, 20
+    a hash: each rotation one instruction), and ``loop``, the instructions
+    of the smallest loop (a backward branch's range) that holds the funnel
+    shifts, one value a trip: the SASS instructions a value."""
+    import re
+
+    from repro_torch.kernels import runtime
+
+    runtime.load("threefry")
+    cuobjdump = os.path.join(os.path.dirname(runtime.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(runtime._lib_path("threefry"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"threefry_kernelILi(\d)E", fn.split("\n", 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in line.findall(fn)]
+        shf = [a for a, op, _ in ins if op.startswith("SHF.L.W")]
+        loops = []
+        for a, op, rest in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+            if tgt and int(tgt.group(1), 16) < a and shf and \
+                    int(tgt.group(1), 16) <= min(shf) and max(shf) <= a:
+                loops.append(sum(1 for b, _, _ in ins if int(tgt.group(1), 16) <= b <= a))
+        out[f"threefry_kernel<{m.group(1)}>"] = dict(
+            instructions=len(ins), shf=len(shf), loop=min(loops) if loops else None)
+    return out
+
+
+def check_threefry(device, card: str) -> dict:
+    """Phase 4q (a): the kernel at every STREAM_SHAPES entry against the
+    plain hash on the CPU copy of the same keys (bit for bit), timed; the
+    slice's MLP init and one active store chunk through ``init_mlp`` on the
+    card and on the CPU; the kernels' SASS.  Returns the kernel line's
+    numbers (the first shape)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops, prng_kernel
+    from repro_torch.models.resnet import init_mlp
+
+    rng = np.random.default_rng(17)
+    sass = threefry_sass()
+    for name, counts in sorted(sass.items()):
+        log(f"threefry sass {name}: {counts} (loop: the SASS instructions a value)")
+    first = None
+    for label, n, start, count, mode in STREAM_SHAPES:
+        keys = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 2)))
+        kd = keys.to(device)
+        got = ops.threefry(kd, start, count, mode)
+        _sync(device)
+        want = prng.counter_hash(keys, start, count, mode)
+        equal = got.dtype == want.dtype and torch.equal(got.cpu(), want)
+        err = float((got.cpu().to(torch.float64) - want.to(torch.float64)).abs().max())
+        values = n * count
+        code, _, words = prng_kernel.MODES[mode]
+        instr = sass.get(f"threefry_kernel<{code}>", {}).get("loop") or THREEFRY_INSTR
+        # bytes: the keys' two words read once, each count's 32-bit words
+        # written once
+        b, why = bound_ms(8.0 * n + 4.0 * words * values, instr * values, ISSUE_PER_S)
+        ms = cuda_ms(lambda: ops.threefry(kd, start, count, mode))
+        pms = (cpu_ms(lambda: prng.counter_hash(keys, start, count, mode))
+               if values <= STREAM_PLAIN_MAX else None)
+        log(f"time threefry {label}: ({n}, {count}) {mode}, layout "
+            f"{prng_kernel.layout(n, count)}: ms={ms!r} plain_ms (host CPU)="
+            f"{'not timed' if pms is None else repr(pms)} bound_ms={b!r} by {why} "
+            f"({f'integer issue, {instr} instructions a value' if why == 'operations' else 'HBM'}); "
+            f"bit for bit={equal} ({card})")
+        if not equal:
+            raise AssertionError(f"phase 4q (a): threefry {label} differs from the plain hash")
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=why, max_abs_err=err)
+    # the initial parameters: the slice's 100 clients and one store chunk
+    for label, n, dims in (("the slice's 100 clients", 100, (32, 10, 64, 2)),
+                           ("one 4096-client store chunk", 4096, (8, 10, 8, 1))):
+        keys = prng.split(prng.key(0), n)
+        g = init_mlp(keys.to(device), *dims)
+        c = init_mlp(keys, *dims)
+        perr = max(float((g[k].cpu() - c[k]).abs().max()) for k in c)
+        log(f"phase 4q (a) init_mlp {label} {dims}: card vs CPU max_abs_err={perr!r} "
+            f"(atol 1e-6: the devices' float32 log1p may differ in the last bit)")
+        if perr > 1e-6:
+            raise AssertionError(f"phase 4q (a): init_mlp {label} card vs CPU {perr}")
+    if any(c["shf"] != 20 for c in sass.values()):
+        raise AssertionError(f"phase 4q (a): a threefry kernel's rotations are not 20 funnel "
+                             f"shifts: {sass}")
+    return first
+
+
+def stream_draws(eng, T: int):
+    """The engine's jax-stream draws of rounds 1..T, ``(part (T, K),
+    idx (T, m))`` as host arrays."""
+    t_done, eng.t_done = eng.t_done, 0
+    try:
+        part, idx, _ = eng._leg_draws(T, None)
+    finally:
+        eng.t_done = t_done
+    return part.cpu().numpy(), idx.cpu().numpy()
+
+
+def run_key_stream(device, card: str) -> dict:
+    """Phase 4q: (a) the kernel; (b) the slice under the jax stream on the
+    device engine, card against CPU; (c) every engine under both streams."""
+    from repro_torch.core import prng
+    from repro_torch.fl import FLConfig, STRATEGIES, ScannedFederatedDistillation
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    first = check_threefry(device, card)
+    runs, plans = {}, {}
+    for label, engine, fused in STREAM_ENGINES:
+        for backend in ("numpy", "jax"):  # each engine's two streams side by side
+            spent = plans.setdefault((label, backend), [])
+
+            def timed_plan(eng, spent=spent):  # the async engine's host planning
+                if hasattr(eng, "plan_flight"):
+                    plan = eng.plan_flight
+
+                    def wrapped(*a, **k):
+                        t0 = time.perf_counter()
+                        out = plan(*a, **k)
+                        spent.append(time.perf_counter() - t0)
+                        return out
+                    eng.plan_flight = wrapped
+
+            def go():
+                return run_engine(device, f"4q {label} {backend}", "scarlet", engine,
+                                  fused=fused, codec=CODEC, cache_duration=CACHE_DURATION,
+                                  rng_backend=backend, hook=timed_plan, beta=BETA)
+            if engine == "shard":
+                with mesh_lib.world_of_one("nccl"):
+                    runs[label, backend] = go()
+            else:
+                runs[label, backend] = go()
+    t_b = time.perf_counter()
+    # (b) per-op against fused on the jax stream, and their draws and ledger on the CPU
+    perop, fused = runs["device engine per-op", "jax"], runs["device engine fused", "jax"]
+    compare_runs("4q jax stream: fused vs per-op device engine", fused, perop, 0.0,
+                 QUANT_STEP_ATOL)
+    cfg = FLConfig(**SLICE, rounds=SLICE_ROUNDS, eval_every=SLICE_ROUNDS, uplink_codec=CODEC)
+    cpu = ScannedFederatedDistillation(cfg, STRATEGIES["scarlet"](beta=BETA),
+                                       cache_duration=CACHE_DURATION, device="cpu")
+    draws_cpu = stream_draws(cpu, SLICE_ROUNDS)
+    same_draws = {lab: all(np.array_equal(a, b) for a, b in zip(
+        stream_draws(runs[lab, "jax"]["eng"], SLICE_ROUNDS), draws_cpu))
+        for lab in ("device engine per-op", "device engine fused")}
+    h = cpu.run(STREAM_CPU_ROUNDS)
+    led_cpu = [(r.uplink, r.downlink) for r in h.ledger.rounds]
+    same_ledger = {lab: [(r.uplink, r.downlink) for r in runs[lab, "jax"]["ledger"]]
+                   [:STREAM_CPU_ROUNDS] == led_cpu
+                   for lab in ("device engine per-op", "device engine fused")}
+    leg = STREAM_LEG_KEYS + 2 * prng.shuffle_rounds(SLICE["public_size"])
+    log(f"phase 4q (b) the slice on the jax stream: P^t and participation of rounds 1.."
+        f"{SLICE_ROUNDS} card vs CPU equal {same_draws}; the first {STREAM_CPU_ROUNDS} rounds' "
+        f"ledger card vs CPU equal {same_ledger}; threefry launches a leg {leg} "
+        f"({STREAM_LEG_KEYS} + 2 a sort round of P^t), 2 legs a run ({card})")
+    if not (all(same_draws.values()) and all(same_ledger.values())):
+        raise AssertionError("phase 4q (b): the jax stream differs card vs CPU")
+    for lab in ("device engine per-op", "device engine fused"):
+        got = runs[lab, "jax"]["launches"]["threefry"]
+        if device.type == "cuda" and (got != 2 * leg
+                                      or runs[lab, "numpy"]["launches"]["threefry"]):
+            raise AssertionError(f"phase 4q (b) {lab}: threefry launches {got} on the jax "
+                                 f"stream (want {2 * leg}), "
+                                 f"{runs[lab, 'numpy']['launches']['threefry']} on numpy")
+    # (c) ms/round by engine and stream
+    for label, _, _ in STREAM_ENGINES:
+        a, b = runs[label, "numpy"], runs[label, "jax"]
+        n = len(b["ledger"])
+        planned = "".join(f"; flight plans {backend} {[round(x * 1e3, 3) for x in p]} ms"
+                          for (lab, backend), p in plans.items() if lab == label and p)
+        log(f"phase 4q (c) {label}: {a['per_round_ms']:.3f} ms/round numpy, "
+            f"{b['per_round_ms']:.3f} ms/round jax (host clock, the {n - 1} rounds of the "
+            f"second leg){planned}; threefry launches a round over both legs numpy "
+            f"{a['launches']['threefry'] / n!r}, jax {b['launches']['threefry'] / n!r} ({card})")
+    log(f"phase 4q: {time.perf_counter() - t_phase:.3f} s, (b)'s CPU engine "
+        f"{time.perf_counter() - t_b:.3f} s of it ({card})")
+    return dict(first, launches=fused["launches"]["threefry"])
 
 
 # ---------------------------------------------------------------------------
@@ -5475,6 +5831,10 @@ def main() -> int:
     la = run_launcher(dev, card)
     errs["era"] = max(errs["era"], la["errs"]["enhanced_era_fused"])
     errs["qdq"] = max(errs["qdq"], la["errs"]["quantize_dequantize"])
+    # 4q. the jax key stream: the threefry kernel bit for bit at the path's
+    # shapes, the slice on the jax stream card vs CPU, every engine's
+    # ms/round under both streams
+    ks = run_key_stream(dev, card)
     # 4c. whisper-large-v3 prefill at full width
     wh = run_whisper(dev)
     # 4d. the soft-label library's kernel seams at full width
@@ -5523,6 +5883,15 @@ def main() -> int:
     kernels = kernel_report(launches, dict(errs, **an["errs"]))
     kernels.append(ja["flash"])
     kernels.append(tr["diff"]["flash"])
+    # the threefry counter hash: no Pallas kernel stands behind it (the
+    # reference's jax.random lowers to XLA's threefry2x32; its device
+    # engine's round draw is the line named); launches from phase 4q's
+    # fused device engine run on the jax stream; plain_ms on the host CPU
+    kernels.append(dict(
+        name="threefry", route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+        replaces="src/repro/fl/scan_engine.py:107", launches=ks["launches"],
+        max_abs_err=ks["max_abs_err"], ms=ks["ms"], plain_ms=ks["plain_ms"],
+        bound_ms=ks["bound_ms"], bound_by=ks["bound_by"], library_ms=None))
     log(f"card: {card}; slice host loop {sl['per_round_ms']:.3f} ms/round, "
         f"device engine fused {fused['per_round_ms']:.3f}, "
         f"per-op {perop['per_round_ms']:.3f} ms/round; whisper-large-v3 prefill "

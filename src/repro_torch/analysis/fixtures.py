@@ -62,7 +62,7 @@ class HostRNGStrategy(Strategy):
     name = "fixture_host_rng"
     scan_safe = True  # LIE: transmit draws from host numpy RNG
 
-    def transmit(self, z):
+    def transmit(self, z, key=None):
         # the draw is a host float, so the TRACE SUCCEEDS and the tensors
         # look pure: the one draw is baked in and every round reuses it
         noise = np.random.default_rng(0).normal(0.0, 1e-3, (1,))

@@ -53,6 +53,7 @@ KERNEL_MODULES = (
     "repro_torch.kernels.round_kernel",
     "repro_torch.kernels.distill_kernel",
     "repro_torch.kernels.attn_kernel",
+    "repro_torch.kernels.prng_kernel",
 )
 
 AttrsFn = Callable[[str, str], Dict[str, int]]

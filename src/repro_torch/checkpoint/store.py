@@ -12,20 +12,16 @@ only the rows a round needs:
   ``(len(rows), ...)`` tensor dict on the device;
 - :meth:`scatter` writes updated rows back.
 
-The store holds exactly what the dense engines draw.
-:meth:`repro_torch.fl.cohorts.ClientModels.init_params` draws each leaf
-for all clients of a cohort from one CPU ``torch.Generator``, leaf after
-leaf; the store draws the same leaves in the same order
-(:func:`repro_torch.models.resnet.mlp_leaves` and ``draw_leaf``, which
-``init_params`` uses too), each in row chunks of about ``init_chunk``
-clients.  torch's CPU ``normal_`` fills in
-groups of 16 values and draws a tail that is not a multiple of 16 anew,
-so a chunked draw gives the one call's numbers only when every chunk but
-the last holds a multiple of 16 values and the last holds at least 16
-(:func:`_chunk_bounds`).  :meth:`as_param_list` rebuilds the dense
-engines' ``client_params`` structure (numpy leaves), so the shared
-``state_dict`` plumbing, and checkpoints, interchange with the other
-engines.
+The store holds exactly what the dense engines draw: each client's
+parameters from its own key of the reference's key stream, through the
+same :func:`repro_torch.models.resnet.init_mlp` that
+:meth:`repro_torch.fl.cohorts.ClientModels.init_params` runs, in chunks of
+``init_chunk`` clients on the store's device.  The stream is
+counter-based, so a client's numbers do not depend on the chunk it was
+drawn in (the reference's docstring says the same of ``jax.random``).
+:meth:`as_param_list` rebuilds the dense engines' ``client_params``
+structure (numpy leaves), so the shared ``state_dict`` plumbing, and
+checkpoints, interchange with the other engines.
 
 Persistence goes through :mod:`repro_torch.checkpoint.io`: :meth:`save`
 writes one npz; :meth:`save_sharded` one npz per ``clients_per_shard``
@@ -35,33 +31,17 @@ store never becomes one file.
 """
 from __future__ import annotations
 
-import math
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.io import CheckpointKeyError, load_pytree, save_pytree
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.resnet import draw_leaf, mlp_leaves
+from repro_torch.models.resnet import init_mlp
 
 __all__ = ["ClientParamStore"]
-
-# torch's CPU normal_ fills float32 in groups of this many values
-_NORMAL_GROUP = 16
-
-
-def _chunk_bounds(n_rows: int, row_values: int, init_chunk: int) -> List[Tuple[int, int]]:
-    """Row chunks ``[lo, hi)`` of about ``init_chunk`` rows whose chunked
-    ``randn`` draws equal one call's: every chunk but the last holds a
-    multiple of 16 values, the last at least 16 (or is the only one)."""
-    step = _NORMAL_GROUP // math.gcd(row_values, _NORMAL_GROUP)
-    rows = max(step, init_chunk // step * step)
-    bounds = [(lo, min(lo + rows, n_rows)) for lo in range(0, n_rows, rows)]
-    if len(bounds) > 1 and (bounds[-1][1] - bounds[-1][0]) * row_values < _NORMAL_GROUP:
-        bounds[-2:] = [(bounds[-2][0], n_rows)]
-    return bounds
 
 
 def _host(leaf) -> np.ndarray:
@@ -78,25 +58,24 @@ class ClientParamStore:
     models:
         A :class:`repro_torch.fl.cohorts.ClientModels` (the cohorts' sizes
         and architectures).
-    generator:
-        The CPU ``torch.Generator`` the dense engines draw the clients'
-        parameters from (seeded with ``cfg.seed``); the store advances it
-        exactly as ``models.init_params`` would.
+    keys:
+        ``(K, 2)`` int64 keys of the reference's key stream, one a client
+        in global client order (the dense engines' ``init_params`` keys),
+        on any device.
     backing:
         ``"ram"`` (numpy arrays) or ``"memmap"`` (``open_memmap`` files
         under ``directory``).
     directory:
         Required for ``backing="memmap"``; created if absent.
     init_chunk:
-        About this many clients are drawn a call (the draws do not depend
-        on it).
+        Clients drawn a call (the draws do not depend on it).
     device:
         Where :meth:`gather` puts the rows: the card by default, as at
         every entry point of the port (no CUDA device raises); ``"cpu"``
         runs on the host.
     """
 
-    def __init__(self, models, generator: torch.Generator, *, backing: str = "ram",
+    def __init__(self, models, keys: torch.Tensor, *, backing: str = "ram",
                  directory: Optional[str] = None, init_chunk: int = 4096,
                  device="cuda"):
         if backing not in ("ram", "memmap"):
@@ -110,16 +89,16 @@ class ClientParamStore:
         self._cohorts: List[Dict[str, np.ndarray]] = []
         if backing == "memmap":
             os.makedirs(directory, exist_ok=True)
-        for c, spec in enumerate(models.cohorts):
-            size = models.sizes[c]
+        for c, (spec, sl) in enumerate(zip(models.cohorts, models.slices)):
             arrays: Dict[str, np.ndarray] = {}
-            # init_params' leaves, in its order, in row chunks
-            for name, shape, scale in mlp_leaves(models.dim, models.n_classes,
-                                                 spec.hidden, spec.depth):
-                arr = self._alloc(c, name, (size,) + shape)
-                for lo, hi in _chunk_bounds(size, math.prod(shape), init_chunk):
-                    arr[lo:hi] = draw_leaf(generator, shape, scale, (hi - lo,)).numpy()
-                arrays[name] = arr
+            for lo in range(sl.start, sl.stop, init_chunk):
+                hi = min(lo + init_chunk, sl.stop)
+                chunk = init_mlp(keys[lo:hi].to(self.device), models.dim, models.n_classes,
+                                 spec.hidden, spec.depth)
+                for name, v in chunk.items():
+                    if name not in arrays:
+                        arrays[name] = self._alloc(c, name, (sl.stop - sl.start,) + v.shape[1:])
+                    arrays[name][lo - sl.start:hi - sl.start] = v.cpu().numpy()
             self._cohorts.append(arrays)
 
     def _alloc(self, c: int, name: str, shape) -> np.ndarray:

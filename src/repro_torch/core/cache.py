@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels.runtime import divide
 
 __all__ = ["NEWLY_CACHED", "CACHED", "EXPIRED", "CacheState", "init_cache",
@@ -88,7 +89,7 @@ def normalize_cache_duration(D) -> int:
 
 
 def miss_mask(cache: CacheState, idx: torch.Tensor, t: int, D: int, *,
-              probabilistic: bool = False,
+              probabilistic: bool = False, key: Optional[torch.Tensor] = None,
               u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """True where a request must be issued (absent or expired); Alg. 3
     test.  ``D == 0`` disables caching (every sample misses).  ``D`` is
@@ -96,12 +97,13 @@ def miss_mask(cache: CacheState, idx: torch.Tensor, t: int, D: int, *,
 
     ``probabilistic=True`` is the paper's stochastic expiry (reference
     ``miss_mask``): a present entry expires where ``u < hazard``, with
-    ``hazard = clip((age - 1) / D, 0, 1)`` in float32.  ``u`` holds the
-    round's uniforms, shape ``idx.shape``, on ``idx``'s device: the port
-    has no jax key, so the engine draws them (or is given them) and
-    passes them in.  The division is an IEEE division on every device
-    (``runtime.divide``): a hazard one ulp off flips ``u < hazard`` on
-    a tie."""
+    ``hazard = clip((age - 1) / D, 0, 1)`` in float32 and ``u`` the
+    round's uniforms, ``uniform(key, idx.shape)`` of the reference's key
+    stream (:mod:`repro_torch.core.prng`; the engines' key is
+    ``fold_in(key(seed), t)``), or given as ``u`` (shape ``idx.shape``, on
+    ``idx``'s device; the device engines draw a leg's rows at once).  The
+    division is an IEEE division on every device (``runtime.divide``): a
+    hazard one ulp off flips ``u < hazard`` on a tie."""
     D = normalize_cache_duration(D)
     if D == 0:
         return torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
@@ -109,7 +111,9 @@ def miss_mask(cache: CacheState, idx: torch.Tensor, t: int, D: int, *,
     age = t - cache.ts[idx]
     if probabilistic:
         if u is None:
-            raise ValueError("probabilistic expiry needs the round's uniforms u")
+            if key is None:
+                raise ValueError("probabilistic expiry needs a PRNG key or the uniforms u")
+            u = prng.uniform(key, tuple(idx.shape))
         hazard = torch.clamp(divide(age.to(torch.float32) - 1.0, D), 0.0, 1.0)
         return ~(present & ~(u < hazard))
     return ~(present & (age <= D))

@@ -11,9 +11,13 @@ that bound:
   memory-mapped files), the private and test shards, the masks and the
   per-client schedules as numpy arrays, through the placement hooks of
   :class:`repro_torch.fl.rounds.FederatedDistillation`;
-- **each round draws over all K clients** with the numpy Generators, as
-  the host loop and the device engine draw (``_draw_round``), or takes the
-  caller's ``run(draws=...)``;
+- **each round draws over all K clients**, as the host loop draws
+  (``_draw_round``): from the jax key stream on the device (the default,
+  the reference's; P^t and the participation over K copied to the host
+  before the round's steps, the transmit key left on the device; a
+  fraction of a large K is chosen a chunk of clients at a time,
+  ``core.prng.choice``), from the numpy Generators, or the caller's
+  ``run(draws=...)``, checked on the host;
 - **only the m participants are gathered** into a device stack per cohort,
   padded to the next power of two with copies of the cohort's first active
   row (weight exactly 0 in every reduction); the device engine's round
@@ -45,7 +49,8 @@ recompute every round and this engine on eval and ``state_dict`` only)
 run in chunks of ``eval_chunk`` clients through the store.  Restore then
 continue is bit for bit: ``state_dict`` rebuilds the dense engines'
 ``client_params`` from the store, rounds are numbered absolutely, and
-``load_state_dict`` replays the draws as the other engines' does.
+``load_state_dict`` restores as the other engines' does (replaying the
+numpy draws under that stream).
 
 :mod:`repro_torch.analysis.active_checks` checks the split: the client
 step must hold no tensor with a K-sized dimension, and both steps must be
@@ -61,6 +66,7 @@ import torch
 from repro_torch.checkpoint.store import ClientParamStore
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import comm as comm_lib
+from repro_torch.core import prng
 from repro_torch.fl.rounds import (
     History,
     accuracy,
@@ -72,6 +78,7 @@ from repro_torch.fl.rounds import (
     val_loss_soft,
 )
 from repro_torch.fl.scan_engine import ScannedFederatedDistillation
+from repro_torch.fl.strategies.base import TRANSMIT_SALT
 from repro_torch.models.resnet import apply_mlp
 from repro_torch.obs import device as obs_device
 
@@ -118,10 +125,10 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
     def _eval_array(self, a, dtype=None):
         return _host_array(a, dtype)
 
-    def _init_client_params(self, generator: torch.Generator) -> None:
+    def _init_client_params(self, keys: torch.Tensor) -> None:
         kw = {} if self._init_chunk is None else {"init_chunk": self._init_chunk}
         self._store = ClientParamStore(
-            self.models, generator, backing=self._store_backing,
+            self.models, keys, backing=self._store_backing,
             directory=self._store_dir, device=self.device, **kw)
 
     def _restore_client_params(self, stacks) -> None:
@@ -154,8 +161,11 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         c = self.cfg
         T = c.rounds if rounds is None else rounds
         t0 = self.t_done
+        tkeys = None
         if draws is not None:
-            draws = self._leg_draws(T, draws)
+            draws = self._checked_draws(T, draws)
+            if self.rng_backend == "jax":  # the rounds' own transmit keys
+                tkeys = prng.fold_in(self._round_keys(t0, T, self.device), TRANSMIT_SALT)
         u = self._leg_uniforms(T, expiry_uniforms)
         hist = History()
         if self._telemetry:
@@ -163,8 +173,9 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         for i, t in enumerate(range(t0 + 1, t0 + T + 1)):
             # the round's own draws, one round at a time: a (T, K) stack at
             # K = 10^6 would hold a megabyte a round
-            part, idx = self._draw_round(t) if draws is None else (draws[0][i], draws[1][i])
-            self._round(t, hist, part, idx, None if u is None else u[i])
+            part, idx, tkey = (self._draw_round(t) if draws is None else
+                               (draws[0][i], draws[1][i], None if tkeys is None else tkeys[i]))
+            self._round(t, hist, part, idx, None if u is None else u[i], tkey)
             if t % c.eval_every == 0 or t == t0 + T:
                 self._eval(t, hist)
         self.t_done = t0 + T
@@ -215,7 +226,8 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         return plan
 
     def _build_step_args(self, t: int, idx: np.ndarray, plan, catch_up,
-                         u: Optional[np.ndarray] = None) -> Dict[str, Any]:
+                         u: Optional[torch.Tensor] = None,
+                         tkey: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """The client step's inputs, uploaded (host-to-device copies: made
         before the step, outside the sync guard).  Everything the step
         reads comes through here, so the analyzer can trace it on fake
@@ -243,6 +255,8 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
             args["prev_idx"], args["prev_teacher"] = self.prev_teacher
         if u is not None:
             args["u"] = self._tensor(u)
+        if tkey is not None:
+            args["tkey"] = tkey
         return args
 
     # ------------------------------------------------------------------
@@ -273,7 +287,8 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         pv_f = self.models.concat(args["pv"]).to(torch.float32)
         r = self._server_round(params, pv_f, idx, t, x_pub=x_pub,
                                cache_prev=args["cache"],
-                               server_params=args["server_params"], u=args.get("u"))
+                               server_params=args["server_params"], u=args.get("u"),
+                               tkey=args.get("tkey"))
         uplink, downlink = self._round_bytes(r, pv_f, args["catch_up"])
         out = dict(client_params=params, server_params=r["server_params"],
                    cache=r["cache"], teacher=r["teacher"], uplink=uplink,
@@ -288,7 +303,7 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
 
     # ------------------------------------------------------------------
     def _round(self, t: int, hist: History, part: np.ndarray, idx: np.ndarray,
-               u: Optional[np.ndarray]) -> None:
+               u: Optional[torch.Tensor], tkey: Optional[torch.Tensor]) -> None:
         if not part.any():  # total outage: nothing moves, the cache ages
             hist.ledger.record(comm_lib.RoundCost(0.0, 0.0))
             if self._telemetry:
@@ -296,7 +311,7 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
             return
         part_dev, last_sync = self._tensor(part), self._get_last_sync_dev()
         plan = self._gather_plan(part)
-        args = self._build_step_args(t, idx, plan, None, u)
+        args = self._build_step_args(t, idx, plan, None, u, tkey)
         with self._sync_guard():
             book = self._bookkeeping_step(self.cache_g, last_sync, part_dev, t)
             args["catch_up"] = book["catch_up"]
@@ -420,7 +435,7 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         c = self.cfg
         saved_rng = (self.rng_idx.bit_generator.state, self.rng_part.bit_generator.state)
         try:
-            part, idx = self._draw_round(1)
+            part, idx, tkey = self._draw_round(1)
         finally:
             self.rng_idx.bit_generator.state, self.rng_part.bit_generator.state = saved_rng
         if not part.any():
@@ -437,7 +452,7 @@ class ActiveSetFederatedDistillation(ScannedFederatedDistillation):
         try:
             step_args = self._build_step_args(
                 1, idx, self._gather_plan(part),
-                torch.zeros((), dtype=torch.float32, device=self.device), u)
+                torch.zeros((), dtype=torch.float32, device=self.device), u, tkey)
         finally:
             self.prev_teacher = saved
         return [("bookkeeping", self._bookkeeping_step, book_args),

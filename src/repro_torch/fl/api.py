@@ -91,8 +91,12 @@ def run_method(
     engine for the distillation methods; the baselines refuse it with
     the reference's ``ValueError``.  ``device`` is ``"cuda"`` by default
     and the run raises when there is no CUDA device; pass ``device="cpu"``
-    to run on the CPU.  ``rng_backend="jax"``, the one option of the
-    reference not ported yet, raises ``NotImplementedError``.
+    to run on the CPU.  ``rng_backend`` picks the draws' stream, with the
+    reference's defaults: ``"numpy"`` on the host loop, ``"jax"`` (the
+    reference's key stream, :mod:`repro_torch.core.prng`) on every device
+    engine; either stream runs on every engine (the reference's device
+    engines refuse ``"numpy"``); the baselines refuse the knob with the
+    reference's ``ValueError``.
     """
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine: {engine!r}")

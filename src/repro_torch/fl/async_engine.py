@@ -33,9 +33,15 @@ Planning on the host.  Dispatch depends on what is in flight, and flight
 on the dispatches and the traffic's delays, never on a device value.  So
 before a leg's rounds run, :meth:`AsyncFederatedDistillation.plan_flight`
 replays the leg on the host round by round (the traffic compiled for its
-rounds, the numpy draws with the blocked clients folded in, or the
-caller's ``draws(t, blocked)``) and the ``(T, K)`` dispatch and arrival
-masks are uploaded once with P^t.  The rounds then run under the device
+rounds, the draws with the blocked clients folded in, or the caller's
+``draws(t, blocked)``) and the ``(T, K)`` dispatch and arrival masks are
+uploaded once with P^t.  Which draws run where: under the jax stream (the
+default) the leg's round keys and P^t come from the threefry kernel on
+the device in one batch, as on the device engine, and are copied to the
+host; each round's dispatch draw, which depends on the rounds before it,
+runs on the host from the participation keys by the stream's plain
+version on CPU tensors.  Under the numpy stream both come from the numpy
+Generators on the host.  The rounds then run under the device
 engine's sync guard with no read of the card; whether a round dispatches
 or receives anything is a host bool, so a round with no arrival skips the
 server's side instead of computing and discarding it.  Only
@@ -115,8 +121,8 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
             expiry_uniforms: Optional[np.ndarray] = None) -> History:
         """Run ``rounds`` more rounds (default: the configured count),
         numbered on from ``t_done``.  ``draws(t, blocked)`` gives round
-        ``t``'s dispatch mask and P^t in place of the numpy Generators
-        (which are then not advanced); ``blocked`` is the round's (K,) bool
+        ``t``'s dispatch mask and P^t in place of the engine's stream (the
+        numpy Generators are then not advanced); ``blocked`` is the round's (K,) bool
         mask of offline, unreachable and in-flight clients, and a draw that
         dispatches one of them raises.  ``expiry_uniforms`` as on the device
         engine."""
@@ -126,8 +132,8 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
     def plan_flight(self, T: int, draws: Optional[DrawFn] = None) -> FlightPlan:
         """The next ``T`` rounds' dispatches and arrivals, replayed on the
         host from the flight state, the traffic (compiled from round
-        ``t_done + 1``) and the draws (the numpy Generators, advanced as
-        the rounds would, or ``draws``)."""
+        ``t_done + 1``) and the draws (the jax stream, the numpy
+        Generators, advanced as the rounds would, or ``draws``)."""
         c = self.cfg
         K, m, t0 = c.n_clients, c.public_per_round, self.t_done
         traffic = self.traffic.compile(T, K, start=t0 + 1)
@@ -135,11 +141,20 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
         dispatch = np.zeros((T, K), bool)
         arrive = np.zeros((T, K), bool)
         idx = np.zeros((T, m), np.int64)
+        if draws is None and self.rng_backend == "jax":  # the leg's P^t on the device
+            leg_idx, k_part = self._subsets(self._round_keys(t0, T, self.device))
+            leg_idx, k_part = leg_idx.cpu().numpy(), k_part.cpu()
         for i, t in enumerate(range(t0 + 1, t0 + T + 1)):
             blocked = (self.scenario.offline_mask(t, K) | ~traffic.available[i]
                        | in_flight)
-            d, ix = (self._draw_round(t, blocked) if draws is None
-                     else draws(t, blocked.copy()))
+            if draws is not None:
+                d, ix = draws(t, blocked.copy())
+            elif self.rng_backend == "jax":
+                d = self.scenario.participation_mask_device(
+                    k_part[i], torch.from_numpy(blocked)).numpy()
+                ix = leg_idx[i]
+            else:
+                d, ix, _ = self._draw_round(t, blocked)
             d = np.asarray(d).astype(bool)
             if d.shape != (K,) or np.shape(ix) != (m,):
                 raise ValueError(f"round {t}: draws must give ({K},) and ({m},), got "
@@ -171,11 +186,10 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
         with self._sync_guard():
             st = leg.state
             for i, t in enumerate(leg.ts):
-                kw = {} if leg.u is None else {"u": leg.u[i]}
                 st, out = self._round_device(
                     st, t, leg.part[i], leg.idx[i], leg.do_eval[i], arrive=leg.arrive[i],
                     any_disp=bool(plan.dispatch[i].any()),
-                    any_arr=bool(plan.arrive[i].any()), **kw)
+                    any_arr=bool(plan.arrive[i].any()), **leg.round_kw(i))
                 leg.outputs.append(out)
             leg.state = st
 
@@ -215,7 +229,8 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
 
     def _round_device(self, st: Dict[str, Any], t: int, dispatch: torch.Tensor,
                       idx: torch.Tensor, do_eval: bool, u: Optional[torch.Tensor] = None,
-                      *, arrive: torch.Tensor, any_disp: bool, any_arr: bool):
+                      tkey: Optional[torch.Tensor] = None, *, arrive: torch.Tensor,
+                      any_disp: bool, any_arr: bool):
         """One async round (reference ``_round_device``): ``dispatch`` and
         ``arrive`` are the planned (K,) masks on the device, ``any_disp``
         and ``any_arr`` their host-known ``any()``.  Nothing here reads the
@@ -235,7 +250,7 @@ class AsyncFederatedDistillation(ScannedFederatedDistillation):
         if any_arr:
             r = self._server_round(cp, book["w"], idx, t, x_pub=self.x_pub,
                                    cache_prev=st["cache"],
-                                   server_params=st["server_params"], u=u)
+                                   server_params=st["server_params"], u=u, tkey=tkey)
             new_st["flight_nreq"], n_up = self._uplink_books(
                 st["flight_nreq"], dispatch, book["arrive_f"], r["n_req"])
             uplink, downlink = self._round_bytes(r, book["arrive_f"], book["catch_up"],

@@ -87,12 +87,12 @@ class ClientModels:
     def homogeneous(self) -> bool:
         return self.n_cohorts == 1
 
-    def init_params(self, generator: torch.Generator) -> List[Params]:
-        """Per-cohort stacked He-normal params drawn from ``generator``,
-        cohort by cohort in global client order."""
-        return [init_mlp(generator, self.dim, self.n_classes, spec.hidden,
-                         spec.depth, stack=spec.n_clients)
-                for spec in self.cohorts]
+    def init_params(self, keys: torch.Tensor) -> List[Params]:
+        """Per-cohort stacked params from ``(K, 2)`` keys, one a client in
+        global client order (reference ``init_params``: each client's
+        ``init_mlp`` on its own key)."""
+        return [init_mlp(keys[sl], self.dim, self.n_classes, spec.hidden, spec.depth)
+                for spec, sl in zip(self.cohorts, self.slices)]
 
     def split(self, arr) -> List:
         """Global per-client array ``(K, ...)`` -> per-cohort blocks."""

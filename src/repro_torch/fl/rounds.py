@@ -8,8 +8,10 @@ gradient of the sum of the clients' losses is each client's own gradient,
 since no parameter is shared).
 
 Workflow per round t (SCARLET Alg. 1, any participation scenario):
-  1. draw P^t and the participation mask from the numpy Generators
-     (bit-identical to the reference's ``rng_backend="numpy"`` stream);
+  1. draw P^t and the participation mask, from the numpy Generators
+     (``rng_backend="numpy"``, the host loop's default) or from the jax
+     key stream (``rng_backend="jax"``, :mod:`repro_torch.core.prng`),
+     bit-identical to the reference's draws under the same backend;
   2. participating clients distill on the previous round's teacher, then
      train locally on their private shard (under a ``Heterogeneity``
      every client runs the longest schedule's step count and applies only
@@ -32,12 +34,14 @@ Telemetry (``FLConfig.telemetry``) appends one
 shared with the device engines): an observation that leaves the run bit
 for bit as it is without it.
 
-Probabilistic expiry (``probabilistic_expiry=True``) tests each request
-against a uniform of the round.  The reference draws them from its jax
-key ``fold_in(PRNGKey(seed), t)``; the port, which has no jax stream,
-draws them from the stateless numpy stream
-``default_rng([seed, EXPIRY_SALT, t])`` or takes the leg's ``(T, m)``
-stack from ``run(expiry_uniforms=...)`` (e.g. the reference's).
+The reference's jax key stream, whatever the backend: initial parameters
+from ``split(key(seed), K + 1)`` (the clients' keys, then the server's),
+and, under probabilistic expiry (``probabilistic_expiry=True``), each
+request tested against ``uniform(fold_in(key(seed), t), (m,))``; a leg's
+``(T, m)`` uniforms may be given instead (``run(expiry_uniforms=...)``).
+Under ``rng_backend="jax"`` the round key is ``fold_in(fold_in(key(seed),
+43), t)``, split into P^t's key and the participation key, and the
+strategy's transmit key is that round key folded with ``TRANSMIT_SALT``.
 
 Entry points run on ``device="cuda"`` by default and raise when there is
 no CUDA device; ``device="cpu"`` runs every kernel's plain version.
@@ -53,6 +57,7 @@ import torch
 from repro_torch.compress import get_codec
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import comm as comm_lib
+from repro_torch.core import prng
 from repro_torch.data.synthetic import (
     dirichlet_partition,
     make_public_private,
@@ -63,17 +68,17 @@ from repro_torch.fl.cohorts import ClientModels, resolve_cohorts
 from repro_torch.fl.config import FLConfig
 from repro_torch.fl.convert import params_from_numpy
 from repro_torch.fl.scenarios import Scenario
-from repro_torch.fl.strategies.base import Strategy
+from repro_torch.fl.strategies.base import TRANSMIT_SALT, Strategy
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.resnet import Params, apply_mlp, init_mlp
 from repro_torch.obs import device as obs_device
 
 __all__ = ["local_train", "local_train_masked", "distill", "predict_soft",
            "accuracy", "val_loss_soft", "val_loss_hard", "History",
-           "FederatedDistillation", "EXPIRY_SALT"]
+           "FederatedDistillation", "KEY_ROUNDS_SALT"]
 
-# the default expiry uniforms of round t: default_rng([seed, EXPIRY_SALT, t])
-EXPIRY_SALT = 71
+# the jax stream's round keys: fold_in(fold_in(key(seed), KEY_ROUNDS_SALT), t)
+KEY_ROUNDS_SALT = 43
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +234,13 @@ class FederatedDistillation:
     device.
 
     P^t and participation come from two numpy Generators seeded as the
-    reference's host loop seeds them, so a port run and a reference run
-    with ``rng_backend="numpy"`` see identical draws, and their ledgers
-    are byte-identical.  Initial parameters come from a CPU
-    ``torch.Generator`` seeded with ``cfg.seed`` (the same numbers on
-    every device); :meth:`load_params` installs the reference's instead.
+    reference's host loop seeds them (``rng_backend="numpy"``, the
+    default here) or from the reference's jax key stream
+    (``rng_backend="jax"``), so a port run and a reference run with the
+    same backend see identical draws, and their ledgers are
+    byte-identical.  Initial parameters and expiry uniforms come from the
+    jax key stream under either backend, as in the reference;
+    :meth:`load_params` installs given parameters instead.
 
     ``track_local_caches=True`` (host loop only) mirrors each client's
     local cache, updated from the broadcast queue and the signals as
@@ -254,10 +261,9 @@ class FederatedDistillation:
                  track_local_caches: bool = False,
                  rng_backend: str = "numpy",
                  device="cuda"):
-        if rng_backend == "jax":
-            raise NotImplementedError("rng_backend='jax' is not yet ported")
-        if rng_backend != "numpy":
+        if rng_backend not in ("numpy", "jax"):
             raise ValueError(f"unknown rng_backend: {rng_backend!r}")
+        self.rng_backend = rng_backend
         self.device = resolve_device(device)
         self.cfg = cfg
         self.strategy = strategy
@@ -299,10 +305,10 @@ class FederatedDistillation:
         population (the server's test set, ``private_size / 5`` rows)."""
         return self._tensor(a, dtype)
 
-    def _init_client_params(self, generator: torch.Generator) -> None:
-        """Draw the clients' initial parameters from ``generator`` (before
-        the server's, from the same Generator)."""
-        self._restore_client_params(self.models.init_params(generator))
+    def _init_client_params(self, keys: torch.Tensor) -> None:
+        """Draw the clients' initial parameters from their ``(K, 2)`` keys
+        (on the engine's device)."""
+        self._restore_client_params(self.models.init_params(keys))
 
     def _restore_client_params(self, stacks) -> None:
         """Install given per-cohort client stacks (numpy arrays or tensors;
@@ -341,11 +347,15 @@ class FederatedDistillation:
         self.x_test = self._eval_array(data["x_test"])
         self.y_test = self._eval_array(data["y_test"], torch.int64)
 
+        # every client's key, then the server's; clients keep their global
+        # key whatever the cohort split
         self.models = ClientModels(resolve_cohorts(c), c.dim, c.n_classes)
-        gen = torch.Generator().manual_seed(c.seed)
-        self._init_client_params(gen)
-        server = init_mlp(gen, c.dim, c.n_classes, c.hidden, c.mlp_depth)
-        self.server_params = {k: self._tensor(v) for k, v in server.items()}
+        keys = prng.split(prng.key(c.seed, self.device), c.n_clients + 1)
+        self._init_client_params(keys[:-1])
+        self.server_params = init_mlp(keys[-1], c.dim, c.n_classes, c.hidden, c.mlp_depth)
+        # the jax stream's per-round key source (host; shared with the
+        # device engines)
+        self._key_rounds = prng.fold_in(prng.key(c.seed), KEY_ROUNDS_SALT)
         self.n_params = sum(v.numel() for v in self.server_params.values())
 
         # Appendix-D validation splits: 10% of public for the server proxy,
@@ -423,7 +433,7 @@ class FederatedDistillation:
         numbered on from ``t_done``; returns a fresh :class:`History`
         covering only this leg.  ``expiry_uniforms`` (probabilistic expiry
         only): the leg's ``(T, m)`` float32 uniforms, row ``i`` for round
-        ``t_done + 1 + i``, in place of the default stream's."""
+        ``t_done + 1 + i``, in place of the key stream's."""
         c = self.cfg
         hist = History()
         if self._telemetry:
@@ -440,17 +450,21 @@ class FederatedDistillation:
         hist.final_client_acc = hist.client_acc[-1] if hist.client_acc else None
         return hist
 
-    def expiry_uniforms(self, t: int) -> np.ndarray:
-        """Round ``t``'s default expiry uniforms, ``(m,)`` float32 in [0, 1):
-        a stateless stream keyed by (seed, ``EXPIRY_SALT``, t), as the
-        reference's key ``fold_in(PRNGKey(seed), t)`` is, so a restored
-        or split run draws the same ones."""
-        rng = np.random.default_rng([self.cfg.seed, EXPIRY_SALT, t])
-        return rng.random(self.cfg.public_per_round, dtype=np.float32)
+    def expiry_uniforms(self, t: int, count: Optional[int] = None) -> torch.Tensor:
+        """Round ``t``'s expiry uniforms, ``(m,)`` float32 in [0, 1) on the
+        engine's device: ``uniform(fold_in(key(seed), t), (m,))`` of the
+        reference's key stream, stateless, so a restored or split run
+        draws the same ones; with ``count``, rounds ``t .. t + count - 1``
+        as ``(count, m)`` (two kernel launches on the card for the run)."""
+        keys = prng.fold_in(prng.key(self.cfg.seed, self.device), t,
+                            count=1 if count is None else count)
+        u = prng.uniform(keys, (self.cfg.public_per_round,))
+        return u[0] if count is None else u
 
-    def _leg_uniforms(self, T: int, given) -> Optional[np.ndarray]:
-        """The leg's ``(T, m)`` expiry uniforms: ``given`` (checked) or the
-        default stream's; None when expiry is deterministic."""
+    def _leg_uniforms(self, T: int, given) -> Optional[torch.Tensor]:
+        """The leg's ``(T, m)`` expiry uniforms on the device: ``given``
+        (checked, uploaded) or the key stream's; None when expiry is
+        deterministic."""
         if not (self.use_cache and self.probabilistic_expiry):
             if given is not None:
                 raise ValueError("expiry_uniforms apply to probabilistic expiry "
@@ -458,13 +472,12 @@ class FederatedDistillation:
             return None
         m = self.cfg.public_per_round
         if given is None:
-            ts = range(self.t_done + 1, self.t_done + T + 1)
-            return np.stack([self.expiry_uniforms(t) for t in ts]).reshape(T, m)
+            return self.expiry_uniforms(self.t_done + 1, count=T)
         u = np.asarray(given)
         if u.shape != (T, m) or u.dtype != np.float32:
             raise ValueError(f"expiry_uniforms must be ({T}, {m}) float32, got "
                              f"{u.shape} {u.dtype}")
-        return u
+        return self._tensor(u)
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
@@ -517,17 +530,16 @@ class FederatedDistillation:
         :func:`repro_torch.checkpoint.load_pytree`, the reference's); the
         next ``run()`` continues as the uninterrupted run would.
 
-        One deliberate difference from the reference, which restores only
-        under its stateless jax key stream and refuses the numpy one: the
-        port has only the numpy stream, so the restore re-seeds both
-        Generators as the constructor does and replays the draws of
-        rounds 1..``t_done`` (``_draw_round``; a few host draws a round).
-        A restored engine then continues exactly as one whose legs drew
-        their own draws.  A leg run with injected ``draws=`` (device
-        engine) does not advance the Generators, so its continuation must
-        be given ``draws=`` too.  The default expiry uniforms are
-        stateless and need no replay.  The snapshot's keys stay the
-        reference's."""
+        Under ``rng_backend="jax"`` every draw is a function of the seed
+        and the round, so nothing is replayed, as in the reference.  One
+        deliberate difference from the reference, which refuses to restore
+        under its numpy stream: there the port re-seeds both Generators as
+        the constructor does and replays the draws of rounds 1..``t_done``
+        (``_draw_round``; a few host draws a round), so a restored engine
+        continues exactly as one whose legs drew their own draws.  A leg
+        run with injected ``draws=`` (device engine) does not advance the
+        Generators, so its continuation must be given ``draws=`` too.  The
+        snapshot's keys stay the reference's."""
         if self.track_local_caches:
             # mirrored per-client caches are not captured: a restored
             # engine would check cold mirrors against a warm global cache
@@ -546,9 +558,10 @@ class FederatedDistillation:
                                  if bool(state["have_tv"]) else None)
         self.last_sync = np.asarray(torch.as_tensor(state["last_sync"]).cpu()
                                     ).astype(np.int64)
-        self._seed_generators()
-        for t in range(1, self.t_done + 1):
-            self._draw_round(t)
+        if self.rng_backend == "numpy":
+            self._seed_generators()
+            for t in range(1, self.t_done + 1):
+                self._draw_round(t)
 
     # ------------------------------------------------------------------
     # Per-cohort client steps, shared by the host loop and the device
@@ -583,18 +596,46 @@ class FederatedDistillation:
         return self.models.concat([predict_soft(p, x) for p in params])
 
     def _draw_round(self, t: int, blocked: Optional[np.ndarray] = None):
-        """(participation mask, sorted P^t indices) for round ``t`` from
-        the two numpy Generators (the reference's numpy stream); clients in
-        ``blocked`` are not drawn (the async engine's), and the Generators
-        advance alike with or without it."""
+        """(participation mask, sorted P^t indices, transmit key) for round
+        ``t``: the two as host numpy arrays, the key a ``(2,)`` tensor on
+        the device or None; clients in ``blocked`` are not drawn (the async
+        engine's).  numpy: the two Generators (the reference's numpy
+        stream), which advance alike with or without ``blocked``, and no
+        key.  jax: all three from the round's key (:meth:`_round_keys`,
+        :meth:`_subsets`; the transmit key ``fold_in(round key,
+        TRANSMIT_SALT)``), on the engine's device."""
         c = self.cfg
+        if self.rng_backend == "jax":
+            off = self.scenario.offline_mask(t, c.n_clients)
+            if blocked is not None:
+                off = off | np.asarray(blocked, bool)
+            kt = self._round_keys(t - 1, 1, self.device)
+            idx, k_part = self._subsets(kt)
+            part = self.scenario.participation_mask_device(k_part, self._tensor(off[None]))
+            tkey = prng.fold_in(kt[0], TRANSMIT_SALT)
+            return part[0].cpu().numpy(), idx[0].cpu().numpy(), tkey
         part = self.scenario.participation_mask(t, c.n_clients, self.rng_part,
                                                 blocked=blocked)
         # P^t is drawn from its own stream *before* any participation
         # branching so every scenario sees the identical subset sequence.
         idx = np.sort(self.rng_idx.choice(c.public_size, c.public_per_round,
                                           replace=False))
-        return part, idx
+        return part, idx, None
+
+    def _round_keys(self, t0: int, T: int, device) -> torch.Tensor:
+        """The jax stream's keys of rounds ``t0 + 1 .. t0 + T``, ``(T, 2)``
+        on ``device``: ``fold_in(_key_rounds, t)``, one hash of the run."""
+        return prng.fold_in(self._key_rounds.to(device), t0 + 1, count=T)
+
+    def _subsets(self, kt: torch.Tensor):
+        """(sorted P^t ``(T, m)`` int64, participation keys ``(T, 2)``) of
+        the round keys ``kt``: ``k_idx, k_part = split(kt)``, ``P^t =
+        sort(choice(k_idx, |P|, (m,), replace=False))`` (reference
+        ``_draw_round``), every round at once."""
+        c = self.cfg
+        pair = prng.split(kt)
+        idx = prng.choice(pair[:, 0], c.public_size, c.public_per_round)
+        return torch.sort(idx, dim=-1).values, pair[:, 1]
 
     def _telemetry_counters(self, t: int, part, last_sync) -> Dict[str, torch.Tensor]:
         """The row's counters (reference ``_telemetry_row``), from the
@@ -650,10 +691,10 @@ class FederatedDistillation:
             tel = self.telemetry_hook(tel, t)
         return tel
 
-    def _round(self, t: int, hist: History, u: Optional[np.ndarray]) -> None:
+    def _round(self, t: int, hist: History, u: Optional[torch.Tensor]) -> None:
         c, s = self.cfg, self.strategy
         K = c.n_clients
-        part, idx = self._draw_round(t)
+        part, idx, tkey = self._draw_round(t)
         n_part = int(part.sum())
         if n_part == 0:  # total outage: nothing moves, the cache ages
             hist.ledger.record(comm_lib.RoundCost(0.0, 0.0))
@@ -677,10 +718,8 @@ class FederatedDistillation:
 
         # --- request list (cache) ----------------------------------------
         if self.use_cache:
-            miss = cache_lib.miss_mask(
-                self.cache_g, idx_t, t, self.D,
-                probabilistic=self.probabilistic_expiry,
-                u=None if u is None else self._tensor(u))
+            miss = cache_lib.miss_mask(self.cache_g, idx_t, t, self.D,
+                                       probabilistic=self.probabilistic_expiry, u=u)
         else:
             miss = torch.ones(len(idx), dtype=torch.bool, device=self.device)
         n_req = int(miss.sum())
@@ -690,7 +729,7 @@ class FederatedDistillation:
         # --- uplink: soft-labels on requested samples ---------------------
         x_round = self.x_pub[idx_t]
         z_all = self._predict_all(self.client_params, x_round)  # (K, m, N)
-        z_all = s.transmit(z_all)  # the method's uplink transform (CFD)
+        z_all = s.transmit(z_all, tkey)  # the method's uplink transform
         z_tx = z_all  # as transmitted: telemetry's codec-error reference
         if not self.codec_up.is_identity:  # lossy wire: what the server sees
             z_all = self.codec_up.roundtrip(z_all, base=base,

@@ -13,18 +13,22 @@ back once at the end of the leg.  On a CUDA device the rounds run under
 ``torch.cuda.set_sync_debug_mode("error")``, so an operation that would
 make the host wait for the card raises instead.
 
-Draws.  The round's participation mask and public subset P^t are not
-drawn on the device: before the loop, :meth:`run` draws the whole leg on
-the host with the engine's numpy Generators (``_draw_round``, round by
-round, exactly as the host loop draws them) and uploads the ``(T, K)``
-and ``(T, m)`` stacks once.  So the device engine and the host loop of
-the same configuration see the same draws.  ``run(draws=(part, idx))``
-takes the stacks from the caller instead, e.g. the reference's jax-stream
-draws, to hold a run against the reference's scan engine.  Under
-probabilistic expiry the leg's ``(T, m)`` expiry uniforms are uploaded
-with the draws, from the host loop's default stream or from
-``run(expiry_uniforms=...)``.  Heterogeneous schedules run as on the host
-loop: the per-client rates and step counts sit on the device from
+Draws.  Before the loop, :meth:`run` makes the whole leg's ``(T, K)``
+participation masks and ``(T, m)`` public subsets P^t on the device.
+Under ``rng_backend="jax"`` (the default, as in the reference) they come
+from the reference's key stream in one batch over the leg's T round keys
+(:meth:`FederatedDistillation._round_keys`, ``_subsets`` and
+``Scenario.participation_mask_device``: seven launches of the threefry
+kernel a leg at |P| = 10^4 whatever T, two more a sort round of a
+fraction draw), with the leg's transmit keys; under
+``"numpy"`` the host draws them round by round from the numpy Generators
+(``_draw_round``, as the host loop does) and uploads the stacks once.
+Either way the device engine and the host loop of the same configuration
+and backend see the same draws.  ``run(draws=(part, idx))`` takes the
+stacks from the caller instead.  Under probabilistic expiry the leg's
+``(T, m)`` expiry uniforms are drawn with them (two launches), or given
+as ``run(expiry_uniforms=...)``.  Heterogeneous schedules run as on the
+host loop: the per-client rates and step counts sit on the device from
 construction, and the round's decay is a host float.
 
 ``FLConfig.fused_round`` replaces the uplink codec round trip and the
@@ -51,7 +55,9 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import comm as comm_lib
+from repro_torch.core import prng
 from repro_torch.fl.rounds import FederatedDistillation, History, _select_cohorts, distill
+from repro_torch.fl.strategies.base import TRANSMIT_SALT
 from repro_torch.kernels import round_kernel
 from repro_torch.models.resnet import Params
 from repro_torch.obs import device as obs_device
@@ -71,20 +77,31 @@ class _Leg:
     u: Optional[torch.Tensor]   # (T, m) float32 expiry uniforms, or None
     do_eval: List[bool]
     state: Dict[str, Any]
+    tkeys: Optional[torch.Tensor] = None  # (T, 2) transmit keys (jax stream)
     outputs: List[Dict[str, torch.Tensor]] = field(default_factory=list)
+
+    def round_kw(self, i: int) -> Dict[str, torch.Tensor]:
+        """Round ``i``'s expiry uniforms and transmit key, where the leg has
+        them, as keywords of ``_round_device``."""
+        kw = {} if self.u is None else {"u": self.u[i]}
+        if self.tkeys is not None:
+            kw["tkey"] = self.tkeys[i]
+        return kw
 
 
 class ScannedFederatedDistillation(FederatedDistillation):
     """Device-resident twin of :class:`FederatedDistillation`: the same
-    constructor, and ``run()`` returns the same :class:`History`, with one
-    ledger entry per round (total outages included, at zero) and eval rows
-    on the ``eval_every`` schedule."""
+    constructor, with ``rng_backend="jax"`` the default (the reference's
+    device engines require it; the port's take ``"numpy"`` too), and
+    ``run()`` returns the same :class:`History`, with one ledger entry per
+    round (total outages included, at zero) and eval rows on the
+    ``eval_every`` schedule."""
 
     def __init__(self, cfg, strategy, cache_duration: int = 0,
                  use_cache: Optional[bool] = None,
                  probabilistic_expiry: bool = False, scenario=None,
                  track_local_caches: bool = False,
-                 rng_backend: str = "numpy", device="cuda"):
+                 rng_backend: str = "jax", device="cuda"):
         if track_local_caches:
             raise ValueError(
                 "track_local_caches builds dynamically-sized catch-up "
@@ -125,7 +142,8 @@ class ScannedFederatedDistillation(FederatedDistillation):
         numbered on from ``t_done``; returns a fresh :class:`History` for
         this leg.  ``draws=(part, idx)`` gives the leg's ``(T, K)`` bool
         participation masks and ``(T, m)`` P^t indices in place of the
-        engine's own (its numpy Generators are then not advanced);
+        engine's own (its numpy Generators are then not advanced; the jax
+        stream's transmit keys are still the rounds' own);
         ``expiry_uniforms`` the leg's ``(T, m)`` float32 expiry uniforms
         (probabilistic expiry), as on the host loop."""
         leg = self._start_leg(rounds, draws, expiry_uniforms)
@@ -139,18 +157,16 @@ class ScannedFederatedDistillation(FederatedDistillation):
         T = c.rounds if rounds is None else rounds
         t0 = self.t_done
         ts = list(range(t0 + 1, t0 + T + 1))
-        part, idx = self._leg_draws(T, draws)
+        part, idx, tkeys = self._leg_draws(T, draws)
         u = self._leg_uniforms(T, expiry_uniforms)
         state = self._leg_state()
         del state["t_done"]
         state["prev_idx"] = state["prev_idx"].to(torch.int64)
         if self._telemetry:  # the leg's running totals
             state["telemetry"] = obs_device.zeros(self.models.n_cohorts, self.device)
-        return _Leg(t0=t0, ts=ts, part=self._tensor(part),
-                    idx=self._tensor(idx, torch.int64),
-                    u=None if u is None else self._tensor(u),
+        return _Leg(t0=t0, ts=ts, part=part, idx=idx, u=u,
                     do_eval=[t % c.eval_every == 0 or t == t0 + T for t in ts],
-                    state=state)
+                    state=state, tkeys=tkeys)
 
     def _leg_state(self) -> Dict[str, Any]:
         """The state a leg's rounds start from: :meth:`state_dict` (the
@@ -158,24 +174,41 @@ class ScannedFederatedDistillation(FederatedDistillation):
         ``state_dict`` gathers every client)."""
         return self.state_dict()
 
-    def _leg_draws(self, T: int, draws) -> Tuple[np.ndarray, np.ndarray]:
-        """The leg's ``(T, K)`` participation masks and ``(T, m)`` P^t
-        indices: drawn round by round from the numpy Generators, or
-        ``draws`` checked (no offline client takes part; each P^t holds
-        distinct public indices)."""
+    def _leg_draws(self, T: int, draws):
+        """The leg's ``(T, K)`` bool participation masks, ``(T, m)`` int64
+        P^t indices and ``(T, 2)`` transmit keys (None under numpy), on the
+        device: from the jax stream in one batch, drawn round by round from
+        the numpy Generators, or ``draws`` (:meth:`_checked_draws`)."""
         c = self.cfg
         t0 = self.t_done
         K, m = c.n_clients, c.public_per_round
+        tkeys = kt = None
+        if self.rng_backend == "jax":
+            kt = self._round_keys(t0, T, self.device)
+            tkeys = prng.fold_in(kt, TRANSMIT_SALT)
+        if draws is None and kt is not None:
+            idx, k_part = self._subsets(kt)
+            offline = self._tensor(self.scenario.offline_masks(T, K, start=t0 + 1))
+            return self.scenario.participation_mask_device(k_part, offline), idx, tkeys
         if draws is None:
-            pairs = [self._draw_round(t) for t in range(t0 + 1, t0 + T + 1)]
-            part = np.array([p for p, _ in pairs], bool).reshape(T, K)
-            idx = np.array([i for _, i in pairs], np.int64).reshape(T, m)
-            return part, idx
+            rounds = [self._draw_round(t) for t in range(t0 + 1, t0 + T + 1)]
+            part = np.array([r[0] for r in rounds], bool).reshape(T, K)
+            idx = np.array([r[1] for r in rounds], np.int64).reshape(T, m)
+            return self._tensor(part), self._tensor(idx), tkeys
+        part, idx = self._checked_draws(T, draws)
+        return self._tensor(part), self._tensor(idx, torch.int64), tkeys
+
+    def _checked_draws(self, T: int, draws):
+        """The caller's ``draws`` of the next ``T`` rounds as host arrays,
+        ``(T, K)`` bool and ``(T, m)``, checked: no offline client takes
+        part; each P^t holds distinct public indices."""
+        c = self.cfg
+        K, m = c.n_clients, c.public_per_round
         part, idx = np.asarray(draws[0]).astype(bool), np.asarray(draws[1])
         if part.shape != (T, K) or idx.shape != (T, m):
             raise ValueError(f"draws must be ({T}, {K}) and ({T}, {m}), "
                              f"got {part.shape} and {idx.shape}")
-        if (part & self.scenario.offline_masks(T, K, start=t0 + 1)).any():
+        if (part & self.scenario.offline_masks(T, K, start=self.t_done + 1)).any():
             raise ValueError("draws let an offline client participate")
         srt = np.sort(idx, axis=1)
         if T and (srt[:, 0].min() < 0 or srt[:, -1].max() >= c.public_size
@@ -204,20 +237,21 @@ class ScannedFederatedDistillation(FederatedDistillation):
         with self._sync_guard():
             st = leg.state
             for i, t in enumerate(leg.ts):
-                kw = {} if leg.u is None else {"u": leg.u[i]}
                 st, out = self._round_device(st, t, leg.part[i], leg.idx[i],
-                                             leg.do_eval[i], **kw)
+                                             leg.do_eval[i], **leg.round_kw(i))
                 leg.outputs.append(out)
             leg.state = st
 
     # ------------------------------------------------------------------
     def _round_device(self, st: Dict[str, Any], t: int, part: torch.Tensor,
                       idx: torch.Tensor, do_eval: bool,
-                      u: Optional[torch.Tensor] = None):
+                      u: Optional[torch.Tensor] = None,
+                      tkey: Optional[torch.Tensor] = None):
         """One round on the device (reference ``_round_device``): the
         state in, the state out and this round's results.  ``t`` and
         ``do_eval`` are host values; ``u`` is the round's row of expiry
-        uniforms (probabilistic expiry); nothing here reads the device."""
+        uniforms (probabilistic expiry), ``tkey`` its transmit key (jax
+        stream); nothing here reads the device."""
         part_f = part.to(torch.float32)
         any_p = part_f.sum() > 0
 
@@ -240,7 +274,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
                 st["cache"], st["last_sync"], part, t)
         r = self._server_round(cp, part_f, idx, t, x_pub=self.x_pub,
                                cache_prev=st["cache"],
-                               server_params=st["server_params"], u=u)
+                               server_params=st["server_params"], u=u, tkey=tkey)
         uplink, downlink = self._round_bytes(r, part_f, catch_up)
         cache = st["cache"]
         if self.use_cache:
@@ -285,7 +319,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
     def _server_round(self, params: List[Params], w: torch.Tensor,
                       idx: torch.Tensor, t: int, *, x_pub, cache_prev,
-                      server_params, u=None, reduce=None) -> Dict[str, Any]:
+                      server_params, u=None, tkey=None, reduce=None) -> Dict[str, Any]:
         """The round from the clients' trained parameters to the server's,
         shared by this engine (the full stacks, ``w`` the float32
         participation vector), the active-set engine (the gathered stack,
@@ -320,7 +354,7 @@ class ScannedFederatedDistillation(FederatedDistillation):
 
         # --- uplink + aggregation (fixed shapes, weighted by w) ------------
         x_round = x_pub[idx]
-        z_all = s.transmit(self._predict_all(params, x_round))  # (rows, m, N)
+        z_all = s.transmit(self._predict_all(params, x_round), tkey)  # (rows, m, N)
         z_tx = z_all  # as transmitted: telemetry's codec-error reference
         uploaded = None
         if self._fused_spec is not None:

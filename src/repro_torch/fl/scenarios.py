@@ -1,12 +1,13 @@
 """Client scenarios: participation sampling, outage windows and per-client
-schedule heterogeneity (counterpart of ``repro.fl.scenarios``, numpy
-path).
+schedule heterogeneity (counterpart of ``repro.fl.scenarios``).
 
-Sampling draws from a numpy Generator owned by the engine, exactly as the
-reference's host loop does, so a port run and a reference run with the
-same seed draw the same participation masks bit for bit.  The jax-key
-twins (``participation_mask_device``) are not ported: the port has no
-jax stream.
+Two streams, as in the reference.  ``sample`` and ``participation_mask``
+draw from a numpy Generator owned by the engine (``rng_backend="numpy"``);
+``sample_device`` and ``participation_mask_device`` from the reference's
+jax key stream (:mod:`repro_torch.core.prng`, ``rng_backend="jax"``), on
+a batch of keys and offline masks in one go (the device engines draw a
+leg's rounds at once).  Either way a port run and a reference run with
+the same seed draw the same participation masks bit for bit.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core import prng
 
 __all__ = ["Participation", "Outage", "Heterogeneity", "Scenario",
            "full_participation", "fixed_fraction", "bernoulli_participation"]
@@ -43,6 +47,23 @@ class Participation:
             return mask
         if self.kind == "bernoulli":
             return rng.random(n_clients) < self.rate
+        raise ValueError(f"unknown participation kind: {self.kind!r}")
+
+    def sample_device(self, key: torch.Tensor, n_clients: int) -> torch.Tensor:
+        """The twin of :meth:`sample` on the jax key stream (reference
+        ``sample_device``): ``key`` is a ``(..., 2)`` batch of keys, the
+        result ``(..., n_clients)`` bool on their device."""
+        shape = key.shape[:-1] + (n_clients,)
+        if self.kind == "full":
+            return torch.ones(shape, dtype=torch.bool, device=key.device)
+        if self.kind == "fraction":
+            n = min(max(int(round(self.rate * n_clients)), 1), n_clients)
+            sel = prng.choice(key, n_clients, n)
+            return torch.zeros(shape, dtype=torch.bool, device=key.device).scatter_(
+                -1, sel, True)
+        if self.kind == "bernoulli":
+            rate = torch.full((), self.rate, dtype=torch.float32, device=key.device)
+            return prng.uniform(key, (n_clients,)) < rate
         raise ValueError(f"unknown participation kind: {self.kind!r}")
 
 
@@ -138,6 +159,21 @@ class Scenario:
             return np.zeros((0, n_clients), bool)
         return np.stack([self.offline_mask(t, n_clients)
                          for t in range(start, start + n_rounds)])
+
+    def participation_mask_device(self, key: torch.Tensor,
+                                  offline: torch.Tensor) -> torch.Tensor:
+        """The twin of :meth:`participation_mask` on the jax key stream
+        (reference ``participation_mask_device``): ``key`` a ``(..., 2)``
+        batch of round keys, ``offline`` their ``(..., K)`` bool offline
+        masks (the async engine's blocked clients folded in) on the keys'
+        device.  When the draw comes up short the lowest-indexed available
+        clients are conscripted up to ``min_participants``."""
+        mask = self.participation.sample_device(key, offline.shape[-1]) & ~offline
+        deficit = (self.min_participants - mask.sum(-1, keepdim=True)).to(torch.int32)
+        candidates = ~mask & ~offline
+        # 1-based rank among candidates, int32 as the reference's (4 bytes a client)
+        rank = torch.cumsum(candidates, dim=-1, dtype=torch.int32)
+        return mask | (candidates & (rank <= deficit))
 
     def participation_mask(self, t: int, n_clients: int, rng: np.random.Generator,
                            blocked: Optional[np.ndarray] = None) -> np.ndarray:

@@ -36,13 +36,14 @@ over the data axis's process group (the reference's ``psum``):
   device engine's bit for bit; telemetry's participant gauges all-reduce
   their sums (two more collectives a round, with telemetry on).
 
-Draws, as on the device engine: the leg's participation and P^t are
-drawn on the host from the numpy Generators (or given as ``run(draws=)``)
-over the full client axis on every rank, then sliced to the shard on the
-device (:meth:`ShardedFederatedDistillation._shard_local`).  The initial
-parameters of all K clients are drawn as the device engine draws them and
-sliced, so every shard's clients start bit for bit where
-``engine="scan"``'s do.
+Draws, as on the device engine: the leg's participation and P^t come
+from the jax key stream on every rank's device (or the numpy Generators
+on its host, or ``run(draws=)``), over the full client axis, then are
+sliced to the shard on the device
+(:meth:`ShardedFederatedDistillation._shard_local`).  Each rank draws the
+initial parameters of its own clients alone, from their keys of the same
+``split(key(seed), K + 1)``, so every shard's clients start bit for bit
+where ``engine="scan"``'s do.
 
 Parity: a sharded run's per-round ledger equals ``engine="scan"``'s bit
 for bit on the same draws.  States and metrics are allclose: the moments
@@ -200,6 +201,11 @@ class ShardedFederatedDistillation(ScannedFederatedDistillation):
     def _client_array(self, a, dtype=None):
         return self._tensor(self._shard_local(np.asarray(a)), dtype)
 
+    def _init_client_params(self, keys: torch.Tensor) -> None:
+        """The shard's clients' parameters from their rows of the ``(K, 2)``
+        keys."""
+        self.client_params = self.held.init_params(self._shard_local(keys))
+
     def _restore_client_params(self, stacks) -> None:
         """Install the shard's block of every cohort's full stack."""
         s = self.shard
@@ -245,7 +251,8 @@ class ShardedFederatedDistillation(ScannedFederatedDistillation):
 
     def _round_device(self, st: Dict[str, Any], t: int, part: torch.Tensor,
                       idx: torch.Tensor, do_eval: bool,
-                      u: Optional[torch.Tensor] = None):
+                      u: Optional[torch.Tensor] = None,
+                      tkey: Optional[torch.Tensor] = None):
         """One round on one shard (reference ``_round_device_sharded``):
         the device engine's round with the clients shard-local and every
         cross-client sum all-reduced.  ``part`` is the full-width
@@ -282,7 +289,8 @@ class ShardedFederatedDistillation(ScannedFederatedDistillation):
             catch_up = cache_lib.catch_up_bytes_device(
                 st["cache"], st["last_sync"], part, t)
         r = self._server_round(cp, w, idx, t, x_pub=self.x_pub, cache_prev=st["cache"],
-                               server_params=st["server_params"], u=u, reduce=reduce)
+                               server_params=st["server_params"], u=u, tkey=tkey,
+                               reduce=reduce)
         sums = reduced["sums"]
         uplink, downlink = self._round_bytes(r, part_f, catch_up)
         cache = st["cache"]

@@ -14,7 +14,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["Strategy", "positive_or_one"]
+__all__ = ["Strategy", "positive_or_one", "TRANSMIT_SALT"]
+
+# Under the jax stream an engine's transmit key of round t is
+# ``fold_in(fold_in(key_rounds, t), TRANSMIT_SALT)``: a fold off the round
+# key, so strategies that ignore it leave the other draws as they are.
+TRANSMIT_SALT = 71
 
 
 def positive_or_one(wsum: torch.Tensor) -> torch.Tensor:
@@ -68,8 +73,12 @@ class Strategy:
         raise NotImplementedError
 
     # uplink payload transform, applied before the uplink codec: the
-    # soft-labels as the server sees them (CFD quantizes; identity here)
-    def transmit(self, z_clients: torch.Tensor) -> torch.Tensor:
+    # soft-labels as the server sees them (CFD quantizes; identity here).
+    # ``key`` is the round's transmit key of the jax stream (None under the
+    # numpy stream): a stochastic transform draws from it, never from a
+    # host RNG.
+    def transmit(self, z_clients: torch.Tensor,
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
         return z_clients
 
     # per-(client, sample) upload mask (Selective-FD); None = all uploaded

@@ -30,7 +30,7 @@ class CFDStrategy(Strategy):
         self.b_up = b_up
         self._codec = QuantCodec(b_up)
 
-    def transmit(self, z):
+    def transmit(self, z, key=None):
         return self._codec.roundtrip(z)
 
     def aggregate(self, z, um, t):

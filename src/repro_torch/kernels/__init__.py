@@ -9,6 +9,8 @@ kernel of ``repro.kernels`` that the port's path runs:
 - attn_kernel:  flash attention forward (causal, GQA, sliding window)
 - distill_kernel: per-row soft-target cross entropy over up to an LM's
   vocabulary (the distillation loss)
+- prng_kernel:  the threefry2x32 counter hash of the reference's
+  ``jax.random`` key stream (no Pallas kernel: XLA's threefry)
 - fixture_kernel: the static analyzer's three fixtures (a float4 copy, a
   scale by a scalar, a copy through shared memory), each with a valid and
   a broken launch plan

@@ -4,19 +4,22 @@ ERA kernels here, ``core/losses`` the distillation loss kernel, the quant
 codecs the quantize-dequantize kernel, the device engine's fused path the
 fused round kernel, and the model zoo's eligible attention
 (``models/common.attention``) the flash attention kernel, and the static
-analyzer's selftest (``repro_torch.analysis``) the three fixture kernels.
+analyzer's selftest (``repro_torch.analysis``) the three fixture kernels,
+and ``core/prng`` (the reference's ``jax.random`` key stream) the threefry
+counter hash.
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors."""
 import torch
 
 from repro_torch.kernels import attn_kernel, distill_kernel, era_kernel, fixture_kernel
+from repro_torch.kernels.prng_kernel import threefry  # noqa: F401
 from repro_torch.kernels.era_kernel import enhanced_era_fused  # noqa: F401
 from repro_torch.kernels.quant_kernel import quantize_dequantize  # noqa: F401
 from repro_torch.kernels.round_kernel import fused_round  # noqa: F401
 
 KERNELS = (enhanced_era_fused, quantize_dequantize, fused_round, attn_kernel.flash_attention,
            era_kernel.enhanced_era, distill_kernel.distill_loss, fixture_kernel.copy_vec4,
-           fixture_kernel.scale, fixture_kernel.copy_smem)
+           fixture_kernel.scale, fixture_kernel.copy_smem, threefry)
 
 
 # The model zoo's flash attention: the kernel forward (one launch) and the

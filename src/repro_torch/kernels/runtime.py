@@ -46,7 +46,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {"era_fused": "era_fused.cu", "qdq": "qdq.cu",
            "fused_round": "fused_round.cu", "flash_attn": "flash_attn.cu",
            "era_rows": "era_rows.cu", "distill": "distill.cu",
-           "fixtures": "fixtures.cu"}
+           "fixtures": "fixtures.cu", "threefry": "threefry.cu"}
 
 # -fmad=false: no fused multiply-add contraction, so each product and sum
 # rounds as in the reference; no --use_fast_math, so logf/expf and

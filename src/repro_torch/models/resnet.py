@@ -21,15 +21,16 @@ together with ``torch.bmm``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import common as cm
 
-__all__ = ["init", "apply", "init_mlp", "apply_mlp", "mlp_leaves", "draw_leaf"]
+__all__ = ["init", "apply", "init_mlp", "apply_mlp"]
 
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Any]
@@ -140,38 +141,24 @@ def apply(params: Params, images: torch.Tensor, depth: int = 20) -> torch.Tensor
     return x.mean(dim=(2, 3)) @ params["head_w"] + params["head_b"]
 
 
-def mlp_leaves(in_dim: int, n_classes: int, hidden: int = 128,
-               depth: int = 2) -> List[Tuple[str, Tuple[int, ...], Optional[float]]]:
-    """``(name, shape, scale)`` of each leaf of one model, in draw order:
-    ``w{i}`` He-normal (``scale = sqrt(2 / fan_in)``), ``b{i}`` zeros
-    (``scale`` None)."""
+def init_mlp(keys: torch.Tensor, in_dim: int, n_classes: int, hidden: int = 128,
+             depth: int = 2) -> Params:
+    """Small MLP classifier, the FL runs' client and server model
+    (reference ``init_mlp``): for each layer ``key, k1 = split(key)``,
+    He-normal weights ``normal(k1, (a, c)) * sqrt(2 / a)`` and zero
+    biases, from the reference's key stream (:mod:`repro_torch.core.prng`).
+    ``keys`` is one ``(2,)`` key or a ``(..., 2)`` batch, which gives
+    stacked models with the batch's leading axes (the reference's
+    ``vmap`` over keys), on the keys' device."""
+    params: Params = {}
+    lead = keys.shape[:-1]
     dims = [in_dim] + [hidden] * depth + [n_classes]
-    leaves = []
     for i, (a, c) in enumerate(zip(dims[:-1], dims[1:])):
-        leaves += [(f"w{i}", (a, c), math.sqrt(2.0 / a)), (f"b{i}", (c,), None)]
-    return leaves
-
-
-def draw_leaf(generator: torch.Generator, shape: Tuple[int, ...],
-              scale: Optional[float], lead: Tuple[int, ...] = ()) -> torch.Tensor:
-    """One leaf of :func:`mlp_leaves` for ``lead`` stacked models, drawn
-    from ``generator`` on its device (zeros for ``scale`` None)."""
-    if scale is None:
-        return torch.zeros(lead + shape, device=generator.device)
-    return torch.randn(lead + shape, generator=generator,
-                       device=generator.device) * scale
-
-
-def init_mlp(generator: torch.Generator, in_dim: int, n_classes: int,
-             hidden: int = 128, depth: int = 2,
-             stack: Optional[int] = None) -> Params:
-    """He-normal weights (``normal * sqrt(2 / fan_in)``) and zero biases,
-    drawn from ``generator`` on its device; ``stack=K`` draws K models at
-    once with a leading client axis.  The formula is the reference's;
-    the numbers differ from ``jax.random``'s."""
-    lead = () if stack is None else (stack,)
-    return {name: draw_leaf(generator, shape, scale, lead)
-            for name, shape, scale in mlp_leaves(in_dim, n_classes, hidden, depth)}
+        pair = prng.split(keys)
+        keys, k1 = pair[..., 0, :], pair[..., 1, :]
+        params[f"w{i}"] = prng.normal(k1, (a, c)) * math.sqrt(2.0 / a)
+        params[f"b{i}"] = torch.zeros(lead + (c,), device=keys.device)
+    return params
 
 
 def apply_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,7 @@ def _ledger(h):
 
 def _build(engine, method, scen, cfg=None, **kw):
     cfg = cfg or P.FLConfig(**BASE)
+    kw.setdefault("rng_backend", "numpy")  # the three engines on the same numpy draws
     eng = engine(cfg, P.STRATEGIES[method](**SKW[method]),
                  cache_duration=CACHE_D.get(method, 0),
                  scenario=kw.pop("scenario", None) or _scenario(P, scen), device="cpu", **kw)

@@ -2,13 +2,11 @@
 the sorted catch-up count (``catch_up_bytes_device(method="sorted")``), on
 the CPU: the counterparts of the reference's ``tests/test_client_store.py``.
 
-The store must hold exactly what the dense engines draw: each leaf for all
-clients of a cohort from one CPU ``torch.Generator``, leaf after leaf.
-torch's CPU ``normal_`` fills float32 in groups of 16 values and draws a
-tail that is not a multiple of 16 anew, so the store draws in row chunks
-of a multiple of 16 values; the tests pick widths and an ``init_chunk``
-where chunks of ``init_chunk`` rows would break that rule, and show that
-the naive chunked draw does differ there.  Files move both ways: the
+The store must hold exactly what the dense engines draw: each client's
+parameters from its own key of the reference's key stream
+(``ClientModels.init_params``), drawn in chunks of ``init_chunk`` clients;
+the stream is counter-based, so the chunking changes nothing, whatever the
+widths (rows of 15, 9 and 12 values here).  Files move both ways: the
 reference's store loads what the port's saves, shard names included.
 """
 import dataclasses
@@ -21,13 +19,13 @@ import torch
 import repro.fl as R
 from repro.checkpoint.store import ClientParamStore as RStore
 from repro_torch.checkpoint import CheckpointKeyError, ClientParamStore
-from repro_torch.checkpoint.store import _chunk_bounds
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import prng
 from repro_torch.fl.cohorts import ClientModels, CohortSpec, resolve_cohorts
 from repro_torch.fl.config import FLConfig
+from repro_torch.models.resnet import init_mlp
 
-# widths whose rows hold 15, 9 and 12 values: no chunk of 3 rows is a
-# multiple of 16 values
+# widths whose rows hold 15, 9 and 12 values
 CFG = FLConfig(n_clients=37, n_classes=4, dim=5, hidden=3, mlp_depth=2)
 COHORTS = (CohortSpec(20, 3, 1), CohortSpec(17, 6, 2))
 
@@ -36,16 +34,16 @@ def _models(cfg):
     return ClientModels(resolve_cohorts(cfg), cfg.dim, cfg.n_classes)
 
 
+def _keys(models, seed=0):
+    return prng.split(prng.key(seed), models.n_clients)
+
+
 def _dense(models, seed=0):
-    gen = torch.Generator().manual_seed(seed)
-    params = models.init_params(gen)
-    return params, torch.randn(5, generator=gen)  # the Generator's next draw
+    return models.init_params(_keys(models, seed))
 
 
 def _store(models, seed=0, **kw):
-    gen = torch.Generator().manual_seed(seed)
-    store = ClientParamStore(models, gen, device="cpu", **kw)
-    return store, torch.randn(5, generator=gen)
+    return ClientParamStore(models, _keys(models, seed), device="cpu", **kw), None
 
 
 def _assert_store_equals(store, params):
@@ -67,39 +65,17 @@ def _assert_store_equals(store, params):
 @pytest.mark.parametrize("init_chunk", [1, 3, 16, 4096])
 def test_store_init_matches_dense_init_bitwise(cfg, init_chunk):
     models = _models(cfg)
-    params, after = _dense(models)
-    store, store_after = _store(models, init_chunk=init_chunk)
+    params = _dense(models)
+    store, _ = _store(models, init_chunk=init_chunk)
     _assert_store_equals(store, params)
-    # the Generator is left where init_params leaves it (the server draws next)
-    assert torch.equal(after, store_after)
-
-
-def test_the_sixteen_value_rule_matters_here():
-    """Chunks of 3 rows of the (37, 5, 3) leaf draw other numbers than one
-    call: the store's chunk rule is what makes its draws equal."""
-    gen = torch.Generator().manual_seed(0)
-    whole = torch.randn((37, 5, 3), generator=gen)
-    gen = torch.Generator().manual_seed(0)
-    naive = torch.cat([torch.randn((min(3, 37 - lo), 5, 3), generator=gen)
-                       for lo in range(0, 37, 3)])
-    assert not torch.equal(whole, naive)
-    bounds = _chunk_bounds(37, 15, 3)
-    assert bounds[0] == (0, 16) and bounds[-1][1] == 37
-    gen = torch.Generator().manual_seed(0)
-    chunked = torch.cat([torch.randn((hi - lo, 5, 3), generator=gen) for lo, hi in bounds])
-    assert torch.equal(whole, chunked)
-
-
-@pytest.mark.parametrize("n_rows,row_values,init_chunk", [
-    (37, 15, 3), (37, 64, 5), (33, 9, 16), (17, 1, 16), (5, 2, 1), (1, 7, 4)])
-def test_chunk_bounds_keep_the_rule(n_rows, row_values, init_chunk):
-    bounds = _chunk_bounds(n_rows, row_values, init_chunk)
-    assert bounds[0][0] == 0 and bounds[-1][1] == n_rows
-    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-    for lo, hi in bounds[:-1]:
-        assert (hi - lo) * row_values % 16 == 0
-    if len(bounds) > 1:
-        assert (bounds[-1][1] - bounds[-1][0]) * row_values >= 16
+    # a client's row is its own key's model, whatever chunk drew it
+    keys = _keys(models)
+    for c, (spec, sl) in enumerate(zip(models.cohorts, models.slices)):
+        for k in (sl.start, sl.stop - 1):
+            one = init_mlp(keys[k], cfg.dim, cfg.n_classes, spec.hidden, spec.depth)
+            for name, v in one.items():
+                np.testing.assert_array_equal(store.as_param_list()[c][name][k - sl.start],
+                                              v.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +125,9 @@ def test_store_nbytes_counts_every_float():
 def test_store_rejects_bad_backing(tmp_path):
     m = _models(CFG)
     with pytest.raises(ValueError, match="backing"):
-        ClientParamStore(m, torch.Generator(), backing="tape")
+        ClientParamStore(m, _keys(m), backing="tape")
     with pytest.raises(ValueError, match="directory"):
-        ClientParamStore(m, torch.Generator(), backing="memmap")
+        ClientParamStore(m, _keys(m), backing="memmap")
 
 
 def test_store_ingest_validates_structure():

@@ -16,7 +16,10 @@ float32 kernel's result rounded once; the distillation loss 1e-5 of each
 row's magnitude ``|lse| * |sum t| + sum |t * l|`` (float32 sums of V terms
 in two orders); top-k's indices on the card equal the CPU's (a stable
 sort on both), its decoded rows to atol 1e-6 (the simplex projection's
-row sum runs in another order on the card).
+row sum runs in another order on the card); the threefry counter hash
+bit for bit, and the jax key stream's functions on the card equal to the
+CPU's bit for bit (``normal`` to 1e-6: the devices' float32 ``log1p`` may
+differ in the last bit).
 """
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ import torch
 
 import repro_torch.fl as pfl
 from repro_torch.core import era as pera
+from repro_torch.core import prng
 from repro_torch.core import losses as plosses
 from repro_torch.kernels import (attn_kernel, distill_kernel, era_kernel, fixture_kernel, ops,
                                  quant_kernel, round_kernel, runtime)
@@ -203,6 +207,16 @@ _SMALL = dict(n_clients=8, n_classes=10, dim=16, hidden=32, rounds=3,
               local_steps=2, distill_steps=2, public_size=200,
               public_per_round=64, private_size=800, eval_every=1,
               participation=0.5, alpha=0.5, uplink_codec="cache_delta+quant8")
+# threefry launches of one jax-stream leg of a device engine at _SMALL: the
+# leg's round keys, its transmit keys and their split, two a sort round of
+# P^t over 200 and of the half participation over 8
+_SMALL_STREAM = 3 + 2 * prng.shuffle_rounds(200) + 2 * prng.shuffle_rounds(8)
+
+
+def _init_launches(cfg) -> int:
+    """Threefry launches of an engine's initial parameters on the card: the
+    clients' and server's keys, then a split and a normal a layer."""
+    return 1 + 2 * (cfg.mlp_depth + 1) * 2
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -218,7 +232,7 @@ def test_device_engine_runs_without_host_sync(dev, fused):
             if fused else
             {"enhanced_era_fused": n, "quantize_dequantize": n, "fused_round": 0})
     assert ops.launches() == dict(want, flash_attention=0, enhanced_era=0, distill_loss=0,
-                                  copy_vec4=0, scale=0, copy_smem=0)
+                                  copy_vec4=0, scale=0, copy_smem=0, threefry=_SMALL_STREAM)
     assert h.ledger.summary()["rounds"] == float(n)
     assert all(0.0 <= a <= 1.0 for a in h.server_acc + h.client_acc)
 
@@ -256,8 +270,11 @@ def test_comparison_methods_run_on_the_card_without_host_sync(dev, method):
     cfg = pfl.FLConfig(**dict(_SMALL, participation=1.0, uplink_codec="identity"))
     runs = []
     for engine in (pfl.FederatedDistillation, pfl.ScannedFederatedDistillation):
+        # the same numpy draws on both engines; the launches counted from
+        # after the initial parameters (threefry launches on the card)
+        eng = engine(cfg, pfl.STRATEGIES[method](), rng_backend="numpy", device=dev)
         ops.reset_launches()
-        h = engine(cfg, pfl.STRATEGIES[method](), device=dev).run()
+        h = eng.run()
         assert torch.cuda.get_sync_debug_mode() == 0
         got = ops.launches()
         assert got == dict(dict.fromkeys(got, 0),
@@ -325,7 +342,8 @@ def test_comet_and_fedavg_on_the_card_match_the_cpu(dev):
         ops.reset_launches()
         g = pfl.run_method(method, c, device=dev)
         got = ops.launches()
-        assert got == dict(dict.fromkeys(got, 0), quantize_dequantize=launches)
+        assert got == dict(dict.fromkeys(got, 0), quantize_dequantize=launches,
+                           threefry=_init_launches(c))
         h = pfl.run_method(method, c, device="cpu")
         assert g.ledger.summary() == h.ledger.summary()
         n_test = max(_SMALL["private_size"] // 5, 200)  # the synthetic test set
@@ -335,9 +353,9 @@ def test_comet_and_fedavg_on_the_card_match_the_cpu(dev):
 
 def test_host_sync_inside_a_device_round_raises(dev):
     class Syncing(pfl.ScannedFederatedDistillation):
-        def _round_device(self, st, t, part, idx, do_eval):
+        def _round_device(self, st, t, part, idx, do_eval, **kw):
             float(part.sum())
-            return super()._round_device(st, t, part, idx, do_eval)
+            return super()._round_device(st, t, part, idx, do_eval, **kw)
 
     eng = Syncing(pfl.FLConfig(**_SMALL), pfl.STRATEGIES["scarlet"](beta=1.5),
                   cache_duration=2, device=dev)
@@ -363,7 +381,7 @@ def test_telemetry_on_device_run_without_host_sync(dev, fused):
     got = ops.launches()
     want = ({"quantize_dequantize": n, "fused_round": n} if fused else
             {"enhanced_era_fused": n, "quantize_dequantize": n})
-    assert got == dict(dict.fromkeys(got, 0), **want)
+    assert got == dict(dict.fromkeys(got, 0), threefry=_SMALL_STREAM, **want)
     st = h.telemetry.stacks()
     assert st["staleness_hist"].shape == (n, STALENESS_BUCKETS)
     np.testing.assert_array_equal(st["participants"].sum(1), [4] * n)
@@ -1139,3 +1157,77 @@ def test_resnet20_forward_card_equals_cpu(dev, hw):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-4 * float(want.norm()))
+
+
+# ---------------------------------------------------------------------------
+# The threefry counter hash and the jax key stream on the card
+# ---------------------------------------------------------------------------
+
+# (keys, counts, first count, mode): one key's fold over a leg of 300 rounds;
+# a split of 300 keys; a leg's sort bits over |P| = 10^4 and K = 100; its
+# expiry uniforms at m = 1000; the slice's 100 clients' MLP init (the
+# 64 x 64 layer); one 4096-key chunk of the active store's init (dim 8,
+# hidden 8: 64 normals); the clients' keys at K = 10^6; counts past 2^32
+THREEFRY_CASES = [(1, 300, 1, "pair"), (300, 2, 0, "pair"), (9, 10000, 0, "bits"),
+                  (9, 100, 0, "bits"), (9, 1000, 0, "uniform"), (100, 4096, 0, "uniform"),
+                  (4096, 64, 0, "uniform"), (1, 10 ** 6 + 1, 0, "pair"),
+                  (7, 3, 2 ** 32 - 2, "bits"), (3, 5, 2 ** 40 + 7, "pair")]
+
+
+@pytest.mark.parametrize("n,count,start,mode", THREEFRY_CASES)
+def test_threefry_kernel_is_the_plain_hash_bit_for_bit(dev, n, count, start, mode):
+    keys = torch.from_numpy(np.random.default_rng(n + count).integers(0, 2 ** 32, (n, 2)))
+    ops.reset_launches()
+    got = ops.threefry(keys.to(dev), start, count, mode)
+    torch.cuda.synchronize()
+    assert ops.launches()["threefry"] == 1
+    want = prng.counter_hash(keys, start, count, mode)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_key_stream_on_the_card_is_the_cpus(dev):
+    k = prng.key(123456)
+    for f in (lambda k: prng.split(k, 5), lambda k: prng.fold_in(k, 43, count=7),
+              lambda k: prng.random_bits(k, (3, 5, 11)), lambda k: prng.uniform(k, (1000,)),
+              lambda k: prng.permutation(k, 10000),
+              lambda k: prng.choice(prng.split(k, 9), 10000, 1000)):
+        assert torch.equal(f(k.to(dev)).cpu(), f(k))
+    keys = prng.split(k, 100)
+    np.testing.assert_allclose(prng.normal(keys.to(dev), (32, 64)).cpu().numpy(),
+                               prng.normal(keys, (32, 64)).numpy(), rtol=0, atol=1e-6)
+    scen = pfl.Scenario(participation=pfl.fixed_fraction(0.3),
+                        outages=(pfl.Outage(3, 1, 2),), min_participants=2)
+    off = torch.from_numpy(scen.offline_masks(4, 100))
+    assert torch.equal(scen.participation_mask_device(keys[:4].to(dev), off.to(dev)).cpu(),
+                       scen.participation_mask_device(keys[:4], off))
+    with pytest.raises(ValueError, match="CPU tensors"):
+        prng.counter_hash(keys.to(dev), 0, 3, "bits")
+
+
+def test_choice_by_selection_on_the_card_is_the_cpus(dev):
+    """One key over K = 10^6: the active engine's participation draw,
+    chunk by chunk on the card, the CPU's choice bit for bit, in two
+    passes of the chunks a sort round."""
+    k, n = prng.key(7), 10 ** 6
+    chunks = -(-n // prng.SELECT_CHUNK)
+    for m in (1, 64, 5000):
+        ops.reset_launches()
+        got = prng.choice(k.to(dev), n, m)
+        torch.cuda.synchronize()
+        assert ops.launches()["threefry"] == prng.shuffle_rounds(n) * (1 + 2 * chunks)
+        assert torch.equal(got.cpu(), prng.choice(k, n, m))
+
+
+@pytest.mark.parametrize("engine", ["host", "scan", "active", "async"])
+def test_jax_stream_runs_on_the_card_as_on_the_cpu(dev, engine):
+    """The same small jax-stream run on the card (threefry kernel) and on
+    the CPU (plain hash), probabilistic expiry on: equal ledgers, round by
+    round (every draw is the same bits)."""
+    cfg = pfl.FLConfig(**_SMALL)
+    runs = [pfl.run_method("scarlet", cfg, engine=engine, rng_backend="jax", cache_duration=2,
+                           probabilistic_expiry=True, beta=1.5, device=d)
+            for d in (dev, "cpu")]
+    assert runs[0].ledger.summary() == runs[1].ledger.summary()
+    assert [(r.uplink, r.downlink) for r in runs[0].ledger.rounds] == \
+        [(r.uplink, r.downlink) for r in runs[1].ledger.rounds]

@@ -226,9 +226,15 @@ def test_default_expiry_uniforms_are_stateless():
     eng = P.FederatedDistillation(cfg, P.STRATEGIES["scarlet"](beta=1.5), cache_duration=2,
                                   probabilistic_expiry=True, device="cpu")
     u = eng.expiry_uniforms(3)
-    assert u.shape == (BASE["public_per_round"],) and u.dtype == np.float32
-    np.testing.assert_array_equal(u, eng.expiry_uniforms(3))
-    assert not np.array_equal(u, eng.expiry_uniforms(4))
+    assert u.shape == (BASE["public_per_round"],) and u.dtype == torch.float32
+    assert torch.equal(u, eng.expiry_uniforms(3))
+    assert not torch.equal(u, eng.expiry_uniforms(4))
+    # the reference's uniforms of round 3: its key fold_in(PRNGKey(seed), 3)
+    want = jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(cfg.seed), 3),
+                              (BASE["public_per_round"],))
+    np.testing.assert_array_equal(u.numpy(), np.asarray(want))
+    assert torch.equal(eng.expiry_uniforms(3, count=2)[0], u)
+    u = u.numpy()
     with pytest.raises(ValueError, match="expiry_uniforms"):
         eng.run(2, expiry_uniforms=np.zeros((3, BASE["public_per_round"]), np.float32))
     with pytest.raises(ValueError, match="expiry_uniforms"):

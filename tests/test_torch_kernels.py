@@ -20,6 +20,7 @@ import torch
 from repro.kernels import era_kernel as jera
 from repro.kernels import quant_kernel as jquant
 from repro.kernels import ref as jref
+from repro_torch.core import prng
 from repro_torch.kernels import era_kernel, ops, quant_kernel, round_kernel
 
 ATOL = 1e-6
@@ -231,7 +232,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     w = torch.ones(3)
     assert torch.equal(ops.fused_round(z, w, 1.5, mode="quant", bits=8),
                        round_kernel.fused_round_plain(z, w, 1.5, mode="quant", bits=8))
+    keys = torch.tensor([[0, 7], [3, 2 ** 32 - 1]], dtype=torch.int64)
+    assert torch.equal(ops.threefry(keys, 5, 9, "bits"), prng.counter_hash(keys, 5, 9, "bits"))
     assert ops.launches() == {"enhanced_era_fused": 0, "quantize_dequantize": 0,
                               "fused_round": 0, "flash_attention": 0,
                               "enhanced_era": 0, "distill_loss": 0,
-                              "copy_vec4": 0, "scale": 0, "copy_smem": 0}
+                              "copy_vec4": 0, "scale": 0, "copy_smem": 0, "threefry": 0}

@@ -168,6 +168,16 @@ WANT = {
     "attn/f32-B4-S384-H20-d64": ("flash_fwd_tf32_kernel<64>", (20, 4, 6), 160, 99376, True),
     # three column blocks, the last's second box of v past d
     "attn/f32-d136-window": ("flash_fwd_tf32_kernel<64>", (12, 1, 4), 160, 99376, True),
+    # threefry: 2^lanes_log2 threads a key (the count's power of two, at most
+    # 256), the block's other threads on the next keys; grid y over chunks of
+    # counts (at most 1024), at most 8192 blocks in all
+    "threefry/fold-1x300": ("threefry_kernel<0>", (1, 2, 1), 256, 0, False),
+    "threefry/split-300x2": ("threefry_kernel<0>", (3, 1, 1), 256, 0, False),
+    "threefry/bits-300x10000": ("threefry_kernel<1>", (204, 40, 1), 256, 0, False),
+    "threefry/bits-300x100": ("threefry_kernel<1>", (150, 1, 1), 256, 0, False),
+    "threefry/uniform-300x1000": ("threefry_kernel<2>", (300, 4, 1), 256, 0, False),
+    "threefry/split-1x1000001": ("threefry_kernel<0>", (1, 1024, 1), 256, 0, False),
+    "threefry/bits-1x262144": ("threefry_kernel<1>", (1, 1024, 1), 256, 0, False),
 }
 
 CASES = {label: (fn, args) for label, fn, args in launch_checks.iter_cases()}

@@ -24,6 +24,7 @@ from repro.models import resnet as jresnet
 from repro_torch.checkpoint import ClientParamStore
 import repro_torch.compress as pcodecs
 import repro_torch.core.cache as pcache
+from repro_torch.core import prng
 import repro_torch.core.comm as pcomm
 import repro_torch.core.era as pera
 import repro_torch.data.synthetic as pdata
@@ -330,8 +331,7 @@ def test_mlp_forward_matches_reference(depth):
 
 
 def test_init_mlp_is_he_normal():
-    p = presnet.init_mlp(torch.Generator().manual_seed(0), 64, 10, 128, 2,
-                         stack=50)
+    p = presnet.init_mlp(prng.split(prng.key(0), 50), 64, 10, 128, 2)
     assert p["w0"].shape == (50, 64, 128) and p["b2"].shape == (50, 10)
     for i, fan_in in enumerate([64, 128, 128]):
         std = float(p[f"w{i}"].std())
@@ -468,8 +468,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert h.ledger.summary()["rounds"] == 2.0
     models = ClientModels(resolve_cohorts(cfg), cfg.dim, cfg.n_classes)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ClientParamStore(models, torch.Generator())
-    store = ClientParamStore(models, torch.Generator(), device="cpu")
+        ClientParamStore(models, prng.split(prng.key(0), cfg.n_clients))
+    store = ClientParamStore(models, prng.split(prng.key(0), cfg.n_clients), device="cpu")
     assert store.gather(0, np.arange(2))["w0"].device.type == "cpu"
     h = pfl.run_method("scarlet", cfg, cache_duration=2, device="cpu")
     assert h.ledger.summary()["rounds"] == 2.0
@@ -494,8 +494,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_unported_options_raise():
     cfg = pfl.FLConfig(**_TINY)
-    with pytest.raises(NotImplementedError):
-        pfl.run_method("scarlet", cfg, device="cpu", rng_backend="jax")
+    # the jax key stream is ported: it runs on every engine (the host loop
+    # draws numpy by default, the device engines jax), and an unknown
+    # stream is refused
+    for engine in ("host", "scan"):
+        h = pfl.run_method("scarlet", cfg, device="cpu", engine=engine, rng_backend="jax")
+        assert h.ledger.summary()["rounds"] == 2.0
+    with pytest.raises(ValueError, match="rng_backend"):
+        pfl.run_method("scarlet", cfg, device="cpu", rng_backend="philox")
     # the active-set, async and sharded engines are ported: they run (the
     # sharded one in a world of one)
     for engine in ("active", "async", "shard"):

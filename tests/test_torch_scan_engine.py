@@ -152,7 +152,7 @@ def test_device_engine_agrees_with_host_loop(method, codec, scen, fused):
     runs = []
     for engine in (P.FederatedDistillation, P.ScannedFederatedDistillation):
         eng = engine(cfg, P.STRATEGIES[method](**skw), cache_duration=D,
-                     scenario=_scenario(P, scen), device="cpu")
+                     scenario=_scenario(P, scen), rng_backend="numpy", device="cpu")
         runs.append((eng, eng.run()))
     (host, hh), (dev, dh) = runs
     np.testing.assert_allclose(np.array(_ledger(dh)), np.array(_ledger(hh)),
@@ -264,8 +264,12 @@ def test_constructor_rejects_what_the_engine_cannot_run():
           device="cpu")
     with pytest.raises(ValueError, match="track_local_caches"):
         S(cfg, scarlet(), track_local_caches=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        S(cfg, scarlet(), device="cpu", rng_backend="jax")
+    with pytest.raises(ValueError, match="rng_backend"):
+        S(cfg, scarlet(), device="cpu", rng_backend="philox")
+    # both streams run: the jax key stream (the default) and the numpy one
+    for backend in ("jax", "numpy"):
+        eng = S(cfg, scarlet(), cache_duration=1, device="cpu", rng_backend=backend)
+        assert eng.rng_backend == backend and eng.run(1).ledger.summary()["rounds"] == 1.0
     # telemetry is ported: a telemetry-on engine builds and runs a round
     h = S(dataclasses.replace(cfg, telemetry=True), scarlet(), cache_duration=1,
           device="cpu").run(1)
